@@ -1,0 +1,486 @@
+#!/usr/bin/env python3
+"""On-card smoke test of the PyTorch port ``distributed_tpu_torch``.
+
+Run from the repository root on a machine with one NVIDIA GPU (built for
+an H100, ``sm_90a``):
+
+    python3 chip_smoke.py
+
+Phases, each of which raises on failure (the script then exits non-zero
+and prints no result):
+
+0. environment: torch/CUDA versions, the card, its power limit, nvcc,
+   whether triton imports;
+1. build: both hand-written kernels from ``distributed_tpu_torch/ops/csrc``;
+2. flash attention forward (kernel K2) at seq 8192, 16 heads, head dim
+   128 in bf16, causal and not, plus f32 at seq 1024 / head dim 64,
+   against the plain version on the card, with kernel / plain / library
+   times;
+3. whole-graph placement (kernel K1): the 1M-task random DAG onto 512
+   workers of 2 threads, a uniform fleet and a non-uniform one, through
+   ``pack_graph`` and ``place_graph_leveled`` on the card, validated,
+   equal bit for bit to the plain version on the CPU, and held against
+   the same driver running the plain wave on the card.
+
+The last three lines are the card's ``nvidia-smi`` name and power limit,
+one JSON object listing the kernels with their launches, errors and
+times, and ``{"ok": true, "device": {...}}``.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import json
+import statistics
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+
+# tolerances of the kernels against their plain versions on the card.
+# O, per element: |o - o_plain| <= rtol * |o_plain| + atol.  In bf16 and
+# f16 both sides round one f32 result to the input dtype, so they differ
+# by at most one unit in the last place, which is at most 2**-7 (bf16) or
+# 2**-10 (f16) of the value; atol covers the order of the f32 sums near
+# zero.  In f32 only that order differs.
+FLASH_TOL_O = {torch.bfloat16: (2.0 ** -7, 1e-5), torch.float16: (2.0 ** -10, 1e-5),
+               torch.float32: (0.0, 1e-4)}
+FLASH_TOL_LSE = 1e-3
+FAULT_KEYS = 64              # the planted fault drops this many keys from P.V
+# K1 sums per-worker loads in task order, as the plain version does on the
+# CPU: the kernel must equal that run bit for bit.  The plain version on
+# the card sums with CUDA's index_add_ (run in deterministic mode), in its
+# own order, so against it a near-tie may flip a task:
+K1_MIN_AGREEMENT = 0.999     # per wave, from identical state
+K1_LOAD_RTOL = 1e-4          # load error on workers no flipped task touched
+QUALITY_RTOL = 0.01          # imbalance and makespan, whole graph
+QUALITY_CHOICE_PP = 0.01     # share of each choice, whole graph
+
+# H100 SXM peaks (NVIDIA data sheet, dense)
+PEAK_BYTES_S = 3.35e12
+PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float16: 989e12, torch.float32: 67e12}
+
+N_TASKS = 1_000_000
+N_WORKERS = 512
+THREADS = 2
+
+
+def check(cond, msg):
+    if not cond:
+        raise RuntimeError(msg)
+
+
+def cuda_ms(fn, reps=10, warmup=2):
+    """Median milliseconds of ``fn`` over ``reps`` runs, CUDA events."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def smi_line():
+    out = subprocess.run(
+        ["nvidia-smi", "-i", "0", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    )
+    return out.stdout.strip()
+
+
+# ------------------------------------------------------------ phases 0-1
+
+
+def phase_env():
+    from distributed_tpu_torch.ops import _build
+
+    print(f"torch {torch.__version__} cuda {torch.version.cuda}")
+    print(f"device {torch.cuda.get_device_name(0)} count {torch.cuda.device_count()}")
+    print(f"nvidia-smi {smi_line()}")
+    nvcc = subprocess.run([_build._nvcc(), "--version"], capture_output=True,
+                          text=True, check=True, timeout=60).stdout
+    print("nvcc", [ln for ln in nvcc.splitlines() if "release" in ln][-1].strip())
+    try:
+        import triton
+        print(f"triton {triton.__version__}")
+    except ImportError:
+        print("triton absent")
+
+
+def phase_build():
+    from distributed_tpu_torch.ops import _build
+
+    t0 = time.perf_counter()
+    _build.load()
+    print(f"build_s {time.perf_counter() - t0:.2f} ({_build.build_info['path']})")
+    for ln in _build.build_info["log"].splitlines():
+        if "registers" in ln or "spill" in ln or ln.startswith("=="):
+            print("  ptxas", ln.strip())
+
+
+# ------------------------------------------------------------ phase 2
+
+
+FLASH_CASES = [
+    # (label, seq, heads, head dim, dtype, causal)
+    ("bf16_causal", 8192, 16, 128, torch.bfloat16, True),
+    ("bf16", 8192, 16, 128, torch.bfloat16, False),
+    ("f32_causal", 1024, 16, 64, torch.float32, True),
+    ("f32", 1024, 16, 64, torch.float32, False),
+]
+FLASH_HEADLINE = "bf16_causal"
+
+
+def _flash_inputs(seq, heads, dim, dtype, seed):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    return tuple(
+        torch.randn((seq, heads, dim), generator=g, device="cuda").to(dtype)
+        for _ in range(3)
+    )
+
+
+def _flash_bound_ms(seq, heads, dim, dtype, causal):
+    elem = torch.empty((), dtype=dtype).element_size()
+    nbytes = 4 * heads * seq * dim * elem + 4 * heads * seq  # q k v o, lse
+    pairs = seq * (seq + 1) // 2 if causal else seq * seq
+    flops = 4 * heads * dim * pairs
+    t_bytes = nbytes / PEAK_BYTES_S * 1e3
+    t_ops = flops / PEAK_FLOPS[dtype] * 1e3
+    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def _o_excess(o, o_plain):
+    """Largest amount by which O exceeds its tolerance against the plain
+    version; the check passes when this is at most 0."""
+    rtol, atol = FLASH_TOL_O[o_plain.dtype]
+    d = (o.float() - o_plain.float()).abs() - rtol * o_plain.float().abs()
+    return (d.max() - atol).item()
+
+
+def _drop_keys(qt, kt, vt, causal, scale, o_plain, lse_plain):
+    """O of a planted fault: FAULT_KEYS keys in the middle of the sequence
+    are left out of P.V but kept in l and lse, as by a kernel that skips
+    one k-tile's product."""
+    lo = kt.shape[1] // 2 // FAULT_KEYS * FAULT_KEYS
+    hi = lo + FAULT_KEYS
+    s = (qt.float() * scale) @ kt[:, lo:hi].float().transpose(1, 2)
+    if causal:
+        qpos = torch.arange(qt.shape[1], device=qt.device)[:, None]
+        kpos = torch.arange(lo, hi, device=qt.device)[None, :]
+        s = s.masked_fill(qpos < kpos, float("-inf"))
+    p = torch.exp(s - lse_plain)
+    return (o_plain.float() - p @ vt[:, lo:hi].float()).to(o_plain.dtype)
+
+
+def phase_flash():
+    from distributed_tpu_torch.ops import flash
+
+    inputs = {c[0]: _flash_inputs(c[1], c[2], c[3], c[4], seed=i)
+              for i, c in enumerate(FLASH_CASES)}
+    # the main path: flash_attention as a user calls it, [seq, heads, dim]
+    flash.flash_forward_cuda.launches = 0
+    outs = {}
+    for label, seq, heads, dim, dtype, causal in FLASH_CASES:
+        q, k, v = inputs[label]
+        outs[label] = flash.flash_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    launches = flash.flash_forward_cuda.launches
+    check(launches == len(FLASH_CASES), f"flash kernel launches {launches}")
+
+    results = {}
+    for label, seq, heads, dim, dtype, causal in FLASH_CASES:
+        q, k, v = inputs[label]
+        out = outs[label]
+        check(out.shape == q.shape and out.dtype == dtype, f"{label}: output {out.shape} {out.dtype}")
+        check(bool(torch.isfinite(out.float()).all()), f"{label}: non-finite output")
+        qt, kt, vt = (x.transpose(0, 1).contiguous() for x in (q, k, v))
+        scale = 1.0 / dim ** 0.5
+        o_k, lse_k = flash.flash_forward_cuda(qt, kt, vt, causal, scale)
+        o_p, lse_p = flash.flash_forward_reference(qt, kt, vt, causal, scale)
+        err_o = (o_k.float() - o_p.float()).abs().max().item()
+        err_lse = (lse_k - lse_p).abs().max().item()
+        excess = max(_o_excess(o_k, o_p), _o_excess(out.transpose(0, 1), o_p))
+        # the check must reject a kernel that drops one k-tile's product
+        fault = _drop_keys(qt, kt, vt, causal, scale, o_p, lse_p)
+        fault_err = (fault.float() - o_p.float()).abs().max().item()
+        fault_excess = _o_excess(fault, o_p)
+        del o_p, lse_p, fault
+        check(excess <= 0.0, f"{label}: O off by {excess} beyond "
+              f"(rtol, atol) {FLASH_TOL_O[dtype]}, max abs err {err_o}")
+        check(fault_excess > 0.0, f"{label}: the O check passes a planted fault "
+              f"(max abs err {fault_err})")
+        check(err_lse <= FLASH_TOL_LSE, f"{label}: lse max abs err {err_lse} > {FLASH_TOL_LSE}")
+        ms = cuda_ms(lambda: flash.flash_forward_cuda(qt, kt, vt, causal, scale))
+        plain_ms = cuda_ms(lambda: flash.flash_forward_reference(qt, kt, vt, causal, scale))
+        qs, ks, vs = qt[None], kt[None], vt[None]
+        lib_ms = cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+            qs, ks, vs, is_causal=causal, scale=scale))
+        bound_ms, bound_by = _flash_bound_ms(seq, heads, dim, dtype, causal)
+        results[label] = dict(max_abs_err=err_o, lse_err=err_lse, o_excess=excess,
+                              fault_max_abs_err=fault_err, fault_excess=fault_excess,
+                              ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                              bound_ms=bound_ms, bound_by=bound_by)
+        print(f"flash {label} seq {seq} heads {heads} dim {dim}: err_o {err_o:.3g} "
+              f"(excess {excess:.3g}; planted fault err {fault_err:.3g} excess "
+              f"{fault_excess:.3g}) err_lse {err_lse:.3g} kernel_ms {ms:.4f} plain_ms {plain_ms:.4f} "
+              f"library_ms {lib_ms:.4f} bound_ms {bound_ms:.4f} ({bound_by})")
+        torch.cuda.empty_cache()
+    head = results[FLASH_HEADLINE]
+    return {
+        "name": "flash_fwd",
+        "route": "cuda",
+        "source": "distributed_tpu_torch/ops/csrc/flash_fwd.cu",
+        "replaces": "distributed_tpu/ops/flash.py:35",
+        "launches": launches,
+        "max_abs_err": head["max_abs_err"],
+        "ms": head["ms"],
+        "plain_ms": head["plain_ms"],
+        "bound_ms": head["bound_ms"],
+        "bound_by": head["bound_by"],
+        "library_ms": head["library_ms"],
+        "case": FLASH_HEADLINE,
+        "cases": results,
+    }
+
+
+# ------------------------------------------------------------ phase 3
+
+
+def _fleets():
+    uniform = (np.full(N_WORKERS, THREADS, np.int32),
+               np.zeros(N_WORKERS, np.float32), np.ones(N_WORKERS, bool))
+    running = np.ones(N_WORKERS, bool)
+    running[:8] = False
+    mixed = (np.full(N_WORKERS, THREADS, np.int32),
+             np.random.default_rng(1).uniform(0, 5, N_WORKERS).astype(np.float32),
+             running)
+    return {"uniform": uniform, "nonuniform": mixed}
+
+
+@contextlib.contextmanager
+def deterministic():
+    """Deterministic torch kernels (index_add_ without atomics) inside."""
+    torch.use_deterministic_algorithms(True)
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(False)
+
+
+def _quality(run, res, running):
+    occ = res.occupancy[running]
+    share = np.bincount(res.choice, minlength=3) / len(res.choice)
+    return dict(imbalance=float(occ.max() / occ.mean()),
+                makespan=float(run.spans.sum().item()), share=share)
+
+
+def _same(a, b):
+    return all(np.array_equal(getattr(a, f), getattr(b, f))
+               for f in ("assignment", "choice", "occupancy", "start_time"))
+
+
+def _lockstep(run, leveled):
+    """From the plain version's state before each wave, run the kernel
+    on a copy of it and compare: (min agreement, max load error on
+    workers untouched by a disagreeing task, disagreeing tasks)."""
+    run.reset()
+    min_agree, max_err, flips = 1.0, 0.0, 0
+    for wave in range(run.packed.n_levels):
+        off, f = run.wave_bounds(wave)
+        saved = (run.assign.clone(), run.choices.clone(), run.load.clone(), run.spans.clone())
+        leveled.place_wave_cuda(run, wave)
+        a_k, load_k = run.assign[off:off + f].clone(), run.load.clone()
+        for dst, src in zip((run.assign, run.choices, run.load, run.spans), saved):
+            dst.copy_(src)
+        leveled.place_wave_reference(run, wave)
+        a_p = run.assign[off:off + f]
+        differ = a_k != a_p
+        n_diff = int(differ.sum().item())
+        touched = torch.zeros(run.fleet.W, dtype=torch.bool, device=run.device)
+        touched[a_k[differ].long()] = True
+        touched[a_p[differ].long()] = True
+        ok = ~touched
+        err = (load_k - run.load)[ok].abs().max().item() if bool(ok.any()) else 0.0
+        rel = err / max(run.load.abs().max().item(), 1e-30)
+        check(rel <= K1_LOAD_RTOL, f"wave {wave}: load error {err} (rel {rel}) > {K1_LOAD_RTOL}")
+        agree = 1.0 - n_diff / f
+        check(agree >= K1_MIN_AGREEMENT, f"wave {wave}: agreement {agree} < {K1_MIN_AGREEMENT}")
+        min_agree, max_err, flips = min(min_agree, agree), max(max_err, err), flips + n_diff
+    return min_agree, max_err, flips
+
+
+def _k1_bound_ms(packed, W):
+    """Least time for the whole graph's waves: each input read once (the
+    16 B/task wire, the fleet tables), each output written once (i32
+    assign and choice per task, the load, the spans); about 40 f32
+    operations a task (two rounds of three costs, two argmins, two sums)
+    plus a W log W sort of the workers per wave."""
+    T, L = packed.n, packed.n_levels
+    nbytes = 16 * T + 8 * T + 13 * W + 4 * W + 4 * L
+    flops = 40 * T + L * W * max(W.bit_length() - 1, 1)
+    t_bytes = nbytes / PEAK_BYTES_S * 1e3
+    t_ops = flops / PEAK_FLOPS[torch.float32] * 1e3
+    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def phase_placement():
+    from distributed_tpu_torch import graphs
+    from distributed_tpu_torch.ops import leveled
+
+    durations, out_bytes, src, dst = graphs.random_dag(N_TASKS, seed=0)
+    fleets = _fleets()
+
+    # the main path: pack_graph + place_graph_leveled as a user calls them
+    leveled.place_wave_cuda.launches = 0
+    packs, results, pack_ms = {}, {}, {}
+    for name, fleet in fleets.items():
+        t0 = time.perf_counter()
+        packs[name] = leveled.pack_graph(durations, out_bytes, src, dst)
+        pack_ms[name] = (time.perf_counter() - t0) * 1e3
+        results[name] = leveled.place_graph_leveled(packs[name], *fleet)
+    launches = leveled.place_wave_cuda.launches
+    n_waves = sum(p.n_levels for p in packs.values())
+    check(launches == n_waves, f"wave kernel launches {launches} != waves {n_waves}")
+    print(f"placement main path: wave kernel launches {launches} over {n_waves} waves")
+
+    entry = None
+    for name, fleet in fleets.items():
+        packed, res, running = packs[name], results[name], fleet[2]
+        leveled.validate_leveled(packed, res, src, dst, running)
+        check(np.isfinite(res.start_time).all() and np.isfinite(res.occupancy).all(),
+              f"{name}: non-finite result")
+
+        # the kernel against the plain version on the CPU: bit for bit
+        t0 = time.perf_counter()
+        res_cpu = leveled.place_graph_leveled(packed, *fleet, device="cpu")
+        cpu_s = time.perf_counter() - t0
+        err = max(float(np.abs(res.occupancy - res_cpu.occupancy).max()),
+                  float(np.abs(res.start_time - res_cpu.start_time).max()))
+        same = _same(res, res_cpu)
+        print(f"placement {name}: kernel vs plain on the CPU ({cpu_s:.1f} s): "
+              f"identical {same}, assignment agreement "
+              f"{float((res.assignment == res_cpu.assignment).mean()):.6f}, max abs err {err:.3g}")
+        check(same, f"{name}: kernel differs from the plain version on the CPU")
+
+        # against the plain version on the card: the quality gate
+        run = leveled.LeveledRun(packed, *fleet)
+        with deterministic():
+            run.run_waves(leveled.place_wave_reference)
+        res_p = run.download()
+        leveled.validate_leveled(packed, res_p, src, dst, running)
+        q_p = _quality(run, res_p, running)
+        run.reset()
+        run.run_waves(leveled.place_wave_cuda)
+        res_k = run.download()
+        check(_same(res_k, res), f"{name}: two kernel runs differ")
+        q_k = _quality(run, res_k, running)
+        agreement = float((res_k.assignment == res_p.assignment).mean())
+        d_imb = abs(q_k["imbalance"] - q_p["imbalance"]) / q_p["imbalance"]
+        d_mk = abs(q_k["makespan"] - q_p["makespan"]) / q_p["makespan"]
+        d_share = float(np.abs(q_k["share"] - q_p["share"]).max())
+        print(f"placement {name}: waves {packed.n_levels} imbalance {q_k['imbalance']:.6f} "
+              f"(plain {q_p['imbalance']:.6f}) makespan {q_k['makespan']:.4f} "
+              f"(plain {q_p['makespan']:.4f}) choice share {q_k['share'].round(5).tolist()} "
+              f"(plain {q_p['share'].round(5).tolist()}) raw agreement {agreement:.6f}")
+        check(bool(running[res_k.assignment].all()), f"{name}: task on a stopped worker")
+        check(d_imb <= QUALITY_RTOL, f"{name}: imbalance off by {d_imb}")
+        check(d_mk <= QUALITY_RTOL, f"{name}: makespan off by {d_mk}")
+        check(d_share <= QUALITY_CHOICE_PP, f"{name}: choice share off by {d_share}")
+
+        with deterministic():
+            min_agree, load_err, flips = _lockstep(run, leveled)
+        print(f"placement {name}: per-wave lockstep with the plain version on the card: "
+              f"min agreement {min_agree:.6f} flipped tasks {flips} max load err {load_err:.3g}")
+
+        def whole_graph():
+            r = leveled.LeveledRun(packed, *fleet)
+            r.run_waves()
+            r.codes().cpu(), r.spans.cpu(), r.load.cpu()
+
+        device_ms = cuda_ms(whole_graph, reps=3, warmup=1)
+        # where device_ms goes: host staging + upload, waves, download
+        upload_ms = cuda_ms(lambda: leveled.LeveledRun(packed, *fleet), reps=3, warmup=1)
+        download_ms = cuda_ms(lambda: run.codes().cpu(), reps=3, warmup=1)
+        codes = run.codes().cpu().numpy().astype(np.int32)
+        spans_h, load_h = run.spans.cpu().numpy(), run.load.cpu().numpy()
+        t0 = time.perf_counter()
+        leveled._finalize(packed, codes, spans_h, load_h)
+        finalize_ms = (time.perf_counter() - t0) * 1e3
+
+        def waves(fn):
+            run.reset()
+            run.run_waves(fn)
+
+        ms = cuda_ms(lambda: waves(leveled.place_wave_cuda))
+        plain_ms = cuda_ms(lambda: waves(leveled.place_wave_reference))
+        bound_ms, bound_by = _k1_bound_ms(packed, N_WORKERS)
+        print(f"placement {name}: pack_ms {pack_ms[name]:.1f} device_ms {device_ms:.3f} "
+              f"(upload_ms {upload_ms:.3f} download_ms {download_ms:.3f}) "
+              f"finalize_ms {finalize_ms:.1f} waves {packed.n_levels} kernel_ms {ms:.4f} "
+              f"plain_ms {plain_ms:.4f} bound_ms {bound_ms:.4f} ({bound_by})")
+        case = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                    bound_by=bound_by, device_ms=device_ms, upload_ms=upload_ms,
+                    download_ms=download_ms, finalize_ms=finalize_ms,
+                    pack_ms=pack_ms[name], card_plain_agreement=agreement,
+                    card_plain_min_wave_agreement=min_agree,
+                    card_plain_load_err=load_err)
+        if entry is None:
+            entry = {
+                "name": "place_wave",
+                "route": "cuda",
+                "source": "distributed_tpu_torch/ops/csrc/place_wave.cu",
+                "replaces": "distributed_tpu/ops/leveled.py:326",
+                "launches": launches,
+                "max_abs_err": err,
+                "ms": ms,
+                "plain_ms": plain_ms,
+                "bound_ms": bound_ms,
+                "bound_by": bound_by,
+                "library_ms": None,
+                "case": name,
+                "cases": {},
+            }
+        entry["cases"][name] = case
+        entry["max_abs_err"] = max(entry["max_abs_err"], err)
+    return entry
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    try:
+        import distributed_tpu_torch  # noqa: F401
+    except ImportError:
+        print("chip_smoke: distributed_tpu_torch not found; run from the "
+              "repository root", file=sys.stderr)
+        return 2
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t0 = time.perf_counter()
+    phase_env()
+    phase_build()
+    kernels = [phase_flash(), phase_placement()]
+    print(f"total_s {time.perf_counter() - t0:.1f}")
+    print(smi_line())
+    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu",
+        "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count(),
+    }}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,97 @@
+"""The port's flash-attention forward against the JAX reference on CPU.
+
+The reference runs its Pallas kernel in interpret mode off-TPU; the port
+runs its plain version on CPU tensors.  Same numpy inputs, f32,
+atol/rtol 2e-5 (the two sum the products in different orders).
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+from distributed_tpu.ops import flash as jf
+from distributed_tpu.ops.ring_attention import reference_attention as jref
+from distributed_tpu_torch.ops import flash as tf
+
+TOL = dict(rtol=2e-5, atol=2e-5)
+
+
+def _qkv(n=256, nk=None, h=2, d=16, seed=0):
+    rng = np.random.default_rng(seed)
+    nk = n if nk is None else nk
+    return tuple(
+        rng.standard_normal(shape).astype(np.float32)
+        for shape in ((n, h, d), (nk, h, d), (nk, h, d))
+    )
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("nk", [256, 512])  # 512: KV longer than Q
+def test_flash_matches_reference(causal, nk):
+    q, k, v = _qkv(n=256, nk=nk, seed=1)
+    want = jf.flash_attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                              causal=causal, block_q=64, block_k=64)
+    got = tf.flash_attention(q, k, v, causal=causal, block_q=64, block_k=64,
+                             device="cpu")
+    assert got.dtype == torch.float32 and got.shape == q.shape
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+    oracle = tf.reference_attention(*(torch.from_numpy(x) for x in (q, k, v)),
+                                    causal=causal)
+    np.testing.assert_allclose(got.numpy(), oracle.numpy(), **TOL)
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_lse_matches_flash_call(causal):
+    """lse is f32 [H, N, 1], q is scaled before the product."""
+    q, k, v = _qkv(n=128, nk=256, h=3, d=8, seed=2)
+    qt, kt, vt = (np.ascontiguousarray(x.transpose(1, 0, 2)) for x in (q, k, v))
+    scale = 0.37
+    o_want, lse_want = jf._flash_call(
+        jnp.asarray(qt), jnp.asarray(kt), jnp.asarray(vt),
+        causal, scale, 64, 64, True,
+    )
+    o, lse = tf.flash_forward(*(torch.from_numpy(x) for x in (qt, kt, vt)),
+                              causal, scale)
+    assert lse.shape == (3, 128, 1) and lse.dtype == torch.float32
+    np.testing.assert_allclose(lse.numpy(), np.asarray(lse_want), **TOL)
+    np.testing.assert_allclose(o.numpy(), np.asarray(o_want), **TOL)
+
+
+def test_reference_attention_matches_jax_oracle():
+    q, k, v = _qkv(n=64, nk=96, seed=3)
+    for causal in (False, True):
+        want = jref(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), causal=causal)
+        got = tf.reference_attention(*(torch.from_numpy(x) for x in (q, k, v)),
+                                     causal=causal)
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+
+
+def test_blocks_clamp_and_ragged_blocks_raise():
+    q, k, v = _qkv(n=100, h=1, d=8)
+    with pytest.raises(ValueError, match="divide"):
+        tf.flash_attention(q, k, v, block_q=64, block_k=64, device="cpu")
+    # blocks clamp to the sequence: 100 with the default 128 is one block
+    got = tf.flash_attention(q, k, v, device="cpu")
+    want = jf.flash_attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+
+
+def test_low_precision_returns_input_dtype():
+    q, k, v = (torch.from_numpy(x).to(torch.bfloat16) for x in _qkv(n=64))
+    out = tf.flash_attention(q, k, v, causal=True, device="cpu")
+    assert out.dtype == torch.bfloat16
+    want = tf.reference_attention(q.float(), k.float(), v.float(), causal=True)
+    np.testing.assert_allclose(out.float().numpy(), want.numpy(), atol=2e-2)
+
+
+def test_forward_dispatch_is_by_device():
+    qt = torch.zeros(1, 64, 64)
+    before = tf.flash_forward_cuda.launches
+    tf.flash_forward(qt, qt, qt, False, 0.125)
+    assert tf.flash_forward_cuda.launches == before
+    with pytest.raises(RuntimeError, match="CUDA"):
+        tf.flash_forward_cuda(qt, qt, qt, False, 0.125)
