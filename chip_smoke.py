@@ -13,14 +13,15 @@ and prints no result):
    whether triton imports;
 1. build: both hand-written kernels from ``distributed_tpu_torch/ops/csrc``;
 2. flash attention forward (kernel K2) at seq 8192, 16 heads, head dim
-   128 in bf16, causal and not, plus f32 at seq 1024 / head dim 64,
-   against the plain version on the card, with kernel / plain / library
-   times;
+   128 in bf16, causal and not (the tensor-core body), plus f32 at seq
+   1024 / head dim 64 (the CUDA-core body), against the plain version on
+   the card, with kernel / plain / library times;
 3. whole-graph placement (kernel K1): the 1M-task random DAG onto 512
    workers of 2 threads, a uniform fleet and a non-uniform one, through
-   ``pack_graph`` and ``place_graph_leveled`` on the card, validated,
-   equal bit for bit to the plain version on the CPU, and held against
-   the same driver running the plain wave on the card.
+   ``pack_graph`` and ``place_graph_leveled`` on the card (one launch for
+   all waves of a graph), validated, equal bit for bit to the plain
+   version on the CPU, and held against the same driver running the
+   plain wave on the card.
 
 The last three lines are the card's ``nvidia-smi`` name and power limit,
 one JSON object listing the kernels with their launches, errors and
@@ -40,13 +41,8 @@ import numpy as np
 import torch
 
 # tolerances of the kernels against their plain versions on the card.
-# O, per element: |o - o_plain| <= rtol * |o_plain| + atol.  In bf16 and
-# f16 both sides round one f32 result to the input dtype, so they differ
-# by at most one unit in the last place, which is at most 2**-7 (bf16) or
-# 2**-10 (f16) of the value; atol covers the order of the f32 sums near
-# zero.  In f32 only that order differs.
-FLASH_TOL_O = {torch.bfloat16: (2.0 ** -7, 1e-5), torch.float16: (2.0 ** -10, 1e-5),
-               torch.float32: (0.0, 1e-4)}
+# K2's O: flash.O_TOL per element plus u * (P.|V|) / l where the
+# tensor-core body rounds P (flash.o_excess states and derives it).
 FLASH_TOL_LSE = 1e-3
 FAULT_KEYS = 64              # the planted fault drops this many keys from P.V
 # K1 sums per-worker loads in task order, as the plain version does on the
@@ -159,14 +155,6 @@ def _flash_bound_ms(seq, heads, dim, dtype, causal):
     return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
-def _o_excess(o, o_plain):
-    """Largest amount by which O exceeds its tolerance against the plain
-    version; the check passes when this is at most 0."""
-    rtol, atol = FLASH_TOL_O[o_plain.dtype]
-    d = (o.float() - o_plain.float()).abs() - rtol * o_plain.float().abs()
-    return (d.max() - atol).item()
-
-
 def _drop_keys(qt, kt, vt, causal, scale, o_plain, lse_plain):
     """O of a planted fault: FAULT_KEYS keys in the middle of the sequence
     are left out of P.V but kept in l and lse, as by a kernel that skips
@@ -207,16 +195,20 @@ def phase_flash():
         scale = 1.0 / dim ** 0.5
         o_k, lse_k = flash.flash_forward_cuda(qt, kt, vt, causal, scale)
         o_p, lse_p = flash.flash_forward_reference(qt, kt, vt, causal, scale)
+        u = flash.P_ROUNDOFF.get(dtype, 0.0)
+        pv_term = u * flash.pv_rounding_term(qt, kt, vt, causal, scale, lse_p) if u else 0.0
+        pv_max = float(pv_term.max().item()) if u else 0.0
         err_o = (o_k.float() - o_p.float()).abs().max().item()
         err_lse = (lse_k - lse_p).abs().max().item()
-        excess = max(_o_excess(o_k, o_p), _o_excess(out.transpose(0, 1), o_p))
+        excess = max(flash.o_excess(o_k, o_p, pv_term), flash.o_excess(out.transpose(0, 1), o_p, pv_term))
         # the check must reject a kernel that drops one k-tile's product
         fault = _drop_keys(qt, kt, vt, causal, scale, o_p, lse_p)
         fault_err = (fault.float() - o_p.float()).abs().max().item()
-        fault_excess = _o_excess(fault, o_p)
-        del o_p, lse_p, fault
+        fault_excess = flash.o_excess(fault, o_p, pv_term)
+        del o_p, lse_p, fault, pv_term
+        body = "tensor cores" if dtype in flash.P_ROUNDOFF else "cuda cores"
         check(excess <= 0.0, f"{label}: O off by {excess} beyond "
-              f"(rtol, atol) {FLASH_TOL_O[dtype]}, max abs err {err_o}")
+              f"(rtol, atol) {flash.O_TOL[dtype]} + u (P|V|)/l (max {pv_max}), max abs err {err_o}")
         check(fault_excess > 0.0, f"{label}: the O check passes a planted fault "
               f"(max abs err {fault_err})")
         check(err_lse <= FLASH_TOL_LSE, f"{label}: lse max abs err {err_lse} > {FLASH_TOL_LSE}")
@@ -226,11 +218,13 @@ def phase_flash():
         lib_ms = cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
             qs, ks, vs, is_causal=causal, scale=scale))
         bound_ms, bound_by = _flash_bound_ms(seq, heads, dim, dtype, causal)
-        results[label] = dict(max_abs_err=err_o, lse_err=err_lse, o_excess=excess,
+        results[label] = dict(body=body, max_abs_err=err_o, lse_err=err_lse,
+                              o_excess=excess, pv_term_max=pv_max,
                               fault_max_abs_err=fault_err, fault_excess=fault_excess,
                               ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
                               bound_ms=bound_ms, bound_by=bound_by)
-        print(f"flash {label} seq {seq} heads {heads} dim {dim}: err_o {err_o:.3g} "
+        print(f"flash {label} seq {seq} heads {heads} dim {dim} ({body}): err_o {err_o:.3g} "
+              f"u(P|V|)/l max {pv_max:.3g} "
               f"(excess {excess:.3g}; planted fault err {fault_err:.3g} excess "
               f"{fault_excess:.3g}) err_lse {err_lse:.3g} kernel_ms {ms:.4f} plain_ms {plain_ms:.4f} "
               f"library_ms {lib_ms:.4f} bound_ms {bound_ms:.4f} ({bound_by})")
@@ -341,17 +335,18 @@ def phase_placement():
     fleets = _fleets()
 
     # the main path: pack_graph + place_graph_leveled as a user calls them
-    leveled.place_wave_cuda.launches = 0
+    leveled.place_waves_cuda.launches = 0
     packs, results, pack_ms = {}, {}, {}
     for name, fleet in fleets.items():
         t0 = time.perf_counter()
         packs[name] = leveled.pack_graph(durations, out_bytes, src, dst)
         pack_ms[name] = (time.perf_counter() - t0) * 1e3
         results[name] = leveled.place_graph_leveled(packs[name], *fleet)
-    launches = leveled.place_wave_cuda.launches
+    launches = leveled.place_waves_cuda.launches
     n_waves = sum(p.n_levels for p in packs.values())
-    check(launches == n_waves, f"wave kernel launches {launches} != waves {n_waves}")
-    print(f"placement main path: wave kernel launches {launches} over {n_waves} waves")
+    check(launches == len(fleets), f"wave kernel launches {launches} != graph runs {len(fleets)}")
+    print(f"placement main path: wave kernel launches {launches} (one per graph run) "
+          f"over {n_waves} waves")
 
     entry = None
     for name, fleet in fleets.items():
@@ -380,9 +375,12 @@ def phase_placement():
         leveled.validate_leveled(packed, res_p, src, dst, running)
         q_p = _quality(run, res_p, running)
         run.reset()
-        run.run_waves(leveled.place_wave_cuda)
+        run.run_waves()
         res_k = run.download()
         check(_same(res_k, res), f"{name}: two kernel runs differ")
+        run.reset()
+        run.run_waves(leveled.place_wave_cuda)
+        check(_same(run.download(), res), f"{name}: per-wave launches differ from one launch")
         q_k = _quality(run, res_k, running)
         agreement = float((res_k.assignment == res_p.assignment).mean())
         d_imb = abs(q_k["imbalance"] - q_p["imbalance"]) / q_p["imbalance"]
@@ -417,11 +415,11 @@ def phase_placement():
         leveled._finalize(packed, codes, spans_h, load_h)
         finalize_ms = (time.perf_counter() - t0) * 1e3
 
-        def waves(fn):
+        def waves(fn=None):
             run.reset()
             run.run_waves(fn)
 
-        ms = cuda_ms(lambda: waves(leveled.place_wave_cuda))
+        ms = cuda_ms(waves)
         plain_ms = cuda_ms(lambda: waves(leveled.place_wave_reference))
         bound_ms, bound_by = _k1_bound_ms(packed, N_WORKERS)
         print(f"placement {name}: pack_ms {pack_ms[name]:.1f} device_ms {device_ms:.3f} "

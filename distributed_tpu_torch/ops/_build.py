@@ -35,16 +35,18 @@ _i = ctypes.c_int
 _f = ctypes.c_float
 # C signature of every entry point: (argtypes); each returns cudaError_t
 SIGNATURES = {
-    "dtpu_place_wave": (
+    "dtpu_place_waves": (
         _vp, _vp, _vp, _vp, _vp, _vp,   # dur16 heavy heavy2 xp16 xp2_16 xa16
         _vp, _vp, _vp, _vp,             # assign choices load spans
-        _vp, _vp, _vp,                  # inv_t running ovt0
-        _vp, _vp, _vp,                  # order tl wave_load (scratch)
-        _vp, _vp, _vp, _vp, _vp, _vp,   # tgt wt sorted cnt start tot (scratch)
-        _i, _i, _i, _i, _i, _i, _i,     # W offset f block wave uniform chunk
+        _vp, _vp, _vp, _vp,             # inv_t running ovt0 offsets
+        _vp, _vp, _vp, _vp, _vp,        # tl wave_load tgt wt sorted (scratch)
+        _vp, _vp, _vp,                  # cnt start tot (scratch)
+        _vp,                            # stamps (optional timeline, or null)
+        _i, _i, _i, _i, _i, _i,         # W first last w_run uniform blocks
         _f, _f,                         # ovt_c inv_c
         _vp,                            # stream
     ),
+    "dtpu_place_waves_grid": (_i, _i, ctypes.POINTER(_i)),  # W uniform -> blocks
     "dtpu_flash_fwd": (
         _vp, _vp, _vp, _vp, _vp,        # q k v o lse
         _i, _i, _i, _i, _i, _i,         # H N Nk D dtype causal

@@ -5,29 +5,55 @@
 // innermost, running max / sum / accumulator carried in VMEM scratch).
 // The plain version beside it is ops/flash.py::flash_forward_reference.
 //
-// Translation: blocks run in parallel and in no order on Hopper, so the
-// TPU's sequential innermost k-tile grid axis becomes a loop inside one
-// block per (q-tile, head).  The running max m, sum l and the unnormalised
-// accumulator live in registers; each K/V tile is staged through shared
-// memory.  Causal k-tiles strictly above the diagonal are skipped by the
-// loop bound.  Masking uses the reference's finite -1e30; keys past a
-// ragged end are -inf, their K/V rows zero-filled.  Compute is f32 for
-// f32, f16 and bf16 inputs, q is scaled before the product, O is written
-// in the input dtype and the logsumexp as f32 [H, N, 1].
+// Both bodies keep the reference's contract: O in q's dtype, lse f32
+// [H, N, 1], the finite -1e30 causal mask (keys past a ragged end are
+// -inf), no offset for causal cross-length, l clamped at 1e-30, and
+// k-tiles strictly above the causal diagonal never loaded or multiplied
+// (the loop bound stops before them).  The TPU's sequential innermost
+// k-tile axis becomes a loop inside one block; m, l and the accumulator
+// stay in registers.
 //
 // Bound on an H100 at the smoke shapes (bf16, seq 8192, 16 heads, head
 // dim 128): operations.  4*N*Nk*D*H = 5.5e11 flop non-causal (about half
 // causal) against ~134 MB of q/k/v/o: ~0.56 ms at the 989 TFLOP/s bf16
-// tensor-core peak versus ~0.04 ms of bytes.  This first kernel stays on
-// the CUDA cores in f32 (no tensor cores, ~67 TFLOP/s peak), so it cannot
-// come near that bound; what its design does is keep the f32 work fed:
-// 64x64 tiles, 256 threads each holding a 4x4 score block and a
-// 4x(D/16) slice of the accumulator, Q (pre-scaled, transposed) and the
-// K tile (transposed) padded in shared memory so every inner-loop read is
-// a broadcast or conflict-free, K/V kept in their input dtype to fit two
-// blocks per SM at head dim 128.  wgmma, TMA and warp specialisation are
-// the next step.
+// tensor-core peak versus ~0.04 ms of bytes.  So the tensor cores are the
+// whole game, and the bf16 / f16 body is built around them:
+//
+// - one block per (head, q-tile of 128 rows), two warpgroups of 64 q rows
+//   each; q-tiles are issued longest first so a causal grid ends on
+//   short blocks;
+// - TMA loads Q once and K and V tiles of 128 keys into a 3-stage ring;
+//   a stage's full mbarrier says its tile has landed, and the second
+//   warpgroup done with a stage (a shared counter) refills it with the
+//   tile three on.  The tensor maps are 3-D (D, rows, heads), so a
+//   ragged tile is zero-filled inside its own head.  No producer
+//   warpgroup: with 384 threads nvcc budgets every thread at 168
+//   registers (65536 / 384) whatever setmaxnreg later grants, and at
+//   head dim 128 it then serialises every wgmma (a wait after each, C7512)
+//   and spills; at 256 threads it has 255, issues each product's wgmma
+//   back to back and does not spill;
+// - in each warpgroup: S = Q K^T with
+//   wgmma m64n128k16 from shared memory (f32 accumulate), the scale
+//   applied to S in f32 after the product (q is not rounded pre-scaled),
+//   the online softmax on the accumulator fragment in registers, and
+//   O += P V with P converted in place to the input type as wgmma's
+//   register A operand and V read MN-major (transposed) from shared
+//   memory;
+// - 128-byte swizzle on both sides: the tensor maps write it and the
+//   wgmma descriptors read it.
+//
+// Rounding P once to bf16 / f16 before P V is the one numeric difference
+// from the plain version, which keeps P in f32; chip_smoke.py derives
+// the tolerance from it.
+//
+// f32 inputs keep the CUDA-core body (tensor cores would run them as
+// TF32, about three decimal digits): 64x64 tiles, 256 threads each
+// holding a 4x4 score block and a 4x(D/16) slice of the accumulator, q
+// scaled in f32 before the product, Q and the K tile transposed and
+// padded in shared memory so inner-loop reads are broadcasts or
+// conflict-free.
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
@@ -36,6 +62,9 @@
 
 namespace {
 
+// ---------------------------------------------------------------------------
+// CUDA-core body (f32)
+
 constexpr int BQ = 64;
 constexpr int BK = 64;
 constexpr int kThreads = 256;
@@ -43,21 +72,9 @@ constexpr float kNeg = -1e30f;
 
 template <typename T> __device__ __forceinline__ float to_f(T x);
 template <> __device__ __forceinline__ float to_f<float>(float x) { return x; }
-template <> __device__ __forceinline__ float to_f<__half>(__half x) {
-  return __half2float(x);
-}
-template <> __device__ __forceinline__ float to_f<__nv_bfloat16>(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
 
 template <typename T> __device__ __forceinline__ T from_f(float x);
 template <> __device__ __forceinline__ float from_f<float>(float x) { return x; }
-template <> __device__ __forceinline__ __half from_f<__half>(float x) {
-  return __float2half_rn(x);
-}
-template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
-  return __float2bfloat16_rn(x);
-}
 
 // K tile row stride (elements): an odd number of 32-bit words, so the
 // transposing store spreads over the banks
@@ -66,7 +83,7 @@ template <typename T> __host__ __device__ constexpr int k_stride() {
 }
 
 template <typename T, int D>
-__host__ __device__ constexpr size_t smem_bytes() {
+__host__ __device__ constexpr size_t simt_smem_bytes() {
   return sizeof(float) * D * (BQ + 1)          // sQ  [D][BQ+1]
        + sizeof(T) * D * k_stride<T>()         // sK  [D][BK+pad]
        + sizeof(T) * BK * D                    // sV  [BK][D]
@@ -87,9 +104,9 @@ __device__ __forceinline__ float half_warp_sum(float v) {
 
 template <typename T, int D, bool CAUSAL>
 __global__ void __launch_bounds__(kThreads)
-flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, T* __restrict__ o,
-                 float* __restrict__ lse, int N, int Nk, float scale) {
+flash_fwd_simt_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                      const T* __restrict__ v, T* __restrict__ o,
+                      float* __restrict__ lse, int N, int Nk, float scale) {
   constexpr int KS = k_stride<T>();
   constexpr int NJD = D / 16;
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -216,12 +233,557 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
+// ---------------------------------------------------------------------------
+// Tensor-core body (bf16 / f16): TMA ring + wgmma, warp-specialised.
+
+constexpr int kTcBQ = 128;       // q rows per block, 64 per consumer warpgroup
+constexpr int kTcBK = 128;       // keys per K/V tile
+constexpr int kStages = 3;       // K/V ring depth
+constexpr int kTcThreads = 256;  // two warpgroups; their first threads also issue the loads
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
+               "r"(bytes)
+               : "memory");
+}
+
+// returns once the phase of the given parity has completed; a wait that
+// outlasts ~10 s of clocks traps (a launch error) instead of hanging
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  const long long t0 = clock64();
+  uint32_t done;
+  do {
+    if (clock64() - t0 > 20000000000ll) __trap();
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// one box of a 3-D (D, rows, heads) tensor map into shared memory
+__device__ __forceinline__ void tma_load_3d(uint32_t dst, const CUtensorMap* map,
+                                            uint32_t bar, int c0, int c1, int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
+// shared-memory matrix descriptor, 128-byte swizzle (the TMA maps' mode);
+// tiles start on 1024-byte boundaries, so the base offset field is 0
+__device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lbo_bytes,
+                                              uint32_t sbo_bytes) {
+  return static_cast<uint64_t>((addr & 0x3FFFFu) >> 4) |
+         (static_cast<uint64_t>((lbo_bytes >> 4) & 0x3FFFu) << 16) |
+         (static_cast<uint64_t>((sbo_bytes >> 4) & 0x3FFFu) << 32) |
+         (1ull << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+// keeps the compiler from moving accumulator reads or writes across the
+// asynchronous wgmma's fence / wait
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+
+__device__ __forceinline__ void wgmma_ss_n128_bf16(float (&d)[64], uint64_t da, uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
+      "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, "
+      "%26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, "
+      "%38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, "
+      "%50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, "
+      "%62, %63}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_rs_n128_bf16(float (&d)[64], const uint32_t (&a)[4], uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
+      "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, "
+      "%26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, "
+      "%38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, "
+      "%50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, "
+      "%62, %63}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_rs_n64_bf16(float (&d)[32], const uint32_t (&a)[4], uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
+      "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, "
+      "%26, %27, %28, %29, %30, %31}, {%32, %33, %34, %35}, %36, p, "
+      "1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_ss_n128_f16(float (&d)[64], uint64_t da, uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.f16.f16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
+      "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, "
+      "%26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, "
+      "%38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, "
+      "%50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, "
+      "%62, %63}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_rs_n128_f16(float (&d)[64], const uint32_t (&a)[4], uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.f16.f16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
+      "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, "
+      "%26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, "
+      "%38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, "
+      "%50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, "
+      "%62, %63}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_rs_n64_f16(float (&d)[32], const uint32_t (&a)[4], uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.f16.f16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
+      "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, "
+      "%26, %27, %28, %29, %30, %31}, {%32, %33, %34, %35}, %36, p, "
+      "1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+}
+
+// 2^x in one MUFU instruction (exp2f adds range handling around it)
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+template <typename T> struct Mma;
+template <> struct Mma<__nv_bfloat16> {
+  static __device__ __forceinline__ void qk(float (&d)[64], uint64_t a, uint64_t b, int acc) {
+    wgmma_ss_n128_bf16(d, a, b, acc);
+  }
+  static __device__ __forceinline__ void pv(float (&d)[64], const uint32_t (&a)[4], uint64_t b) {
+    wgmma_rs_n128_bf16(d, a, b, 1);
+  }
+  static __device__ __forceinline__ void pv(float (&d)[32], const uint32_t (&a)[4], uint64_t b) {
+    wgmma_rs_n64_bf16(d, a, b, 1);
+  }
+  static __device__ __forceinline__ uint32_t pack(float lo, float hi) {
+    __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+    return *reinterpret_cast<uint32_t*>(&v);
+  }
+};
+template <> struct Mma<__half> {
+  static __device__ __forceinline__ void qk(float (&d)[64], uint64_t a, uint64_t b, int acc) {
+    wgmma_ss_n128_f16(d, a, b, acc);
+  }
+  static __device__ __forceinline__ void pv(float (&d)[64], const uint32_t (&a)[4], uint64_t b) {
+    wgmma_rs_n128_f16(d, a, b, 1);
+  }
+  static __device__ __forceinline__ void pv(float (&d)[32], const uint32_t (&a)[4], uint64_t b) {
+    wgmma_rs_n64_f16(d, a, b, 1);
+  }
+  static __device__ __forceinline__ uint32_t pack(float lo, float hi) {
+    __half2 v = __floats2half2_rn(lo, hi);
+    return *reinterpret_cast<uint32_t*>(&v);
+  }
+};
+
+template <int D>
+__host__ __device__ constexpr size_t tc_smem_bytes() {
+  // Q tile + the K and V ring, 2-byte elements, + slack to align to 1024
+  // (at D = 128: 32 + 3 * 64 KB + 1 KB, under the 227 KB a block may use)
+  return static_cast<size_t>(kTcBQ + 2 * kStages * kTcBK) * D * 2 + 1024;
+}
+
+// One block per (head, q-tile of 128 rows).  Shared tiles are stored as
+// D/64 column chunks of [rows][64] elements (128 bytes a row, 128-byte
+// swizzle), which is the box the tensor maps load.  Accumulator fragment
+// of m64nNk16, register i of a thread: row 16*warp + lane/4 + 8*((i/2)&1),
+// column 8*(i/4) + 2*(lane&3) + (i&1).
 template <typename T, int D, bool CAUSAL>
-cudaError_t launch(const void* q, const void* k, const void* v, void* o,
-                   void* lse, int H, int N, int Nk, float scale,
-                   cudaStream_t stream) {
-  auto kernel = flash_fwd_kernel<T, D, CAUSAL>;
-  constexpr size_t smem = smem_bytes<T, D>();
+__global__ void __launch_bounds__(kTcThreads, 1)
+flash_fwd_tc_kernel(const __grid_constant__ CUtensorMap tq,
+                    const __grid_constant__ CUtensorMap tk,
+                    const __grid_constant__ CUtensorMap tv, T* __restrict__ o,
+                    float* __restrict__ lse, int N, int Nk, float scale_log2) {
+  constexpr int NCH = D / 64;
+  constexpr uint32_t kQBytes = kTcBQ * D * 2;
+  constexpr uint32_t kTileBytes = kTcBK * D * 2;
+  extern __shared__ uint8_t smem_raw[];
+  __shared__ __align__(8) uint64_t bars[1 + kStages];
+  __shared__ int released[kStages];  // warpgroups done with the tile in each stage
+
+  const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  const uint32_t sQ = base;
+  const uint32_t sK = sQ + kQBytes;                 // stage s at + s * kTileBytes
+  const uint32_t sV = sK + kStages * kTileBytes;
+  const uint32_t bar_q = smem_u32(&bars[0]);
+  const uint32_t bar_full = smem_u32(&bars[1]);     // stage s at + 8 * s
+
+  const int h = blockIdx.x;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kTcBQ;  // longest q-tiles first
+  int n_kt = (Nk + kTcBK - 1) / kTcBK;
+  if (CAUSAL) n_kt = min(n_kt, (min(q0 + kTcBQ, N) + kTcBK - 1) / kTcBK);
+
+  if (threadIdx.x == 0) {
+    mbar_init(bar_q, 1);
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(bar_full + 8 * s, 1);
+      released[s] = 0;
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  auto load_tile = [&](int s, int kt) {
+    mbar_expect_tx(bar_full + 8 * s, 2 * kTileBytes);
+#pragma unroll
+    for (int c = 0; c < NCH; ++c) {
+      tma_load_3d(sK + s * kTileBytes + c * kTcBK * 128, &tk, bar_full + 8 * s, 64 * c,
+                  kt * kTcBK, h);
+      tma_load_3d(sV + s * kTileBytes + c * kTcBK * 128, &tv, bar_full + 8 * s, 64 * c,
+                  kt * kTcBK, h);
+    }
+  };
+  if (threadIdx.x == 0) {
+    mbar_expect_tx(bar_q, kQBytes);
+#pragma unroll
+    for (int c = 0; c < NCH; ++c) tma_load_3d(sQ + c * kTcBQ * 128, &tq, bar_q, 64 * c, q0, h);
+    for (int kt = 0; kt < kStages && kt < n_kt; ++kt) load_tile(kt, kt);
+  }
+
+  const int wg = threadIdx.x / 128;
+  constexpr int NS = kTcBK / 2;  // S (and P) accumulator registers a thread
+  const int tid = threadIdx.x % 128;
+  const int warp = tid / 32;
+  const int lane = tid % 32;
+  const int wq0 = q0 + 64 * wg;               // this warpgroup's first q row
+  const int row0 = wq0 + 16 * warp + lane / 4;  // rows row0 and row0 + 8
+  float acc[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+  float m[2] = {kNeg, kNeg};
+  float l[2] = {0.f, 0.f};
+  const uint32_t q_rows = sQ + 64 * wg * 128;
+
+  // S = Q K^T for the tile in stage s, both operands K-major
+  auto issue_qk = [&](float (&sc)[NS], int s) {
+#pragma unroll
+    for (int j = 0; j < D / 16; ++j) {
+      const uint32_t qoff = (j / 4) * (kTcBQ * 128) + (j % 4) * 32;
+      const uint32_t koff = (j / 4) * (kTcBK * 128) + (j % 4) * 32;
+      Mma<T>::qk(sc, smem_desc(q_rows + qoff, 16, 1024),
+                 smem_desc(sK + s * kTileBytes + koff, 16, 1024), j > 0);
+    }
+  };
+  // O += P V for the tile in stage s: P in registers as the A fragment,
+  // V [keys][D] MN-major, so B is transposed
+  auto issue_pv = [&](const uint32_t (&pk)[NS / 2], int s) {
+#pragma unroll
+    for (int j = 0; j < kTcBK / 16; ++j) {
+      const uint32_t a[4] = {pk[4 * j], pk[4 * j + 1], pk[4 * j + 2], pk[4 * j + 3]};
+      Mma<T>::pv(acc, a, smem_desc(sV + s * kTileBytes + j * 16 * 128, kTcBK * 128, 1024));
+    }
+  };
+  // scale in f32 after the product (log2 units), mask the diagonal tile
+  // and keys past the end, then the online softmax of each of the
+  // thread's two rows (a quad shares a row): sc becomes P, m and l move
+  // on, alpha is the factor the accumulator's rows still owe
+  auto softmax = [&](float (&sc)[NS], int kt, float (&alpha)[2]) {
+    const int k0 = kt * kTcBK;
+    const bool masked = k0 + kTcBK > Nk || (CAUSAL && k0 + kTcBK - 1 > wq0);
+#pragma unroll
+    for (int i = 0; i < NS; ++i) {
+      float x = sc[i] * scale_log2;
+      if (masked) {
+        const int col = k0 + 8 * (i / 4) + 2 * (lane & 3) + (i & 1);
+        const int row = row0 + 8 * ((i / 2) & 1);
+        if (col >= Nk) {
+          x = -INFINITY;
+        } else if (CAUSAL && row < col) {
+          x = kNeg;
+        }
+      }
+      sc[i] = x;
+    }
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      float mx = -INFINITY;
+#pragma unroll
+      for (int i = 0; i < NS; ++i)
+        if (((i / 2) & 1) == hh) mx = fmaxf(mx, sc[i]);
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      const float m_new = fmaxf(m[hh], mx);
+      alpha[hh] = ex2(m[hh] - m_new);
+      float ps = 0.f;
+#pragma unroll
+      for (int i = 0; i < NS; ++i) {
+        if (((i / 2) & 1) == hh) {
+          sc[i] = ex2(sc[i] - m_new);
+          ps += sc[i];
+        }
+      }
+      ps += __shfl_xor_sync(0xffffffffu, ps, 1);
+      ps += __shfl_xor_sync(0xffffffffu, ps, 2);
+      l[hh] = l[hh] * alpha[hh] + ps;
+      m[hh] = m_new;
+    }
+  };
+  auto rescale = [&](const float (&alpha)[2]) {
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) acc[i] *= alpha[(i / 2) & 1];
+  };
+  // P rounded once to the input type, all of it before the products
+  // are issued, so no register they read is written while in flight
+  auto pack = [&](uint32_t (&pk)[NS / 2], const float (&sc)[NS]) {
+#pragma unroll
+    for (int i = 0; i < NS / 2; ++i) pk[i] = Mma<T>::pack(sc[2 * i], sc[2 * i + 1]);
+  };
+  // the second warpgroup done with a stage refills it, kStages tiles on
+  auto release = [&](int s, int kt) {
+    asm volatile("bar.sync %0, 128;\n" ::"r"(1 + wg) : "memory");
+    if (tid == 0 && atomicAdd(&released[s], 1) == 1) {
+      released[s] = 0;
+      if (kt + kStages < n_kt) load_tile(s, kt + kStages);
+    }
+  };
+
+  mbar_wait(bar_q, 0);
+  float sc[NS];
+  uint32_t pk[NS / 2];
+  float alpha[2];
+  for (int kt = 0; kt < n_kt; ++kt) {
+    const int s = kt % kStages;
+    mbar_wait(bar_full + 8 * s, (kt / kStages) & 1);
+    wgmma_fence();
+    issue_qk(sc, s);
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(sc);
+    softmax(sc, kt, alpha);
+    rescale(alpha);
+    pack(pk, sc);
+    fence_regs(acc);
+    wgmma_fence();
+    issue_pv(pk, s);
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(acc);
+    release(s, kt);
+  }
+
+  // O = acc / max(l, 1e-30), rounded once; lse = m + log(l)
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const int row = row0 + 8 * hh;
+    if (row >= N) continue;
+    const float lc = fmaxf(l[hh], 1e-30f);
+    T* orow = o + (static_cast<size_t>(h) * N + row) * D;
+#pragma unroll
+    for (int i = 0; i < D / 2; i += 2) {
+      if (((i / 2) & 1) != hh) continue;
+      const int col = 8 * (i / 4) + 2 * (lane & 3);
+      const uint32_t v = Mma<T>::pack(acc[i] / lc, acc[i + 1] / lc);
+      *reinterpret_cast<uint32_t*>(orow + col) = v;
+    }
+    if ((lane & 3) == 0) lse[static_cast<size_t>(h) * N + row] = m[hh] * kLn2 + logf(lc);
+  }
+}
+
+typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                  const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                  const cuuint32_t*, CUtensorMapInterleave,
+                                  CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                  CUtensorMapFloatOOBfill);
+
+// the driver's encoder, reached through the runtime so that the library
+// links against nothing beyond cudart
+EncodeTiledFn encode_fn() {
+  static EncodeTiledFn fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q;
+#if CUDART_VERSION >= 12050
+    cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                                       cudaEnableDefault, &q);
+#else
+    cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q);
+#endif
+    if (err == cudaSuccess && q == cudaDriverEntryPointSuccess) fn = reinterpret_cast<EncodeTiledFn>(p);
+  }
+  return fn;
+}
+
+// a [heads, rows, D] tensor as a 3-D map with [1, box_rows, 64] boxes: a
+// box past the end of a head's rows is zero-filled on load, never read
+// from the next head
+bool encode_3d(CUtensorMap* map, EncodeTiledFn fn, const void* ptr, int dtype, int H,
+               int rows, int D, int box_rows) {
+  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(D), static_cast<cuuint64_t>(rows),
+                              static_cast<cuuint64_t>(H)};
+  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(D) * 2,
+                                 static_cast<cuuint64_t>(rows) * D * 2};
+  const cuuint32_t box[3] = {64, static_cast<cuuint32_t>(box_rows), 1};
+  const cuuint32_t elem[3] = {1, 1, 1};
+  const CUresult r = fn(map,
+                        dtype == 2 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16 : CU_TENSOR_MAP_DATA_TYPE_FLOAT16,
+                        3, const_cast<void*>(ptr), dims, strides, box, elem,
+                        CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                        CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS;
+}
+
+template <typename T, int D, bool CAUSAL>
+cudaError_t launch_tc(const void* q, const void* k, const void* v, void* o, void* lse,
+                      int H, int N, int Nk, int dtype, float scale, cudaStream_t stream) {
+  EncodeTiledFn fn = encode_fn();
+  if (fn == nullptr) return cudaErrorNotSupported;
+  CUtensorMap tq, tk, tv;
+  if (!encode_3d(&tq, fn, q, dtype, H, N, D, kTcBQ) ||
+      !encode_3d(&tk, fn, k, dtype, H, Nk, D, kTcBK) ||
+      !encode_3d(&tv, fn, v, dtype, H, Nk, D, kTcBK)) {
+    return cudaErrorInvalidValue;
+  }
+  auto kernel = flash_fwd_tc_kernel<T, D, CAUSAL>;
+  constexpr size_t smem = tc_smem_bytes<D>();
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  const dim3 grid(H, (N + kTcBQ - 1) / kTcBQ);
+  kernel<<<grid, kTcThreads, smem, stream>>>(tq, tk, tv, static_cast<T*>(o),
+                                              static_cast<float*>(lse), N, Nk, scale * kLog2e);
+  return cudaGetLastError();
+}
+
+template <typename T, int D, bool CAUSAL>
+cudaError_t launch_simt(const void* q, const void* k, const void* v, void* o, void* lse,
+                        int H, int N, int Nk, float scale, cudaStream_t stream) {
+  auto kernel = flash_fwd_simt_kernel<T, D, CAUSAL>;
+  constexpr size_t smem = simt_smem_bytes<T, D>();
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return err;
@@ -232,49 +794,53 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
   return cudaGetLastError();
 }
 
-template <typename T, int D>
-cudaError_t launch_causal(int causal, const void* q, const void* k, const void* v,
-                          void* o, void* lse, int H, int N, int Nk, float scale,
-                          cudaStream_t stream) {
-  return causal ? launch<T, D, true>(q, k, v, o, lse, H, N, Nk, scale, stream)
-                : launch<T, D, false>(q, k, v, o, lse, H, N, Nk, scale, stream);
-}
-
-template <typename T>
-cudaError_t launch_dim(int D, int causal, const void* q, const void* k,
-                       const void* v, void* o, void* lse, int H, int N, int Nk,
-                       float scale, cudaStream_t stream) {
-  switch (D) {
-    case 64:
-      return launch_causal<T, 64>(causal, q, k, v, o, lse, H, N, Nk, scale, stream);
-    case 128:
-      return launch_causal<T, 128>(causal, q, k, v, o, lse, H, N, Nk, scale, stream);
+template <int D, bool CAUSAL>
+cudaError_t launch_typed(const void* q, const void* k, const void* v, void* o, void* lse,
+                         int H, int N, int Nk, int dtype, float scale, cudaStream_t stream) {
+  switch (dtype) {
+    case 0:
+      return launch_simt<float, D, CAUSAL>(q, k, v, o, lse, H, N, Nk, scale, stream);
+    case 1:
+      return launch_tc<__half, D, CAUSAL>(q, k, v, o, lse, H, N, Nk, dtype, scale, stream);
+    case 2:
+      return launch_tc<__nv_bfloat16, D, CAUSAL>(q, k, v, o, lse, H, N, Nk, dtype, scale,
+                                                 stream);
     default:
       return cudaErrorInvalidValue;
   }
 }
 
+template <int D>
+cudaError_t launch_causal(int causal, const void* q, const void* k, const void* v, void* o,
+                          void* lse, int H, int N, int Nk, int dtype, float scale,
+                          cudaStream_t stream) {
+  return causal ? launch_typed<D, true>(q, k, v, o, lse, H, N, Nk, dtype, scale, stream)
+                : launch_typed<D, false>(q, k, v, o, lse, H, N, Nk, dtype, scale, stream);
+}
+
 }  // namespace
 
-// dtype: 0 float32, 1 float16, 2 bfloat16; q/o [H, N, D], k/v [H, Nk, D],
-// lse [H, N] f32, all contiguous
+// dtype: 0 float32 (CUDA-core body), 1 float16, 2 bfloat16 (tensor-core
+// body); q/o [H, N, D], k/v [H, Nk, D], lse [H, N] f32, all contiguous
+// and 16-byte aligned; D 64 or 128
 extern "C" int dtpu_flash_fwd(const void* q, const void* k, const void* v,
                               void* o, void* lse, int H, int N, int Nk, int D,
                               int dtype, int causal, float scale,
                               void* stream_ptr) {
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
   if (H <= 0 || N <= 0 || Nk <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  for (const void* p : {q, k, v, static_cast<const void*>(o)}) {
+    if (reinterpret_cast<uintptr_t>(p) % 16 != 0) {
+      return static_cast<int>(cudaErrorMisalignedAddress);
+    }
+  }
   cudaError_t err;
-  switch (dtype) {
-    case 0:
-      err = launch_dim<float>(D, causal, q, k, v, o, lse, H, N, Nk, scale, stream);
+  switch (D) {
+    case 64:
+      err = launch_causal<64>(causal, q, k, v, o, lse, H, N, Nk, dtype, scale, stream);
       break;
-    case 1:
-      err = launch_dim<__half>(D, causal, q, k, v, o, lse, H, N, Nk, scale, stream);
-      break;
-    case 2:
-      err = launch_dim<__nv_bfloat16>(D, causal, q, k, v, o, lse, H, N, Nk, scale,
-                                      stream);
+    case 128:
+      err = launch_causal<128>(causal, q, k, v, o, lse, H, N, Nk, dtype, scale, stream);
       break;
     default:
       err = cudaErrorInvalidValue;

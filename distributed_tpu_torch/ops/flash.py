@@ -5,8 +5,12 @@ online-softmax attention that never holds the ``[N, Nk]`` score matrix.
 The forward runs the hand-written kernel ``csrc/flash_fwd.cu`` on CUDA
 tensors and :func:`flash_forward_reference`, the same math in plain torch
 ops, on CPU tensors.  Layout, defaults, block clamping, the ``-1e30``
-mask, q scaled before the product, and the ``[H, N, 1]`` f32 logsumexp
-all follow the reference.
+mask and the ``[H, N, 1]`` f32 logsumexp follow the reference.
+
+The kernel has two bodies: bf16 / f16 inputs run on the tensor cores
+(TMA + ``wgmma``), which round P once to the input type before P.V;
+f32 inputs run on the CUDA cores in f32.  :func:`pv_rounding_term`
+gives the error bound that rounding of P implies.
 
 Forward only: the reference's recompute backward (``_flash_diff_bwd``)
 comes with a later slice as a hand kernel inside an autograd Function.
@@ -24,6 +28,18 @@ _NEG = -1e30  # finite "-inf": fully masked rows stay NaN-free
 # kernel dtype codes (csrc/flash_fwd.cu)
 _DTYPES = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2}
 HEAD_DIMS_CUDA = (64, 128)
+# unit roundoff of the P the tensor-core body rounds to the input type
+P_ROUNDOFF = {torch.bfloat16: 2.0 ** -8, torch.float16: 2.0 ** -11}
+# the kernel's O against the plain version's, per element:
+#   |o - o_plain| <= rtol * |o_plain| + u * (P.|V|) / l + atol.
+# In bf16 / f16 both sides round one f32 value to the input type, at most
+# one unit in the last place: 2**-7 (bf16) or 2**-10 (f16) of the value.
+# The tensor-core body also rounds each p in [0, 1] once to the input
+# type before P.V, moving it by at most u*p and O by at most
+# u * (P.|V|) / l (pv_rounding_term).  atol covers the order of the f32
+# sums near zero; in f32 (CUDA-core body) only that order differs.
+O_TOL = {torch.bfloat16: (2.0 ** -7, 1e-5), torch.float16: (2.0 ** -10, 1e-5),
+         torch.float32: (0.0, 1e-4)}
 
 
 def flash_forward_reference(qt, kt, vt, causal: bool, scale: float):
@@ -41,6 +57,28 @@ def flash_forward_reference(qt, kt, vt, causal: bool, scale: float):
     l = torch.clamp_min(p.sum(dim=-1, keepdim=True), 1e-30)
     o = torch.matmul(p, vt.to(torch.float32)) / l
     return o.to(qt.dtype), m + torch.log(l)
+
+
+def pv_rounding_term(qt, kt, vt, causal: bool, scale: float, lse):
+    """``(P·|V|) / l`` per element of O, in f32, from the plain version's
+    ``lse`` (``P / l = exp(s - lse)``): rounding each entry of P by at
+    most a unit roundoff ``u`` moves O by at most ``u`` times this."""
+    s = torch.matmul(qt.to(torch.float32) * scale, kt.to(torch.float32).transpose(-1, -2))
+    if causal:
+        n, nk = qt.shape[1], kt.shape[1]
+        qpos = torch.arange(n, device=qt.device)[:, None]
+        kpos = torch.arange(nk, device=qt.device)[None, :]
+        s = torch.where(qpos >= kpos, s, _NEG)
+    return torch.matmul(torch.exp(s - lse), vt.to(torch.float32).abs())
+
+
+def o_excess(o, o_plain, pv_term=0.0) -> float:
+    """Largest amount by which O exceeds :data:`O_TOL` against the plain
+    version (the check passes at <= 0); ``pv_term`` is
+    ``u * pv_rounding_term(...)`` where the kernel rounds P, else 0."""
+    rtol, atol = O_TOL[o_plain.dtype]
+    d = (o.float() - o_plain.float()).abs() - rtol * o_plain.float().abs() - pv_term
+    return (d.max() - atol).item()
 
 
 def flash_forward_cuda(qt, kt, vt, causal: bool, scale: float):
@@ -61,6 +99,8 @@ def flash_forward_cuda(qt, kt, vt, causal: bool, scale: float):
         raise ValueError("q, k, v must be contiguous")
     if not (qt.device == kt.device == vt.device):
         raise ValueError("q, k, v must be on one device")
+    if any(x.data_ptr() % 16 for x in (qt, kt, vt)):
+        raise ValueError("q, k, v must start on 16-byte boundaries")
     o = torch.empty_like(qt)
     lse = torch.empty((h, n, 1), dtype=torch.float32, device=qt.device)
     lib = _build.load()

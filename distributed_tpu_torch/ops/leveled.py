@@ -7,23 +7,26 @@ dependencies and three transfer costs per task, all in (level, index)
 order so wave *w* is the contiguous slice ``[offsets[w], offsets[w+1])``.
 
 The device half uploads the six level-sorted arrays once (16 B/task, the
-reference's f16/i32 wire) and runs one launch sequence per wave from a
-host loop.  The reference pads waves to power-of-two buckets and fuses
-runs of them into ``fori_loop`` dispatches because ``jit`` needs static
-shapes; an eager driver needs neither, so every wave runs at its true
-size and writes exactly its own rows.
+reference's f16/i32 wire) with the wave offsets, and runs every wave of
+the graph in one launch.  The reference pads waves to power-of-two
+buckets and fuses runs of them into ``fori_loop`` dispatches because
+``jit`` needs static shapes; here every wave runs at its true size and
+writes exactly its own rows.
 
-A wave step has two implementations with one contract:
+The waves have two implementations with one contract:
 
 - :func:`place_wave_reference`, the reference's ``run_wave`` body
-  written in torch ops, expression for expression (it is the CPU path
-  and the plain version the kernel is held against);
-- :func:`place_wave_cuda`, the hand-written kernel ``csrc/place_wave.cu``
+  written in torch ops, expression for expression, one wave a call (it
+  is the CPU path and the plain version the kernel is held against);
+- :func:`place_waves_cuda`, the hand-written kernel
+  ``csrc/place_wave.cu``: one cooperative launch for a range of waves
   (its per-worker sums run in task order, as ``index_add_`` does on the
   CPU, so it reproduces the plain version on the CPU bit for bit).
+  :func:`place_wave_cuda` is its one-wave form.
 
-:func:`place_wave` picks by the device of the state: CPU tensors take
-the plain version, anything else the kernel, which raises off CUDA.
+:func:`place_waves` and :func:`place_wave` pick by the device of the
+state: CPU tensors take the plain version, anything else the kernel,
+which raises off CUDA.
 
 ``SMALL_WAVE``, :func:`_bucket` and :func:`_plan_runs` are copies of the
 reference's wave bucketing and run planning.  Nothing here calls them
@@ -33,6 +36,7 @@ plans its chunks with them.
 
 from __future__ import annotations
 
+import ctypes
 from typing import NamedTuple
 
 import numpy as np
@@ -45,10 +49,9 @@ from distributed_tpu_torch.ops import _build
 # fused runs (kept for _plan_runs, which the streamed driver needs)
 SMALL_WAVE = 16384
 
-# the wave kernel keeps one f32 or i32 per worker in shared memory
+# every block of the wave kernel keeps a u64 and an i32 per worker in
+# shared memory (96 KB at this limit)
 MAX_WORKERS_CUDA = 8192
-# tasks per block in the kernel's stable bucketing of per-worker sums
-WAVE_CHUNK = 2048
 
 
 class PackedGraph(NamedTuple):
@@ -337,15 +340,16 @@ def _make_fleet(thr_h, run_h, occ_h, uniform: bool, device) -> _Fleet:
 
 
 class _KernelScratch(NamedTuple):
-    """Work space of the wave kernel, sized for the run's widest wave."""
+    """Work space of the wave kernel, sized for the run's widest wave and
+    the launch's grid (one bucketing chunk per block)."""
 
-    order: torch.Tensor      # i32[W] workers in spread order
+    blocks: int              # blocks of the cooperative launch
     tl: torch.Tensor         # f32[W] tentative wave load
     wave_load: torch.Tensor  # f32[W]
     tgt: torch.Tensor        # i32[F] worker each task's work is summed on
     wt: torch.Tensor         # f32[F] that work
     sorted: torch.Tensor     # f32[F] work bucketed by worker, task order kept
-    cnt: torch.Tensor        # i32[ceil(F / WAVE_CHUNK) * W] per-chunk counts
+    cnt: torch.Tensor        # i32[W * blocks] per-chunk counts
     start: torch.Tensor      # i32[W] bucket starts
     tot: torch.Tensor        # i32[W] bucket sizes
 
@@ -370,6 +374,10 @@ class LeveledRun:
         self.choices = torch.empty(T, dtype=torch.int32, device=self.device)
         self.load = torch.empty(W, dtype=torch.float32, device=self.device)
         self.spans = torch.empty(L, dtype=torch.float32, device=self.device)
+        # wave w is sorted rows [wave_offsets[w], wave_offsets[w+1]), for the kernel
+        self.wave_offsets = torch.from_numpy(
+            np.ascontiguousarray(packed.offsets, np.int32)
+        ).to(self.device)
         self.scratch: _KernelScratch | None = None
         self.reset()
 
@@ -380,21 +388,21 @@ class LeveledRun:
         self.load.copy_(self.occ0)
         self.spans.zero_()
 
-    def kernel_scratch(self) -> _KernelScratch:
-        """The wave kernel's work space, made at its first wave."""
-        if self.scratch is None:
+    def kernel_scratch(self, blocks: int) -> _KernelScratch:
+        """The wave kernel's work space for a launch of ``blocks`` blocks,
+        made at its first launch."""
+        if self.scratch is None or self.scratch.blocks != blocks:
             W = self.fleet.W
             F = int(np.diff(self.packed.offsets).max(initial=0))
-            nb = -(-F // WAVE_CHUNK)
 
             def new(n, dtype):
                 return torch.empty(max(n, 1), dtype=dtype, device=self.device)
 
             i32, f32 = torch.int32, torch.float32
             self.scratch = _KernelScratch(
-                order=new(W, i32), tl=new(W, f32), wave_load=new(W, f32),
+                blocks=blocks, tl=new(W, f32), wave_load=new(W, f32),
                 tgt=new(F, i32), wt=new(F, f32), sorted=new(F, f32),
-                cnt=new(nb * W, i32), start=new(W, i32), tot=new(W, i32),
+                cnt=new(blocks * W, i32), start=new(W, i32), tot=new(W, i32),
             )
         return self.scratch
 
@@ -404,8 +412,12 @@ class LeveledRun:
         return int(off[wave]), int(off[wave + 1] - off[wave])
 
     def run_waves(self, wave_fn=None) -> None:
-        """Every wave in level order, one ``wave_fn(run, wave)`` each."""
-        wave_fn = place_wave if wave_fn is None else wave_fn
+        """Every wave in level order: by default in one call of
+        :func:`place_waves` (one launch on the card), else one
+        ``wave_fn(run, wave)`` a wave."""
+        if wave_fn is None:
+            place_waves(self, 0, self.packed.n_levels)
+            return
         for wave in range(self.packed.n_levels):
             wave_fn(self, wave)
 
@@ -520,61 +532,94 @@ def place_wave_reference(run: LeveledRun, wave: int) -> None:
     run.choices[sl] = choice.to(torch.int32)
 
 
-def place_wave_cuda(run: LeveledRun, wave: int) -> None:
-    """One wave through the hand-written kernel ``csrc/place_wave.cu``."""
+# timeline entries a wave when place_waves_cuda is given ``stamps``
+WAVE_STAMPS = 9
+
+
+def place_waves_cuda(run: LeveledRun, first: int, last: int, stamps=None) -> None:
+    """Waves ``[first, last)`` in one cooperative launch of the
+    hand-written kernel ``csrc/place_wave.cu``.
+
+    ``stamps``, an int64 CUDA tensor of ``(last - first) * WAVE_STAMPS``,
+    receives the device clock (ns) at the start of each wave and after
+    each of its 8 grid barriers; ``None`` (the default) records nothing.
+    """
     fleet, wire = run.fleet, run.wire
     if run.device.type != "cuda":
-        raise RuntimeError(f"place_wave_cuda needs CUDA tensors, got {run.device}")
+        raise RuntimeError(f"place_waves_cuda needs CUDA tensors, got {run.device}")
     if fleet.W > MAX_WORKERS_CUDA:
         raise ValueError(
             f"the wave kernel takes at most {MAX_WORKERS_CUDA} workers, got {fleet.W}"
         )
+    L = run.packed.n_levels
+    if not 0 <= first <= last <= L:
+        raise ValueError(f"waves [{first}, {last}) outside [0, {L})")
     T, W = run.packed.n, fleet.W
-    offset, f = run.wave_bounds(wave)
-    sc = run.kernel_scratch()
-    nb = -(-f // WAVE_CHUNK)
+    lib = _build.load()
+    if run.scratch is None:
+        blocks = ctypes.c_int(0)
+        _build.check(lib.dtpu_place_waves_grid(W, int(fleet.uniform), ctypes.byref(blocks)),
+                     "dtpu_place_waves_grid")
+        run.kernel_scratch(blocks.value)
+    sc = run.scratch
     for name, t, dtype, n in (
         ("dur", wire.dur, torch.float16, T), ("heavy", wire.heavy, torch.int32, T),
         ("heavy2", wire.heavy2, torch.int32, T), ("xp", wire.xp, torch.float16, T),
         ("xp2", wire.xp2, torch.float16, T), ("xa", wire.xa, torch.float16, T),
         ("assign", run.assign, torch.int32, T), ("choices", run.choices, torch.int32, T),
-        ("load", run.load, torch.float32, W), ("spans", run.spans, torch.float32, run.packed.n_levels),
+        ("load", run.load, torch.float32, W), ("spans", run.spans, torch.float32, L),
         ("inv_t", fleet.inv_t, torch.float32, W), ("running", fleet.running, torch.bool, W),
-        ("ovt0", fleet.ovt0, torch.float32, W), ("order", sc.order, torch.int32, W),
+        ("ovt0", fleet.ovt0, torch.float32, W),
+        ("wave_offsets", run.wave_offsets, torch.int32, L + 1),
         ("tl", sc.tl, torch.float32, W), ("wave_load", sc.wave_load, torch.float32, W),
         ("start", sc.start, torch.int32, W), ("tot", sc.tot, torch.int32, W),
+        ("cnt", sc.cnt, torch.int32, W * sc.blocks),
+        *((("stamps", stamps, torch.int64, (last - first) * WAVE_STAMPS),)
+          if stamps is not None else ()),
     ):
         if t.dtype != dtype or t.shape != (n,) or not t.is_contiguous() or t.device != run.device:
-            raise ValueError(f"place_wave_cuda: {name} must be a contiguous {dtype}[{n}] on {run.device}")
-    if sc.tgt.numel() < f or sc.cnt.numel() < nb * W:
-        raise ValueError(f"place_wave_cuda: scratch too small for a wave of {f} tasks")
-    block = max((f + fleet.w_run - 1) // fleet.w_run, 1)
-    lib = _build.load()
+            raise ValueError(f"place_waves_cuda: {name} must be a contiguous {dtype}[{n}] on {run.device}")
+    F = int(np.diff(run.packed.offsets).max(initial=0))
+    if sc.tgt.numel() < F or sc.wt.numel() < F or sc.sorted.numel() < F:
+        raise ValueError(f"place_waves_cuda: scratch too small for a wave of {F} tasks")
     P = _build.ptr
-    rc = lib.dtpu_place_wave(
+    rc = lib.dtpu_place_waves(
         P(wire.dur), P(wire.heavy), P(wire.heavy2), P(wire.xp), P(wire.xp2), P(wire.xa),
         P(run.assign), P(run.choices), P(run.load), P(run.spans),
-        P(fleet.inv_t), P(fleet.running), P(fleet.ovt0),
-        P(sc.order), P(sc.tl), P(sc.wave_load),
-        P(sc.tgt), P(sc.wt), P(sc.sorted), P(sc.cnt), P(sc.start), P(sc.tot),
-        W, offset, f, block, wave, int(fleet.uniform), WAVE_CHUNK,
+        P(fleet.inv_t), P(fleet.running), P(fleet.ovt0), P(run.wave_offsets),
+        P(sc.tl), P(sc.wave_load), P(sc.tgt), P(sc.wt), P(sc.sorted),
+        P(sc.cnt), P(sc.start), P(sc.tot),
+        None if stamps is None else P(stamps),
+        W, first, last, fleet.w_run, int(fleet.uniform), sc.blocks,
         fleet.ovt_c, fleet.inv_c,
         _build.stream_handle(run.device),
     )
-    _build.check(rc, "dtpu_place_wave")
-    place_wave_cuda.launches += 1
+    _build.check(rc, "dtpu_place_waves")
+    place_waves_cuda.launches += 1
 
 
-place_wave_cuda.launches = 0  # waves run through the kernel in this process
+place_waves_cuda.launches = 0  # cooperative launches in this process
+
+
+def place_wave_cuda(run: LeveledRun, wave: int) -> None:
+    """One wave through the kernel: a launch of the range ``[wave, wave+1)``."""
+    place_waves_cuda(run, wave, wave + 1)
+
+
+def place_waves(run: LeveledRun, first: int, last: int) -> None:
+    """Waves ``[first, last)`` on the run's device: the plain version a
+    wave at a time for CPU tensors, one kernel launch otherwise (which
+    raises off CUDA)."""
+    if run.device.type == "cpu":
+        for wave in range(first, last):
+            place_wave_reference(run, wave)
+    else:
+        place_waves_cuda(run, first, last)
 
 
 def place_wave(run: LeveledRun, wave: int) -> None:
-    """One wave on the run's device: the plain version for CPU tensors,
-    the hand kernel otherwise (which raises off CUDA)."""
-    if run.device.type == "cpu":
-        place_wave_reference(run, wave)
-    else:
-        place_wave_cuda(run, wave)
+    """One wave on the run's device, as :func:`place_waves`."""
+    place_waves(run, wave, wave + 1)
 
 
 def place_graph_leveled(
@@ -584,8 +629,8 @@ def place_graph_leveled(
     running,
     device=None,
 ) -> LeveledResult:
-    """Place the whole graph: one upload, one launch sequence per wave,
-    one download of the packed (assignment, choice) codes.
+    """Place the whole graph: one upload, one launch for all waves, one
+    download of the packed (assignment, choice) codes.
 
     ``device=None`` means CUDA.  To run the plain wave on the card (how
     the kernel is checked there), drive a :class:`LeveledRun` with

@@ -18,18 +18,10 @@ from distributed_tpu_torch.ops import flash, leveled
 
 pytestmark = pytest.mark.cuda
 
-# O per element: |o - want| <= rtol * |want| + atol.  bf16/f16 outputs
-# round one f32 result to the input dtype, so they differ from the plain
-# version's by at most one unit in the last place (2**-7 resp. 2**-10 of
-# the value); f32 differs only by the order of the f32 sums.
-O_TOL = {torch.float32: (0.0, 1e-4), torch.float16: (2.0 ** -10, 1e-5),
-         torch.bfloat16: (2.0 ** -7, 1e-5)}
-
-
-def o_close(o, want, dtype):
-    rtol, atol = O_TOL[dtype]
-    d = (o.float() - want.float()).abs() - rtol * want.float().abs()
-    return d.max().item() <= atol
+def o_close(o, want, dtype, pv_term=0.0):
+    """flash.O_TOL per element, plus ``pv_term`` where P is rounded."""
+    assert o.dtype == want.dtype == dtype
+    return flash.o_excess(o, want, pv_term) <= 0.0
 
 
 @pytest.fixture
@@ -39,12 +31,19 @@ def cuda():
     return torch.device("cuda", torch.cuda.current_device())
 
 
+def _pv_term(q, k, v, causal, scale, lse):
+    u = flash.P_ROUNDOFF.get(q.dtype, 0.0)
+    return u * flash.pv_rounding_term(q, k, v, causal, scale, lse) if u else 0.0
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float16, torch.bfloat16],
                          ids=str)
 @pytest.mark.parametrize("dim", [64, 128])
 @pytest.mark.parametrize("n,nk", [(100, 100), (256, 512), (192, 64), (1024, 1024)])
 @pytest.mark.parametrize("causal", [False, True])
 def test_flash_kernel_matches_plain(cuda, dtype, dim, n, nk, causal):
+    """bf16/f16 run the tensor-core body (P rounded once before P.V), f32
+    the CUDA-core body; each within flash.O_TOL (+ u (P|V|)/l)."""
     g = torch.Generator(device=cuda).manual_seed(n * 7 + dim)
     q, k, v = (torch.randn(3, s, dim, generator=g, device=cuda).to(dtype)
                for s in (n, nk, nk))
@@ -54,8 +53,45 @@ def test_flash_kernel_matches_plain(cuda, dtype, dim, n, nk, causal):
     assert flash.flash_forward_cuda.launches == before + 1
     o_p, lse_p = flash.flash_forward_reference(q, k, v, causal, dim ** -0.5)
     assert o.dtype == dtype and lse.shape == (3, n, 1)
-    assert o_close(o, o_p, dtype)
+    assert o_close(o, o_p, dtype, _pv_term(q, k, v, causal, dim ** -0.5, lse_p))
     assert (lse - lse_p).abs().max().item() <= 1e-3
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float16, torch.bfloat16],
+                         ids=str)
+@pytest.mark.parametrize("dim", [64, 128])
+def test_flash_check_rejects_dropped_keys(cuda, dtype, dim):
+    """The O check must reject a kernel that leaves 64 keys out of P.V
+    (kept in l and lse), while passing the kernel itself."""
+    n, scale = 512, dim ** -0.5
+    g = torch.Generator(device=cuda).manual_seed(dim)
+    q, k, v = (torch.randn(2, n, dim, generator=g, device=cuda).to(dtype) for _ in range(3))
+    o, _ = flash.flash_forward_cuda(q, k, v, True, scale)
+    o_p, lse_p = flash.flash_forward_reference(q, k, v, True, scale)
+    pv = _pv_term(q, k, v, True, scale, lse_p)
+    assert flash.o_excess(o, o_p, pv) <= 0.0
+    lo, hi = n // 2, n // 2 + 64
+    s = (q.float() * scale) @ k[:, lo:hi].float().transpose(1, 2)
+    s = s.masked_fill(torch.arange(n, device=cuda)[:, None]
+                      < torch.arange(lo, hi, device=cuda)[None, :], float("-inf"))
+    fault = (o_p.float() - torch.exp(s - lse_p) @ v[:, lo:hi].float()).to(dtype)
+    assert flash.o_excess(fault, o_p, pv) > 0.0
+
+
+@pytest.mark.parametrize("dtype", [torch.float16, torch.bfloat16], ids=str)
+@pytest.mark.parametrize("dim", [64, 128])
+@pytest.mark.parametrize("causal", [False, True])
+def test_flash_ragged_heads_stay_apart(cuda, dtype, dim, causal):
+    """H=3, N=100: every tile is ragged.  Each head's O and lse must equal
+    that head run alone, so no tile reads or writes another head's rows."""
+    g = torch.Generator(device=cuda).manual_seed(5)
+    q, k, v = (torch.randn(3, 100, dim, generator=g, device=cuda).to(dtype) for _ in range(3))
+    o, lse = flash.flash_forward_cuda(q, k, v, causal, 0.1)
+    for h in range(3):
+        qh, kh, vh = (x[h:h + 1].contiguous() for x in (q, k, v))
+        o_h, lse_h = flash.flash_forward_cuda(qh, kh, vh, causal, 0.1)
+        torch.testing.assert_close(o[h:h + 1], o_h, rtol=0, atol=0)
+        torch.testing.assert_close(lse[h:h + 1], lse_h, rtol=0, atol=0)
 
 
 def test_flash_attention_entry_runs_kernel(cuda):
@@ -63,8 +99,10 @@ def test_flash_attention_entry_runs_kernel(cuda):
     before = flash.flash_forward_cuda.launches
     out = flash.flash_attention(q, q, q, causal=True)
     assert flash.flash_forward_cuda.launches == before + 1
-    want = flash.reference_attention(q.float(), q.float(), q.float(), causal=True)
-    assert o_close(out, want, torch.bfloat16)
+    qt = q.transpose(0, 1).contiguous()
+    want, lse = flash.flash_forward_reference(qt, qt, qt, True, 0.125)
+    assert o_close(out.transpose(0, 1), want, torch.bfloat16,
+                   _pv_term(qt, qt, qt, True, 0.125, lse))
 
 
 def _fleet(W, mixed):
@@ -76,26 +114,50 @@ def _fleet(W, mixed):
     return np.full(W, 2, np.int32), occ, running
 
 
-@pytest.mark.parametrize("W,mixed", [(512, False), (512, True), (4096, True), (37, False)])
+@pytest.mark.parametrize("W", [37, 512, 4096, 8192])
+@pytest.mark.parametrize("mixed", [False, True])
 def test_wave_kernel_matches_plain(cuda, W, mixed):
-    """The kernel sums per worker in task order, as index_add_ does on the
-    CPU: it must reproduce the plain version there bit for bit."""
+    """One launch for the whole graph: it sums per worker in task order,
+    as index_add_ does on the CPU, so it must reproduce the plain version
+    there bit for bit, equal the one-wave-a-launch entry, and repeat."""
     durations, out_bytes, src, dst = graphs.random_dag(50000, seed=3)
     packed = leveled.pack_graph(durations, out_bytes, src, dst)
     fleet = _fleet(W, mixed)
-    before = leveled.place_wave_cuda.launches
+    before = leveled.place_waves_cuda.launches
     got = leveled.place_graph_leveled(packed, *fleet, device=cuda)
-    assert leveled.place_wave_cuda.launches == before + packed.n_levels
+    assert leveled.place_waves_cuda.launches == before + 1  # one launch, all waves
     leveled.validate_leveled(packed, got, src, dst, fleet[2])
     want = leveled.place_graph_leveled(packed, *fleet, device="cpu")
-    for field in ("assignment", "choice", "occupancy", "start_time"):
-        np.testing.assert_array_equal(getattr(got, field), getattr(want, field))
+    run = leveled.LeveledRun(packed, *fleet, device=cuda)
+    run.run_waves(leveled.place_wave_cuda)
+    per_wave = run.download()
+    run.reset()
+    run.run_waves()
+    again = run.download()
+    for other in (want, per_wave, again):
+        for field in ("assignment", "choice", "occupancy", "start_time"):
+            np.testing.assert_array_equal(getattr(got, field), getattr(other, field))
+
+
+def test_wave_kernel_timeline(cuda):
+    """``stamps`` records the device clock at each wave's start and after
+    each of its 8 barriers, in order, and leaves the placement alone."""
+    packed = leveled.pack_graph(*graphs.random_dag(20000, seed=4))
+    fleet = _fleet(64, True)
+    run = leveled.LeveledRun(packed, *fleet, device=cuda)
+    L = packed.n_levels
+    stamps = torch.zeros(L * leveled.WAVE_STAMPS, dtype=torch.int64, device=cuda)
+    leveled.place_waves_cuda(run, 0, L, stamps=stamps)
+    got = run.download()
+    assert (stamps.diff() >= 0).all() and (stamps > 0).all()
+    want = leveled.place_graph_leveled(packed, *fleet, device="cpu")
+    np.testing.assert_array_equal(got.assignment, want.assignment)
 
 
 def test_wave_kernel_sums_in_task_order(cuda):
     """One wide wave whose tasks all land on few workers, with durations
     whose sum depends on the order of the adds."""
-    n = 3 * leveled.WAVE_CHUNK + 5
+    n = 6149  # several bucketing chunks of a 132-block grid
     rng = np.random.default_rng(0)
     durations = (rng.uniform(0, 1, n) * 10.0 ** rng.integers(-3, 4, n)).astype(np.float32)
     out_bytes = np.zeros(n, np.float32)

@@ -95,3 +95,74 @@ def test_forward_dispatch_is_by_device():
     assert tf.flash_forward_cuda.launches == before
     with pytest.raises(RuntimeError, match="CUDA"):
         tf.flash_forward_cuda(qt, qt, qt, False, 0.125)
+
+
+# ragged against the kernel's 128-row tiles; KV longer than Q in half
+RAGGED = [(100, 100, 128), (100, 200, 100), (192, 192, 64), (192, 384, 64),
+          (320, 320, 64), (320, 640, 64)]
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("n,nk,block", RAGGED)
+def test_plain_matches_reference_at_ragged_shapes(n, nk, block, d, causal):
+    q, k, v = _qkv(n=n, nk=nk, h=1, d=d, seed=n + nk + d)
+    want = jf.flash_attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                              causal=causal, block_q=min(block, n), block_k=block)
+    got = tf.flash_attention(q, k, v, causal=causal, block_q=min(block, n),
+                             block_k=block, device="cpu")
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+
+
+def _rounded_p_forward(qt, kt, vt, causal, scale):
+    """Emulates the tensor-core body's numerics in f32: P rounded once to
+    the input type before P.V, l from the unrounded P, O rounded once."""
+    s = (qt.float() * scale) @ kt.float().transpose(-1, -2)
+    if causal:
+        n, nk = qt.shape[1], kt.shape[1]
+        s = torch.where(torch.arange(n)[:, None] >= torch.arange(nk)[None, :], s, -1e30)
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.exp(s - m)
+    l = p.sum(dim=-1, keepdim=True).clamp_min(1e-30)
+    o = (p.to(qt.dtype).float() @ vt.float()) / l
+    return o.to(qt.dtype)
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16], ids=str)
+def test_rounded_p_tolerance_passes_rounding_and_rejects_fault(dtype, d, causal):
+    """|o - o_plain| <= rtol|o_plain| + u (P|V|)/l + atol holds for a kernel
+    that rounds P to the input type, and a 64-key hole in P.V breaks it."""
+    rng = np.random.default_rng(d)
+    qt, kt, vt = (torch.from_numpy(rng.standard_normal((2, 256, d)).astype(np.float32)).to(dtype)
+                  for _ in range(3))
+    scale = d ** -0.5
+    o_p, lse_p = tf.flash_forward_reference(qt, kt, vt, causal, scale)
+    pv = tf.P_ROUNDOFF[dtype] * tf.pv_rounding_term(qt, kt, vt, causal, scale, lse_p)
+    o_k = _rounded_p_forward(qt, kt, vt, causal, scale)
+    assert not torch.equal(o_k, o_p)  # the rounding of P is visible
+    assert tf.o_excess(o_k, o_p, pv) <= 0.0
+    lo, hi = 128, 192
+    s = (qt.float() * scale) @ kt[:, lo:hi].float().transpose(1, 2)
+    if causal:
+        s = s.masked_fill(torch.arange(256)[:, None] < torch.arange(lo, hi)[None, :],
+                          float("-inf"))
+    fault = (o_p.float() - torch.exp(s - lse_p) @ vt[:, lo:hi].float()).to(dtype)
+    assert tf.o_excess(fault, o_p, pv) > 0.0
+
+
+def test_pv_rounding_term_is_p_times_abs_v():
+    q, k, v = (torch.from_numpy(x.transpose(1, 0, 2).copy()) for x in _qkv(n=64, h=2, d=8))
+    _, lse = tf.flash_forward_reference(q, k, v, True, 0.3)
+    p = torch.softmax(torch.where(torch.ones(64, 64).tril().bool(),
+                                  (q * 0.3) @ k.transpose(1, 2), -1e30), dim=-1)
+    torch.testing.assert_close(tf.pv_rounding_term(q, k, v, True, 0.3, lse), p @ v.abs(),
+                               rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16], ids=str)
+def test_tensor_core_wrapper_raises_on_cpu_tensors(dtype):
+    qt = torch.zeros(1, 128, 128, dtype=dtype)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        tf.flash_forward_cuda(qt, qt, qt, True, 0.1)

@@ -154,9 +154,9 @@ def test_every_row_written_exactly_once():
 def test_wave_dispatch_is_by_device():
     packed = tl.pack_graph(*_chain(8))
     run = tl.LeveledRun(packed, *_fleet(2), device="cpu")
-    before = tl.place_wave_cuda.launches
+    before = tl.place_waves_cuda.launches
     tl.place_wave(run, 0)
-    assert tl.place_wave_cuda.launches == before  # CPU: the plain version
+    assert tl.place_waves_cuda.launches == before  # CPU: the plain version
     assert run.assign[0] >= 0
     with pytest.raises(RuntimeError, match="CUDA"):
         tl.place_wave_cuda(run, 1)
@@ -228,11 +228,12 @@ def test_convert_checks_fields():
 def test_kernel_scratch_fits_the_widest_wave():
     packed = tl.pack_graph(*_wide())
     run = tl.LeveledRun(packed, *_fleet(8), device="cpu")
-    sc = run.kernel_scratch()
+    sc = run.kernel_scratch(132)
     widest = int(np.diff(packed.offsets).max())
     assert sc.tgt.numel() == sc.wt.numel() == sc.sorted.numel() == widest
-    assert sc.cnt.numel() == -(-widest // tl.WAVE_CHUNK) * 8
-    assert run.kernel_scratch() is sc
+    assert sc.cnt.numel() == 132 * 8  # one count per (worker, block)
+    assert run.kernel_scratch(132) is sc
+    assert run.kernel_scratch(66).cnt.numel() == 66 * 8
 
 
 def test_codes_round_trip():
@@ -243,3 +244,53 @@ def test_codes_round_trip():
     res = run.download()
     sorted_assign = run.assign.numpy()
     np.testing.assert_array_equal(res.assignment[packed.perm], sorted_assign)
+
+
+# ------------------------------------------------------ whole-graph entry
+
+
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_whole_graph_entry_equals_per_wave_path(case):
+    """``run_waves()`` (one ``place_waves`` call for all waves) against one
+    ``place_wave`` call a wave: bit for bit on the CPU."""
+    make_graph, make_fleet = CASES[case]
+    durations, out_bytes, src, dst = make_graph()
+    packed = tl.pack_graph(durations, out_bytes, src, dst, bandwidth=BW)
+    fleet = make_fleet()
+    whole = tl.LeveledRun(packed, *fleet, device="cpu")
+    whole.run_waves()
+    per_wave = tl.LeveledRun(packed, *fleet, device="cpu")
+    per_wave.run_waves(tl.place_wave)
+    for field in ("assign", "choices", "load", "spans"):
+        assert torch.equal(getattr(whole, field), getattr(per_wave, field)), field
+
+
+@pytest.mark.parametrize("name", sorted(PACK_GRAPHS))
+def test_wave_offsets_table_equals_packed_offsets(name):
+    packed = tl.pack_graph(*PACK_GRAPHS[name]())
+    run = tl.LeveledRun(packed, *_fleet(4), device="cpu")
+    assert run.wave_offsets.dtype == torch.int32
+    assert run.wave_offsets.shape == (packed.n_levels + 1,)
+    np.testing.assert_array_equal(run.wave_offsets.numpy(), packed.offsets)
+
+
+def test_place_waves_runs_a_range():
+    """Waves [0, k) then [k, L) equal all waves at once."""
+    packed = tl.pack_graph(*_random(2000, 6))
+    split = tl.LeveledRun(packed, *_mixed_fleet(8, 2), device="cpu")
+    k = packed.n_levels // 2
+    tl.place_waves(split, 0, k)
+    tl.place_waves(split, k, packed.n_levels)
+    whole = tl.LeveledRun(packed, *_mixed_fleet(8, 2), device="cpu")
+    whole.run_waves()
+    assert torch.equal(split.assign, whole.assign)
+    assert torch.equal(split.load, whole.load)
+
+
+def test_place_waves_cuda_raises_on_cpu_tensors():
+    packed = tl.pack_graph(*_chain(8))
+    run = tl.LeveledRun(packed, *_fleet(2), device="cpu")
+    before = tl.place_waves_cuda.launches
+    with pytest.raises(RuntimeError, match="CUDA"):
+        tl.place_waves_cuda(run, 0, packed.n_levels)
+    assert tl.place_waves_cuda.launches == before
