@@ -11,7 +11,9 @@ and prints no result):
 
 0. environment: torch/CUDA versions, the card, its power limit, nvcc,
    whether triton imports;
-1. build: both hand-written kernels from ``distributed_tpu_torch/ops/csrc``;
+1. build: both hand-written kernels from ``distributed_tpu_torch/ops/csrc``
+   (nvcc) and the host pack ``distributed_tpu_torch/native/graphpack.cpp``
+   (g++), at once;
 2. flash attention forward (kernel K2) at seq 8192, 16 heads, head dim
    128 in bf16, causal and not (the tensor-core body), plus f32 at seq
    1024 / head dim 64 (the CUDA-core body), against the plain version on
@@ -21,7 +23,16 @@ and prints no result):
    ``pack_graph`` and ``place_graph_leveled`` on the card (one launch for
    all waves of a graph), validated, equal bit for bit to the plain
    version on the CPU, and held against the same driver running the
-   plain wave on the card.
+   plain wave on the card;
+4. streamed placement: the same graph and fleets through
+   ``place_graph_streamed`` as the scheduler's plan path calls it (C++
+   pack, chunked pinned uploads of the 11 B/task packed wire, a kernel
+   launch per chunk that completes a wave, segmented download, C unpack)
+   and the plan's hints; equal bit for bit to the same driver on the CPU,
+   ``compact=False`` equal to phase 3's one-shot result, the packed wire
+   within the reference's quality gate of the f16 wire; the C++ and numpy
+   packs, and the placement wall of both wire formats beside the 250 ms
+   north star.
 
 The last three lines are the card's ``nvidia-smi`` name and power limit,
 one JSON object listing the kernels with their launches, errors and
@@ -30,6 +41,7 @@ times, and ``{"ok": true, "device": {...}}``.
 
 from __future__ import annotations
 
+import concurrent.futures
 import contextlib
 import json
 import statistics
@@ -114,11 +126,17 @@ def phase_env():
 
 
 def phase_build():
+    from distributed_tpu_torch import native
     from distributed_tpu_torch.ops import _build
 
     t0 = time.perf_counter()
-    _build.load()
-    print(f"build_s {time.perf_counter() - t0:.2f} ({_build.build_info['path']})")
+    # g++ builds the host pack while nvcc builds the kernels
+    with concurrent.futures.ThreadPoolExecutor(1) as pool:
+        host = pool.submit(native.load)
+        _build.load()
+        host.result()
+    print(f"build_s {time.perf_counter() - t0:.2f} ({_build.build_info['path']}, "
+          f"{native.library_path()})")
     for ln in _build.build_info["log"].splitlines():
         if "registers" in ln or "spill" in ln or ln.startswith("=="):
             print("  ptxas", ln.strip())
@@ -313,14 +331,14 @@ def _lockstep(run, leveled):
     return min_agree, max_err, flips
 
 
-def _k1_bound_ms(packed, W):
+def _k1_bound_ms(packed, W, wire_bytes=16):
     """Least time for the whole graph's waves: each input read once (the
-    16 B/task wire, the fleet tables), each output written once (i32
-    assign and choice per task, the load, the spans); about 40 f32
-    operations a task (two rounds of three costs, two argmins, two sums)
-    plus a W log W sort of the workers per wave."""
+    wire, 16 B/task f16 or 11 B/task packed, the fleet tables), each
+    output written once (i32 assign and choice per task, the load, the
+    spans); about 40 f32 operations a task (two rounds of three costs,
+    two argmins, two sums) plus a W log W sort of the workers per wave."""
     T, L = packed.n, packed.n_levels
-    nbytes = 16 * T + 8 * T + 13 * W + 4 * W + 4 * L
+    nbytes = wire_bytes * T + 8 * T + 13 * W + 4 * W + 4 * L
     flops = 40 * T + L * W * max(W.bit_length() - 1, 1)
     t_bytes = nbytes / PEAK_BYTES_S * 1e3
     t_ops = flops / PEAK_FLOPS[torch.float32] * 1e3
@@ -450,7 +468,186 @@ def phase_placement():
             }
         entry["cases"][name] = case
         entry["max_abs_err"] = max(entry["max_abs_err"], err)
-    return entry
+    return entry, results
+
+
+# ------------------------------------------------------------ phase 4
+
+
+NORTH_STAR_MS = 250.0        # the placement wall at 1M tasks / 512 workers
+BANDWIDTH, LATENCY = 100e6, 0.001  # pack_graph's defaults, as phase 3 packs
+STREAM_REPS = 3
+# the reference's gate for its packed wire against the f16 wire
+# (tests/test_leveled_streamed.py:116-122)
+PACKED_RTOL, PACKED_ATOL, PACKED_MIN_AGREEMENT = 1.15, 0.05, 0.5
+
+
+def _streamed_launches(offsets, chunk_rows, T):
+    """Launches of the streamed driver: the chunks after which at least
+    one more wave's last row has landed."""
+    C = min(chunk_rows, T)
+    return len(set(((offsets[1:].astype(np.int64) + C - 1) // C).tolist()))
+
+
+def _result_quality(res, running):
+    occ = res.occupancy[running]
+    return dict(imbalance=float(occ.max() / occ.mean()), makespan=float(res.spans.sum()),
+                share=np.bincount(res.choice, minlength=3) / len(res.choice))
+
+
+def _median(runs, key):
+    return statistics.median(r[key] for r in runs)
+
+
+def phase_streamed(entry, oneshot):
+    """Phase 4: the scheduler's placement path, ``place_graph_streamed`` as
+    the leveled branch of ``_plan_from_arrays`` calls it (the packed wire
+    on the card), then the plan's hints (``scheduler/plan.py``)."""
+    import inspect
+
+    from distributed_tpu_torch import graphs
+    from distributed_tpu_torch.ops import leveled
+    from distributed_tpu_torch.scheduler import plan
+
+    card = smi_line()
+    graph = graphs.random_dag(N_TASKS, seed=0)
+    src, dst = graph[2], graph[3]
+    fleets = _fleets()
+    keys = [f"task-{i}" for i in range(N_TASKS)]
+    addrs = [f"tcp://10.1.{w // 256}.{w % 256}:8788" for w in range(N_WORKERS)]
+    chunk_rows = inspect.signature(leveled.place_graph_streamed).parameters["chunk_rows"].default
+
+    # the main path, as the scheduler plans a batch
+    leveled.place_waves_cuda.launches = 0
+    main, hints, hints_ms = {}, {}, {}
+    for name, fleet in fleets.items():
+        tm = {}
+        packed, res = leveled.place_graph_streamed(
+            *graph, *fleet, bandwidth=BANDWIDTH, latency=LATENCY, timings=tm)
+        t0 = time.perf_counter()
+        hints[name] = plan.hints_from_placement(keys, packed, res, addrs)
+        hints_ms[name] = (time.perf_counter() - t0) * 1e3
+        main[name] = (packed, res, tm)
+    torch.cuda.synchronize()
+    launches = leveled.place_waves_cuda.launches
+    want = sum(_streamed_launches(p.offsets, chunk_rows, N_TASKS) for p, _, _ in main.values())
+    check(launches == want, f"streamed wave launches {launches} != chunks completing a wave {want}")
+    print(f"[{card}] streamed main path: wave kernel launches {launches} (one per chunk "
+          f"that completed a wave, chunks of {chunk_rows} rows)")
+
+    report = {}
+    for name, fleet in fleets.items():
+        packed, res, tm = main[name]
+        running = fleet[2]
+        check(tm["fmt"] == "packed", f"{name}: streamed fmt {tm['fmt']} on the card")
+        check("fallback" not in tm, f"{name}: the streamed driver fell back")
+        check(tm["launches"] == _streamed_launches(packed.offsets, chunk_rows, N_TASKS),
+              f"{name}: {tm['launches']} launches")
+        leveled.validate_leveled(packed, res, src, dst, running)
+        check(np.isfinite(res.start_time).all() and np.isfinite(res.occupancy).all(),
+              f"{name}: non-finite result")
+        h = hints[name]
+        check(len(h) == N_TASKS and set(a for _, a in h.values()) <= set(addrs),
+              f"{name}: {len(h)} hints")
+        check(sum(f is not None for f, _ in h.values()) == int((res.choice < 2).sum()),
+              f"{name}: follow hints differ from the locality choices")
+
+        # the packed run on the card against the same driver on the CPU
+        t0 = time.perf_counter()
+        _, res_cpu = leveled.place_graph_streamed(
+            *graph, *fleet, bandwidth=BANDWIDTH, latency=LATENCY, compact=True, device="cpu")
+        cpu_s = time.perf_counter() - t0
+        err = max(float(np.abs(res.occupancy - res_cpu.occupancy).max()),
+                  float(np.abs(res.start_time - res_cpu.start_time).max()))
+        check(_same(res, res_cpu), f"{name}: packed streamed run differs from the CPU run")
+        # compact=False on the card against phase 3's one-shot result
+        _, exact = leveled.place_graph_streamed(
+            *graph, *fleet, bandwidth=BANDWIDTH, latency=LATENCY, compact=False)
+        check(_same(exact, oneshot[name]), f"{name}: compact=False differs from the one-shot driver")
+        q_p, q_e = _result_quality(res, running), _result_quality(exact, running)
+        d_imb = abs(q_p["imbalance"] - q_e["imbalance"]) / q_e["imbalance"]
+        d_mk = abs(q_p["makespan"] - q_e["makespan"]) / q_e["makespan"]
+        d_share = float(np.abs(q_p["share"] - q_e["share"]).max())
+        agreement = float((res.assignment == exact.assignment).mean())
+        print(f"[{card}] streamed {name}: packed == CPU plain run ({cpu_s:.1f} s); "
+              f"compact=False == one-shot; packed vs f16 wire: imbalance "
+              f"{q_p['imbalance']:.6f} / {q_e['imbalance']:.6f}, makespan {q_p['makespan']:.4f} / "
+              f"{q_e['makespan']:.4f}, share {q_p['share'].round(5).tolist()} / "
+              f"{q_e['share'].round(5).tolist()}, agreement {agreement:.6f}")
+        # the packed wire's quantized costs change the plan: held to the
+        # reference's own gate for that wire (imbalance, and here makespan,
+        # within 15 % + 0.05, over half the assignments equal) and phase
+        # 3's choice-share gate.  Phase 3's 1 % on imbalance and makespan
+        # does not hold on the non-uniform fleet, for the reference's
+        # packed wire either (PERF.md, port slice 3).
+        print(f"[{card}] streamed {name}: packed vs f16 wire: imbalance off by {d_imb:.5f}, "
+              f"makespan by {d_mk:.5f}, choice share by {d_share:.5f}")
+        check(q_p["imbalance"] < q_e["imbalance"] * PACKED_RTOL + PACKED_ATOL,
+              f"{name}: packed imbalance {q_p['imbalance']} against {q_e['imbalance']}")
+        check(q_p["makespan"] < q_e["makespan"] * PACKED_RTOL + PACKED_ATOL,
+              f"{name}: packed makespan {q_p['makespan']} against {q_e['makespan']}")
+        check(agreement > PACKED_MIN_AGREEMENT, f"{name}: packed agreement {agreement}")
+        check(d_share <= QUALITY_CHOICE_PP, f"{name}: packed choice share off by {d_share}")
+
+        # the host pack: C++ against numpy, in this call
+        cpp_ms = []
+        for _ in range(STREAM_REPS):
+            t0 = time.perf_counter()
+            leveled.pack_graph(*graph, bandwidth=BANDWIDTH, latency=LATENCY)
+            cpp_ms.append((time.perf_counter() - t0) * 1e3)
+        t0 = time.perf_counter()
+        leveled.pack_graph_numpy(*graph, bandwidth=BANDWIDTH, latency=LATENCY)
+        numpy_ms = (time.perf_counter() - t0) * 1e3
+
+        # the placement wall of both wire formats, after the main path's run
+        walls = {}
+        for fmt, compact in (("packed", "auto"), ("f16", False)):
+            runs = []
+            for _ in range(STREAM_REPS):
+                tm_r = {}
+                leveled.place_graph_streamed(*graph, *fleet, bandwidth=BANDWIDTH,
+                                             latency=LATENCY, compact=compact, timings=tm_r)
+                check(tm_r["fmt"] == fmt, f"{name}: fmt {tm_r['fmt']} != {fmt}")
+                runs.append(tm_r)
+            walls[fmt] = w = {k: _median(runs, k) for k in (
+                "total_s", "topo_s", "fill_wait_s", "encode_s", "upload_ms", "waves_ms",
+                "wait_s", "finalize_s")}
+            walls[fmt]["total_s_runs"] = [r["total_s"] for r in runs]
+            print(f"[{card}] streamed {name} fmt {fmt} (median of {STREAM_REPS}): "
+                  f"total_ms {w['total_s'] * 1e3:.2f} topo_ms {w['topo_s'] * 1e3:.2f} "
+                  f"fill_wait_ms {w['fill_wait_s'] * 1e3:.2f} encode_ms {w['encode_s'] * 1e3:.2f} "
+                  f"upload_ms {w['upload_ms']:.3f} waves_ms {w['waves_ms']:.3f} "
+                  f"final_segment_wait_ms {w['wait_s'] * 1e3:.3f} "
+                  f"finalize_ms {w['finalize_s'] * 1e3:.2f}: a wall of {w['total_s'] * 1e3:.2f} ms "
+                  f"against the {NORTH_STAR_MS:.0f} ms north star")
+        print(f"[{card}] streamed {name}: pack_ms C++ {statistics.median(cpp_ms):.2f} "
+              f"(runs {[round(x, 2) for x in cpp_ms]}) numpy {numpy_ms:.1f}; main-path run "
+              f"total_ms {tm['total_s'] * 1e3:.2f}; hints_ms {hints_ms[name]:.1f}")
+
+        # K1 on the packed wire: the kernel against its plain version
+        run = leveled.LeveledRun(packed, *fleet, fmt="packed")
+
+        def waves(fn=None):
+            run.reset()
+            run.run_waves(fn)
+
+        ms = cuda_ms(waves)
+        plain_ms = cuda_ms(lambda: waves(leveled.place_wave_reference), reps=3, warmup=1)
+        bound_ms, bound_by = _k1_bound_ms(packed, N_WORKERS, wire_bytes=11)
+        print(f"[{card}] place_wave {name}_packed: launches {tm['launches']} max_abs_err {err:.3g} "
+              f"kernel_ms {ms:.4f} plain_ms {plain_ms:.4f} bound_ms {bound_ms:.4f} ({bound_by})")
+        entry["cases"][f"{name}_packed"] = dict(
+            launches=tm["launches"], max_abs_err=err, ms=ms, plain_ms=plain_ms,
+            bound_ms=bound_ms, bound_by=bound_by)
+        entry["max_abs_err"] = max(entry["max_abs_err"], err)
+        report[name] = dict(pack_ms_cpp=statistics.median(cpp_ms), pack_ms_numpy=numpy_ms,
+                            main_total_ms=tm["total_s"] * 1e3, hints_ms=hints_ms[name],
+                            walls=walls, agreement_packed_f16=agreement, cpu_s=cpu_s)
+        del run
+        torch.cuda.empty_cache()
+    entry["launches"] += launches
+    entry["launches_streamed"] = launches
+    print(json.dumps({"streamed": report, "card": card}))
 
 
 def main() -> int:
@@ -468,7 +665,10 @@ def main() -> int:
     t0 = time.perf_counter()
     phase_env()
     phase_build()
-    kernels = [phase_flash(), phase_placement()]
+    flash_entry = phase_flash()
+    wave_entry, oneshot = phase_placement()
+    phase_streamed(wave_entry, oneshot)
+    kernels = [flash_entry, wave_entry]
     print(f"total_s {time.perf_counter() - t0:.1f}")
     print(smi_line())
     print(json.dumps({"kernels": kernels}))

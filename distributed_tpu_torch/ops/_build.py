@@ -37,6 +37,7 @@ _f = ctypes.c_float
 SIGNATURES = {
     "dtpu_place_waves": (
         _vp, _vp, _vp, _vp, _vp, _vp,   # dur16 heavy heavy2 xp16 xp2_16 xa16
+        _vp,                            # cost_table: null = f16 wire, else the packed wire's
         _vp, _vp, _vp, _vp,             # assign choices load spans
         _vp, _vp, _vp, _vp,             # inv_t running ovt0 offsets
         _vp, _vp, _vp, _vp, _vp,        # tl wave_load tgt wt sorted (scratch)

@@ -18,8 +18,18 @@
 //      its work summed per worker;
 //   4. load += wave load, and the wave's span max(wave_load / threads).
 //
-// Bound on an H100: bytes.  A task reads its 16 B of wire and writes 8 B;
-// at 1M tasks that is about 24 MB, ~7 us at 3.35 TB/s, while the
+// The wire comes in the reference's two formats (its _place_run fmt):
+// "f16", 16 B/task (i32 heavy pair, f16 duration and three f16 transfer
+// costs), and "packed", 11 B/task (leveled.py:379-393): the heavy pair
+// bit-packed into an i32 (heavy+1 in the low 21 bits, the low 11 bits of
+// heavy2+1 above) and a u16 (the high 10 bits of heavy2+1), the duration
+// in f16 and the three costs as u8 log codes.  load_task is the one place
+// that reads the wire; it decodes the codes through a 256-entry f32 table
+// that the host computes once and the plain version reads too, so the
+// kernel still equals the plain version on the CPU bit for bit.
+//
+// Bound on an H100: bytes.  A task reads its 16 B (or 11 B) of wire and
+// writes 8 B; at 1M tasks that is about 24 MB, ~7 us at 3.35 TB/s, while the
 // arithmetic is a few dozen flops a task.  But the waves form a chain:
 // each needs the load the previous one left, and inside a wave the sums
 // of step 2 feed step 3.  A launch per step (12 a wave) made the chain
@@ -86,11 +96,16 @@ struct Task {
 
 struct WavesArgs {
   const __half* dur16;
-  const int* heavy;
-  const int* heavy2;
-  const __half* xp16;
+  const int* heavy;        // f16 wire: the heaviest dep; packed: the pair's low word
+  const int* heavy2;       // f16 wire only
+  const uint16_t* heavy2_hi;  // packed wire only: the pair's high bits
+  const __half* xp16;      // f16 wire only, as the next two
   const __half* xp2_16;
   const __half* xa16;
+  const uint8_t* xp8;      // packed wire only: u8 log codes, as the next two
+  const uint8_t* xp2_8;
+  const uint8_t* xa8;
+  const float* cost_table;  // packed wire: f32[256] decode of the codes; null: f16 wire
   int* assign;
   int* choices;
   float* load;
@@ -119,11 +134,22 @@ __device__ __forceinline__ Task load_task(const WavesArgs& a, const int* s_order
   const int g = offset + i;
   Task t;
   t.dur = __half2float(a.dur16[g]);
-  t.xp = __half2float(a.xp16[g]);
-  t.xp2 = __half2float(a.xp2_16[g]);
-  t.xa = __half2float(a.xa16[g]);
-  const int h = a.heavy[g];
-  const int h2 = a.heavy2[g];
+  int h, h2;
+  if (a.cost_table == nullptr) {
+    t.xp = __half2float(a.xp16[g]);
+    t.xp2 = __half2float(a.xp2_16[g]);
+    t.xa = __half2float(a.xa16[g]);
+    h = a.heavy[g];
+    h2 = a.heavy2[g];
+  } else {
+    const unsigned v = static_cast<unsigned>(a.heavy[g]);
+    const unsigned hi = a.heavy2_hi[g];
+    h = static_cast<int>(v & 0x1FFFFFu) - 1;
+    h2 = static_cast<int>(((v >> 21) & 0x7FFu) | (hi << 11)) - 1;
+    t.xp = __ldg(a.cost_table + a.xp8[g]);
+    t.xp2 = __ldg(a.cost_table + a.xp2_8[g]);
+    t.xa = __ldg(a.cost_table + a.xa8[g]);
+  }
   // heavy deps sit in earlier levels: their assignment is final
   const int pref = h >= 0 ? __ldcg(a.assign + h) : -1;
   const int pref2 = h2 >= 0 ? __ldcg(a.assign + h2) : -1;
@@ -533,14 +559,19 @@ extern "C" int dtpu_place_waves_grid(int W, int uniform, int* blocks) {
 }
 
 // waves [first, last) of a graph in one cooperative launch of `blocks`
-// blocks (from dtpu_place_waves_grid).  W <= 8192 (a u64 and an i32 per
+// blocks (from dtpu_place_waves_grid).  The wire format: cost_table null
+// means the f16 wire (dur16 heavy heavy2 xp16 xp2_16 xa16 as named);
+// otherwise the packed wire, read as dur16, the pair's i32 low word in
+// heavy, its u16 high bits in heavy2, u8 codes in xp16/xp2_16/xa16, and
+// cost_table the f32[256] decode of the codes.  W <= 8192 (a u64 and an i32 per
 // worker in shared memory); offsets i32 [n_levels + 1] on the device; scratch:
 // tl/wave_load/start/tot [W], tgt/wt/sorted [widest wave], cnt [W * blocks];
 // stamps: null, or u64 [(last - first) * 9] for the phase timeline
 extern "C" int dtpu_place_waves(
     const void* dur16, const void* heavy, const void* heavy2, const void* xp16,
-    const void* xp2_16, const void* xa16, void* assign, void* choices, void* load,
-    void* spans, const void* inv_t, const void* running, const void* ovt0,
+    const void* xp2_16, const void* xa16, const void* cost_table, void* assign,
+    void* choices, void* load, void* spans, const void* inv_t, const void* running,
+    const void* ovt0,
     const void* offsets, void* tl, void* wave_load, void* tgt, void* wt, void* sorted,
     void* cnt, void* start, void* tot, void* stamps, int W, int first, int last,
     int w_run, int uniform, int blocks, float ovt_c, float inv_c, void* stream_ptr) {
@@ -552,10 +583,16 @@ extern "C" int dtpu_place_waves(
   WavesArgs a;
   a.dur16 = static_cast<const __half*>(dur16);
   a.heavy = static_cast<const int*>(heavy);
-  a.heavy2 = static_cast<const int*>(heavy2);
-  a.xp16 = static_cast<const __half*>(xp16);
-  a.xp2_16 = static_cast<const __half*>(xp2_16);
-  a.xa16 = static_cast<const __half*>(xa16);
+  a.cost_table = static_cast<const float*>(cost_table);
+  const bool packed = cost_table != nullptr;
+  a.heavy2 = packed ? nullptr : static_cast<const int*>(heavy2);
+  a.heavy2_hi = packed ? static_cast<const uint16_t*>(heavy2) : nullptr;
+  a.xp16 = packed ? nullptr : static_cast<const __half*>(xp16);
+  a.xp2_16 = packed ? nullptr : static_cast<const __half*>(xp2_16);
+  a.xa16 = packed ? nullptr : static_cast<const __half*>(xa16);
+  a.xp8 = packed ? static_cast<const uint8_t*>(xp16) : nullptr;
+  a.xp2_8 = packed ? static_cast<const uint8_t*>(xp2_16) : nullptr;
+  a.xa8 = packed ? static_cast<const uint8_t*>(xa16) : nullptr;
   a.assign = static_cast<int*>(assign);
   a.choices = static_cast<int*>(choices);
   a.load = static_cast<float*>(load);

@@ -175,3 +175,60 @@ def test_wave_kernel_rejects_too_many_workers(cuda):
     W = leveled.MAX_WORKERS_CUDA + 1
     with pytest.raises(ValueError, match="at most"):
         leveled.place_graph_leveled(packed, *_fleet(W, False), device=cuda)
+
+
+@pytest.mark.parametrize("W", [37, 512, 4096])
+@pytest.mark.parametrize("mixed", [False, True])
+def test_packed_wave_kernel_matches_plain(cuda, W, mixed):
+    """The packed wire (11 B/task): the kernel decodes the codes through
+    the same table as the plain version, so it must equal the plain
+    version on the CPU bit for bit."""
+    durations, out_bytes, src, dst = graphs.random_dag(50000, seed=5)
+    packed = leveled.pack_graph(durations, out_bytes, src, dst)
+    fleet = _fleet(W, mixed)
+    results = []
+    for device in (cuda, "cpu"):
+        run = leveled.LeveledRun(packed, *fleet, device=device, fmt="packed")
+        run.run_waves()
+        results.append(run.download())
+    got, want = results
+    leveled.validate_leveled(packed, got, src, dst, fleet[2])
+    for field in ("assignment", "choice", "occupancy", "start_time"):
+        np.testing.assert_array_equal(getattr(got, field), getattr(want, field))
+
+
+@pytest.mark.parametrize("mixed", [False, True])
+def test_streamed_exact_equals_oneshot_on_card(cuda, mixed):
+    """compact=False: chunked pinned uploads on a side stream, a launch per
+    chunk, segmented downloads; bit for bit the one-shot driver."""
+    graph = graphs.random_dag(60000, seed=6)
+    fleet = _fleet(64, mixed)
+    before = leveled.place_waves_cuda.launches
+    tm = {}
+    packed, got = leveled.place_graph_streamed(
+        *graph, *fleet, compact=False, chunk_rows=8000, min_stream=1, timings=tm,
+        device=cuda)
+    assert tm["fmt"] == "f16" and tm["launches"] >= 2
+    assert leveled.place_waves_cuda.launches == before + tm["launches"]
+    want = leveled.place_graph_leveled(leveled.pack_graph(*graph), *fleet, device=cuda)
+    for field in ("assignment", "choice", "occupancy", "start_time"):
+        np.testing.assert_array_equal(getattr(got, field), getattr(want, field))
+
+
+def test_streamed_reuses_pinned_buffers(cuda):
+    """Two packed streamed runs: the second reuses the first's pinned
+    staging and download buffers and equals it, and both equal the same
+    driver on the CPU (the plain wave on the packed wire)."""
+    graph = graphs.random_dag(60000, seed=7)
+    fleet = _fleet(64, True)
+    kw = dict(compact=True, chunk_rows=7000, min_stream=1)
+    _, first = leveled.place_graph_streamed(*graph, *fleet, device=cuda, **kw)
+    pinned = leveled.PINNED.allocated
+    tm = {}
+    _, second = leveled.place_graph_streamed(*graph, *fleet, device=cuda, timings=tm, **kw)
+    assert tm["fmt"] == "packed"
+    assert leveled.PINNED.allocated == pinned
+    _, cpu = leveled.place_graph_streamed(*graph, *fleet, device="cpu", **kw)
+    for want in (first, cpu):
+        for field in ("assignment", "choice", "occupancy", "start_time"):
+            np.testing.assert_array_equal(getattr(second, field), getattr(want, field))

@@ -15,8 +15,9 @@ import pytest
 import torch
 
 import distributed_tpu_torch
-from distributed_tpu_torch import graphs
+from distributed_tpu_torch import graphs, native
 from distributed_tpu_torch.ops import _build, flash, leveled
+from distributed_tpu_torch.scheduler import plan
 
 ROOT = Path(__file__).resolve().parents[1]
 PKG = ROOT / "distributed_tpu_torch"
@@ -85,8 +86,13 @@ def _entry_calls():
     packed = leveled.pack_graph(*graphs.random_dag(20, seed=0))
     fleet = (np.full(2, 1, np.int32), np.zeros(2, np.float32), np.ones(2, bool))
     q = np.zeros((8, 1, 64), np.float32)
+    graph = graphs.random_dag(20, seed=0)
     return {
         "place_graph_leveled": lambda: leveled.place_graph_leveled(packed, *fleet),
+        "place_graph_streamed": lambda: leveled.place_graph_streamed(
+            *graph, *fleet, min_stream=1),
+        "plan_from_arrays": lambda: plan.plan_from_arrays(
+            list(range(20)), *graph, *fleet, ["a", "b"], 100e6),
         "LeveledRun": lambda: leveled.LeveledRun(packed, *fleet),
         "flash_attention": lambda: flash.flash_attention(q, q, q),
         "resolve_device": lambda: distributed_tpu_torch.resolve_device(None),
@@ -153,3 +159,13 @@ def test_build_dir_is_ignored_by_git():
         cwd=ROOT, capture_output=True,
     )
     assert out.returncode == 0
+
+
+def test_host_library_is_the_ports_own():
+    """The port builds its own copy of graphpack.cpp with its own loader;
+    neither names the reference package's native directory."""
+    assert native.SOURCE.parent == PKG / "native"
+    for path in (native.SOURCE, PKG / "native" / "__init__.py"):
+        text = path.read_text()
+        for name in ("distributed_tpu/native", "distributed_tpu.native"):
+            assert name not in text, f"{path.name} names {name}"
