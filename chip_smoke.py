@@ -11,9 +11,9 @@ and prints no result):
 
 0. environment: torch/CUDA versions, the card, its power limit, nvcc,
    whether triton imports;
-1. build: both hand-written kernels from ``distributed_tpu_torch/ops/csrc``
-   (nvcc) and the host pack ``distributed_tpu_torch/native/graphpack.cpp``
-   (g++), at once;
+1. build: the three hand-written kernels from
+   ``distributed_tpu_torch/ops/csrc`` (nvcc, one process a source) and the
+   host pack ``distributed_tpu_torch/native/graphpack.cpp`` (g++), at once;
 2. flash attention forward (kernel K2) at seq 8192, 16 heads, head dim
    128 in bf16, causal and not (the tensor-core body), plus f32 at seq
    1024 / head dim 64 (the CUDA-core body), against the plain version on
@@ -32,7 +32,18 @@ and prints no result):
    ``compact=False`` equal to phase 3's one-shot result, the packed wire
    within the reference's quality gate of the f16 wire; the C++ and numpy
    packs, and the placement wall of both wire formats beside the 250 ms
-   north star.
+   north star;
+5. the scheduler's placement extension: ``TorchPlacement(sync=True)``'s
+   ``_plan_from_arrays``, the planner thread's whole job, on the
+   rechunk + tensordot proxy (G = 24: 14,976 tasks) and a 16,384-task
+   random DAG, which the router sends to the partitioner (kernel K4), and
+   a 32,768-task random DAG, which it sends to the leveled engine (K1),
+   on phase 3's two fleets (1,024 and 1,008 lanes); the hints equal the
+   same call on the CPU, K4's labels equal its plain version's on the CPU
+   bit for bit, and against the plain version on the card the plan costs
+   the same within 1 %; K4's time beside its bound, the plan's wall and
+   hints time; then the 1M-task uniform batch through the extension, whose
+   hints must equal phase 4's.
 
 The last three lines are the card's ``nvidia-smi`` name and power limit,
 one JSON object listing the kernels with their launches, errors and
@@ -648,6 +659,213 @@ def phase_streamed(entry, oneshot):
     entry["launches"] += launches
     entry["launches_streamed"] = launches
     print(json.dumps({"streamed": report, "card": card}))
+    return hints["uniform"]
+
+
+# ------------------------------------------------------------ phase 5
+
+
+PART_TASKS = 16_384          # the largest graph the router sends to K4 on 1024 lanes
+LEVELED_TASKS = 32_768       # bucket 32768 x 1008 or 1024 lanes > DENSE_LIMIT
+# K4 adds every score cell and lane load in the reference's order: it must
+# equal the plain version on the CPU bit for bit.  The plain version on the
+# card sums with CUDA's index_add_ (deterministic mode), in its own order,
+# so against it near-ties may move tasks; the plan must then cost about the
+# same: comm volume and the heaviest lane's load within 1 %.
+K4_RTOL = 0.01
+
+
+def _comm_volume(labels, src, dst):
+    """Unique (producer, consumer-lane) cross pairs: the peer fetches after
+    replica caching (tests/test_partition.py's measure)."""
+    cross = labels[src] != labels[dst]
+    return len(set(zip(src[cross].tolist(), labels[dst[cross]].tolist())))
+
+
+def _max_load(labels, durations, W):
+    return float(np.bincount(labels, weights=durations, minlength=W).max())
+
+
+def _k4_bound_ms(run):
+    """Least time for the rounds: each input read once (durations, initial
+    labels, the edges' two endpoints and weight), the labels written once;
+    and the operations these inputs need, not the dense [T, W] form: per
+    round an add a task for the loads, an add an edge in each direction
+    for the scores, and a compare a lane for the blocked flags and one for
+    the first unblocked lane (a task's best lane among those its edges do
+    not touch); for each task of the round's parity the bonus (a max and
+    an add) and its first maximum over the candidates: a compare for each
+    lane its edges touch, its own lane and its first unblocked lane that
+    no edge touches (at most one more than its edges)."""
+    T, E, W, R = run.T, run.E, run.W, run.iters
+    _, _, src, dst = run.host
+    deg = np.bincount(src, minlength=T) + np.bincount(dst, minlength=T)
+    row_ops = [int(2 * deg[p::2].sum()) + 4 * len(deg[p::2]) for p in (0, 1)]
+    nbytes = 3 * 4 * T + 3 * 4 * E
+    ops = R * (T + 2 * E + 2 * W) + sum(row_ops[it % 2] for it in range(R))
+    t_bytes = nbytes / PEAK_BYTES_S * 1e3
+    t_ops = ops / PEAK_FLOPS[torch.float32] * 1e3
+    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def phase_partition(wave_entry, hints_1m):
+    """Phase 5: the scheduler's placement extension, ``TorchPlacement``, as
+    its planner thread calls it (``_plan_from_arrays``): graphs the router
+    sends to the partitioner (kernel K4) and, past DENSE_LIMIT, to the
+    leveled engine (K1), whose launches here join ``wave_entry``'s."""
+    from distributed_tpu_torch import graphs
+    from distributed_tpu_torch.ops import leveled
+    from distributed_tpu_torch.ops import partition as part
+    from distributed_tpu_torch.scheduler import plan
+    from distributed_tpu_torch.scheduler.torch_placement import TorchPlacement
+
+    card = smi_line()
+    fleets = _fleets()
+    addrs = [f"tcp://10.1.{w // 256}.{w % 256}:8788" for w in range(N_WORKERS)]
+    _, *blockwise = graphs.blockwise_tensordot(24)
+    cases = {"blockwise24": tuple(blockwise),
+             "random16384": graphs.random_dag(PART_TASKS, seed=0),
+             "random32768": graphs.random_dag(LEVELED_TASKS, seed=0)}
+    routed = {"blockwise24": "partition", "random16384": "partition",
+              "random32768": "leveled"}
+    keys = {g: [f"{g}-{i}" for i in range(len(c[0]))] for g, c in cases.items()}
+    placement = TorchPlacement(sync=True)
+    check(placement.device.type == "cuda", f"TorchPlacement on {placement.device}")
+
+    def plan_args(g, fleet):
+        return (keys[g], *cases[g], *fleet, addrs, BANDWIDTH, LATENCY)
+
+    # the main path, as the planner thread plans each batch
+    part.partition_cuda.launches = 0
+    leveled.place_waves_cuda.launches = 0
+    main, walls = {}, {}
+    for g in cases:
+        for f, fleet in fleets.items():
+            t0 = time.perf_counter()
+            main[g, f] = placement._plan_from_arrays(*plan_args(g, fleet))
+            torch.cuda.synchronize()
+            walls[g, f] = (time.perf_counter() - t0) * 1e3
+    k4_launches = part.partition_cuda.launches
+    k1_launches = leveled.place_waves_cuda.launches
+    n_part = sum(routed[g] == "partition" for g, _ in main)
+    n_lev = len(main) - n_part
+    check(k4_launches == n_part * 2 * part.DEFAULT_ITERS,
+          f"K4 launches {k4_launches} != {n_part} partitions x {2 * part.DEFAULT_ITERS}")
+    # below min_stream the streamed driver packs and makes one launch
+    check(k1_launches == n_lev, f"K1 launches {k1_launches} != {n_lev} leveled plans")
+    check(placement.enabled, "the planner disabled itself")
+    wave_entry["launches"] += k1_launches
+    wave_entry["launches_extension"] = k1_launches
+    print(f"[{card}] placement extension main path: K4 launches {k4_launches} "
+          f"({n_part} partitions x {part.DEFAULT_ITERS} rounds x 2), K1 launches {k1_launches}")
+
+    cases_out, err_max = {}, 0.0
+    for (g, f), hints in main.items():
+        durations, out_bytes, src, dst = cases[g]
+        nthreads, occ, running = fleets[f]
+        T = len(durations)
+        lanes = [int(w) for w in np.flatnonzero(running)
+                 for _ in range(max(int(nthreads[w]), 1))]
+        W = len(lanes)
+        follows = sum(fk is not None for fk, _ in hints.values())
+        check(len(hints) == T and set(a for _, a in hints.values()) <= set(addrs),
+              f"{g} {f}: {len(hints)} hints")
+        want_route = "partition" if part._bucket(T) * W <= part.DENSE_LIMIT else "leveled"
+        check(want_route == routed[g], f"{g} {f}: routed {want_route}, expected {routed[g]}")
+        check((follows == 0) == (routed[g] == "partition"), f"{g} {f}: {follows} follow hints")
+        t0 = time.perf_counter()
+        cpu_hints = TorchPlacement(sync=True, device="cpu")._plan_from_arrays(*plan_args(g, fleets[f]))
+        cpu_s = time.perf_counter() - t0
+        check(hints == cpu_hints, f"{g} {f}: hints differ from the CPU run")
+        if routed[g] != "partition":
+            print(f"[{card}] plan {g} {f}: T {T} lanes {W} -> leveled engine, hints == CPU run, "
+                  f"wall_ms {walls[g, f]:.2f}")
+            continue
+
+        # K4 against the plain version on the CPU, bit for bit
+        weights = (out_bytes[src] / BANDWIDTH + LATENCY).astype(np.float32)
+        run = part.PartitionRun(durations, weights, src, dst, W)
+        part.partition_cuda(run)
+        labels = run.result()
+        cpu = part.PartitionRun(durations, weights, src, dst, W, device="cpu")
+        part.partition_reference(cpu)
+        labels_cpu = cpu.result()
+        check(np.array_equal(labels, labels_cpu), f"{g} {f}: K4 labels differ from the CPU run "
+              f"({int((labels != labels_cpu).sum())} of {T})")
+        load_k = np.bincount(labels, weights=durations.astype(np.float64), minlength=W)
+        load_c = np.bincount(labels_cpu, weights=durations.astype(np.float64), minlength=W)
+        err = float(np.abs(load_k - load_c).max())
+        err_max = max(err_max, err)
+        # the plain version on the card, deterministic
+        card_run = part.PartitionRun(durations, weights, src, dst, W)
+        with deterministic():
+            part.partition_reference(card_run)
+        labels_p = card_run.result()
+        vol_k, vol_p = _comm_volume(labels, src, dst), _comm_volume(labels_p, src, dst)
+        vol_b = _comm_volume(part.block_init(durations, W), src, dst)
+        ml_k, ml_p = _max_load(labels, durations, W), _max_load(labels_p, durations, W)
+        agree = float((labels == labels_p).mean())
+        check(abs(vol_k - vol_p) <= K4_RTOL * vol_p, f"{g} {f}: comm volume {vol_k} vs plain {vol_p}")
+        check(ml_k <= ml_p * (1 + K4_RTOL), f"{g} {f}: max lane load {ml_k} vs plain {ml_p}")
+        check(vol_k < vol_b, f"{g} {f}: comm volume {vol_k} does not beat the blocks' {vol_b}")
+
+        ms = cuda_ms(lambda: part.partition_cuda(run))
+        plain_ms = cuda_ms(lambda: part.partition_reference(card_run), reps=5, warmup=1)
+        bound_ms, bound_by = _k4_bound_ms(run)
+        t0 = time.perf_counter()
+        plan.hints_from_partition(keys[g], labels, lanes, addrs)
+        hints_ms = (time.perf_counter() - t0) * 1e3
+        plan_ms = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            placement._plan_from_arrays(*plan_args(g, fleets[f]))
+            plan_ms.append((time.perf_counter() - t0) * 1e3)
+        avg_load = float(durations.sum()) / W
+        print(f"[{card}] partition {g} {f}: T {T} E {len(src)} lanes {W}: labels == CPU run "
+              f"({cpu_s:.2f} s), plain on the card agreement {agree:.6f}, comm volume {vol_k} "
+              f"(plain {vol_p}, blocks {vol_b}), max lane load / avg {ml_k / avg_load:.4f} "
+              f"(plain {ml_p / avg_load:.4f}); K4 kernel_ms {ms:.4f} plain_ms {plain_ms:.4f} "
+              f"bound_ms {bound_ms:.7f} ({bound_by}); plan wall_ms main {walls[g, f]:.2f} "
+              f"median {statistics.median(plan_ms):.2f} hints_ms {hints_ms:.2f}")
+        cases_out[f"{g}_{f}"] = dict(
+            T=T, E=len(src), lanes=W, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+            bound_ms=bound_ms, bound_by=bound_by, comm_volume=vol_k, comm_volume_plain=vol_p,
+            comm_volume_blocks=vol_b, max_load_ratio=ml_k / avg_load,
+            max_load_ratio_plain=ml_p / avg_load, card_plain_agreement=agree,
+            plan_wall_ms_main=walls[g, f], plan_wall_ms=statistics.median(plan_ms),
+            hints_ms=hints_ms)
+        del run, cpu, card_run
+        torch.cuda.empty_cache()
+
+    # the 1M-task uniform batch through the extension: phase 4's hints
+    durations, out_bytes, src, dst = graphs.random_dag(N_TASKS, seed=0)
+    t0 = time.perf_counter()
+    hints = placement._plan_from_arrays([f"task-{i}" for i in range(N_TASKS)], durations,
+                                        out_bytes, src, dst, *fleets["uniform"], addrs,
+                                        BANDWIDTH, LATENCY)
+    wall_1m = (time.perf_counter() - t0) * 1e3
+    check(hints == hints_1m, "1M-task hints through TorchPlacement differ from phase 4's")
+    print(f"[{card}] placement extension 1M tasks uniform: hints == phase 4's, "
+          f"_plan_from_arrays wall_ms {wall_1m:.1f}")
+    check(placement.enabled, "the planner disabled itself")
+
+    head = cases_out["blockwise24_uniform"]
+    return {
+        "name": "partition",
+        "route": "cuda",
+        "source": "distributed_tpu_torch/ops/csrc/partition.cu",
+        "replaces": "distributed_tpu/ops/partition.py:271",
+        "launches": k4_launches,
+        "max_abs_err": err_max,
+        "ms": head["ms"],
+        "plain_ms": head["plain_ms"],
+        "bound_ms": head["bound_ms"],
+        "bound_by": head["bound_by"],
+        "library_ms": None,
+        "case": "blockwise24_uniform",
+        "cases": cases_out,
+        "plan_1m_wall_ms": wall_1m,
+    }
 
 
 def main() -> int:
@@ -667,8 +885,9 @@ def main() -> int:
     phase_build()
     flash_entry = phase_flash()
     wave_entry, oneshot = phase_placement()
-    phase_streamed(wave_entry, oneshot)
-    kernels = [flash_entry, wave_entry]
+    hints_1m = phase_streamed(wave_entry, oneshot)
+    partition_entry = phase_partition(wave_entry, hints_1m)
+    kernels = [flash_entry, wave_entry, partition_entry]
     print(f"total_s {time.perf_counter() - t0:.1f}")
     print(smi_line())
     print(json.dumps({"kernels": kernels}))

@@ -22,3 +22,41 @@ def random_dag(n: int, seed=0):
     dst = np.repeat(np.arange(n), n_deps).astype(np.int32)
     src = (rng.random(len(dst)) * np.maximum(dst, 1)).astype(np.int32)
     return durations, out_bytes, src, dst
+
+
+def blockwise_tensordot(G: int):
+    """The rechunk + tensordot proxy: G² sources ``s-i-k``, G³ products
+    ``m-i-j-k = s-i-k * s-j-k`` (two dependencies each, the same source
+    twice when i == j) and G² reductions ``r-i-j`` over k.
+
+    Tasks come in the scheduler's priority order (the depth-first
+    postorder of ``graph/order.py`` for these keys): the reductions by
+    key, each after its products by key, each product after whichever of
+    its sources is not placed yet.  Edges come by consumer in that order,
+    each consumer's dependencies in argument order.  Returns
+    ``(keys, durations f32[T], out_bytes f32[T], src i32[E], dst i32[E])``
+    with every task taking 1 s and writing 8 MB (a 1000 x 1000 f64 block).
+    """
+    index: dict[str, int] = {}
+    src: list[int] = []
+    dst: list[int] = []
+
+    def add(key, deps=()):
+        index[key] = len(index)
+        for d in deps:
+            src.append(index[d])
+            dst.append(index[key])
+
+    def by_key(keys):
+        return sorted(keys, key=lambda ij: "-".join(map(str, ij)))
+
+    for i, j in by_key((i, j) for i in range(G) for j in range(G)):
+        for (k,) in by_key((k,) for k in range(G)):
+            for s in sorted({f"s-{i}-{k}", f"s-{j}-{k}"}):
+                if s not in index:
+                    add(s)
+            add(f"m-{i}-{j}-{k}", (f"s-{i}-{k}", f"s-{j}-{k}"))
+        add(f"r-{i}-{j}", [f"m-{i}-{j}-{k}" for k in range(G)])
+    T = len(index)
+    return (list(index), np.ones(T, np.float32), np.full(T, 8e6, np.float32),
+            np.asarray(src, np.int32), np.asarray(dst, np.int32))

@@ -48,6 +48,20 @@ SIGNATURES = {
         _vp,                            # stream
     ),
     "dtpu_place_waves_grid": (_i, _i, ctypes.POINTER(_i)),  # W uniform -> blocks
+    "dtpu_partition_load": (
+        _vp, _vp, _vp,                  # labels next durations
+        _vp, _vp, _vp, _vp,             # cnt tot start sorted (scratch)
+        _vp,                            # blocked
+        _i, _i, _f,                     # T W thresh
+        _vp,                            # stream
+    ),
+    "dtpu_partition_rows": (
+        _vp, _vp,                       # labels next
+        _vp, _vp, _vp, _vp, _vp, _vp,   # in_off in_nbr in_w out_off out_nbr out_w
+        _vp,                            # blocked
+        _i, _i, _i, _f,                 # T W parity bonus
+        _vp,                            # stream
+    ),
     "dtpu_flash_fwd": (
         _vp, _vp, _vp, _vp, _vp,        # q k v o lse
         _i, _i, _i, _i, _i, _i,         # H N Nk D dtype causal

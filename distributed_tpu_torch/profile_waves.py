@@ -47,27 +47,35 @@ def _fleets(np):
     return {"uniform": uniform, "nonuniform": mixed}
 
 
-def _profile(torch, fn, tries=3):
-    """(device ms, kernel count) of one call of fn, from torch.profiler; a
-    trace that caught no kernel (it happens) is taken again."""
+def kernel_times(torch, fn, tries=3):
+    """{kernel name: (device ms, count)} of one call of fn, from
+    torch.profiler; a trace that caught no kernel (it happens) is taken
+    again.  ``profile_partition.py`` reads its kernels here too."""
     from torch.profiler import ProfilerActivity, profile
 
+    out = {}
     for _ in range(tries):
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             fn()
             torch.cuda.synchronize()
-        dev_us, count = 0.0, 0
+        out = {}
         for evt in prof.key_averages():
             us = getattr(evt, "self_device_time_total", None)
             if us is None:
                 us = getattr(evt, "self_cuda_time_total", 0.0)
             if us and str(getattr(evt, "device_type", "")).endswith("CUDA"):
-                dev_us += us
-                count += evt.count
-        if count:
+                ms, n = out.get(evt.key, (0.0, 0))
+                out[evt.key] = (ms + us / 1e3, n + evt.count)
+        if out:
             break
-    return dev_us / 1e3, count
+    return out
+
+
+def _profile(torch, fn):
+    """(device ms, kernel count) of one call of fn."""
+    times = kernel_times(torch, fn).values()
+    return sum(ms for ms, _ in times), sum(n for _, n in times)
 
 
 PHASES = ("rank_tentative_count", "offsets", "scatter", "sums", "contend_count",

@@ -1,16 +1,19 @@
-"""The scheduler's placement plan on the leveled engine.
+"""The scheduler's placement plan as hints.
 
-The counterpart of the leveled branch of
+The counterparts of the two branches of
 ``distributed_tpu/scheduler/jax_placement.py::JaxPlacement._plan_from_arrays``
-(without its mesh branch): the streamed driver places the batch, and each
-placed task becomes a hint ``key -> (follow_key | None, addr)`` that
-``decide_worker`` consumes.
+(without its mesh branch); each placed task becomes a hint
+``key -> (follow_key | None, addr)`` that ``decide_worker`` consumes.
 
-A locality choice (the task went with its heaviest or second-heaviest
-dependency) is encoded FOLLOW-THIS-DEPENDENCY: the hint names the
-dependency's key, so the consumer finds that dependency's current holder
-and a hint survives upstream drift.  A spread placement keeps the planned
-address.  Tasks placed on no worker get no hint.
+- The leveled engine (:func:`plan_from_arrays`): the streamed driver
+  places the batch.  A locality choice (the task went with its heaviest
+  or second-heaviest dependency) is encoded FOLLOW-THIS-DEPENDENCY: the
+  hint names the dependency's key, so the consumer finds that
+  dependency's current holder and a hint survives upstream drift.  A
+  spread placement keeps the planned address.  Tasks placed on no worker
+  get no hint.
+- The partitioner (:func:`hints_from_partition`): every task gets its
+  lane's worker as an absolute home.
 """
 
 from __future__ import annotations
@@ -48,6 +51,14 @@ def hints_from_placement(keys, packed: PackedGraph, result: LeveledResult,
         for i, key in enumerate(keys)
         if 0 <= assignment[i] < nw
     }
+
+
+def hints_from_partition(keys, labels, lanes, addrs) -> dict:
+    """``{key: (None, addr)}`` for every task of a partition: task i goes
+    to the worker of lane ``labels[i]`` (``lanes[l]`` is the worker index
+    of lane l), as an absolute home hint."""
+    lane_addr = [addrs[w] for w in lanes]
+    return {key: (None, lane_addr[label]) for key, label in zip(keys, labels.tolist())}
 
 
 def plan_from_arrays(keys, durations, out_bytes, src, dst, nthreads, occupancy,

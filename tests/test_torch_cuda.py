@@ -5,6 +5,10 @@ skips elsewhere.  The file imports no JAX, so on a machine with the card
 and no JAX it runs without the suite's conftest:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
+
+The placement extension's live ``LocalCluster`` tests are not here: the
+reference's control plane needs ``msgpack`` and ``cloudpickle``, which that
+machine does not have, so they run on the CPU (``test_torch_placement.py``).
 """
 
 from __future__ import annotations
@@ -14,7 +18,7 @@ import pytest
 import torch
 
 from distributed_tpu_torch import graphs
-from distributed_tpu_torch.ops import flash, leveled
+from distributed_tpu_torch.ops import flash, leveled, partition
 
 pytestmark = pytest.mark.cuda
 
@@ -232,3 +236,115 @@ def test_streamed_reuses_pinned_buffers(cuda):
     for want in (first, cpu):
         for field in ("assignment", "choice", "occupancy", "start_time"):
             np.testing.assert_array_equal(getattr(second, field), getattr(want, field))
+
+
+# ------------------------------------------------------------------ K4
+
+
+def _partition_case(T, seed, ties):
+    """A random DAG; with ``ties`` every duration is 1 and every weight one
+    of two values, so scores and loads tie all over the rows."""
+    durations, out_bytes, src, dst = graphs.random_dag(T, seed=seed)
+    weights = (out_bytes[src] / 100e6 + 0.001).astype(np.float32)
+    if ties:
+        durations = np.ones(T, np.float32)
+        weights = np.where(np.arange(len(src)) % 3 == 0, 0.5, 1.0).astype(np.float32)
+    return durations, weights, src, dst
+
+
+def _partition_both(case, W, cuda, **kw):
+    runs = [partition.PartitionRun(*case, W, device=device, **kw) for device in (cuda, "cpu")]
+    before = partition.partition_cuda.launches
+    partition.partition_cuda(runs[0])
+    launches = partition.partition_cuda.launches - before
+    partition.partition_reference(runs[1])
+    return runs, launches
+
+
+@pytest.mark.parametrize("T,W", [(3000, 8), (16384, 1024), (5000, 1008), (1500, 16_384),
+                                 (1024, 31_250)])
+@pytest.mark.parametrize("ties", [False, True])
+def test_partition_kernel_matches_plain(cuda, T, W, ties):
+    """K4 adds every score cell and lane load in the reference's order, so
+    it must equal the plain version on the CPU bit for bit: on random
+    graphs, on graphs full of ties, and on fleets wide enough that the
+    score row needs the shared-memory opt-in (16k and 31,250 lanes)."""
+    (run, cpu), launches = _partition_both(_partition_case(T, T + W, ties), W, cuda)
+    assert launches == 2 * run.iters
+    np.testing.assert_array_equal(run.result(), cpu.result())
+    again = partition.PartitionRun(*_partition_case(T, T + W, ties), W, device=cuda)
+    partition.partition_cuda(again)
+    np.testing.assert_array_equal(again.result(), cpu.result())
+
+
+def test_partition_kernel_blockwise_and_given_init(cuda):
+    """The tensordot proxy (uniform weights: ties everywhere), from
+    block_init and from a random initial labelling, one and eight rounds."""
+    _, d, ob, s, t = graphs.blockwise_tensordot(12)
+    w = (ob[s] / 100e6 + 0.001).astype(np.float32)
+    init = np.random.default_rng(0).integers(0, 40, len(d)).astype(np.int32)
+    for kw in ({}, {"init": init}, {"iters": 1}):
+        (run, cpu), _ = _partition_both((d, w, s, t), 40, cuda, **kw)
+        np.testing.assert_array_equal(run.result(), cpu.result())
+
+
+def test_partition_padded_on_the_card(cuda):
+    case = _partition_case(4000, 9, False)
+    np.testing.assert_array_equal(partition.partition_padded(*case, 64),
+                                  partition.partition_padded(*case, 64, device="cpu"))
+
+
+def test_partition_refused_launch_raises(cuda):
+    """A score row past the shared memory a block may have (60,000 lanes,
+    240 KB): the launch is refused and the wrapper raises, each time it is
+    asked, and the next launch is not charged with that error."""
+    case = _partition_case(200, 1, False)
+    run = partition.PartitionRun(*case, 60_000, device=cuda)
+    for _ in range(2):
+        with pytest.raises(RuntimeError, match="dtpu_partition_rows: CUDA error"):
+            partition.partition_cuda(run)
+    (ok, cpu), _ = _partition_both(case, 8, cuda)
+    np.testing.assert_array_equal(ok.result(), cpu.result())
+
+
+@pytest.mark.parametrize("partitioner", ["auto", "off"])
+def test_torch_placement_plans_on_the_card(cuda, partitioner):
+    """``TorchPlacement()`` defaults to the card: the partitioner's plan
+    through K4 (``auto``) or the leveled engine's through K1 (``off``),
+    each the same hints as the extension on the CPU."""
+    from distributed_tpu_torch.scheduler.torch_placement import TorchPlacement
+
+    placement = TorchPlacement(sync=True, partitioner=partitioner)
+    assert placement.device.type == "cuda"
+    durations, out_bytes, src, dst = graphs.random_dag(6000, seed=11)
+    fleet = _fleet(64, True)
+    args = ([f"k{i}" for i in range(6000)], durations, out_bytes, src, dst, *fleet,
+            [f"w{i}" for i in range(64)], 100e6, 0.001)
+    k4, k1 = partition.partition_cuda.launches, leveled.place_waves_cuda.launches
+    got = placement._plan_from_arrays(*args)
+    if partitioner == "auto":
+        assert partition.partition_cuda.launches == k4 + 2 * partition.DEFAULT_ITERS
+    else:
+        assert leveled.place_waves_cuda.launches == k1 + 1
+    want = TorchPlacement(sync=True, partitioner=partitioner, device="cpu")._plan_from_arrays(*args)
+    assert got == want
+
+
+def test_torch_placement_plans_on_its_planner_thread(cuda):
+    """The async plan runs on the extension's daemon thread, which starts
+    with no CUDA state of its own: both branches there give the hints the
+    calling thread gets."""
+    from distributed_tpu_torch.scheduler.torch_placement import TorchPlacement, _DaemonExecutor
+
+    durations, out_bytes, src, dst = graphs.random_dag(5000, seed=12)
+    fleet = _fleet(32, False)
+    args = ([f"k{i}" for i in range(5000)], durations, out_bytes, src, dst, *fleet,
+            [f"w{i}" for i in range(32)], 100e6, 0.001)
+    for partitioner in ("auto", "off"):
+        placement = TorchPlacement(partitioner=partitioner)
+        executor = _DaemonExecutor("torch-placement-test")
+        try:
+            got = executor.submit(placement._plan_from_arrays, *args).result(timeout=120)
+        finally:
+            executor.shutdown()
+        assert got == placement._plan_from_arrays(*args)

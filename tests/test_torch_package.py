@@ -16,8 +16,9 @@ import torch
 
 import distributed_tpu_torch
 from distributed_tpu_torch import graphs, native
-from distributed_tpu_torch.ops import _build, flash, leveled
+from distributed_tpu_torch.ops import _build, flash, leveled, partition
 from distributed_tpu_torch.scheduler import plan
+from distributed_tpu_torch.scheduler.torch_placement import TorchPlacement
 
 ROOT = Path(__file__).resolve().parents[1]
 PKG = ROOT / "distributed_tpu_torch"
@@ -95,6 +96,11 @@ def _entry_calls():
             list(range(20)), *graph, *fleet, ["a", "b"], 100e6),
         "LeveledRun": lambda: leveled.LeveledRun(packed, *fleet),
         "flash_attention": lambda: flash.flash_attention(q, q, q),
+        "partition_padded": lambda: partition.partition_padded(
+            graph[0], graph[1][graph[2]], graph[2], graph[3], 4),
+        "PartitionRun": lambda: partition.PartitionRun(
+            graph[0], graph[1][graph[2]], graph[2], graph[3], 4),
+        "TorchPlacement": lambda: TorchPlacement(),
         "resolve_device": lambda: distributed_tpu_torch.resolve_device(None),
     }
 
@@ -144,13 +150,19 @@ def test_wrappers_raise_off_cpu_without_cuda():
     )
     with pytest.raises(RuntimeError, match="CUDA"):
         leveled.place_wave(run, 0)
+    graph = graphs.random_dag(20, seed=0)
+    prun = partition.PartitionRun(graph[0], graph[1][graph[2]], graph[2], graph[3], 4,
+                                  device="meta")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        partition.partition_rounds(prun)
 
 
 def test_library_path_keys_on_sources():
     path = _build.library_path()
     assert path.parent == _build.BUILD_DIR
     assert path.name.startswith("libdtpu_kernels-") and path.suffix == ".so"
-    assert {p.name for p in _build.CSRC.glob("*.cu")} == {"flash_fwd.cu", "place_wave.cu"}
+    assert {p.name for p in _build.CSRC.glob("*.cu")} == {"flash_fwd.cu", "partition.cu",
+                                                            "place_wave.cu"}
 
 
 def test_build_dir_is_ignored_by_git():
