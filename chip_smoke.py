@@ -11,13 +11,23 @@ and prints no result):
 
 0. environment: torch/CUDA versions, the card, its power limit, nvcc,
    whether triton imports;
-1. build: the three hand-written kernels from
+1. build: the four hand-written kernel sources from
    ``distributed_tpu_torch/ops/csrc`` (nvcc, one process a source) and the
    host pack ``distributed_tpu_torch/native/graphpack.cpp`` (g++), at once;
 2. flash attention forward (kernel K2) at seq 8192, 16 heads, head dim
    128 in bf16, causal and not (the tensor-core body), plus f32 at seq
    1024 / head dim 64 (the CUDA-core body), against the plain version on
    the card, with kernel / plain / library times;
+2b. flash attention backward (kernel K3) through autograd:
+   ``flash_attention(q, k, v).backward(dO)`` at the same widths plus a
+   cross-length case (4096 queries against 8192 keys), K2 then K3 once
+   each per case; on K2's residuals K3 within ``flash.BWD_TOL`` (+ the
+   rounding terms) of the plain backward, bit-identical across two calls
+   and to the autograd run, both planted faults (a q-tile left out of
+   dK/dV, a k-tile out of dQ) rejected, and the whole autograd path within
+   ``flash.E2E_RTOL`` of the plain forward and backward; K3's time beside
+   the plain backward's, ``scaled_dot_product_attention``'s backward and
+   the bound;
 3. whole-graph placement (kernel K1): the 1M-task random DAG onto 512
    workers of 2 threads, a uniform fleet and a non-uniform one, through
    ``pack_graph`` and ``place_graph_leveled`` on the card (one launch for
@@ -46,8 +56,9 @@ and prints no result):
    hints must equal phase 4's.
 
 The last three lines are the card's ``nvidia-smi`` name and power limit,
-one JSON object listing the kernels with their launches, errors and
-times, and ``{"ok": true, "device": {...}}``.
+one JSON object listing the kernels (``flash_fwd``, ``flash_bwd``,
+``place_wave``, ``partition``) with their launches, errors and times, and
+``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -266,6 +277,146 @@ def phase_flash():
         "replaces": "distributed_tpu/ops/flash.py:35",
         "launches": launches,
         "max_abs_err": head["max_abs_err"],
+        "ms": head["ms"],
+        "plain_ms": head["plain_ms"],
+        "bound_ms": head["bound_ms"],
+        "bound_by": head["bound_by"],
+        "library_ms": head["library_ms"],
+        "case": FLASH_HEADLINE,
+        "cases": results,
+    }
+
+
+# ------------------------------------------------------------ phase 2b
+
+
+BWD_CASES = [
+    # (label, seq, key seq, heads, head dim, dtype, causal)
+    ("bf16_causal", 8192, 8192, 16, 128, torch.bfloat16, True),
+    ("bf16", 8192, 8192, 16, 128, torch.bfloat16, False),
+    ("bf16_cross", 4096, 8192, 16, 128, torch.bfloat16, False),
+    ("f32_causal", 1024, 1024, 16, 64, torch.float32, True),
+    ("f32", 1024, 1024, 16, 64, torch.float32, False),
+]
+
+
+def _bwd_bound_ms(n, nk, heads, dim, dtype, causal):
+    """Five products of 2*D operations per (query, key) pair that the mask
+    keeps (no causal offset: query i sees keys 0..i); each of q, k, v, o,
+    dO, lse read once and dq, dk, dv written once."""
+    elem = torch.empty((), dtype=dtype).element_size()
+    nbytes = 4 * heads * (n + nk) * dim * elem + 4 * heads * n
+    pairs = sum(min(i + 1, nk) for i in range(n)) if causal else n * nk
+    flops = 10 * heads * dim * pairs
+    t_bytes = nbytes / PEAK_BYTES_S * 1e3
+    t_ops = flops / PEAK_FLOPS[dtype] * 1e3
+    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def phase_flash_bwd(fwd_entry):
+    """Phase 2b: ``flash_attention(...)`` on tensors that require grad,
+    then ``backward()``, as a user trains through it: K2 then K3."""
+    from distributed_tpu_torch.ops import flash
+
+    card = smi_line()
+    inputs = {}
+    for i, (label, n, nk, heads, dim, dtype, causal) in enumerate(BWD_CASES):
+        g = torch.Generator(device="cuda").manual_seed(100 + i)
+        inputs[label] = tuple(
+            torch.randn((s, heads, dim), generator=g, device="cuda").to(dtype)
+            for s in (n, nk, nk, n))  # q k v dO
+
+    # the main path: forward and backward through autograd, [seq, heads, dim]
+    flash.flash_forward_cuda.launches = 0
+    flash.flash_backward_cuda.launches = 0
+    grads = {}
+    for label, n, nk, heads, dim, dtype, causal in BWD_CASES:
+        q, k, v, do = (x.clone().requires_grad_(j < 3) for j, x in enumerate(inputs[label]))
+        flash.flash_attention(q, k, v, causal=causal).backward(do)
+        grads[label] = (q.grad, k.grad, v.grad)
+    torch.cuda.synchronize()
+    k2, k3 = flash.flash_forward_cuda.launches, flash.flash_backward_cuda.launches
+    check(k3 == len(BWD_CASES), f"flash backward launches {k3} != {len(BWD_CASES)} backwards")
+    check(k2 == len(BWD_CASES), f"flash forward launches {k2} in the autograd path")
+    fwd_entry["launches"] += k2
+    fwd_entry["launches_autograd"] = k2
+    print(f"[{card}] flash autograd main path: K2 launches {k2}, K3 launches {k3} "
+          f"(one each per backward)")
+
+    results, err_max = {}, 0.0
+    for label, n, nk, heads, dim, dtype, causal in BWD_CASES:
+        q, k, v, do = inputs[label]
+        for x, gr in zip((q, k, v), grads[label]):
+            check(gr.shape == x.shape and gr.dtype == dtype, f"{label}: grad {gr.shape} {gr.dtype}")
+            check(bool(torch.isfinite(gr.float()).all()), f"{label}: non-finite gradient")
+        qt, kt, vt, dot = (x.transpose(0, 1).contiguous() for x in (q, k, v, do))
+        scale = 1.0 / dim ** 0.5
+        # identical residuals: K2's O and lse, as the Function saves them
+        o, lse = flash.flash_forward_cuda(qt, kt, vt, causal, scale)
+        res = (qt, kt, vt, o, lse, dot)
+        got = flash.flash_backward_cuda(*res, causal, scale)
+        again = flash.flash_backward_cuda(*res, causal, scale)
+        check(all(torch.equal(a, b) for a, b in zip(got, again)), f"{label}: two K3 calls differ")
+        check(all(torch.equal(a, b.transpose(0, 1)) for a, b in zip(got, grads[label])),
+              f"{label}: the autograd path's gradients are not K3's on its residuals")
+        plain = flash.flash_backward_reference(*res, causal, scale)
+        u = flash.P_ROUNDOFF.get(dtype, 0.0)
+        terms = flash.bwd_rounding_terms(*res, causal, scale) if u else None
+        excess = flash.bwd_excess(got, plain, terms)
+        errs = [(a.float() - b.float()).abs().max().item() for a, b in zip(got, plain)]
+        fault_a, fault_b = flash.bwd_planted_faults(*res, causal, scale, plain)
+        fault_excess = (flash.bwd_excess(fault_a, plain, terms)[1:],
+                        flash.bwd_excess(fault_b, plain, terms)[0])
+        # end to end: K2 + K3 against the plain forward + backward on the card
+        o_p, lse_p = flash.flash_forward_reference(qt, kt, vt, causal, scale)
+        e2e_plain = flash.flash_backward_reference(qt, kt, vt, o_p, lse_p, dot, causal, scale)
+        e2e = [(a.transpose(0, 1).float() - b.float()).abs().max().item()
+               / max(b.float().abs().max().item(), 1e-30)
+               for a, b in zip(grads[label], e2e_plain)]
+        del fault_a, fault_b, e2e_plain, o_p, lse_p, terms
+        rtol, atol = flash.BWD_TOL[dtype]
+        check(max(excess) <= 0.0, f"{label}: (dQ, dK, dV) beyond (rtol, atol) ({rtol}, {atol}) "
+              f"+ u terms by {excess}, max abs err {errs}")
+        check(max(fault_excess[0]) > 0.0, f"{label}: the check passes a q-tile left out of "
+              f"dK/dV (excess {fault_excess[0]})")
+        check(fault_excess[1] > 0.0, f"{label}: the check passes a k-tile left out of dQ "
+              f"(excess {fault_excess[1]})")
+        check(max(e2e) <= flash.E2E_RTOL[dtype], f"{label}: end to end off by {e2e} of max "
+              f"|grad| > {flash.E2E_RTOL[dtype]}")
+
+        ms = cuda_ms(lambda: flash.flash_backward_cuda(*res, causal, scale))
+        plain_ms = cuda_ms(lambda: flash.flash_backward_reference(*res, causal, scale))
+        qs, ks, vs = (x[None].requires_grad_() for x in (qt, kt, vt))
+        out = torch.nn.functional.scaled_dot_product_attention(qs, ks, vs, is_causal=causal,
+                                                               scale=scale)
+        lib_ms = cuda_ms(lambda: torch.autograd.grad(out, (qs, ks, vs), dot[None],
+                                                     retain_graph=True))
+        del out, qs, ks, vs
+        bound_ms, bound_by = _bwd_bound_ms(n, nk, heads, dim, dtype, causal)
+        body = "tensor cores" if u else "cuda cores"
+        err_max = max(err_max, *errs)
+        results[label] = dict(body=body, max_abs_err=max(errs), max_abs_err_dq_dk_dv=errs,
+                              excess_dq_dk_dv=list(excess),
+                              fault_excess_dk_dv=list(fault_excess[0]),
+                              fault_excess_dq=fault_excess[1], e2e_rel_err_dq_dk_dv=e2e,
+                              ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                              bound_ms=bound_ms, bound_by=bound_by)
+        print(f"[{card}] flash_bwd {label} seq {n}x{nk} heads {heads} dim {dim} ({body}): "
+              f"max abs err dq/dk/dv {[f'{e:.3g}' for e in errs]} excess "
+              f"{[f'{e:.3g}' for e in excess]} (planted faults: dk/dv "
+              f"{[f'{e:.3g}' for e in fault_excess[0]]}, dq {fault_excess[1]:.3g}); end to end "
+              f"{[f'{e:.3g}' for e in e2e]} of max |grad|; kernel_ms {ms:.4f} plain_ms "
+              f"{plain_ms:.4f} library_ms {lib_ms:.4f} bound_ms {bound_ms:.4f} ({bound_by})")
+        del res, got, again, plain, o, lse
+        torch.cuda.empty_cache()
+    head = results[FLASH_HEADLINE]
+    return {
+        "name": "flash_bwd",
+        "route": "cuda",
+        "source": "distributed_tpu_torch/ops/csrc/flash_bwd.cu",
+        "replaces": "distributed_tpu/ops/flash.py:156",
+        "launches": k3,
+        "max_abs_err": err_max,
         "ms": head["ms"],
         "plain_ms": head["plain_ms"],
         "bound_ms": head["bound_ms"],
@@ -884,10 +1035,11 @@ def main() -> int:
     phase_env()
     phase_build()
     flash_entry = phase_flash()
+    bwd_entry = phase_flash_bwd(flash_entry)
     wave_entry, oneshot = phase_placement()
     hints_1m = phase_streamed(wave_entry, oneshot)
     partition_entry = phase_partition(wave_entry, hints_1m)
-    kernels = [flash_entry, wave_entry, partition_entry]
+    kernels = [flash_entry, bwd_entry, wave_entry, partition_entry]
     print(f"total_s {time.perf_counter() - t0:.1f}")
     print(smi_line())
     print(json.dumps({"kernels": kernels}))

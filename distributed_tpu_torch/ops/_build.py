@@ -68,6 +68,13 @@ SIGNATURES = {
         _f,                             # scale
         _vp,                            # stream
     ),
+    "dtpu_flash_bwd": (
+        _vp, _vp, _vp, _vp, _vp, _vp,   # q k v o lse dout
+        _vp, _vp, _vp, _vp,             # dq dk dv delta (scratch)
+        _i, _i, _i, _i, _i, _i,         # H N Nk D dtype causal
+        _f,                             # scale
+        _vp,                            # stream
+    ),
 }
 
 _lock = threading.Lock()

@@ -109,6 +109,98 @@ def test_flash_attention_entry_runs_kernel(cuda):
                    _pv_term(qt, qt, qt, True, 0.125, lse))
 
 
+# ------------------------------------------------------------------ K3
+
+
+def _bwd_case(cuda, dtype, dim, n, nk, causal, seed, heads=3):
+    """Residuals as the autograd Function saves them (K2's O and lse) and
+    a dO, with the plain backward and its rounding terms on them."""
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    q, k, v = (torch.randn(heads, s, dim, generator=g, device=cuda).to(dtype)
+               for s in (n, nk, nk))
+    do = torch.randn(heads, n, dim, generator=g, device=cuda).to(dtype)
+    scale = dim ** -0.5
+    o, lse = flash.flash_forward_cuda(q, k, v, causal, scale)
+    res = (q, k, v, o, lse, do)
+    plain = flash.flash_backward_reference(*res, causal, scale)
+    terms = flash.bwd_rounding_terms(*res, causal, scale)
+    return res, scale, plain, terms
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float16, torch.bfloat16],
+                         ids=str)
+@pytest.mark.parametrize("dim", [64, 128])
+@pytest.mark.parametrize("n,nk", [(100, 100), (256, 512), (192, 64), (1024, 1024)])
+@pytest.mark.parametrize("causal", [False, True])
+def test_flash_bwd_kernel_matches_plain(cuda, dtype, dim, n, nk, causal):
+    """K3 on identical residuals: within flash.BWD_TOL of the plain
+    backward (+ u times the rounding terms for bf16/f16), one count a
+    call, the same bits from a second call, and both planted faults (a
+    q-tile left out of dK/dV, a k-tile out of dQ) rejected."""
+    res, scale, plain, terms = _bwd_case(cuda, dtype, dim, n, nk, causal, seed=n * 7 + dim)
+    before = flash.flash_backward_cuda.launches
+    got = flash.flash_backward(*res, causal, scale)
+    torch.cuda.synchronize()
+    assert flash.flash_backward_cuda.launches == before + 1
+    assert [g.dtype for g in got] == [dtype] * 3
+    assert [g.shape for g in got] == [x.shape for x in res[:3]]
+    assert max(flash.bwd_excess(got, plain, terms)) <= 0.0
+    again = flash.flash_backward_cuda(*res, causal, scale)
+    for a, b in zip(got, again):
+        assert torch.equal(a, b)
+    fault_a, fault_b = flash.bwd_planted_faults(*res, causal, scale, plain)
+    assert max(flash.bwd_excess(fault_a, plain, terms)[1:]) > 0.0
+    assert flash.bwd_excess(fault_b, plain, terms)[0] > 0.0
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float16, torch.bfloat16],
+                         ids=str)
+@pytest.mark.parametrize("dim", [64, 128])
+@pytest.mark.parametrize("causal", [False, True])
+def test_flash_bwd_ragged_heads_stay_apart(cuda, dtype, dim, causal):
+    """H=3, N=100: every tile is ragged.  Each head's gradients must equal
+    that head run alone, so no tile reads or writes another head's rows."""
+    (q, k, v, o, lse, do), scale, _, _ = _bwd_case(cuda, dtype, dim, 100, 100, causal, seed=5)
+    got = flash.flash_backward_cuda(q, k, v, o, lse, do, causal, scale)
+    for h in range(3):
+        alone = flash.flash_backward_cuda(*(x[h:h + 1].contiguous() for x in (q, k, v, o, lse, do)),
+                                          causal, scale)
+        for a, b in zip(got, alone):
+            torch.testing.assert_close(a[h:h + 1], b, rtol=0, atol=0)
+
+
+def test_flash_bwd_rejects_other_head_dims(cuda):
+    q = torch.randn(2, 64, 32, device=cuda, dtype=torch.bfloat16)
+    lse = torch.zeros(2, 64, 1, device=cuda)
+    before = flash.flash_backward_cuda.launches
+    with pytest.raises(ValueError, match="head dim"):
+        flash.flash_backward(q, q, q, q, lse, q, True, 0.2)
+    assert flash.flash_backward_cuda.launches == before
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+@pytest.mark.parametrize("causal", [False, True])
+def test_flash_attention_backward_runs_both_kernels(cuda, dtype, causal):
+    """``flash_attention(...).backward()`` on the card: K2 then K3, once
+    each, and the gradients land on the caller's [seq, heads, dim]
+    tensors, near the plain forward and backward's."""
+    g = torch.Generator(device=cuda).manual_seed(3)
+    q, k, v = (torch.randn(256, 4, 64, generator=g, device=cuda).to(dtype).requires_grad_()
+               for _ in range(3))
+    w = torch.randn(256, 4, 64, generator=g, device=cuda).to(dtype)
+    fwd, bwd = flash.flash_forward_cuda.launches, flash.flash_backward_cuda.launches
+    (flash.flash_attention(q, k, v, causal=causal) * w).sum().backward()
+    assert flash.flash_forward_cuda.launches == fwd + 1
+    assert flash.flash_backward_cuda.launches == bwd + 1
+    qt, kt, vt = (x.detach().transpose(0, 1).contiguous() for x in (q, k, v))
+    o, lse = flash.flash_forward_reference(qt, kt, vt, causal, 0.125)
+    want = flash.flash_backward_reference(qt, kt, vt, o, lse, w.transpose(0, 1), causal, 0.125)
+    for x, wt in zip((q, k, v), want):
+        assert x.grad.dtype == dtype
+        err = (x.grad.transpose(0, 1).float() - wt.float()).abs().max().item()
+        assert err <= flash.E2E_RTOL[dtype] * wt.float().abs().max().item()
+
+
 def _fleet(W, mixed):
     running = np.ones(W, bool)
     occ = np.zeros(W, np.float32)

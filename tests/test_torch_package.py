@@ -143,6 +143,9 @@ def test_wrappers_raise_off_cpu_without_cuda():
     qt = torch.zeros(1, 64, 64, device="meta")
     with pytest.raises(RuntimeError, match="CUDA"):
         flash.flash_forward(qt, qt, qt, False, 0.125)
+    lse = torch.zeros(1, 64, 1, device="meta")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        flash.flash_backward(qt, qt, qt, qt, lse, qt, False, 0.125)
     packed = leveled.pack_graph(*graphs.random_dag(20, seed=0))
     run = leveled.LeveledRun(
         packed, np.ones(2, np.int32), np.zeros(2, np.float32), np.ones(2, bool),
@@ -161,8 +164,8 @@ def test_library_path_keys_on_sources():
     path = _build.library_path()
     assert path.parent == _build.BUILD_DIR
     assert path.name.startswith("libdtpu_kernels-") and path.suffix == ".so"
-    assert {p.name for p in _build.CSRC.glob("*.cu")} == {"flash_fwd.cu", "partition.cu",
-                                                            "place_wave.cu"}
+    assert {p.name for p in _build.CSRC.glob("*.cu")} == {"flash_bwd.cu", "flash_fwd.cu",
+                                                            "partition.cu", "place_wave.cu"}
 
 
 def test_build_dir_is_ignored_by_git():
