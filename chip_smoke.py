@@ -14,6 +14,9 @@ and prints no result):
 1. build: the four hand-written kernel sources from
    ``distributed_tpu_torch/ops/csrc`` (nvcc, one process a source) and the
    host pack ``distributed_tpu_torch/native/graphpack.cpp`` (g++), at once;
+   K3's tensor-core kernels' registers and spills from ptxas (into the
+   ``flash_bwd`` entry of the kernels line), failing if they spill or if
+   ptxas serialised their wgmma (warning C7512);
 2. flash attention forward (kernel K2) at seq 8192, 16 heads, head dim
    128 in bf16, causal and not (the tensor-core body), plus f32 at seq
    1024 / head dim 64 (the CUDA-core body), against the plain version on
@@ -66,6 +69,7 @@ from __future__ import annotations
 import concurrent.futures
 import contextlib
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -147,7 +151,42 @@ def phase_env():
         print("triton absent")
 
 
+K3_TC_KERNELS = ("bwd_dkdv_tc_kernel", "bwd_dq_tc_kernel")
+
+
+def ptxas_entries(log, names):
+    """{label: {"registers": n, "spill_bytes": stores + loads}} for every
+    entry function of the ptxas log whose name holds one of ``names``;
+    the label is the name with its type, head dim and causal flag."""
+    out, cur = {}, None
+    for ln in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", ln)
+        if m:
+            mangled = m[1]
+            name = next((n for n in names if n in mangled), None)
+            cur = None
+            if name is not None:
+                dtype = "bf16" if "bfloat16" in mangled else "f16"
+                dim = re.search(r"Li(\d+)E", mangled)[1]
+                causal = "causal" if "Lb1E" in mangled else "full"
+                cur = f"{name}<{dtype},{dim},{causal}>"
+                out[cur] = {}
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln)
+        if m:
+            out[cur]["spill_bytes"] = int(m[1]) + int(m[2])
+        m = re.search(r"Used (\d+) registers", ln)
+        if m:
+            out[cur]["registers"] = int(m[1])
+    return out
+
+
 def phase_build():
+    """Builds everything; returns K3's tensor-core kernels' registers and
+    spills from ptxas, and fails where ptxas serialised their wgmma
+    (C7512) or they spill."""
     from distributed_tpu_torch import native
     from distributed_tpu_torch.ops import _build
 
@@ -159,9 +198,21 @@ def phase_build():
         host.result()
     print(f"build_s {time.perf_counter() - t0:.2f} ({_build.build_info['path']}, "
           f"{native.library_path()})")
-    for ln in _build.build_info["log"].splitlines():
-        if "registers" in ln or "spill" in ln or ln.startswith("=="):
+    log = _build.build_info["log"]
+    for ln in log.splitlines():
+        if "registers" in ln or "spill" in ln or ln.startswith("==") or "C7512" in ln:
             print("  ptxas", ln.strip())
+    if log == "(cached)":
+        return {}
+    bwd_log = log.split("== flash_bwd.cu", 1)[1].split("\n== ", 1)[0]
+    check("C7512" not in bwd_log, "ptxas serialised wgmma in flash_bwd.cu (C7512)")
+    k3 = ptxas_entries(bwd_log, K3_TC_KERNELS)
+    check(len(k3) == 16, f"ptxas reported {len(k3)} K3 tensor-core kernels, not 16")
+    for label, info in k3.items():
+        print(f"  K3 {label}: {info.get('registers')} registers, "
+              f"{info.get('spill_bytes')} spill bytes")
+        check(info.get("spill_bytes") == 0, f"{label} spills: {info}")
+    return k3
 
 
 # ------------------------------------------------------------ phase 2
@@ -313,9 +364,10 @@ def _bwd_bound_ms(n, nk, heads, dim, dtype, causal):
     return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
-def phase_flash_bwd(fwd_entry):
+def phase_flash_bwd(fwd_entry, k3_ptxas):
     """Phase 2b: ``flash_attention(...)`` on tensors that require grad,
-    then ``backward()``, as a user trains through it: K2 then K3."""
+    then ``backward()``, as a user trains through it: K2 then K3.
+    ``k3_ptxas``: phase 1's registers and spills of K3's kernels."""
     from distributed_tpu_torch.ops import flash
 
     card = smi_line()
@@ -424,6 +476,7 @@ def phase_flash_bwd(fwd_entry):
         "library_ms": head["library_ms"],
         "case": FLASH_HEADLINE,
         "cases": results,
+        "ptxas": k3_ptxas,
     }
 
 
@@ -1033,9 +1086,9 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     t0 = time.perf_counter()
     phase_env()
-    phase_build()
+    k3_ptxas = phase_build()
     flash_entry = phase_flash()
-    bwd_entry = phase_flash_bwd(flash_entry)
+    bwd_entry = phase_flash_bwd(flash_entry, k3_ptxas)
     wave_entry, oneshot = phase_placement()
     hints_1m = phase_streamed(wave_entry, oneshot)
     partition_entry = phase_partition(wave_entry, hints_1m)

@@ -4,7 +4,8 @@ Every ``csrc/*.cu`` is compiled by ``nvcc`` for ``sm_90a`` (one process
 per source, all started together), linked into one shared library with a
 plain C interface, and loaded with ``ctypes``.  The library lands in
 ``build/torch_kernels/`` at the repository root under a name keyed on
-the sources and flags, so an edited source is rebuilt at its next use.
+the sources, the headers beside them and the flags, so an edited source
+or header is rebuilt at its next use.
 A build that fails raises: there is no fallback.
 
 Each C entry point launches on the stream it is given, allocates
@@ -70,7 +71,7 @@ SIGNATURES = {
     ),
     "dtpu_flash_bwd": (
         _vp, _vp, _vp, _vp, _vp, _vp,   # q k v o lse dout
-        _vp, _vp, _vp, _vp,             # dq dk dv delta (scratch)
+        _vp, _vp, _vp, _vp,             # dq dk dv scratch (delta, padded lse)
         _i, _i, _i, _i, _i, _i,         # H N Nk D dtype causal
         _f,                             # scale
         _vp,                            # stream
@@ -101,9 +102,10 @@ def _sources() -> list[Path]:
 
 
 def library_path() -> Path:
-    """Where the library for the current sources and flags lives."""
+    """Where the library for the current sources, the headers they
+    include (``csrc/*.cuh``) and the flags lives."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in _sources():
+    for src in _sources() + sorted(CSRC.glob("*.cuh")):
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return BUILD_DIR / f"libdtpu_kernels-{h.hexdigest()[:16]}.so"

@@ -14,53 +14,81 @@
 // The standard split into three launches, with no atomics, so two calls
 // on the same inputs give the same bits:
 //
-// a. delta[h, i] = sum_d dO * O in f32, one warp a row;
-// b. dK / dV: one block per (head, 64-key tile).  The block keeps its K
-//    and V tile in shared memory and walks the q-tiles in order (under
-//    causal from the one holding its first key: earlier tiles are fully
-//    masked), recomputing S^T and P^T, then dP^T = V dO^T and dS^T, and
-//    accumulating dV += P^T dO and dK += dS^T Q in f32 registers.  Each
-//    tile is written once;
-// c. dQ: one block per (head, 64-query tile), longest causal tiles first,
-//    walking the k-tiles up to its diagonal and accumulating dQ += dS K.
+// a. delta[h, i] = sum_d dO * O in f32, one warp a row; for the
+//    tensor-core body also lse in log2 units, both into [H, Np] f32
+//    scratch padded to Np = the rows rounded up to kResRows, with delta 0
+//    and lse +inf on the padding, so exp2(s - lse) is exactly 0 on a row
+//    past N with no branch, and every row block is 16-byte aligned for a
+//    bulk copy;
+// b. dK / dV: one block per (head, k-tile), which keeps its K and V tile
+//    and walks the q-tiles in order (under causal from the one holding
+//    its first key: earlier tiles are fully masked), recomputing S^T and
+//    P^T, then dP^T = V dO^T and dS^T, and accumulating dV += P^T dO and
+//    dK += dS^T Q in f32 registers.  Each tile is written once;
+// c. dQ: one block per (head, q-tile), walking the k-tiles up to its
+//    diagonal and accumulating dQ += dS K.
 //
 // Bound on an H100 at the smoke shapes (bf16, seq 8192, 16 heads, head
 // dim 128): operations.  Five products of 2*D flop per (query, key) pair,
 // 10*H*D*pairs = 1.37e12 flop non-causal (half causal), against ~0.27 GB
 // of q, k, v, o, dO, dq, dk, dv and lse: ~1.39 ms at the 989 TFLOP/s
-// tensor-core peak against ~0.08 ms of bytes.
+// tensor-core peak against ~0.08 ms of bytes (chip_smoke.py's
+// _bwd_bound_ms).  K3 does 7 products, not 5: S and dP are computed in
+// both b and c, since a fused pass would need dQ summed across the
+// k-tile blocks without float atomics.
 //
 // Two bodies, as the forward's:
 //
-// - bf16 / f16: tensor cores through mma.sync m16n8k16 with f32
-//   accumulation, four warps a block, each owning 16 rows of the resident
-//   tile; operands come from padded shared-memory tiles through ldmatrix
-//   (row stride D + 8 elements, so the eight rows of a matrix fall in
-//   eight different bank groups).  The accumulators of S^T (or S) become
-//   the A operand of the next product in registers: P is rounded once to
-//   the input type before P^T dO, and dS once before dS^T Q and dS K.
-//   That rounding is the body's one numeric difference from the plain
-//   version; flash.bwd_rounding_terms states the bound it implies.  Tiles
-//   are loaded synchronously, one q- or k-tile per step: wgmma, TMA and
-//   warp specialisation are later work;
+// - bf16 / f16: Hopper's tensor cores through wgmma, on tiles that TMA
+//   loads into 128-byte-swizzled shared memory (hopper.cuh, shared with
+//   K2).  256 threads a block, two warpgroups, each owning 64 of the
+//   block's kResRows = 128 resident rows (keys in b, queries in c); the
+//   resident pair (K, V in b; Q, dO in c) loads once, and the streamed
+//   pairs of kStreamRows = 64 rows (Q, dO and their lse and delta in b;
+//   K, V in c) go through a ring of kStages full barriers, refilled by
+//   the second warpgroup done with a stage.  Every product reads its
+//   tiles where they landed, with no transposed copy: S^T = K Q^T and
+//   dP^T = V dO^T (b), S = Q K^T and dP = dO V^T (c) are m64n64k16 from
+//   shared memory with both operands K-major; dV += P^T dO, dK += dS^T Q
+//   (b) and dQ += dS K (c) take P^T or dS from registers (the previous
+//   product's accumulator, rounded once to the input type and packed
+//   whole before the issue) and read the streamed tile MN-major.  That
+//   rounding of P and dS is the body's one numeric difference from the
+//   plain version; flash.bwd_rounding_terms states the bound it implies.
+//   So the tensor cores read their shared operands themselves (no
+//   fragment loads through registers), no thread waits on a load it
+//   issued (TMA fills the next stages while a stage is multiplied), and
+//   256 threads with launch bounds (256, 1), so nvcc may give each 255
+//   registers: b holds dK and dV (D/2 f32 each a thread), S^T and dP^T
+//   (32 each) and the packed P^T and dS^T (16 each) without spilling.
+//   What it leaves: 7 products; no producer warpgroup (at 384 threads
+//   nvcc budgets 168 registers a thread and serialises every wgmma,
+//   C7512); a wait after each group of products, so the elementwise work
+//   of a tile does not overlap its own products.  Grids are (H, tiles):
+//   under causal the longest blocks come first, b's first k-tiles and c's
+//   last q-tiles;
 // - f32: CUDA cores in f32 (tensor cores would run it as TF32), 256
 //   threads a block, each holding a 4x4 block of S and dP and a 4x(D/16)
 //   slice of its accumulators; every tile is stored row-major with an odd
 //   row stride (D + 1 floats), so the broadcast reads and the strided
 //   reads of the inner loops are conflict-free.
 //
-// Ragged N and Nk are masked inside the kernel: rows past the end load as
-// zeros, their p is 0, and they are never written.
+// Ragged N and Nk are masked inside the kernels: rows past the end load
+// as zeros (the 3-D tensor maps zero-fill a box inside its head), their p
+// is 0, and they are never written.
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include "hopper.cuh"
+
 namespace {
 
-constexpr int kTile = 64;  // rows of every q- and k-tile, both bodies
+constexpr int kTile = 64;  // rows of every q- and k-tile of the f32 body
 
 template <typename T> __device__ __forceinline__ float to_f(T x);
 template <> __device__ __forceinline__ float to_f<float>(float x) { return x; }
@@ -79,21 +107,31 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float
 // ---------------------------------------------------------------------------
 // a. delta = rowsum(dO * O)
 
+// one warp a row of [H, Np]: delta (0 past N) and, with lse2 given, lse
+// in log2 units (+inf past N).  The f32 body passes Np = N and no lse2.
 template <typename T, int D>
 __global__ void __launch_bounds__(256)
 bwd_delta_kernel(const T* __restrict__ o, const T* __restrict__ dout,
-                 float* __restrict__ delta, int rows) {
+                 const float* __restrict__ lse, float* __restrict__ delta,
+                 float* __restrict__ lse2, int N, int Np, int rows) {
   const int row = (blockIdx.x * blockDim.x + threadIdx.x) / 32;
   const int lane = threadIdx.x % 32;
   if (row >= rows) return;
-  const T* orow = o + static_cast<size_t>(row) * D;
-  const T* drow = dout + static_cast<size_t>(row) * D;
+  const int i = row % Np;
+  const size_t src = static_cast<size_t>(row / Np) * N + i;
   float acc = 0.f;
+  if (i < N) {
+    const T* orow = o + src * D;
+    const T* drow = dout + src * D;
 #pragma unroll
-  for (int d = lane; d < D; d += 32) acc = fmaf(to_f(drow[d]), to_f(orow[d]), acc);
+    for (int d = lane; d < D; d += 32) acc = fmaf(to_f(drow[d]), to_f(orow[d]), acc);
+  }
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, off);
-  if (lane == 0) delta[row] = acc;
+  if (lane == 0) {
+    delta[row] = acc;
+    if (lse2 != nullptr) lse2[row] = i < N ? lse[src] * kLog2e : INFINITY;
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -339,299 +377,354 @@ bwd_dq_simt_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __
     for (int jd = 0; jd < NJD; ++jd) dq[row + tx + 16 * jd] = from_f<T>(acc[i][jd] * scale);
   }
 }
-
 // ---------------------------------------------------------------------------
-// Tensor-core body (bf16 / f16): mma.sync m16n8k16, ldmatrix from padded tiles
+// Tensor-core body (bf16 / f16): wgmma on TMA-fed tiles, two warpgroups
 
-constexpr int kTcThreads = 128;  // four warps, 16 rows of the resident tile each
+constexpr int kResRows = 128;    // resident rows a block owns, 64 per warpgroup
+constexpr int kStreamRows = 64;  // rows of each streamed tile
+constexpr int kStages = 3;       // ring depth of the streamed pairs
+constexpr int kTcThreads = 256;  // two warpgroups; their first threads also issue the loads
+constexpr uint32_t kChunkBytes = 64 * 128;  // one 64-column chunk of a 64-row tile
+constexpr uint32_t kRowBytes = kStreamRows * sizeof(float);  // lse or delta of a q-tile
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+// rows of the padded lse / delta scratch of a head
+__host__ __device__ constexpr int padded_rows(int n) {
+  return (n + kResRows - 1) / kResRows * kResRows;
 }
-
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], uint32_t addr) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr));
-}
-
-__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4], uint32_t addr) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr));
-}
-
-template <typename T> struct Mma;
-template <> struct Mma<__nv_bfloat16> {
-  static __device__ __forceinline__ void run(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
-                                             uint32_t b1) {
-    asm volatile(
-        "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-        "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-  }
-  static __device__ __forceinline__ uint32_t pack(float lo, float hi) {
-    __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-    return *reinterpret_cast<uint32_t*>(&v);
-  }
-};
-template <> struct Mma<__half> {
-  static __device__ __forceinline__ void run(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
-                                             uint32_t b1) {
-    asm volatile(
-        "mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 "
-        "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-  }
-  static __device__ __forceinline__ uint32_t pack(float lo, float hi) {
-    __half2 v = __floats2half2_rn(lo, hi);
-    return *reinterpret_cast<uint32_t*>(&v);
-  }
-};
 
 template <int D>
 __host__ __device__ constexpr size_t tc_smem_bytes() {
-  // four [64][D+8] 2-byte tiles, lse and delta of a q-tile
-  return static_cast<size_t>(4 * kTile * (D + 8)) * 2 + 2 * kTile * sizeof(float);
+  // the resident pair, the ring of streamed pairs (2-byte elements), the
+  // ring's lse and delta rows, + slack to align to 1024 (at D = 128:
+  // 64 + 3 * 32 KB + 1.5 KB + 1 KB, under the 227 KB a block may use)
+  return static_cast<size_t>(2 * kResRows + 2 * kStages * kStreamRows) * D * 2 +
+         kStages * 2 * kRowBytes + 1024;
 }
 
-// rows [r0, r0 + 64) of a [rows, D] matrix into a [64][D+8] tile in
-// 16-byte pieces, zeros past `rows`
-template <typename T, int D>
-__device__ __forceinline__ void load_rows_tc(T* dst, const T* src, int r0, int rows) {
-  constexpr int VPR = D / 8;
-  for (int idx = threadIdx.x; idx < kTile * VPR; idx += blockDim.x) {
-    const int r = idx / VPR, c = (idx % VPR) * 8;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (r0 + r < rows) val = *reinterpret_cast<const uint4*>(src + static_cast<size_t>(r0 + r) * D + c);
-    *reinterpret_cast<uint4*>(dst + r * (D + 8) + c) = val;
-  }
+// a contiguous global range into shared memory, completing on `bar`
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src, uint32_t bytes,
+                                          uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
+      ::"r"(dst), "l"(src), "r"(bytes), "r"(bar)
+      : "memory");
 }
 
-// ldmatrix addresses in a [64][D+8] tile (byte address `tile`).  An A
-// operand (16 rows m0.., 16 columns k0..) and a B operand stored [k][n]
-// (16 k rows k0.., 16 n columns n0.., read transposed) take the same
-// pattern: lanes 0-15 rows 0-15 at column 0, lanes 16-31 at column 8.
+// descriptors of a 64-row tile at `tile` (D/64 chunks of [64][64]) for
+// k-step j: read K-major (the head dim is K: S, S^T, dP, dP^T) or
+// MN-major (the rows are K: the B of dV, dK and dQ)
+__device__ __forceinline__ uint64_t desc_k_major(uint32_t tile, int j) {
+  return smem_desc(tile + (j / 4) * kChunkBytes + (j % 4) * 32, 16, 1024);
+}
+__device__ __forceinline__ uint64_t desc_mn_major(uint32_t tile, int j) {
+  return smem_desc(tile + j * 16 * 128, kChunkBytes, 1024);
+}
+
+// rows [r0, r0 + 64) of a 3-D map into the 64-row tile at dst
 template <int D>
-__device__ __forceinline__ uint32_t addr_rows16(uint32_t tile, int r0, int c0, int lane) {
-  return tile + ((r0 + (lane & 15)) * (D + 8) + c0 + (lane >> 4) * 8) * 2;
+__device__ __forceinline__ void load_rows(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                          int r0, int h) {
+#pragma unroll
+  for (int c = 0; c < D / 64; ++c) tma_load_3d(dst + c * kChunkBytes, map, bar, 64 * c, r0, h);
 }
-// a B operand stored [n][k] (16 n rows n0.., 16 k columns k0..): regs 0-1
-// are n-tile n0..n0+7, regs 2-3 n-tile n0+8..n0+15
+
+// the resident pair of 128 rows from r0: both warpgroups' 64-row tiles,
+// except one that starts past the end (never stored; its rows stay as
+// they are and reach only its own, unwritten, output rows)
 template <int D>
-__device__ __forceinline__ uint32_t addr_b_nk(uint32_t tile, int n0, int k0, int lane) {
-  return tile + ((n0 + (lane & 7) + ((lane >> 4) << 3)) * (D + 8) + k0 + ((lane >> 3) & 1) * 8) * 2;
-}
-
-// C[16 x 64] += A[16 x D] B^T, A rows `a_r0` of tile `ta`, B the 64 rows of
-// tile `tb` (both [rows][D]): S, S^T, dP and dP^T
-template <typename T, int D>
-__device__ __forceinline__ void mma_rows_x_rows(float (&c)[8][4], uint32_t ta, int a_r0,
-                                                uint32_t tb, int lane) {
-#pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
-    uint32_t a[4];
-    ldsm_x4(a, addr_rows16<D>(ta, a_r0, 16 * kk, lane));
-#pragma unroll
-    for (int np = 0; np < 4; ++np) {
-      uint32_t b[4];
-      ldsm_x4(b, addr_b_nk<D>(tb, 16 * np, 16 * kk, lane));
-      Mma<T>::run(c[2 * np], a, b[0], b[1]);
-      Mma<T>::run(c[2 * np + 1], a, b[2], b[3]);
-    }
+__device__ __forceinline__ void load_resident(uint32_t dst_a, const CUtensorMap* map_a,
+                                              uint32_t dst_b, const CUtensorMap* map_b,
+                                              uint32_t bar, int r0, int rows, int h) {
+  constexpr uint32_t kSub = 64 * D * 2;
+  const int halves = r0 + 64 < rows ? 2 : 1;
+  mbar_expect_tx(bar, 2 * halves * kSub);
+  for (int w = 0; w < halves; ++w) {
+    load_rows<D>(dst_a + w * kSub, map_a, bar, r0 + 64 * w, h);
+    load_rows<D>(dst_b + w * kSub, map_b, bar, r0 + 64 * w, h);
   }
 }
 
-// acc[16 x D] += X[16 x 64] M, X in registers as an accumulator fragment
-// (rounded once to T here), M the 64 rows of tile `tm` ([rows][D]):
-// dV += P^T dO, dK += dS^T Q, dQ += dS K
+// S^T (or S) and dP^T (or dP) of one warpgroup's 64 rows against a
+// streamed tile: four operands K-major, one group, waited on
 template <typename T, int D>
-__device__ __forceinline__ void mma_regs_x_tile(float (&acc)[D / 8][4], const float (&x)[8][4],
-                                                uint32_t tm, int lane) {
+__device__ __forceinline__ void scores(float (&s)[32], float (&dp)[32], uint32_t a_s,
+                                       uint32_t b_s, uint32_t a_dp, uint32_t b_dp) {
+  wgmma_fence();
 #pragma unroll
-  for (int kk = 0; kk < 4; ++kk) {
-    const uint32_t a[4] = {Mma<T>::pack(x[2 * kk][0], x[2 * kk][1]),
-                           Mma<T>::pack(x[2 * kk][2], x[2 * kk][3]),
-                           Mma<T>::pack(x[2 * kk + 1][0], x[2 * kk + 1][1]),
-                           Mma<T>::pack(x[2 * kk + 1][2], x[2 * kk + 1][3])};
+  for (int j = 0; j < D / 16; ++j) Mma<T>::qk(s, desc_k_major(a_s, j), desc_k_major(b_s, j), j > 0);
 #pragma unroll
-    for (int np = 0; np < D / 16; ++np) {
-      uint32_t b[4];
-      ldsm_x4_trans(b, addr_rows16<D>(tm, 16 * kk, 16 * np, lane));
-      Mma<T>::run(acc[2 * np], a, b[0], b[1]);
-      Mma<T>::run(acc[2 * np + 1], a, b[2], b[3]);
-    }
+  for (int j = 0; j < D / 16; ++j)
+    Mma<T>::qk(dp, desc_k_major(a_dp, j), desc_k_major(b_dp, j), j > 0);
+  wgmma_commit();
+  wgmma_wait_all();
+  fence_regs(s);
+  fence_regs(dp);
+}
+
+// acc += X M: X the 64 x 64 register fragment `x` (packed), M the
+// streamed 64-row tile read MN-major; issued, not waited on
+template <typename T, int D>
+__device__ __forceinline__ void accumulate(float (&acc)[D / 2], const uint32_t (&x)[16],
+                                           uint32_t tile) {
+#pragma unroll
+  for (int j = 0; j < kStreamRows / 16; ++j) {
+    const uint32_t a[4] = {x[4 * j], x[4 * j + 1], x[4 * j + 2], x[4 * j + 3]};
+    Mma<T>::pv(acc, a, desc_mn_major(tile, j));
   }
 }
 
-// Accumulator fragment of m16n8, register r of n-tile j of a lane: row
-// lane/4 + 8*(r/2), column 8*j + 2*(lane%4) + (r%2).
+// rows row0 and row0 + 8 of a 64-row accumulator fragment, times `mul`,
+// rounded once, where below `rows`
 template <typename T, int D>
-__device__ __forceinline__ void store_rows(T* out, const float (&acc)[D / 8][4], int r_lo, int rows,
-                                           float mul, int lane) {
+__device__ __forceinline__ void store_rows(T* out, const float (&acc)[D / 2], int row0,
+                                           int rows, float mul, int lane) {
 #pragma unroll
   for (int hh = 0; hh < 2; ++hh) {
-    const int r = r_lo + 8 * hh;
-    if (r >= rows) continue;
-    T* orow = out + static_cast<size_t>(r) * D;
+    const int row = row0 + 8 * hh;
+    if (row >= rows) continue;
+    T* orow = out + static_cast<size_t>(row) * D;
 #pragma unroll
-    for (int j = 0; j < D / 8; ++j) {
-      *reinterpret_cast<uint32_t*>(orow + 8 * j + 2 * (lane & 3)) =
-          Mma<T>::pack(acc[j][2 * hh] * mul, acc[j][2 * hh + 1] * mul);
+    for (int i = 0; i < D / 2; i += 2) {
+      if (((i / 2) & 1) != hh) continue;
+      const int col = 8 * (i / 4) + 2 * (lane & 3);
+      *reinterpret_cast<uint32_t*>(orow + col) = Mma<T>::pack(acc[i] * mul, acc[i + 1] * mul);
     }
   }
 }
 
+// b. One block per (head, 128 keys): its K and V stay, the q-tiles stream
+// in with their lse and delta.  Warpgroup w owns keys k0 + 64 w ...
 template <typename T, int D, bool CAUSAL>
-__global__ void __launch_bounds__(kTcThreads)
-bwd_dkdv_tc_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                   const T* __restrict__ dout, const float* __restrict__ lse,
-                   const float* __restrict__ delta, T* __restrict__ dk, T* __restrict__ dv,
-                   int N, int Nk, float scale) {
-  constexpr int LD = D + 8;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* sK = reinterpret_cast<T*>(smem_raw);
-  T* sV = sK + kTile * LD;
-  T* sQ = sV + kTile * LD;
-  T* sdO = sQ + kTile * LD;
-  float* sL = reinterpret_cast<float*>(sdO + kTile * LD);
-  float* sDl = sL + kTile;
-  const uint32_t uK = smem_u32(sK), uV = smem_u32(sV), uQ = smem_u32(sQ), udO = smem_u32(sdO);
+__global__ void __launch_bounds__(kTcThreads, 1)
+bwd_dkdv_tc_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
+                   const __grid_constant__ CUtensorMap tv, const __grid_constant__ CUtensorMap tdo,
+                   const float* __restrict__ delta, const float* __restrict__ lse2,
+                   T* __restrict__ dk, T* __restrict__ dv, int N, int Nk, int Np, float scale,
+                   float scale_log2) {
+  constexpr uint32_t kSub = 64 * D * 2;                // a warpgroup's 64 resident rows
+  constexpr uint32_t kStream = kStreamRows * D * 2;    // one streamed tile
+  extern __shared__ uint8_t smem_raw[];
+  __shared__ __align__(8) uint64_t bars[1 + kStages];
+  __shared__ int released[kStages];  // warpgroups done with each stage, ever
 
-  const int h = blockIdx.y;
-  const int k0 = blockIdx.x * kTile;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const size_t qoff = static_cast<size_t>(h) * N * D, koff = static_cast<size_t>(h) * Nk * D;
-  const int key_lo = k0 + 16 * warp + lane / 4;  // this lane's keys: key_lo, key_lo + 8
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  const uint32_t sK = base;
+  const uint32_t sV = sK + 2 * kSub;
+  const uint32_t sQ = sV + 2 * kSub;                  // stage s at + 2 s kStream, its dO at + kStream
+  const uint32_t sRows = sQ + kStages * 2 * kStream;  // stage s: lse2 at + 2 s kRowBytes, delta after
+  const float* rows_f = reinterpret_cast<const float*>(smem_raw + (sRows - raw));
+  const uint32_t bar_res = smem_u32(&bars[0]);
+  const uint32_t bar_full = smem_u32(&bars[1]);  // stage s at + 8 s
 
-  load_rows_tc<T, D>(sK, k + koff, k0, Nk);
-  load_rows_tc<T, D>(sV, v + koff, k0, Nk);
+  const int h = blockIdx.x;
+  const int k0 = blockIdx.y * kResRows;  // causal: the first k-tiles walk the most q-tiles
+  const int n_qt = (N + kStreamRows - 1) / kStreamRows;
+  // under causal the first q-tile with a query at or past the first key
+  const int t0 = CAUSAL ? k0 / kStreamRows : 0;
+  const int n_it = max(n_qt - t0, 0);
+  const size_t row_off = static_cast<size_t>(h) * Np;
 
-  float acc_k[D / 8][4], acc_v[D / 8][4];
-#pragma unroll
-  for (int j = 0; j < D / 8; ++j)
-#pragma unroll
-    for (int r = 0; r < 4; ++r) acc_k[j][r] = acc_v[j][r] = 0.f;
-
-  const int n_qt = (N + kTile - 1) / kTile;
-  for (int qt = CAUSAL ? blockIdx.x : 0; qt < n_qt; ++qt) {
-    const int q0 = qt * kTile;
-    __syncthreads();  // the previous step's reads of sQ, sdO, sL, sDl are done
-    load_rows_tc<T, D>(sQ, q + qoff, q0, N);
-    load_rows_tc<T, D>(sdO, dout + qoff, q0, N);
-    if (threadIdx.x < kTile) {
-      const bool in = q0 + static_cast<int>(threadIdx.x) < N;
-      sL[threadIdx.x] = in ? lse[static_cast<size_t>(h) * N + q0 + threadIdx.x] : 0.f;
-      sDl[threadIdx.x] = in ? delta[static_cast<size_t>(h) * N + q0 + threadIdx.x] : 0.f;
+  if (threadIdx.x == 0) {
+    mbar_init(bar_res, 1);
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(bar_full + 8 * s, 1);
+      released[s] = 0;
     }
-    __syncthreads();
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
 
-    // S^T = K Q^T (rows: this warp's 16 keys; columns: the tile's 64 queries)
-    float p[8][4];
-#pragma unroll
-    for (int j = 0; j < 8; ++j)
-#pragma unroll
-      for (int r = 0; r < 4; ++r) p[j][r] = 0.f;
-    mma_rows_x_rows<T, D>(p, uK, 16 * warp, uQ, lane);
-#pragma unroll
-    for (int j = 0; j < 8; ++j)
-#pragma unroll
-      for (int r = 0; r < 4; ++r) {
-        const int key = key_lo + 8 * (r >> 1), c = 8 * j + 2 * (lane & 3) + (r & 1);
-        const bool live = q0 + c < N && (!CAUSAL || q0 + c >= key);
-        p[j][r] = live ? expf(p[j][r] * scale - sL[c]) : 0.f;
-      }
-    mma_regs_x_tile<T, D>(acc_v, p, udO, lane);  // dV += P^T dO
-
-    // dS^T = P^T (V dO^T - delta)
-    float ds[8][4];
-#pragma unroll
-    for (int j = 0; j < 8; ++j)
-#pragma unroll
-      for (int r = 0; r < 4; ++r) ds[j][r] = 0.f;
-    mma_rows_x_rows<T, D>(ds, uV, 16 * warp, udO, lane);
-#pragma unroll
-    for (int j = 0; j < 8; ++j)
-#pragma unroll
-      for (int r = 0; r < 4; ++r) {
-        const int c = 8 * j + 2 * (lane & 3) + (r & 1);
-        ds[j][r] = p[j][r] * (ds[j][r] - sDl[c]);
-      }
-    mma_regs_x_tile<T, D>(acc_k, ds, uQ, lane);  // dK += dS^T Q
+  auto load_stage = [&](int s, int t) {
+    const uint32_t bar = bar_full + 8 * s;
+    mbar_expect_tx(bar, 2 * kStream + 2 * kRowBytes);
+    load_rows<D>(sQ + 2 * s * kStream, &tq, bar, t * kStreamRows, h);
+    load_rows<D>(sQ + 2 * s * kStream + kStream, &tdo, bar, t * kStreamRows, h);
+    bulk_load(sRows + 2 * s * kRowBytes, lse2 + row_off + t * kStreamRows, kRowBytes, bar);
+    bulk_load(sRows + (2 * s + 1) * kRowBytes, delta + row_off + t * kStreamRows, kRowBytes, bar);
+  };
+  if (threadIdx.x == 0) {
+    load_resident<D>(sK, &tk, sV, &tv, bar_res, k0, Nk, h);
+    for (int it = 0; it < kStages && it < n_it; ++it) load_stage(it, t0 + it);
   }
 
-  store_rows<T, D>(dk + koff, acc_k, key_lo, Nk, scale, lane);
-  store_rows<T, D>(dv + koff, acc_v, key_lo, Nk, 1.f, lane);
+  const int wg = threadIdx.x / 128;
+  const int tid = threadIdx.x % 128;
+  const int warp = tid / 32;
+  const int lane = tid % 32;
+  const int kw0 = k0 + 64 * wg;                   // this warpgroup's first key
+  const int key0 = kw0 + 16 * warp + lane / 4;    // keys key0 and key0 + 8
+  const uint32_t my_k = sK + wg * kSub, my_v = sV + wg * kSub;
+  float acc_k[D / 2], acc_v[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) acc_k[i] = acc_v[i] = 0.f;
+
+  // the second warpgroup done with a stage refills it, kStages tiles on
+  auto release = [&](int s, int it) {
+    asm volatile("bar.sync %0, 128;\n" ::"r"(1 + wg) : "memory");
+    if (tid == 0 && (atomicAdd(&released[s], 1) & 1)) {
+      if (it + kStages < n_it) load_stage(s, t0 + it + kStages);
+    }
+  };
+
+  mbar_wait(bar_res, 0);
+  for (int it = 0; it < n_it; ++it) {
+    const int s = it % kStages;
+    const int q0 = (t0 + it) * kStreamRows;
+    const uint32_t q_s = sQ + 2 * s * kStream, do_s = q_s + kStream;
+    mbar_wait(bar_full + 8 * s, (it / kStages) & 1);
+    float st[32], dpt[32];
+    scores<T, D>(st, dpt, my_k, q_s, my_v, do_s);  // S^T = K Q^T, dP^T = V dO^T
+
+    // P^T = exp(S^T scale - lse) by column (query), 0 where the query
+    // comes before the key (a padded query's lse is +inf); dS^T =
+    // P^T (dP^T - delta); both rounded once, packed whole
+    const float* l2 = rows_f + 2 * s * kStreamRows;
+    const float* dl = l2 + kStreamRows;
+    const bool masked = CAUSAL && q0 < kw0 + 63;
+    uint32_t pp[16], pd[16];
+#pragma unroll
+    for (int i = 0; i < 16; ++i) {
+      float p[2], ds[2];
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int r = 2 * i + e;
+        const int col = 8 * (r / 4) + 2 * (lane & 3) + e;
+        p[e] = ex2(st[r] * scale_log2 - l2[col]);
+        if (masked && q0 + col < key0 + 8 * ((r / 2) & 1)) p[e] = 0.f;
+        ds[e] = p[e] * (dpt[r] - dl[col]);
+      }
+      pp[i] = Mma<T>::pack(p[0], p[1]);
+      pd[i] = Mma<T>::pack(ds[0], ds[1]);
+    }
+    fence_regs(acc_v);
+    fence_regs(acc_k);
+    wgmma_fence();
+    accumulate<T, D>(acc_v, pp, do_s);  // dV += P^T dO
+    accumulate<T, D>(acc_k, pd, q_s);   // dK += dS^T Q
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(acc_v);
+    fence_regs(acc_k);
+    release(s, it);
+  }
+
+  store_rows<T, D>(dk + static_cast<size_t>(h) * Nk * D, acc_k, key0, Nk, scale, lane);
+  store_rows<T, D>(dv + static_cast<size_t>(h) * Nk * D, acc_v, key0, Nk, 1.f, lane);
 }
 
+// c. One block per (head, 128 queries): its Q and dO stay, the k-tiles
+// stream in.  Warpgroup w owns queries q0 + 64 w ...
 template <typename T, int D, bool CAUSAL>
-__global__ void __launch_bounds__(kTcThreads)
-bwd_dq_tc_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                 const T* __restrict__ dout, const float* __restrict__ lse,
-                 const float* __restrict__ delta, T* __restrict__ dq, int N, int Nk,
-                 float scale) {
-  constexpr int LD = D + 8;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* sQ = reinterpret_cast<T*>(smem_raw);
-  T* sdO = sQ + kTile * LD;
-  T* sK = sdO + kTile * LD;
-  T* sV = sK + kTile * LD;
-  const uint32_t uK = smem_u32(sK), uV = smem_u32(sV), uQ = smem_u32(sQ), udO = smem_u32(sdO);
+__global__ void __launch_bounds__(kTcThreads, 1)
+bwd_dq_tc_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
+                 const __grid_constant__ CUtensorMap tv, const __grid_constant__ CUtensorMap tdo,
+                 const float* __restrict__ delta, const float* __restrict__ lse2,
+                 T* __restrict__ dq, int N, int Nk, int Np, float scale, float scale_log2) {
+  constexpr uint32_t kSub = 64 * D * 2;
+  constexpr uint32_t kStream = kStreamRows * D * 2;
+  extern __shared__ uint8_t smem_raw[];
+  __shared__ __align__(8) uint64_t bars[1 + kStages];
+  __shared__ int released[kStages];
 
-  const int h = blockIdx.y;
-  const int q0 = (gridDim.x - 1 - blockIdx.x) * kTile;  // longest causal tiles first
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const size_t qoff = static_cast<size_t>(h) * N * D, koff = static_cast<size_t>(h) * Nk * D;
-  const int row_lo = q0 + 16 * warp + lane / 4;  // this lane's rows: row_lo, row_lo + 8
+  const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  const uint32_t sQ = base;
+  const uint32_t sdO = sQ + 2 * kSub;
+  const uint32_t sK = sdO + 2 * kSub;  // stage s at + 2 s kStream, its V at + kStream
+  const uint32_t bar_res = smem_u32(&bars[0]);
+  const uint32_t bar_full = smem_u32(&bars[1]);
 
-  load_rows_tc<T, D>(sQ, q + qoff, q0, N);
-  load_rows_tc<T, D>(sdO, dout + qoff, q0, N);
-  float lse_r[2], del_r[2];
+  const int h = blockIdx.x;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kResRows;  // longest causal tiles first
+  int n_kt = (Nk + kStreamRows - 1) / kStreamRows;
+  // under causal the k-tiles that start before the block's last query
+  if (CAUSAL) n_kt = min(n_kt, (min(q0 + kResRows, N) + kStreamRows - 1) / kStreamRows);
+
+  if (threadIdx.x == 0) {
+    mbar_init(bar_res, 1);
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(bar_full + 8 * s, 1);
+      released[s] = 0;
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  auto load_stage = [&](int s, int t) {
+    const uint32_t bar = bar_full + 8 * s;
+    mbar_expect_tx(bar, 2 * kStream);
+    load_rows<D>(sK + 2 * s * kStream, &tk, bar, t * kStreamRows, h);
+    load_rows<D>(sK + 2 * s * kStream + kStream, &tv, bar, t * kStreamRows, h);
+  };
+  if (threadIdx.x == 0) {
+    load_resident<D>(sQ, &tq, sdO, &tdo, bar_res, q0, N, h);
+    for (int t = 0; t < kStages && t < n_kt; ++t) load_stage(t, t);
+  }
+
+  const int wg = threadIdx.x / 128;
+  const int tid = threadIdx.x % 128;
+  const int warp = tid / 32;
+  const int lane = tid % 32;
+  const int wq0 = q0 + 64 * wg;                 // this warpgroup's first query
+  const int row0 = wq0 + 16 * warp + lane / 4;  // queries row0 and row0 + 8
+  const uint32_t my_q = sQ + wg * kSub, my_do = sdO + wg * kSub;
+  float lse_r[2], del_r[2];  // padded: row0 + 8 < q0 + 128 <= Np
 #pragma unroll
   for (int hh = 0; hh < 2; ++hh) {
-    const int r = row_lo + 8 * hh;
-    lse_r[hh] = r < N ? lse[static_cast<size_t>(h) * N + r] : 0.f;
-    del_r[hh] = r < N ? delta[static_cast<size_t>(h) * N + r] : 0.f;
+    const size_t r = static_cast<size_t>(h) * Np + row0 + 8 * hh;
+    lse_r[hh] = lse2[r];
+    del_r[hh] = delta[r];
   }
-  float acc[D / 8][4];
+  float acc[D / 2];
 #pragma unroll
-  for (int j = 0; j < D / 8; ++j)
-#pragma unroll
-    for (int r = 0; r < 4; ++r) acc[j][r] = 0.f;
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
 
-  int n_kt = (Nk + kTile - 1) / kTile;
-  if (CAUSAL) n_kt = min(n_kt, (min(q0 + kTile, N) + kTile - 1) / kTile);
-  for (int kt = 0; kt < n_kt; ++kt) {
-    const int k0 = kt * kTile;
-    __syncthreads();  // the previous step's reads of sK, sV are done
-    load_rows_tc<T, D>(sK, k + koff, k0, Nk);
-    load_rows_tc<T, D>(sV, v + koff, k0, Nk);
-    __syncthreads();
+  auto release = [&](int s, int t) {
+    asm volatile("bar.sync %0, 128;\n" ::"r"(1 + wg) : "memory");
+    if (tid == 0 && (atomicAdd(&released[s], 1) & 1)) {
+      if (t + kStages < n_kt) load_stage(s, t + kStages);
+    }
+  };
 
-    // S = Q K^T (rows: this warp's 16 queries; columns: the tile's 64 keys)
-    float p[8][4], ds[8][4];
+  mbar_wait(bar_res, 0);
+  for (int t = 0; t < n_kt; ++t) {
+    const int s = t % kStages;
+    const int k0 = t * kStreamRows;
+    const uint32_t k_s = sK + 2 * s * kStream, v_s = k_s + kStream;
+    mbar_wait(bar_full + 8 * s, (t / kStages) & 1);
+    float sc[32], dp[32];
+    scores<T, D>(sc, dp, my_q, k_s, my_do, v_s);  // S = Q K^T, dP = dO V^T
+
+    // P = exp(S scale - lse) by row, 0 past Nk and where the query comes
+    // before the key; dS = P (dP - delta), rounded once, packed whole
+    const bool masked = k0 + kStreamRows > Nk || (CAUSAL && k0 + kStreamRows - 1 > wq0);
+    uint32_t pd[16];
 #pragma unroll
-    for (int j = 0; j < 8; ++j)
+    for (int i = 0; i < 16; ++i) {
+      float ds[2];
 #pragma unroll
-      for (int r = 0; r < 4; ++r) p[j][r] = ds[j][r] = 0.f;
-    mma_rows_x_rows<T, D>(p, uQ, 16 * warp, uK, lane);
-    mma_rows_x_rows<T, D>(ds, udO, 16 * warp, uV, lane);  // dP = dO V^T
-#pragma unroll
-    for (int j = 0; j < 8; ++j)
-#pragma unroll
-      for (int r = 0; r < 4; ++r) {
-        const int hh = r >> 1, row = row_lo + 8 * hh;
-        const int key = k0 + 8 * j + 2 * (lane & 3) + (r & 1);
-        const bool live = row < N && key < Nk && (!CAUSAL || row >= key);
-        const float pr = live ? expf(p[j][r] * scale - lse_r[hh]) : 0.f;
-        ds[j][r] = pr * (ds[j][r] - del_r[hh]);
+      for (int e = 0; e < 2; ++e) {
+        const int r = 2 * i + e;
+        const int hh = (r / 2) & 1;
+        float p = ex2(sc[r] * scale_log2 - lse_r[hh]);
+        if (masked) {
+          const int key = k0 + 8 * (r / 4) + 2 * (lane & 3) + e;
+          if (key >= Nk || (CAUSAL && row0 + 8 * hh < key)) p = 0.f;
+        }
+        ds[e] = p * (dp[r] - del_r[hh]);
       }
-    mma_regs_x_tile<T, D>(acc, ds, uK, lane);  // dQ += dS K
+      pd[i] = Mma<T>::pack(ds[0], ds[1]);
+    }
+    fence_regs(acc);
+    wgmma_fence();
+    accumulate<T, D>(acc, pd, k_s);  // dQ += dS K
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(acc);
+    release(s, t);
   }
 
-  store_rows<T, D>(dq + qoff, acc, row_lo, N, scale, lane);
+  store_rows<T, D>(dq + static_cast<size_t>(h) * N * D, acc, row0, N, scale, lane);
 }
 
 // ---------------------------------------------------------------------------
@@ -643,63 +736,88 @@ cudaError_t opt_in_smem(Kern kernel, size_t bytes) {
                               static_cast<int>(bytes));
 }
 
-template <typename T, int D, bool CAUSAL, bool TC>
-cudaError_t launch_all(const void* q, const void* k, const void* v, const void* o,
-                       const void* lse, const void* dout, void* dq, void* dk, void* dv,
-                       void* delta, int H, int N, int Nk, float scale, cudaStream_t stream) {
-  const T* q_ = static_cast<const T*>(q);
-  const T* k_ = static_cast<const T*>(k);
-  const T* v_ = static_cast<const T*>(v);
-  const T* do_ = static_cast<const T*>(dout);
-  const float* lse_ = static_cast<const float*>(lse);
-  float* delta_ = static_cast<float*>(delta);
-  const int rows = H * N;
-  bwd_delta_kernel<T, D><<<(rows + 7) / 8, 256, 0, stream>>>(static_cast<const T*>(o), do_, delta_,
-                                                             rows);
+template <typename T, int D, bool CAUSAL>
+cudaError_t launch_tc(const void* q, const void* k, const void* v, const void* o,
+                      const void* lse, const void* dout, void* dq, void* dk, void* dv,
+                      void* scratch, int H, int N, int Nk, int dtype, float scale,
+                      cudaStream_t stream) {
+  EncodeTiledFn fn = encode_fn();
+  if (fn == nullptr) return cudaErrorNotSupported;
+  CUtensorMap tq, tk, tv, tdo;
+  if (!encode_3d(&tq, fn, q, dtype, H, N, D, kStreamRows) ||
+      !encode_3d(&tk, fn, k, dtype, H, Nk, D, kStreamRows) ||
+      !encode_3d(&tv, fn, v, dtype, H, Nk, D, kStreamRows) ||
+      !encode_3d(&tdo, fn, dout, dtype, H, N, D, kStreamRows)) {
+    return cudaErrorInvalidValue;
+  }
+  const int Np = padded_rows(N);
+  float* delta = static_cast<float*>(scratch);
+  float* lse2 = delta + static_cast<size_t>(H) * Np;
+  const int rows = H * Np;
+  bwd_delta_kernel<T, D><<<(rows + 7) / 8, 256, 0, stream>>>(
+      static_cast<const T*>(o), static_cast<const T*>(dout), static_cast<const float*>(lse),
+      delta, lse2, N, Np, rows);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
+  constexpr size_t smem = tc_smem_bytes<D>();
+  auto kdkdv = bwd_dkdv_tc_kernel<T, D, CAUSAL>;
+  auto kdq = bwd_dq_tc_kernel<T, D, CAUSAL>;
+  if ((err = opt_in_smem(kdkdv, smem)) != cudaSuccess) return err;
+  if ((err = opt_in_smem(kdq, smem)) != cudaSuccess) return err;
+  const float scale_log2 = scale * kLog2e;
+  const dim3 grid_k(H, (Nk + kResRows - 1) / kResRows), grid_q(H, (N + kResRows - 1) / kResRows);
+  kdkdv<<<grid_k, kTcThreads, smem, stream>>>(tq, tk, tv, tdo, delta, lse2, static_cast<T*>(dk),
+                                              static_cast<T*>(dv), N, Nk, Np, scale, scale_log2);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  kdq<<<grid_q, kTcThreads, smem, stream>>>(tq, tk, tv, tdo, delta, lse2, static_cast<T*>(dq), N,
+                                            Nk, Np, scale, scale_log2);
+  return cudaGetLastError();
+}
+
+template <int D, bool CAUSAL>
+cudaError_t launch_simt(const void* q, const void* k, const void* v, const void* o,
+                        const void* lse, const void* dout, void* dq, void* dk, void* dv,
+                        void* scratch, int H, int N, int Nk, float scale, cudaStream_t stream) {
+  const float* q_ = static_cast<const float*>(q);
+  const float* k_ = static_cast<const float*>(k);
+  const float* v_ = static_cast<const float*>(v);
+  const float* do_ = static_cast<const float*>(dout);
+  const float* lse_ = static_cast<const float*>(lse);
+  float* delta = static_cast<float*>(scratch);
+  const int rows = H * N;
+  bwd_delta_kernel<float, D><<<(rows + 7) / 8, 256, 0, stream>>>(
+      static_cast<const float*>(o), do_, lse_, delta, nullptr, N, N, rows);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  constexpr size_t smem = simt_smem_bytes<D>();
+  auto kdkdv = bwd_dkdv_simt_kernel<float, D, CAUSAL>;
+  auto kdq = bwd_dq_simt_kernel<float, D, CAUSAL>;
+  if ((err = opt_in_smem(kdkdv, smem)) != cudaSuccess) return err;
+  if ((err = opt_in_smem(kdq, smem)) != cudaSuccess) return err;
   const dim3 grid_k((Nk + kTile - 1) / kTile, H), grid_q((N + kTile - 1) / kTile, H);
-  if constexpr (TC) {
-    constexpr size_t smem = tc_smem_bytes<D>();
-    auto kdkdv = bwd_dkdv_tc_kernel<T, D, CAUSAL>;
-    auto kdq = bwd_dq_tc_kernel<T, D, CAUSAL>;
-    if ((err = opt_in_smem(kdkdv, smem)) != cudaSuccess) return err;
-    if ((err = opt_in_smem(kdq, smem)) != cudaSuccess) return err;
-    kdkdv<<<grid_k, kTcThreads, smem, stream>>>(q_, k_, v_, do_, lse_, delta_, static_cast<T*>(dk),
-                                                static_cast<T*>(dv), N, Nk, scale);
-    if ((err = cudaGetLastError()) != cudaSuccess) return err;
-    kdq<<<grid_q, kTcThreads, smem, stream>>>(q_, k_, v_, do_, lse_, delta_, static_cast<T*>(dq),
-                                              N, Nk, scale);
-  } else {
-    constexpr size_t smem = simt_smem_bytes<D>();
-    auto kdkdv = bwd_dkdv_simt_kernel<T, D, CAUSAL>;
-    auto kdq = bwd_dq_simt_kernel<T, D, CAUSAL>;
-    if ((err = opt_in_smem(kdkdv, smem)) != cudaSuccess) return err;
-    if ((err = opt_in_smem(kdq, smem)) != cudaSuccess) return err;
-    kdkdv<<<grid_k, kSimtThreads, smem, stream>>>(q_, k_, v_, do_, lse_, delta_,
-                                                  static_cast<T*>(dk), static_cast<T*>(dv), N, Nk,
-                                                  scale);
-    if ((err = cudaGetLastError()) != cudaSuccess) return err;
-    kdq<<<grid_q, kSimtThreads, smem, stream>>>(q_, k_, v_, do_, lse_, delta_,
-                                                static_cast<T*>(dq), N, Nk, scale);
-  }
+  kdkdv<<<grid_k, kSimtThreads, smem, stream>>>(q_, k_, v_, do_, lse_, delta,
+                                                static_cast<float*>(dk), static_cast<float*>(dv),
+                                                N, Nk, scale);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  kdq<<<grid_q, kSimtThreads, smem, stream>>>(q_, k_, v_, do_, lse_, delta,
+                                              static_cast<float*>(dq), N, Nk, scale);
   return cudaGetLastError();
 }
 
 template <int D, bool CAUSAL>
 cudaError_t launch_typed(int dtype, const void* q, const void* k, const void* v, const void* o,
                          const void* lse, const void* dout, void* dq, void* dk, void* dv,
-                         void* delta, int H, int N, int Nk, float scale, cudaStream_t stream) {
+                         void* scratch, int H, int N, int Nk, float scale, cudaStream_t stream) {
   switch (dtype) {
     case 0:
-      return launch_all<float, D, CAUSAL, false>(q, k, v, o, lse, dout, dq, dk, dv, delta, H, N,
-                                                 Nk, scale, stream);
+      return launch_simt<D, CAUSAL>(q, k, v, o, lse, dout, dq, dk, dv, scratch, H, N, Nk, scale,
+                                    stream);
     case 1:
-      return launch_all<__half, D, CAUSAL, true>(q, k, v, o, lse, dout, dq, dk, dv, delta, H, N,
-                                                 Nk, scale, stream);
+      return launch_tc<__half, D, CAUSAL>(q, k, v, o, lse, dout, dq, dk, dv, scratch, H, N, Nk,
+                                          dtype, scale, stream);
     case 2:
-      return launch_all<__nv_bfloat16, D, CAUSAL, true>(q, k, v, o, lse, dout, dq, dk, dv, delta,
-                                                        H, N, Nk, scale, stream);
+      return launch_tc<__nv_bfloat16, D, CAUSAL>(q, k, v, o, lse, dout, dq, dk, dv, scratch, H,
+                                                 N, Nk, dtype, scale, stream);
     default:
       return cudaErrorInvalidValue;
   }
@@ -708,28 +826,30 @@ cudaError_t launch_typed(int dtype, const void* q, const void* k, const void* v,
 template <int D>
 cudaError_t launch_causal(int causal, int dtype, const void* q, const void* k, const void* v,
                           const void* o, const void* lse, const void* dout, void* dq, void* dk,
-                          void* dv, void* delta, int H, int N, int Nk, float scale,
+                          void* dv, void* scratch, int H, int N, int Nk, float scale,
                           cudaStream_t stream) {
-  return causal ? launch_typed<D, true>(dtype, q, k, v, o, lse, dout, dq, dk, dv, delta, H, N, Nk,
-                                        scale, stream)
-                : launch_typed<D, false>(dtype, q, k, v, o, lse, dout, dq, dk, dv, delta, H, N,
+  return causal ? launch_typed<D, true>(dtype, q, k, v, o, lse, dout, dq, dk, dv, scratch, H, N,
+                                        Nk, scale, stream)
+                : launch_typed<D, false>(dtype, q, k, v, o, lse, dout, dq, dk, dv, scratch, H, N,
                                          Nk, scale, stream);
 }
 
 }  // namespace
 
 // dtype: 0 float32 (CUDA-core body), 1 float16, 2 bfloat16 (tensor-core
-// body); q/o/dout/dq [H, N, D], k/v/dk/dv [H, Nk, D], lse and delta (f32
-// scratch the caller allocates) [H, N], all contiguous and 16-byte
-// aligned; D 64 or 128
+// body); q/o/dout/dq [H, N, D], k/v/dk/dv [H, Nk, D], lse [H, N] f32, all
+// contiguous and 16-byte aligned; D 64 or 128.  scratch: f32 the caller
+// allocates, 2 * H * Np floats with Np = N rounded up to 128 (delta, then
+// the tensor-core body's padded lse), 16-byte aligned
 extern "C" int dtpu_flash_bwd(const void* q, const void* k, const void* v, const void* o,
                               const void* lse, const void* dout, void* dq, void* dk, void* dv,
-                              void* delta, int H, int N, int Nk, int D, int dtype, int causal,
+                              void* scratch, int H, int N, int Nk, int D, int dtype, int causal,
                               float scale, void* stream_ptr) {
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
   if (H <= 0 || N <= 0 || Nk <= 0) return static_cast<int>(cudaErrorInvalidValue);
   for (const void* p : {q, k, v, o, dout, static_cast<const void*>(dq),
-                        static_cast<const void*>(dk), static_cast<const void*>(dv)}) {
+                        static_cast<const void*>(dk), static_cast<const void*>(dv),
+                        static_cast<const void*>(scratch)}) {
     if (reinterpret_cast<uintptr_t>(p) % 16 != 0) {
       return static_cast<int>(cudaErrorMisalignedAddress);
     }
@@ -737,12 +857,12 @@ extern "C" int dtpu_flash_bwd(const void* q, const void* k, const void* v, const
   cudaError_t err;
   switch (D) {
     case 64:
-      err = launch_causal<64>(causal, dtype, q, k, v, o, lse, dout, dq, dk, dv, delta, H, N, Nk,
+      err = launch_causal<64>(causal, dtype, q, k, v, o, lse, dout, dq, dk, dv, scratch, H, N, Nk,
                               scale, stream);
       break;
     case 128:
-      err = launch_causal<128>(causal, dtype, q, k, v, o, lse, dout, dq, dk, dv, delta, H, N, Nk,
-                               scale, stream);
+      err = launch_causal<128>(causal, dtype, q, k, v, o, lse, dout, dq, dk, dv, scratch, H, N,
+                               Nk, scale, stream);
       break;
     default:
       err = cudaErrorInvalidValue;

@@ -65,6 +65,9 @@ BWD_TOL = {torch.bfloat16: (2.0 ** -7, 1e-4), torch.float16: (2.0 ** -10, 1e-4),
 # Both bodies' roundings emulated in f32 at seq 1024 give 0.003-0.006
 # (bf16) and 0.0003-0.0009 (f16); f32 only reorders sums.
 E2E_RTOL = {torch.bfloat16: 2.0 ** -5, torch.float16: 2.0 ** -8, torch.float32: 1e-4}
+# rows a block of K3's tensor-core body owns (csrc/flash_bwd.cu kResRows):
+# its lse / delta scratch is padded to a multiple of this per head
+BWD_PAD_ROWS = 128
 
 
 def _acc_dtype(dtype):
@@ -268,8 +271,9 @@ def flash_backward_cuda(qt, kt, vt, o, lse, do, causal: bool, scale: float):
     """The hand-written backward: residuals and ``dO`` on one CUDA device,
     ``[H, N, D]`` (q, o, dO) and ``[H, Nk, D]`` (k, v) of one float dtype,
     lse f32 ``[H, N, 1]`` -> (dQ, dK, dV) in that dtype.  Three launches:
-    delta, then dK/dV by k-tile, then dQ by q-tile; no atomics, so two
-    calls on the same inputs give the same bits."""
+    delta (and a padded copy of lse), then dK/dV by k-tile, then dQ by
+    q-tile; no atomics, so two calls on the same inputs give the same
+    bits."""
     if qt.device.type != "cuda":
         raise RuntimeError(f"flash_backward_cuda needs CUDA tensors, got {qt.device}")
     if not (qt.dtype == kt.dtype == vt.dtype == o.dtype == do.dtype) or qt.dtype not in _DTYPES:
@@ -294,11 +298,13 @@ def flash_backward_cuda(qt, kt, vt, o, lse, do, causal: bool, scale: float):
     if any(x.data_ptr() % 16 for x in tensors):
         raise ValueError("q, k, v, o, lse, dO must start on 16-byte boundaries")
     dq, dk, dv = torch.empty_like(qt), torch.empty_like(kt), torch.empty_like(vt)
-    delta = torch.empty((h, n), dtype=torch.float32, device=qt.device)
+    # delta, then the tensor-core body's lse, each [H, N padded to BWD_PAD_ROWS]
+    padded = -(-n // BWD_PAD_ROWS) * BWD_PAD_ROWS
+    scratch = torch.empty(2 * h * padded, dtype=torch.float32, device=qt.device)
     lib = _build.load()
     P = _build.ptr
     rc = lib.dtpu_flash_bwd(
-        P(qt), P(kt), P(vt), P(o), P(lse), P(do), P(dq), P(dk), P(dv), P(delta),
+        P(qt), P(kt), P(vt), P(o), P(lse), P(do), P(dq), P(dk), P(dv), P(scratch),
         h, n, kt.shape[1], d, _DTYPES[qt.dtype], int(bool(causal)), float(scale),
         _build.stream_handle(qt.device),
     )

@@ -2,28 +2,36 @@
 
 Run from a checkout on a machine with one NVIDIA GPU:
 
-    python3 distributed_tpu_torch/profile_flash_bwd.py [--out FILE]
+    python3 distributed_tpu_torch/profile_flash_bwd.py [--root DIR] [--out FILE]
 
-For the bf16 cases of ``chip_smoke.py`` phase 2b (seq 8192, 16 heads,
+``--root`` names the checkout whose ``distributed_tpu_torch`` is
+measured (default: the one holding this file), so one command can time
+an unpacked ``git archive`` of another commit's K3 beside this one's, in
+turns on one card.  For the bf16 cases of ``chip_smoke.py`` phase 2b (seq 8192, 16 heads,
 head dim 128, causal and not, and 4096 queries against 8192 keys) and
 its f32 cases (seq 1024, head dim 64), it reports:
 
 - ``kernels``: from ``torch.profiler`` over one ``flash_backward_cuda``
   call, the device time and count of K3's three kernels (delta, dK/dV,
-  dQ), and the sum of all kernels of one backward of
-  ``scaled_dot_product_attention``, the library yardstick;
+  dQ; ``other``: any kernel of the call none of those names matches, so
+  the split sums to the call), and the sum of all kernels of one
+  backward of ``scaled_dot_product_attention``, the library yardstick;
+- ``k3_ms``: one ``flash_backward_cuda`` call (CUDA events, median of
+  10), as ``chip_smoke.py`` phase 2b times it;
 - ``step_ms``: one training step of attention, forward then backward
   (CUDA events, median of 10), through ``flash_attention`` (K2 then K3,
   with its layout copies) and through ``scaled_dot_product_attention``
   on the same ``[seq, heads, dim]`` tensors.
 
-Prints one JSON object.
+Prints one JSON object, with the card's ``nvidia-smi`` name and power
+limit.
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import subprocess
 import sys
 from pathlib import Path
 
@@ -40,9 +48,10 @@ K3_KERNELS = ("bwd_delta", "bwd_dkdv", "bwd_dq")
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--root", default=str(Path(__file__).resolve().parents[1]))
     ap.add_argument("--out", default=None, help="also write the JSON here")
     args = ap.parse_args(argv)
-    sys.path[0] = str(Path(__file__).resolve().parents[1])
+    sys.path[0] = str(Path(args.root).resolve())
 
     import torch
 
@@ -55,7 +64,11 @@ def main(argv=None) -> int:
 
     torch.backends.cuda.matmul.allow_tf32 = False
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    report = {"device": torch.cuda.get_device_name(0), "cases": {}}
+    card = subprocess.run(["nvidia-smi", "-i", "0", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True, text=True,
+                          timeout=60).stdout.strip()
+    report = {"root": args.root, "device": torch.cuda.get_device_name(0), "card": card,
+              "cases": {}}
     for i, (label, n, nk, heads, dim, dtype_name, causal) in enumerate(CASES):
         dtype = getattr(torch, dtype_name)
         g = torch.Generator(device="cuda").manual_seed(100 + i)
@@ -69,6 +82,10 @@ def main(argv=None) -> int:
         kernels = {name: [sum(ms for key, (ms, _) in times.items() if name in key),
                           sum(c for key, (_, c) in times.items() if name in key)]
                    for name in K3_KERNELS}
+        other = {key: v for key, v in times.items() if not any(n in key for n in K3_KERNELS)}
+        kernels["other"] = [sum(ms for ms, _ in other.values()), sum(c for _, c in other.values())]
+        k3_ms = cuda_ms(lambda: flash.flash_backward_cuda(qt, kt, vt, o, lse, dot, causal, scale),
+                        reps=10)
         qs, ks, vs = (x[None].requires_grad_() for x in (qt, kt, vt))
         out = sdpa(qs, ks, vs, is_causal=causal, scale=scale)
         lib = kernel_times(torch, lambda: torch.autograd.grad(out, (qs, ks, vs), dot[None],
@@ -86,7 +103,7 @@ def main(argv=None) -> int:
             qh, kh, vh = (x.transpose(0, 1)[None] for x in leaves)
             sdpa(qh, kh, vh, is_causal=causal, scale=scale).backward(dot[None])
 
-        row = {"kernels": kernels,
+        row = {"kernels": kernels, "k3_ms": k3_ms,
                "step_ms": {"flash_attention": cuda_ms(flash_step, reps=10),
                            "sdpa": cuda_ms(sdpa_step, reps=10)}}
         report["cases"][label] = row

@@ -130,13 +130,17 @@ def _bwd_case(cuda, dtype, dim, n, nk, causal, seed, heads=3):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float16, torch.bfloat16],
                          ids=str)
 @pytest.mark.parametrize("dim", [64, 128])
-@pytest.mark.parametrize("n,nk", [(100, 100), (256, 512), (192, 64), (1024, 1024)])
+@pytest.mark.parametrize("n,nk", [(100, 100), (256, 512), (192, 64), (1024, 1024),
+                                  (101, 203), (203, 101)])
 @pytest.mark.parametrize("causal", [False, True])
 def test_flash_bwd_kernel_matches_plain(cuda, dtype, dim, n, nk, causal):
     """K3 on identical residuals: within flash.BWD_TOL of the plain
     backward (+ u times the rounding terms for bf16/f16), one count a
     call, the same bits from a second call, and both planted faults (a
-    q-tile left out of dK/dV, a k-tile out of dQ) rejected."""
+    q-tile left out of dK/dV, a k-tile out of dQ) rejected.  101 and 203:
+    N not a multiple of 4 (the lse rows K3 pads), cross-length both ways
+    with neither length a multiple of the tensor-core body's 128-row
+    blocks."""
     res, scale, plain, terms = _bwd_case(cuda, dtype, dim, n, nk, causal, seed=n * 7 + dim)
     before = flash.flash_backward_cuda.launches
     got = flash.flash_backward(*res, causal, scale)

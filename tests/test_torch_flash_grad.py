@@ -11,6 +11,9 @@ values agree to about 1e-6 of gradients of order 1: TOL below.
 
 from __future__ import annotations
 
+import re
+from pathlib import Path
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -223,3 +226,127 @@ def test_rounding_terms_are_abs_products():
                       (tk, 0.3 * ds.abs().transpose(1, 2) @ qt.abs()),
                       (tq, 0.3 * ds.abs() @ kt.abs())):
         torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-6)
+
+
+# ------------------------------------------------- K3's tile walk, replayed
+
+CSRC_BWD = Path(tf.__file__).resolve().parent / "csrc" / "flash_bwd.cu"
+
+
+def _k3_tiles():
+    """(resident rows a block owns, rows of a streamed tile) as the
+    tensor-core body declares them."""
+    src = CSRC_BWD.read_text()
+    res = int(re.search(r"constexpr int kResRows = (\d+);", src)[1])
+    stream = int(re.search(r"constexpr int kStreamRows = (\d+);", src)[1])
+    return res, stream
+
+
+def _pad_rows(x, rows):
+    return torch.cat([x, x.new_zeros(x.shape[0], rows - x.shape[1], *x.shape[2:])], 1)
+
+
+def _replay_k3(res, causal, scale, drop_diagonal=False):
+    """K3's tensor-core body walked block by block in plain torch (f32):
+    launch a's padded delta and log2 lse (+inf past N, so p is 0 there
+    with no mask), launch b's k-blocks walking q-tiles from the causal
+    first tile, launch c's q-blocks walking k-tiles to the causal last
+    one, ragged rows zero-filled as the tensor maps load them, P and dS
+    rounded once per tile to the input type.  ``drop_diagonal`` starts
+    b one q-tile late and stops c one k-tile early, as a kernel off by
+    one at the diagonal would."""
+    q, k, v, o, lse, do = res
+    dt = q.dtype
+    R, S = _k3_tiles()
+    h, n, d = q.shape
+    nk = k.shape[1]
+    log2e = 1.4426950408889634
+    pn, pk = -(-n // R) * R, -(-nk // R) * R
+    qf, dof = _pad_rows(q.float(), pn), _pad_rows(do.float(), pn)
+    kf, vf = _pad_rows(k.float(), pk), _pad_rows(v.float(), pk)
+    delta = torch.zeros(h, pn)
+    delta[:, :n] = (do.float() * o.float()).sum(-1)
+    lse2 = torch.full((h, pn), float("inf"))
+    lse2[:, :n] = lse.reshape(h, n) * log2e
+    sl2 = scale * log2e
+
+    def rnd(x):
+        return x.to(dt).float()
+
+    dk, dv = torch.zeros(h, pk, d), torch.zeros(h, pk, d)
+    n_qt = -(-n // S)
+    for k0 in range(0, nk, R):  # b
+        kb, vb = kf[:, k0:k0 + R], vf[:, k0:k0 + R]
+        keys = torch.arange(k0, k0 + R)[:, None]
+        t0 = k0 // S if causal else 0
+        for t in range(t0 + int(drop_diagonal), n_qt):
+            rows = slice(t * S, t * S + S)
+            qs, ds_ = qf[:, rows], dof[:, rows]
+            pt = torch.exp2(kb @ qs.transpose(1, 2) * sl2 - lse2[:, None, rows])
+            if causal:
+                pt = torch.where(torch.arange(t * S, t * S + S)[None, :] < keys, 0.0, pt)
+            dst = pt * (vb @ ds_.transpose(1, 2) - delta[:, None, rows])
+            dv[:, k0:k0 + R] += rnd(pt) @ ds_
+            dk[:, k0:k0 + R] += rnd(dst) @ qs
+    dq = torch.zeros(h, pn, d)
+    for q0 in range(0, n, R):  # c
+        qb, dob = qf[:, q0:q0 + R], dof[:, q0:q0 + R]
+        qpos = torch.arange(q0, q0 + R)[:, None]
+        n_kt = -(-nk // S)
+        if causal:
+            n_kt = min(n_kt, -(-min(q0 + R, n) // S))
+        for t in range(n_kt - int(drop_diagonal)):
+            cols = slice(t * S, t * S + S)
+            kpos = torch.arange(t * S, t * S + S)[None, :]
+            p = torch.exp2(qb @ kf[:, cols].transpose(1, 2) * sl2
+                           - lse2[:, q0:q0 + R, None])
+            dead = kpos >= nk
+            if causal:
+                dead = dead | (qpos < kpos)
+            p = torch.where(dead, 0.0, p)
+            ds = p * (dob @ vf[:, cols].transpose(1, 2)
+                      - delta[:, q0:q0 + R, None])
+            dq[:, q0:q0 + R] += rnd(ds) @ kf[:, cols]
+    return ((dq[:, :n] * scale).to(dt), (dk[:, :nk] * scale).to(dt), dv[:, :nk].to(dt))
+
+
+def _replay_case(dtype, d, n, nk, causal):
+    rng = np.random.default_rng(n * 31 + nk + d)
+    q, k, v, do = (torch.from_numpy(rng.standard_normal((2, s, d)).astype(np.float32)).to(dtype)
+                   for s in (n, nk, nk, n))
+    scale = d ** -0.5
+    o, lse = tf.flash_forward_reference(q, k, v, causal, scale)
+    res = (q, k, v, o, lse, do)
+    return res, scale, tf.flash_backward_reference(*res, causal, scale), \
+        tf.bwd_rounding_terms(*res, causal, scale)
+
+
+@pytest.mark.parametrize("n,nk", [(100, 100), (192, 64), (64, 192), (256, 512), (101, 203)])
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16], ids=str)
+def test_k3_tile_walk_replay_within_tolerance(dtype, d, causal, n, nk):
+    """K3's blocks, tiles, causal bounds and padded lse, replayed on the
+    CPU, land within flash.BWD_TOL (+ u times the rounding terms) of the
+    plain backward, ragged and cross-length included (101: N not a
+    multiple of 4)."""
+    res, scale, plain, terms = _replay_case(dtype, d, n, nk, causal)
+    got = _replay_k3(res, causal, scale)
+    assert [g.shape for g in got] == [x.shape for x in res[:3]]
+    assert max(tf.bwd_excess(got, plain, terms)) <= 0.0
+
+
+@pytest.mark.parametrize("n,nk", [(256, 256), (192, 64), (101, 203)])
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16], ids=str)
+def test_k3_tile_walk_replay_without_diagonal_fails(dtype, d, n, nk):
+    """The same replay, one tile off at the causal diagonal in both
+    launches, breaks the check for dQ and for dK or dV."""
+    res, scale, plain, terms = _replay_case(dtype, d, n, nk, True)
+    excess = tf.bwd_excess(_replay_k3(res, True, scale, drop_diagonal=True), plain, terms)
+    assert excess[0] > 0.0 and max(excess[1:]) > 0.0
+
+
+def test_k3_scratch_padding_matches_the_kernel():
+    """The wrapper pads K3's lse / delta scratch to the kernel's block."""
+    assert tf.BWD_PAD_ROWS == _k3_tiles()[0]

@@ -6,6 +6,7 @@ from __future__ import annotations
 import ast
 import json
 import os
+import shutil
 import subprocess
 import sys
 from pathlib import Path
@@ -166,6 +167,20 @@ def test_library_path_keys_on_sources():
     assert path.name.startswith("libdtpu_kernels-") and path.suffix == ".so"
     assert {p.name for p in _build.CSRC.glob("*.cu")} == {"flash_bwd.cu", "flash_fwd.cu",
                                                             "partition.cu", "place_wave.cu"}
+    assert {p.name for p in _build.CSRC.glob("*.cuh")} == {"hopper.cuh"}
+
+
+def test_library_path_keys_on_headers(monkeypatch, tmp_path):
+    """An edited header alone (no source touched) names a new library, so
+    a stale build of the old header is never loaded."""
+    csrc = tmp_path / "csrc"
+    shutil.copytree(_build.CSRC, csrc)
+    monkeypatch.setattr(_build, "CSRC", csrc)
+    before = _build.library_path()
+    assert before == _build.library_path()
+    header = csrc / "hopper.cuh"
+    header.write_text(header.read_text() + "\n// edited\n")
+    assert _build.library_path() != before
 
 
 def test_build_dir_is_ignored_by_git():
