@@ -51,12 +51,15 @@ and prints no result):
    rechunk + tensordot proxy (G = 24: 14,976 tasks) and a 16,384-task
    random DAG, which the router sends to the partitioner (kernel K4), and
    a 32,768-task random DAG, which it sends to the leveled engine (K1),
-   on phase 3's two fleets (1,024 and 1,008 lanes); the hints equal the
-   same call on the CPU, K4's labels equal its plain version's on the CPU
-   bit for bit, and against the plain version on the card the plan costs
-   the same within 1 %; K4's time beside its bound, the plan's wall and
-   hints time; then the 1M-task uniform batch through the extension, whose
-   hints must equal phase 4's.
+   on phase 3's two fleets (1,024 and 1,008 lanes); on ``fewlane``, 4
+   workers of 4 threads (16 lanes), phase 3's 1M-task DAG and the proxy at
+   G = 96 (903,168 tasks), which the router also sends to the
+   partitioner; the hints equal the same call on the CPU, K4's labels
+   equal its plain version's on the CPU bit for bit, and against the plain
+   version on the card the plan costs the same within 1 %; K4's time
+   beside its bound and ``chain_ms`` (the in-order add chain the contract
+   forces), the plan's wall and hints time; then the 1M-task uniform
+   batch through the extension, whose hints must equal phase 4's.
 
 The last three lines are the card's ``nvidia-smi`` name and power limit,
 one JSON object listing the kernels (``flash_fwd``, ``flash_bwd``,
@@ -871,12 +874,69 @@ def phase_streamed(entry, oneshot):
 
 PART_TASKS = 16_384          # the largest graph the router sends to K4 on 1024 lanes
 LEVELED_TASKS = 32_768       # bucket 32768 x 1008 or 1024 lanes > DENSE_LIMIT
+# one machine's LocalCluster on 16 cores, 4 workers x 4 threads: 16 lanes,
+# where the router sends the partitioner up to 1,048,576 tasks
+FEW_WORKERS, FEW_THREADS = 4, 4
+# the partitioner's plans: (graph, fleet), blockwise96 the proxy at full
+# size (903,168 tasks, 2,654,208 edges); phase 5 adds random32768 on the
+# 512-worker fleets, which the router sends to the leveled engine
+PART_PLANS = [("blockwise24", "uniform"), ("blockwise24", "nonuniform"),
+              ("random16384", "uniform"), ("random16384", "nonuniform"),
+              ("random1m", "fewlane"), ("blockwise96", "fewlane")]
 # K4 adds every score cell and lane load in the reference's order: it must
 # equal the plain version on the CPU bit for bit.  The plain version on the
 # card sums with CUDA's index_add_ (deterministic mode), in its own order,
 # so against it near-ties may move tasks; the plan must then cost about the
 # same: comm volume and the heaviest lane's load within 1 %.
 K4_RTOL = 0.01
+K4_LAUNCHES_PER_PLAN = 1         # all rounds in one cooperative launch
+FADD_CYCLES = 4                  # latency of a dependent f32 add on an SM
+
+
+def partition_fleets():
+    """Phase 3's two fleets (1,024 and 1,008 lanes) and ``fewlane`` (16
+    lanes, all running, idle), each with its workers' addresses."""
+    fleets = _fleets()
+    fleets["fewlane"] = (np.full(FEW_WORKERS, FEW_THREADS, np.int32),
+                         np.zeros(FEW_WORKERS, np.float32), np.ones(FEW_WORKERS, bool))
+    addrs = [f"tcp://10.1.{w // 256}.{w % 256}:8788" for w in range(N_WORKERS)]
+    few = [f"tcp://10.2.0.{w}:8788" for w in range(FEW_WORKERS)]
+    return fleets, {"uniform": addrs, "nonuniform": addrs, "fewlane": few}
+
+
+def partition_graph(graphs, g):
+    """(durations, out_bytes, src, dst) of phase 5's graph ``g``."""
+    if g.startswith("blockwise"):
+        return tuple(graphs.blockwise_tensordot(int(g[len("blockwise"):]))[1:])
+    n = {"random16384": PART_TASKS, "random32768": LEVELED_TASKS, "random1m": N_TASKS}[g]
+    return graphs.random_dag(n, seed=0)
+
+
+def sm_clock_mhz():
+    """The card's highest SM clock, MHz (``nvidia-smi``)."""
+    out = subprocess.run(
+        ["nvidia-smi", "-i", "0", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True, timeout=60,
+    )
+    return float(out.stdout.strip())
+
+
+def _chain_ms(part, run, sm_mhz):
+    """The floor the contract puts under K4's load pass, whatever its
+    design: a lane's load is its tasks' durations added in task order, a
+    chain of dependent f32 adds.  Per round the fullest lane's chain, at
+    FADD_CYCLES an add and the SM clock.  The labels at each round's start
+    are the kernel's after that many rounds (equal to the plain version's)."""
+    iters, adds = run.iters, 0
+    try:
+        for r in range(iters):
+            run.iters = r
+            part.partition_cuda(run)
+            adds += int(np.bincount(run.result(), minlength=run.W).max())
+    finally:
+        run.iters = iters
+    part.partition_cuda(run)
+    return adds * FADD_CYCLES / (sm_mhz * 1e3)
 
 
 def _comm_volume(labels, src, dst):
@@ -924,61 +984,57 @@ def phase_partition(wave_entry, hints_1m):
     from distributed_tpu_torch.scheduler.torch_placement import TorchPlacement
 
     card = smi_line()
-    fleets = _fleets()
-    addrs = [f"tcp://10.1.{w // 256}.{w % 256}:8788" for w in range(N_WORKERS)]
-    _, *blockwise = graphs.blockwise_tensordot(24)
-    cases = {"blockwise24": tuple(blockwise),
-             "random16384": graphs.random_dag(PART_TASKS, seed=0),
-             "random32768": graphs.random_dag(LEVELED_TASKS, seed=0)}
-    routed = {"blockwise24": "partition", "random16384": "partition",
-              "random32768": "leveled"}
+    sm_mhz = sm_clock_mhz()
+    fleets, addrs = partition_fleets()
+    plans = PART_PLANS + [("random32768", "uniform"), ("random32768", "nonuniform")]
+    cases = {g: partition_graph(graphs, g) for g, _ in plans}
+    routed = {g: "leveled" if g == "random32768" else "partition" for g in cases}
     keys = {g: [f"{g}-{i}" for i in range(len(c[0]))] for g, c in cases.items()}
     placement = TorchPlacement(sync=True)
     check(placement.device.type == "cuda", f"TorchPlacement on {placement.device}")
 
-    def plan_args(g, fleet):
-        return (keys[g], *cases[g], *fleet, addrs, BANDWIDTH, LATENCY)
+    def plan_args(g, f):
+        return (keys[g], *cases[g], *fleets[f], addrs[f], BANDWIDTH, LATENCY)
 
     # the main path, as the planner thread plans each batch
     part.partition_cuda.launches = 0
     leveled.place_waves_cuda.launches = 0
     main, walls = {}, {}
-    for g in cases:
-        for f, fleet in fleets.items():
-            t0 = time.perf_counter()
-            main[g, f] = placement._plan_from_arrays(*plan_args(g, fleet))
-            torch.cuda.synchronize()
-            walls[g, f] = (time.perf_counter() - t0) * 1e3
+    for g, f in plans:
+        t0 = time.perf_counter()
+        main[g, f] = placement._plan_from_arrays(*plan_args(g, f))
+        torch.cuda.synchronize()
+        walls[g, f] = (time.perf_counter() - t0) * 1e3
     k4_launches = part.partition_cuda.launches
     k1_launches = leveled.place_waves_cuda.launches
     n_part = sum(routed[g] == "partition" for g, _ in main)
     n_lev = len(main) - n_part
-    check(k4_launches == n_part * 2 * part.DEFAULT_ITERS,
-          f"K4 launches {k4_launches} != {n_part} partitions x {2 * part.DEFAULT_ITERS}")
+    check(k4_launches == n_part * K4_LAUNCHES_PER_PLAN,
+          f"K4 launches {k4_launches} != {n_part} partitions x {K4_LAUNCHES_PER_PLAN}")
     # below min_stream the streamed driver packs and makes one launch
     check(k1_launches == n_lev, f"K1 launches {k1_launches} != {n_lev} leveled plans")
     check(placement.enabled, "the planner disabled itself")
     wave_entry["launches"] += k1_launches
     wave_entry["launches_extension"] = k1_launches
     print(f"[{card}] placement extension main path: K4 launches {k4_launches} "
-          f"({n_part} partitions x {part.DEFAULT_ITERS} rounds x 2), K1 launches {k1_launches}")
+          f"({n_part} partitions x {K4_LAUNCHES_PER_PLAN}), K1 launches {k1_launches}")
 
     cases_out, err_max = {}, 0.0
     for (g, f), hints in main.items():
         durations, out_bytes, src, dst = cases[g]
-        nthreads, occ, running = fleets[f]
+        nthreads, _, running = fleets[f]
         T = len(durations)
         lanes = [int(w) for w in np.flatnonzero(running)
                  for _ in range(max(int(nthreads[w]), 1))]
         W = len(lanes)
         follows = sum(fk is not None for fk, _ in hints.values())
-        check(len(hints) == T and set(a for _, a in hints.values()) <= set(addrs),
-              f"{g} {f}: {len(hints)} hints")
+        check(len(hints) == T, f"{g} {f}: {len(hints)} hints")
+        check(set(a for _, a in hints.values()) <= set(addrs[f]), f"{g} {f}: foreign addresses")
         want_route = "partition" if part._bucket(T) * W <= part.DENSE_LIMIT else "leveled"
         check(want_route == routed[g], f"{g} {f}: routed {want_route}, expected {routed[g]}")
         check((follows == 0) == (routed[g] == "partition"), f"{g} {f}: {follows} follow hints")
         t0 = time.perf_counter()
-        cpu_hints = TorchPlacement(sync=True, device="cpu")._plan_from_arrays(*plan_args(g, fleets[f]))
+        cpu_hints = TorchPlacement(sync=True, device="cpu")._plan_from_arrays(*plan_args(g, f))
         cpu_s = time.perf_counter() - t0
         check(hints == cpu_hints, f"{g} {f}: hints differ from the CPU run")
         if routed[g] != "partition":
@@ -1016,24 +1072,25 @@ def phase_partition(wave_entry, hints_1m):
         ms = cuda_ms(lambda: part.partition_cuda(run))
         plain_ms = cuda_ms(lambda: part.partition_reference(card_run), reps=5, warmup=1)
         bound_ms, bound_by = _k4_bound_ms(run)
+        chain_ms = _chain_ms(part, run, sm_mhz)
         t0 = time.perf_counter()
-        plan.hints_from_partition(keys[g], labels, lanes, addrs)
+        plan.hints_from_partition(keys[g], labels, lanes, addrs[f])
         hints_ms = (time.perf_counter() - t0) * 1e3
         plan_ms = []
         for _ in range(3):
             t0 = time.perf_counter()
-            placement._plan_from_arrays(*plan_args(g, fleets[f]))
+            placement._plan_from_arrays(*plan_args(g, f))
             plan_ms.append((time.perf_counter() - t0) * 1e3)
         avg_load = float(durations.sum()) / W
         print(f"[{card}] partition {g} {f}: T {T} E {len(src)} lanes {W}: labels == CPU run "
               f"({cpu_s:.2f} s), plain on the card agreement {agree:.6f}, comm volume {vol_k} "
               f"(plain {vol_p}, blocks {vol_b}), max lane load / avg {ml_k / avg_load:.4f} "
               f"(plain {ml_p / avg_load:.4f}); K4 kernel_ms {ms:.4f} plain_ms {plain_ms:.4f} "
-              f"bound_ms {bound_ms:.7f} ({bound_by}); plan wall_ms main {walls[g, f]:.2f} "
+              f"bound_ms {bound_ms:.7f} ({bound_by}) chain_ms {chain_ms:.4f}; plan wall_ms main {walls[g, f]:.2f} "
               f"median {statistics.median(plan_ms):.2f} hints_ms {hints_ms:.2f}")
         cases_out[f"{g}_{f}"] = dict(
             T=T, E=len(src), lanes=W, max_abs_err=err, ms=ms, plain_ms=plain_ms,
-            bound_ms=bound_ms, bound_by=bound_by, comm_volume=vol_k, comm_volume_plain=vol_p,
+            bound_ms=bound_ms, bound_by=bound_by, chain_ms=chain_ms, comm_volume=vol_k, comm_volume_plain=vol_p,
             comm_volume_blocks=vol_b, max_load_ratio=ml_k / avg_load,
             max_load_ratio_plain=ml_p / avg_load, card_plain_agreement=agree,
             plan_wall_ms_main=walls[g, f], plan_wall_ms=statistics.median(plan_ms),
@@ -1042,11 +1099,10 @@ def phase_partition(wave_entry, hints_1m):
         torch.cuda.empty_cache()
 
     # the 1M-task uniform batch through the extension: phase 4's hints
-    durations, out_bytes, src, dst = graphs.random_dag(N_TASKS, seed=0)
     t0 = time.perf_counter()
-    hints = placement._plan_from_arrays([f"task-{i}" for i in range(N_TASKS)], durations,
-                                        out_bytes, src, dst, *fleets["uniform"], addrs,
-                                        BANDWIDTH, LATENCY)
+    hints = placement._plan_from_arrays([f"task-{i}" for i in range(N_TASKS)],
+                                        *cases["random1m"], *fleets["uniform"],
+                                        addrs["uniform"], BANDWIDTH, LATENCY)
     wall_1m = (time.perf_counter() - t0) * 1e3
     check(hints == hints_1m, "1M-task hints through TorchPlacement differ from phase 4's")
     print(f"[{card}] placement extension 1M tasks uniform: hints == phase 4's, "

@@ -49,18 +49,12 @@ SIGNATURES = {
         _vp,                            # stream
     ),
     "dtpu_place_waves_grid": (_i, _i, ctypes.POINTER(_i)),  # W uniform -> blocks
-    "dtpu_partition_load": (
-        _vp, _vp, _vp,                  # labels next durations
-        _vp, _vp, _vp, _vp,             # cnt tot start sorted (scratch)
-        _vp,                            # blocked
-        _i, _i, _f,                     # T W thresh
-        _vp,                            # stream
-    ),
-    "dtpu_partition_rows": (
-        _vp, _vp,                       # labels next
+    "dtpu_partition": (
+        _vp, _vp, _vp, _vp,             # init lab0 lab1 durations
         _vp, _vp, _vp, _vp, _vp, _vp,   # in_off in_nbr in_w out_off out_nbr out_w
-        _vp,                            # blocked
-        _i, _i, _i, _f,                 # T W parity bonus
+        _vp, _vp, _vp,                  # blocked cnt sorted (counting sort, W <= 64)
+        _vp,                            # stamps (optional timeline, or null)
+        _i, _i, _i, _f, _f, _i, _i,     # T W iters thresh bonus blocks cnt_blocks
         _vp,                            # stream
     ),
     "dtpu_flash_fwd": (

@@ -5,7 +5,8 @@ The counterpart of ``distributed_tpu/ops/partition.py`` without its mesh
 helpers.  The scheduler's plan path sends every batch whose dense score
 matrix fits (``_bucket(T) * lanes <= DENSE_LIMIT``) here instead of to the
 leveled engine, so on a fleet of 1024 lanes every graph of up to 16,384
-tasks is placed by this module.
+tasks is placed by this module, and on 16 lanes every graph of up to
+1,048,576.
 
 1. **Init: contiguous equal-load blocks of the priority order**
    (:func:`block_init`).  Scheduler priorities are depth-first graph
@@ -24,9 +25,10 @@ reference's jitted ``run`` (``partition.py:271-289``) computes it:
   for expression (a dense ``[T, W]`` score matrix filled by two
   ``index_add_`` scatters in edge order, first-max ``argmax``);
 - :func:`partition_cuda`, the hand-written kernel ``csrc/partition.cu``
-  (K4): per round one launch for the per-lane load and one for the rows.
-  It adds every score cell and every lane load in the reference's order,
-  so it reproduces the plain version on the CPU bit for bit.
+  (K4): all rounds in one cooperative launch, each round a load phase and
+  a rows phase between grid barriers.  It adds every score cell and every
+  lane load in the reference's order, so it reproduces the plain version
+  on the CPU bit for bit, whatever its grid.
 
 :func:`partition_rounds` picks by the run's device: the plain version on
 the CPU, the kernel anywhere else (which raises off CUDA).  The two
@@ -53,6 +55,11 @@ DENSE_LIMIT = 32_000_000
 DEFAULT_ITERS = 8
 DEFAULT_CAP = 1.2       # hard admission: load >= cap*avg cannot attract
 DEFAULT_STICKY = 2.0    # current-label bonus, in units of mean edge weight
+# csrc/partition.cu: up to this many lanes the kernel sums the lane loads
+# by a counting sort, whose scratch holds a count per (block, lane) for up
+# to BLOCKS_PER_SM blocks a multiprocessor (256 threads a block)
+BUCKET_LANES = 64
+BLOCKS_PER_SM = 8
 
 
 def block_init(durations: np.ndarray, n_workers: int) -> np.ndarray:
@@ -172,11 +179,10 @@ class _Scratch(NamedTuple):
     """Work space of the kernel, allocated by the wrapper."""
 
     lab: tuple             # two i32[T] label buffers (the rounds alternate)
-    cnt: torch.Tensor      # i32[32 * W] per-warp lane counts, then cursors
-    tot: torch.Tensor      # i32[W] tasks on each lane
-    start: torch.Tensor    # i32[W] bucket starts
-    sorted: torch.Tensor   # f32[T] durations bucketed by lane, task order kept
     blocked: torch.Tensor  # u8[W] the lane's load >= cap * avg_load
+    cnt: torch.Tensor      # i32[cnt_blocks * W] per-block lane counts (W <= BUCKET_LANES)
+    sorted: torch.Tensor   # f32[T] durations bucketed by lane (W <= BUCKET_LANES)
+    cnt_blocks: int        # the largest grid cnt has room for
 
 
 class PartitionRun:
@@ -251,11 +257,13 @@ class PartitionRun:
             def new(n, dtype):
                 return torch.empty(max(n, 1), dtype=dtype, device=self.device)
 
-            i32 = torch.int32
+            buckets = W <= BUCKET_LANES
+            cnt_blocks = (torch.cuda.get_device_properties(self.device).multi_processor_count
+                          * BLOCKS_PER_SM if buckets else 0)
             self._scratch = _Scratch(
-                lab=(new(T, i32), new(T, i32)), cnt=new(32 * W, i32), tot=new(W, i32),
-                start=new(W, i32), sorted=new(T, torch.float32),
-                blocked=new(W, torch.uint8),
+                lab=(new(T, torch.int32), new(T, torch.int32)), blocked=new(W, torch.uint8),
+                cnt=new(cnt_blocks * W, torch.int32), sorted=new(T * buckets, torch.float32),
+                cnt_blocks=cnt_blocks,
             )
         return self._scratch
 
@@ -295,20 +303,33 @@ def partition_reference(run: PartitionRun) -> None:
     run.labels = labels.to(torch.int32)
 
 
-def partition_cuda(run: PartitionRun) -> None:
+def partition_cuda(run: PartitionRun, blocks: int | None = None, stamps=None) -> None:
     """The ``iters`` rounds through the hand-written kernel
-    ``csrc/partition.cu``: per round a launch that sums the lane loads in
-    task order, sets the blocked flags and carries the labels into the
-    round's output buffer, then a launch of one block per task of the
-    round's parity.  ``partition_cuda.launches`` counts the launches.
+    ``csrc/partition.cu``: one cooperative launch, ``blocks`` blocks (by
+    default two a multiprocessor, never more than can be resident).  The
+    labels do not depend on the grid.  ``partition_cuda.launches`` counts
+    the launches; a run with no rounds or no tasks makes none.
 
-    The rows launch keeps a task's score row (4 B a lane) in shared
-    memory; past what a block may opt into (the router sends at most
-    DENSE_LIMIT / 1024 = 31,250 lanes, 125 KB) the launch is refused and
-    this raises."""
+    ``stamps``, an int64 CUDA tensor of ``2 * iters + 1``, receives the
+    device clock (ns) at the start and after each round's load and rows
+    phases (one more grid barrier than an untimed run).
+
+    Up to ``BUCKET_LANES`` lanes the kernel sums the lane loads through a
+    counting sort, whose scratch (a count per block and lane, the
+    durations bucketed by lane) the run allocates at its first call.
+    Shared memory grows with the lanes (4 B a lane for the score row, 1 B
+    for the blocked flags); past what a block may opt into (the router
+    sends at most DENSE_LIMIT / 1024 = 31,250 lanes, 185 KB) the launch is
+    refused and this raises, as it does for a grid that cannot be resident
+    at once."""
     if run.device.type != "cuda":
         raise RuntimeError(f"partition_cuda needs CUDA tensors, got {run.device}")
     T, E, W = run.T, run.E, run.W
+    if blocks is not None and blocks < 1:
+        raise ValueError(f"partition_cuda: blocks must be at least 1, got {blocks}")
+    if run.iters == 0 or T == 0:
+        run.labels = run.init
+        return
     lib = _build.load()
     csr, sc = run.csr(), run.scratch()
     for name, t, dtype, n in (
@@ -316,31 +337,25 @@ def partition_cuda(run: PartitionRun) -> None:
         ("in_off", csr.in_off, torch.int32, T + 1), ("out_off", csr.out_off, torch.int32, T + 1),
         ("in_nbr", csr.in_nbr, torch.int32, E), ("out_nbr", csr.out_nbr, torch.int32, E),
         ("in_w", csr.in_w, torch.float32, E), ("out_w", csr.out_w, torch.float32, E),
-        ("cnt", sc.cnt, torch.int32, 32 * W), ("blocked", sc.blocked, torch.uint8, W),
+        ("lab0", sc.lab[0], torch.int32, T), ("lab1", sc.lab[1], torch.int32, T),
+        ("blocked", sc.blocked, torch.uint8, W),
+        ("cnt", sc.cnt, torch.int32, sc.cnt_blocks * W),
+        ("sorted", sc.sorted, torch.float32, T * (W <= BUCKET_LANES)),
+        *((("stamps", stamps, torch.int64, 2 * run.iters + 1),) if stamps is not None else ()),
     ):
         if t.dtype != dtype or t.numel() < n or not t.is_contiguous() or t.device != run.device:
             raise ValueError(f"partition_cuda: {name} must be a contiguous {dtype}[{n}] on {run.device}")
     P = _build.ptr
-    cur = run.init
     with torch.cuda.device(run.device):
-        stream = _build.stream_handle(run.device)
-        for it in range(run.iters):
-            nxt = sc.lab[it % 2]
-            _build.check(lib.dtpu_partition_load(
-                P(cur), P(nxt), P(run.durations), P(sc.cnt), P(sc.tot), P(sc.start),
-                P(sc.sorted), P(sc.blocked), T, W, run.thresh, stream,
-            ), "dtpu_partition_load")
-            partition_cuda.launches += 1
-            rows = (T - it % 2 + 1) // 2  # tasks i with (i + it) % 2 == 0
-            if rows:
-                _build.check(lib.dtpu_partition_rows(
-                    P(cur), P(nxt), P(csr.in_off), P(csr.in_nbr), P(csr.in_w),
-                    P(csr.out_off), P(csr.out_nbr), P(csr.out_w), P(sc.blocked),
-                    T, W, it % 2, run.bonus, stream,
-                ), "dtpu_partition_rows")
-                partition_cuda.launches += 1
-            cur = nxt
-    run.labels = cur
+        _build.check(lib.dtpu_partition(
+            P(run.init), P(sc.lab[0]), P(sc.lab[1]), P(run.durations),
+            P(csr.in_off), P(csr.in_nbr), P(csr.in_w), P(csr.out_off), P(csr.out_nbr),
+            P(csr.out_w), P(sc.blocked), P(sc.cnt), P(sc.sorted),
+            None if stamps is None else P(stamps), T, W, run.iters, run.thresh, run.bonus,
+            blocks or 0, sc.cnt_blocks, _build.stream_handle(run.device),
+        ), "dtpu_partition")
+        partition_cuda.launches += 1
+    run.labels = sc.lab[(run.iters - 1) % 2]
 
 
 partition_cuda.launches = 0  # kernel launches in this process

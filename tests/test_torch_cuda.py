@@ -364,13 +364,65 @@ def test_partition_kernel_matches_plain(cuda, T, W, ties):
     """K4 adds every score cell and lane load in the reference's order, so
     it must equal the plain version on the CPU bit for bit: on random
     graphs, on graphs full of ties, and on fleets wide enough that the
-    score row needs the shared-memory opt-in (16k and 31,250 lanes)."""
+    score row needs the shared-memory opt-in (16k and 31,250 lanes).  All
+    rounds are one launch."""
     (run, cpu), launches = _partition_both(_partition_case(T, T + W, ties), W, cuda)
-    assert launches == 2 * run.iters
+    assert launches == 1
     np.testing.assert_array_equal(run.result(), cpu.result())
     again = partition.PartitionRun(*_partition_case(T, T + W, ties), W, device=cuda)
     partition.partition_cuda(again)
     np.testing.assert_array_equal(again.result(), cpu.result())
+
+
+@pytest.mark.parametrize("T,W", [(262_144, 16), (1_000_000, 16), (2_000_000, 8)])
+@pytest.mark.parametrize("ties", [False, True])
+def test_partition_kernel_few_lanes(cuda, T, W, ties):
+    """The few-lane batches the router sends K4 (up to 2^20 tasks on 16
+    lanes, 2^21 on 8; the load phase's counting sort): one launch,
+    bit-identical to the plain version on the CPU, and again on a repeat
+    with the default grid and on grids of 1 and 3 blocks."""
+    case = _partition_case(T, T + W, ties)
+    (run, cpu), launches = _partition_both(case, W, cuda)
+    assert launches == 1
+    want = cpu.result()
+    np.testing.assert_array_equal(run.result(), want)
+    for blocks in (None, 1, 3):
+        again = partition.PartitionRun(*case, W, device=cuda)
+        before = partition.partition_cuda.launches
+        partition.partition_cuda(again, blocks=blocks)
+        assert partition.partition_cuda.launches == before + 1
+        np.testing.assert_array_equal(again.result(), want)
+
+
+@pytest.mark.parametrize("W", [3, 40, 1024, 16_384])
+def test_partition_kernel_labels_do_not_depend_on_the_grid(cuda, W):
+    """Grids of 1, 3 and the default number of blocks, with both load modes
+    (the counting sort up to 64 lanes, else a warp a lane) and each rows
+    unit (a thread, a warp, a block a task), give the plain version's
+    labels."""
+    case = _partition_case(6000 if W < 16_384 else 1500, W, False)
+    cpu = partition.PartitionRun(*case, W, device="cpu")
+    partition.partition_reference(cpu)
+    for blocks in (None, 1, 3):
+        run = partition.PartitionRun(*case, W, device=cuda)
+        partition.partition_cuda(run, blocks=blocks)
+        np.testing.assert_array_equal(run.result(), cpu.result())
+
+
+@pytest.mark.parametrize("W", [16, 1024])
+def test_partition_kernel_timeline(cuda, W):
+    """With ``stamps`` the kernel notes the device clock at its start and
+    after each phase (both load modes), in order, and its labels do not
+    change."""
+    case = _partition_case(5000, W, False)
+    cpu = partition.PartitionRun(*case, W, device="cpu")
+    partition.partition_reference(cpu)
+    run = partition.PartitionRun(*case, W, device=cuda)
+    stamps = torch.zeros(2 * run.iters + 1, dtype=torch.int64, device=cuda)
+    partition.partition_cuda(run, stamps=stamps)
+    np.testing.assert_array_equal(run.result(), cpu.result())
+    t = stamps.cpu()
+    assert t[0] > 0 and bool((t[1:] >= t[:-1]).all())
 
 
 def test_partition_kernel_blockwise_and_given_init(cuda):
@@ -392,13 +444,17 @@ def test_partition_padded_on_the_card(cuda):
 
 def test_partition_refused_launch_raises(cuda):
     """A score row past the shared memory a block may have (60,000 lanes,
-    240 KB): the launch is refused and the wrapper raises, each time it is
-    asked, and the next launch is not charged with that error."""
+    325 KB with the blocked flags and the load phase's tile), or a grid
+    larger than can be resident: the launch is refused and the wrapper
+    raises, each time it is asked, and the next launch is not charged with
+    that error."""
     case = _partition_case(200, 1, False)
     run = partition.PartitionRun(*case, 60_000, device=cuda)
     for _ in range(2):
-        with pytest.raises(RuntimeError, match="dtpu_partition_rows: CUDA error"):
+        with pytest.raises(RuntimeError, match="dtpu_partition: CUDA error"):
             partition.partition_cuda(run)
+    with pytest.raises(RuntimeError, match="dtpu_partition: CUDA error"):
+        partition.partition_cuda(partition.PartitionRun(*case, 8, device=cuda), blocks=1_000_000)
     (ok, cpu), _ = _partition_both(case, 8, cuda)
     np.testing.assert_array_equal(ok.result(), cpu.result())
 
@@ -419,7 +475,7 @@ def test_torch_placement_plans_on_the_card(cuda, partitioner):
     k4, k1 = partition.partition_cuda.launches, leveled.place_waves_cuda.launches
     got = placement._plan_from_arrays(*args)
     if partitioner == "auto":
-        assert partition.partition_cuda.launches == k4 + 2 * partition.DEFAULT_ITERS
+        assert partition.partition_cuda.launches == k4 + 1
     else:
         assert leveled.place_waves_cuda.launches == k1 + 1
     want = TorchPlacement(sync=True, partitioner=partitioner, device="cpu")._plan_from_arrays(*args)
