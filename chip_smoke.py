@@ -11,7 +11,7 @@ and prints no result):
 
 0. environment: torch/CUDA versions, the card, its power limit, nvcc,
    whether triton imports;
-1. build: the four hand-written kernel sources from
+1. build: the six hand-written kernel sources from
    ``distributed_tpu_torch/ops/csrc`` (nvcc, one process a source) and the
    host pack ``distributed_tpu_torch/native/graphpack.cpp`` (g++), at once;
    K3's tensor-core kernels' registers and spills from ptxas (into the
@@ -59,24 +59,46 @@ and prints no result):
    version on the card the plan costs the same within 1 %; K4's time
    beside its bound and ``chain_ms`` (the in-order add chain the contract
    forces), the plan's wall and hints time; then the 1M-task uniform
-   batch through the extension, whose hints must equal phase 4's.
+   batch through the extension, whose hints must equal phase 4's;
+6. the scheduler's periodic device paths at full width, through the
+   port's path objects on stand-in workers and keys (the card's machine
+   has no ``msgpack``/``cloudpickle`` for a live scheduler): the fleet
+   mirror's device view (K6) on 512 workers, then grown to 1,000 workers
+   (capacity 1,024), with 0, 1, 37 and all rows dirtied between views
+   (the view equals the host rows; one full upload at first use and at
+   growth, otherwise exactly the dirty rows), a balance cycle on each
+   fleet (K7: 8,192 tasks on 32 victims, 8 rounds, fed by the view, equal
+   to the plain version on the CPU bit for bit, repeatable, the steals
+   replayed against the python criterion), an AMM round (K8: 16,384
+   replicated keys on 512 workers, up to 64 rounds, the same drops as the
+   plain version on the CPU, the reference's invariants on replay) and a
+   rebalance plan (K9, torch ops: 262,144 keys on 512 workers, the
+   invariants, the same moves and memory as the CPU run, beside the time
+   of the scheduler's host plan on the same keys); each with its time,
+   the plain version's time on the card, its bound and its launches, and
+   no path may count a failure.  Its inputs and replays come from
+   ``tests/test_torch_periodic_cases.py``.
 
 The last three lines are the card's ``nvidia-smi`` name and power limit,
 one JSON object listing the kernels (``flash_fwd``, ``flash_bwd``,
-``place_wave``, ``partition``) with their launches, errors and times, and
-``{"ok": true, "device": {...}}``.
+``place_wave``, ``partition``, ``steal``, ``amm_drop``, and the torch
+routes ``mirror_view`` and ``rebalance``) with their launches, errors and
+times, and ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
 
 import concurrent.futures
 import contextlib
+import inspect
 import json
+import math
 import re
 import statistics
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -1128,6 +1150,389 @@ def phase_partition(wave_entry, hints_1m):
     }
 
 
+# ------------------------------------------------------------ phase 6
+
+
+# phase 3's fleet and one of 1,000 workers in a capacity of 1,024, THREADS each
+STEAL_FLEETS = (("fleet512", 512), ("fleet1000", 1000))
+DIRTY_ROWS = (0, 1, 37, "all")   # rows dirtied between two device views
+TIMED_DIRTY = 37
+AMM_KEYS, AMM_WORKERS = 16_384, 512
+REBALANCE_KEYS, REBALANCE_WORKERS = 262_144, 512
+
+
+class _Replica:
+    """The fields of a replicated task that the AMM round reads."""
+
+    def __init__(self, row, nbytes, who_has, waiters, desired):
+        self.row, self.nbytes, self.who_has = row, nbytes, who_has
+        self.waiters, self.desired = waiters, desired
+
+    def get_nbytes(self):
+        return self.nbytes
+
+
+class _Waiter:
+    def __init__(self, ws):
+        self.processing_on = ws
+
+
+class _Manager:
+    def __init__(self, state):
+        self.state, self.workers_memory = state, {}
+
+    @staticmethod
+    def _projected(ws):
+        return ws.nbytes
+
+
+class _Policy:
+    """The slice of a ReduceReplicas policy its device round reads."""
+
+    def __init__(self, state):
+        self.manager = _Manager(state)
+
+    @staticmethod
+    def _desired(ts):
+        return ts.desired
+
+
+def _stand_in_workers(state, n, threads=THREADS):
+    """``state``'s first ``n`` stand-in workers, added in slot order."""
+    ws_list = list(state.workers.values())
+    while len(ws_list) < n:
+        i = len(ws_list)
+        ws_list.append(state.add_worker(f"tcp://10.3.{i // 256}.{i % 256}:8788", threads))
+    for w, ws in enumerate(ws_list):
+        check(ws.idx == w, f"worker {w} holds slot {ws.idx}")
+    return ws_list[:n]
+
+
+def _set_fleet(state, ws_list, batch):
+    """The mirrored fields of the stand-in workers from a cycle's fleet."""
+    for w, ws in enumerate(ws_list):
+        ws.nthreads = int(batch.nthreads[w])
+        ws.occupancy = float(batch.occ[w])
+        if batch.idle[w]:
+            state.idle[ws.address] = ws
+        else:
+            state.idle.pop(ws.address, None)
+        state.mirror.mark(ws)
+
+
+def _view_equals_host(mirror, view):
+    from distributed_tpu_torch.scheduler.mirror import DEVICE_FIELDS
+
+    return all(np.array_equal(view[f].cpu().numpy(), getattr(mirror, f)) for f in DEVICE_FIELDS)
+
+
+def _bound(nbytes, ops):
+    t_bytes = nbytes / PEAK_BYTES_S * 1e3
+    t_ops = ops / PEAK_FLOPS[torch.float32] * 1e3
+    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def _steal_bound_ms(T, W, rounds):
+    """Tasks (victim, key, cost, compute) and fleet (occupancy, threads,
+    two flags) read once, the thieves and occupancy written once; per round
+    a comparison sort of the tasks and of the thieves and a dozen
+    operations a slot for the group sums, criterion and updates."""
+    nbytes = 16 * T + 10 * W + 4 * T + 4 * W
+    ops = rounds * (T * math.ceil(math.log2(T)) + W * math.ceil(math.log2(W)) + 12 * W)
+    return _bound(nbytes, ops)
+
+
+def _drop_bound_ms(R, W, K, drops_cpu):
+    """The replica and exclusion matrices (a byte a cell), sizes, asks and
+    memory read once, the drops and memory written once; per round a
+    compare a worker for each row that drops (what this run's rows need)
+    and an update a worker."""
+    nbytes = 2 * R * W + 8 * R + 4 * W + 4 * R * K + 4 * W
+    ops = int((drops_cpu >= 0).sum()) * W + K * W
+    return _bound(nbytes, ops)
+
+
+def _rebalance_bound_ms(N, W, rounds):
+    """Owners, sizes and flags read once, memory in and out, the moves
+    (key and recipient a slot a round) written once; the size sort, then
+    per round a pass over the keys and two sorts of the workers."""
+    nbytes = 9 * N + 8 * W + 8 * rounds * W
+    ops = N * math.ceil(math.log2(N)) + rounds * (N + 2 * W * math.ceil(math.log2(W)))
+    return _bound(nbytes, ops)
+
+
+def _padded_steal(stealing, batch, fleet, dev):
+    """plan_steals' padded task tensors on ``dev`` with the fleet arrays
+    ``fleet`` (occ, nthreads, idle, running)."""
+    T = len(batch.task_victim)
+    Tp = stealing._bucket(T, floor=64)
+
+    def pad(a, fill, dtype):
+        buf = np.full(Tp, fill, dtype)
+        buf[:T] = a
+        return torch.from_numpy(buf).to(dev)
+
+    return (pad(batch.task_victim, 0, np.int32), pad(batch.task_key, stealing.IMAX, np.int32),
+            pad(batch.task_cost, 0, np.float32), pad(batch.task_compute, 0, np.float32),
+            *(torch.as_tensor(a).to(dev) for a in fleet))
+
+
+def phase_periodic():
+    """Phase 6: the scheduler's periodic device paths at full width, as the
+    port's paths call them: the fleet mirror's device view (K6) feeding a
+    balance cycle's plan (K7, ``StealingPath.plan``, what the steal
+    executor runs), an AMM round (K8, ``AmmPath.run_device``) and a
+    rebalance plan (K9, ``RebalancePath.plan_device``), on stand-in
+    workers and keys with the fields those paths read."""
+    from distributed_tpu_torch.ops import amm, rebalance, stealing
+    from distributed_tpu_torch.scheduler.amm import AmmPath
+    from distributed_tpu_torch.scheduler.mirror import DEVICE_FIELDS, TorchMirror
+    from distributed_tpu_torch.scheduler.rebalance import RebalancePath
+    from distributed_tpu_torch.scheduler.stealing import StealingPath
+
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "tests"))
+    import test_torch_periodic_cases as pc
+
+    card = smi_line()
+    # a balance cycle's Jacobi rounds: what the path runs, plan_steals' default
+    steal_rounds = inspect.signature(stealing.plan_steals).parameters["rounds"].default
+    rng = np.random.default_rng
+    steal_cases = {name: pc.steal_cycle(rng(60 + i), W, threads=THREADS)
+                   for i, (name, W) in enumerate(STEAL_FLEETS)}
+    drop_batch = pc.drop_round(rng(62), AMM_KEYS, AMM_WORKERS)
+    reb_batch = pc.rebalance_case(rng(63), REBALANCE_KEYS, REBALANCE_WORKERS)
+
+    # the AMM round's and the rebalance's scheduler stand-ins
+    amm_state = pc.StandInState()
+    amm_state.mirror = TorchMirror(amm_state)
+    amm_ws = _stand_in_workers(amm_state, AMM_WORKERS)
+    for w, ws in enumerate(amm_ws):
+        ws.nbytes = float(drop_batch.mem[w])
+        amm_state.mirror.mark(ws)
+    replicas = []
+    for r in range(AMM_KEYS):
+        held = np.flatnonzero(drop_batch.holders[r])
+        busy = np.flatnonzero(drop_batch.excluded[r])
+        replicas.append(_Replica(r, float(drop_batch.nbytes[r]), {amm_ws[w] for w in held},
+                                 [_Waiter(amm_ws[w]) for w in busy],
+                                 len(held) - int(drop_batch.ndrop[r])))
+    reb_state = pc.StandInState()
+    reb_state.mirror = TorchMirror(reb_state)
+    reb_ws = _stand_in_workers(reb_state, REBALANCE_WORKERS)
+    for w, ws in enumerate(reb_ws):
+        ws.nbytes = float(reb_batch.mem[w])
+        reb_state.mirror.mark(ws)
+    reb_keys = [_Replica(i, float(b), set(), [], 1) for i, b in enumerate(reb_batch.nbytes)]
+
+    # the main path: every count zeroed just before, read just after
+    steal_path = StealingPath()
+    amm_path, reb_path = AmmPath(), RebalancePath()
+    TorchMirror.launches = 0
+    stealing.steal_rounds_cuda.launches = 0
+    amm.drop_rounds_cuda.launches = 0
+    rebalance.rebalance_rounds.launches = 0
+    state = pc.StandInState()
+    mirror = state.mirror = TorchMirror(state)
+    views, seen, thieves, mirror_log = 0, {}, {}, []
+    for name, W in STEAL_FLEETS:
+        batch = steal_cases[name]
+        cap0 = mirror.cap
+        ws_list = _stand_in_workers(state, W)
+        before = mirror.stats()
+        _set_fleet(state, ws_list, batch)
+        view = mirror.device_view()
+        views += 1
+        after = mirror.stats()
+        what = "first use" if not before["full_uploads"] else "growth"
+        check(what != "growth" or mirror.cap != cap0, f"mirror {name}: no growth past {cap0}")
+        mirror_log.append((name, what, after["full_uploads"] - before["full_uploads"],
+                           after["rows_uploaded"] - before["rows_uploaded"], _view_equals_host(mirror, view)))
+        seen[name] = tuple(getattr(mirror, f).copy() for f in ("occupancy", "nthreads", "idle", "running"))
+        fleet = batch._replace(occ=view["occupancy"], nthreads=view["nthreads"],
+                               idle=view["idle"], running=view["running"])
+        thieves[name] = steal_path.plan(fleet, mirror.upload_event)
+        for n in DIRTY_ROWS:
+            pick = ws_list if n == "all" else rng(70 + len(mirror_log)).choice(ws_list, n, replace=False)
+            for ws in pick:
+                state.update(ws, np.random.default_rng(ws.idx))
+            before = mirror.stats()
+            view = mirror.device_view()
+            views += n != 0
+            after = mirror.stats()
+            mirror_log.append((name, f"dirty {n}", after["full_uploads"] - before["full_uploads"],
+                               after["rows_uploaded"] - before["rows_uploaded"],
+                               _view_equals_host(mirror, view)))
+    suggestions = list(amm_path.run_device(_Policy(amm_state), replicas))
+    reb_fv = reb_state.mirror.fleet_view()
+    moves = reb_path.plan_device(reb_fv.live_list, reb_keys, reb_batch.owner.tolist(),
+                                 reb_fv.nbytes[reb_fv.slots].astype(np.float32, copy=True))
+    torch.cuda.synchronize()
+    launches = {"mirror_view": TorchMirror.launches, "steal": stealing.steal_rounds_cuda.launches,
+                "amm_drop": amm.drop_rounds_cuda.launches,
+                "rebalance": rebalance.rebalance_rounds.launches}
+    print(f"[{card}] periodic main path: launches {launches}; paths "
+          f"{ {p: q.counters() for p, q in (('stealing', steal_path), ('amm', amm_path), ('rebalance', reb_path))} }")
+    check(launches == {"mirror_view": views, "steal": len(STEAL_FLEETS), "amm_drop": 1, "rebalance": 1},
+          f"periodic launches {launches}: one a view that uploads, a cycle and a plan expected")
+    for label, p in (("stealing", steal_path), ("amm", amm_path), ("rebalance", reb_path)):
+        check(p.failures == 0, f"{label} path failures {p.failures}: {p.errors}")
+
+    # K6: the device view against the host rows, and its counters
+    for name, what, full, rows, same in mirror_log:
+        n = what.split()[-1]
+        want_rows = 0 if what in ("first use", "growth") else (
+            dict(STEAL_FLEETS)[name] if n == "all" else int(n))
+        print(f"[{card}] mirror {name} {what}: full uploads {full}, rows uploaded {rows}, "
+              f"view == host {same}")
+        check(same, f"mirror {name} {what}: the device view differs from the host rows")
+        check(full == (what in ("first use", "growth")), f"mirror {name} {what}: {full} full uploads")
+        check(rows == want_rows, f"mirror {name} {what}: {rows} rows uploaded, {want_rows} dirty")
+    check([w for _, w, *_ in mirror_log if w in ("first use", "growth")] == ["first use", "growth"],
+          f"mirror full uploads at {[w for _, w, *_ in mirror_log]}")
+    check(mirror.cap == 1024, f"mirror capacity {mirror.cap}")
+
+    entries = {}
+    dev = torch.device("cuda", torch.cuda.current_device())
+    # K7: each cycle against the plain version on the CPU on the fleet it saw
+    cases_out, err_max = {}, 0.0
+    for name, W in STEAL_FLEETS:
+        batch = steal_cases[name]
+        T = len(batch.task_victim)
+        cpu_args = _padded_steal(stealing, batch, seen[name], "cpu")
+        th_cpu, occ_cpu = stealing.steal_rounds_reference(*cpu_args, steal_rounds)
+        th_cpu = th_cpu[:T].numpy()
+        check(np.array_equal(thieves[name], th_cpu),
+              f"steal {name}: K7 thieves differ from the CPU run ({int((thieves[name] != th_cpu).sum())})")
+        args = _padded_steal(stealing, batch, seen[name], dev)
+        got = stealing.steal_rounds_cuda(*args, steal_rounds)
+        again = stealing.steal_rounds_cuda(*args, steal_rounds)
+        check(torch.equal(got[0], again[0]) and torch.equal(got[1], again[1]),
+              f"steal {name}: two calls differ")
+        err = float((got[1].cpu() - occ_cpu).abs().max())
+        check(err == 0.0 and np.array_equal(got[0][:T].cpu().numpy(), th_cpu),
+              f"steal {name}: K7 occupancy differs from the CPU run by {err}")
+        n_steals = pc.check_steals(batch, th_cpu)
+        check(n_steals > 0, f"steal {name}: no steals on an imbalance")
+        with deterministic():
+            th_p, occ_p = stealing.steal_rounds_reference(*args, steal_rounds)
+        agree = float((th_p[:T] == got[0][:T]).float().mean())
+        occ_err_p = float((occ_p - got[1]).abs().max())
+        ms = cuda_ms(lambda: stealing.steal_rounds_cuda(*args, steal_rounds))
+        plain_ms = cuda_ms(lambda: stealing.steal_rounds_reference(*args, steal_rounds),
+                           reps=5, warmup=1)
+        bound_ms, bound_by = _steal_bound_ms(len(args[0]), len(args[4]), steal_rounds)
+        err_max = max(err_max, err)
+        print(f"[{card}] steal {name}: T {T} W {len(args[4])} steals {n_steals}: == CPU run, repeat "
+              f"identical, replay holds; plain on the card agreement {agree:.6f} occ err {occ_err_p:.3g}; "
+              f"K7 kernel_ms {ms:.4f} plain_ms {plain_ms:.4f} bound_ms {bound_ms:.7f} ({bound_by}) "
+              f"launches 1 a cycle")
+        cases_out[name] = dict(T=T, W=len(args[4]), steals=n_steals, ms=ms, plain_ms=plain_ms,
+                               bound_ms=bound_ms, bound_by=bound_by, card_plain_agreement=agree)
+    head = cases_out["fleet512"]
+    entries["steal"] = dict(
+        name="steal", route="cuda", source="distributed_tpu_torch/ops/csrc/steal.cu",
+        replaces="distributed_tpu/ops/stealing.py:77", launches=launches["steal"],
+        max_abs_err=err_max, ms=head["ms"], plain_ms=head["plain_ms"], bound_ms=head["bound_ms"],
+        bound_by=head["bound_by"], library_ms=None, case="fleet512", cases=cases_out)
+
+    # K8: the round's suggestions against the plain version on the CPU
+    got_drops = [(ts.row, ws.idx) for _, ts, (ws,) in suggestions]
+    want_drops = amm.plan_drops(drop_batch, device="cpu")
+    check(got_drops == want_drops, f"amm: {len(got_drops)} drops differ from the CPU run's {len(want_drops)}")
+    rounds = amm.plan_drop_rounds(drop_batch, device="cpu")
+    n_drops = pc.check_drops(drop_batch, rounds)
+    K = min(int(drop_batch.ndrop.max()), amm.MAX_ROUNDS)
+    Kp = stealing._bucket(K, floor=1)
+    cpu_t = [torch.from_numpy(np.asarray(a)) for a in drop_batch]
+    d_cpu, m_cpu = amm.drop_rounds_reference(*cpu_t, Kp)
+    dev_t = [t.to(dev) for t in cpu_t]
+    d1, m1 = amm.drop_rounds_cuda(*dev_t, Kp)
+    d2, m2 = amm.drop_rounds_cuda(*dev_t, Kp)
+    check(torch.equal(d1, d2) and torch.equal(m1, m2), "amm: two calls differ")
+    err = float((m1.cpu() - m_cpu).abs().max())
+    check(torch.equal(d1.cpu(), d_cpu) and err == 0.0, f"amm: K8 differs from the CPU run ({err})")
+    with deterministic():
+        d_p, m_p = amm.drop_rounds_reference(*dev_t, Kp)
+    agree = float((d_p == d1).float().mean())
+    ms = cuda_ms(lambda: amm.drop_rounds_cuda(*dev_t, Kp))
+    plain_ms = cuda_ms(lambda: amm.drop_rounds_reference(*dev_t, Kp), reps=3, warmup=1)
+    bound_ms, bound_by = _drop_bound_ms(AMM_KEYS, AMM_WORKERS, Kp, d_cpu.numpy())
+    print(f"[{card}] amm {AMM_KEYS} keys x {AMM_WORKERS} workers, K {K} (padded {Kp}): {n_drops} drops "
+          f"== CPU run, repeat identical, replay holds; plain on the card agreement {agree:.6f}; "
+          f"K8 kernel_ms {ms:.4f} plain_ms {plain_ms:.4f} bound_ms {bound_ms:.7f} ({bound_by}) "
+          f"launches 1 a plan")
+    entries["amm_drop"] = dict(
+        name="amm_drop", route="cuda", source="distributed_tpu_torch/ops/csrc/amm_drop.cu",
+        replaces="distributed_tpu/ops/amm.py:43", launches=launches["amm_drop"], max_abs_err=err,
+        ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
+        case=f"{AMM_KEYS}x{AMM_WORKERS}", rounds=K, drops=n_drops, card_plain_agreement=agree)
+
+    # K9: invariants, the CPU run's moves and memory, time beside the host plan
+    got_moves = [(ts.row, s.idx, r.idx) for ts, s, r in moves]
+    before, after = pc.check_rebalance(reb_batch, got_moves)
+    want_moves = rebalance.plan_rebalance(reb_batch, device="cpu")
+    check(got_moves == want_moves,
+          f"rebalance: {len(got_moves)} moves on the card differ from the CPU run's {len(want_moves)}")
+    N = REBALANCE_KEYS
+    R = rebalance.round_count(reb_batch)
+    *_, mem_cpu = rebalance.rebalance_rounds(*rebalance.padded_inputs(reb_batch, "cpu"), R)
+    card_args = rebalance.padded_inputs(reb_batch, dev)
+    *_, mem_card = rebalance.rebalance_rounds(*card_args, R)
+    err = float((mem_card.cpu() - mem_cpu).abs().max())
+    check(err == 0.0, f"rebalance: the card's projected memory differs from the CPU run by {err}")
+    ms = cuda_ms(lambda: rebalance.rebalance_rounds(*card_args, R), reps=10, warmup=1)
+    bound_ms, bound_by = _rebalance_bound_ms(len(card_args[0]), REBALANCE_WORKERS, R)
+    # the whole plan as the scheduler calls it (pack, rounds, moves back), and
+    # the host plan its gate takes below 512 candidates, on the same keys
+    t0 = time.perf_counter()
+    reb_path.plan_device(reb_fv.live_list, reb_keys, reb_batch.owner.tolist(),
+                         reb_fv.nbytes[reb_fv.slots].astype(np.float32, copy=True))
+    plan_wall_ms = (time.perf_counter() - t0) * 1e3
+    wss, _ = pc.rebalance_fleet(reb_batch)
+    t0 = time.perf_counter()
+    py_moves = pc.rebalance_plan_python(wss, None)
+    python_plan_ms = (time.perf_counter() - t0) * 1e3
+    proj = np.asarray(reb_batch.mem, np.float64).copy()
+    for ts, snd, rcp in py_moves:
+        proj[snd.idx] -= ts.nbytes
+        proj[rcp.idx] += ts.nbytes
+    py_after = float(proj.max() - proj.min())
+    print(f"[{card}] rebalance {N} keys x {REBALANCE_WORKERS} workers, {R} rounds: {len(got_moves)} moves, "
+          f"invariants hold, imbalance {before:.6g} -> {after:.6g}; moves and memory == CPU run; "
+          f"torch ops ms {ms:.4f} bound_ms {bound_ms:.7f} ({bound_by}) launches 1 a plan; "
+          f"plan wall ms {plan_wall_ms:.1f}; host python plan ms {python_plan_ms:.1f} "
+          f"({len(py_moves)} moves, imbalance -> {py_after:.6g})")
+    # the route is torch ops, the plain version itself: no other plain time
+    entries["rebalance"] = dict(
+        name="rebalance", route="torch", source="distributed_tpu_torch/ops/rebalance.py",
+        replaces="distributed_tpu/ops/rebalance.py:43", launches=launches["rebalance"],
+        max_abs_err=err, ms=ms, plain_ms=None, bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
+        case=f"{N}x{REBALANCE_WORKERS}", rounds=R, moves=len(got_moves),
+        imbalance_before=before, imbalance_after=after, plan_wall_ms=plan_wall_ms,
+        python_plan_ms=python_plan_ms, python_moves=len(py_moves), python_imbalance_after=py_after)
+
+    # K6 timed: a view after TIMED_DIRTY dirty rows, against a full upload
+    ws37 = rng(80).choice(list(state.workers.values()), TIMED_DIRTY, replace=False)
+
+    def dirty_view():
+        for ws in ws37:
+            mirror.mark(ws)
+        return mirror.device_view()
+
+    ms = cuda_ms(dirty_view)
+    plain_ms = cuda_ms(lambda: [torch.from_numpy(getattr(mirror, f)).to(dev) for f in DEVICE_FIELDS])
+    bound_ms, bound_by = _bound(TIMED_DIRTY * (10 + 8), 0)
+    print(f"[{card}] mirror view, {TIMED_DIRTY} dirty rows of {len(state.workers)} workers "
+          f"(capacity {mirror.cap}): ms {ms:.4f} full upload ms {plain_ms:.4f} bound_ms {bound_ms:.7f} "
+          f"({bound_by}); views that uploaded on the main path {launches['mirror_view']}")
+    entries["mirror_view"] = dict(
+        name="mirror_view", route="torch", source="distributed_tpu_torch/scheduler/mirror.py",
+        replaces="distributed_tpu/scheduler/mirror.py:356", launches=launches["mirror_view"],
+        max_abs_err=0.0, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+        library_ms=None, case=f"{TIMED_DIRTY} dirty rows, capacity {mirror.cap}")
+    return [entries[k] for k in ("steal", "amm_drop", "mirror_view", "rebalance")]
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1148,7 +1553,8 @@ def main() -> int:
     wave_entry, oneshot = phase_placement()
     hints_1m = phase_streamed(wave_entry, oneshot)
     partition_entry = phase_partition(wave_entry, hints_1m)
-    kernels = [flash_entry, bwd_entry, wave_entry, partition_entry]
+    periodic_entries = phase_periodic()
+    kernels = [flash_entry, bwd_entry, wave_entry, partition_entry, *periodic_entries]
     print(f"total_s {time.perf_counter() - t0:.1f}")
     print(smi_line())
     print(json.dumps({"kernels": kernels}))

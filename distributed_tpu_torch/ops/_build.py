@@ -57,6 +57,21 @@ SIGNATURES = {
         _i, _i, _i, _f, _f, _i, _i,     # T W iters thresh bonus blocks cnt_blocks
         _vp,                            # stream
     ),
+    "dtpu_steal_layout": (_i, _i, ctypes.POINTER(ctypes.c_longlong), ctypes.POINTER(_i)),
+    "dtpu_steal": (
+        _vp, _vp, _vp, _vp, _vp, _vp,   # victim key cost compute nthreads running
+        _vp, _vp, _vp, _vp,             # occ idle (in/out) thief_of taken
+        _vp,                            # scratch: null = shared memory
+        _i, _i, _i,                     # T W rounds
+        _vp,                            # stream
+    ),
+    "dtpu_amm_drop_grid": (ctypes.POINTER(_i),),  # -> blocks
+    "dtpu_amm_drop": (
+        _vp, _vp, _vp, _vp, _vp,        # holders excluded nbytes ndrop mem
+        _vp, _vp,                       # drops scratch
+        _i, _i, _i, _i,                 # R W K blocks
+        _vp,                            # stream
+    ),
     "dtpu_flash_fwd": (
         _vp, _vp, _vp, _vp, _vp,        # q k v o lse
         _i, _i, _i, _i, _i, _i,         # H N Nk D dtype causal

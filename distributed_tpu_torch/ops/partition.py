@@ -123,24 +123,30 @@ def _bucket(n: int, floor: int = 1024) -> int:
     return b
 
 
-def xla_sum(x: np.ndarray) -> np.float32:
-    """An f32 vector's sum in the order XLA's CPU backend adds it: windows
-    of 32 summed front to back (after padding the vector with zeros to a
-    multiple of 32, half the padding in front), repeated until at most 32
-    values remain, which are summed front to back."""
-    x = np.asarray(x, np.float32)
-    while len(x) > 32:
-        pad = -len(x) % 32
-        x = np.concatenate([np.zeros(pad // 2, np.float32), x,
-                            np.zeros(pad - pad // 2, np.float32)]).reshape(-1, 32)
-        acc = np.zeros(len(x), np.float32)
+def xla_row_sum(x: torch.Tensor) -> torch.Tensor:
+    """Row sums of an f32 ``[R, n]`` matrix in the order XLA's CPU backend
+    reduces a row: windows of 32 summed front to back (the row padded with
+    zeros to a multiple of 32, half the padding in front), repeated until
+    at most 32 values remain, which are summed front to back."""
+    R = x.shape[0]
+    while x.shape[1] > 32:
+        pad = -x.shape[1] % 32
+        x = torch.nn.functional.pad(x, (pad // 2, pad - pad // 2)).view(R, -1, 32)
+        acc = torch.zeros(x.shape[:2], dtype=x.dtype, device=x.device)
         for j in range(32):
-            acc += x[:, j]
+            acc = acc + x[:, :, j]
         x = acc
-    total = np.float32(0.0)
-    for v in x:
-        total = np.float32(total + v)
+    total = torch.zeros(R, dtype=x.dtype, device=x.device)
+    for j in range(x.shape[1]):
+        total = total + x[:, j]
     return total
+
+
+def xla_sum(x: np.ndarray) -> np.float32:
+    """An f32 vector's sum in the order XLA's CPU backend adds it
+    (:func:`xla_row_sum` of one row)."""
+    row = torch.from_numpy(np.ascontiguousarray(x, np.float32))[None]
+    return np.float32(xla_row_sum(row)[0].item())
 
 
 def label_scalars(durations: np.ndarray, weights: np.ndarray,

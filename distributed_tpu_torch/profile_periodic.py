@@ -1,0 +1,134 @@
+"""Where the time of the AMM drop plan (K8) and the rebalance plan (K9) goes,
+on the card, for one checkout or two.
+
+Run from a checkout on a machine with one NVIDIA GPU:
+
+    python3 distributed_tpu_torch/profile_periodic.py [--root DIR] [--out FILE]
+
+``--root`` names the checkout whose ``distributed_tpu_torch`` is
+measured (default: the one holding this file), so one command can time
+another version beside this one's, in turns on one card.  The inputs are
+always this checkout's, ``chip_smoke.py`` phase 6's, made by
+``tests/test_torch_periodic_cases.py``: the AMM round (16,384 replicated keys on 512
+workers, 2-64 holders a key, seed 62, the rounds padded to 64) and the
+rebalance (262,144 single-replica keys on 512 workers, seed 63).  It
+reports
+
+- ``k8_ms``: one ``drop_rounds_cuda`` call by CUDA events (median of 10,
+  as phase 6 times it), and the same with the rounds cut to 1 and 8
+  (``k8_ms_rounds``: the first rounds have the most rows left to drop);
+  ``k8_rounds_with_drops``, the rounds that dropped anything (the kernel
+  stops after the first round that drops nothing); ``k8_kernels``, from
+  ``torch.profiler`` over one call, the device time and count of every
+  kernel it ran; ``k8_digest``, of the drops and the memory;
+- ``k9_ms``: ``rebalance_rounds`` on the card by CUDA events (median of
+  5), ``k9_device_ms`` and ``k9_kernels``, the device time and the count
+  of the kernels one call runs (profiler), ``k9_plan_ms``, the whole
+  ``plan_rebalance`` on the host clock, ``k9_digest``, of its moves;
+- ``python_plan_ms``: the reference scheduler's host plan (its copy,
+  ``rebalance_plan_python`` in the same test module) on the same keys,
+  host clock, median of 3, with its moves;
+
+with the card's ``nvidia-smi`` name and power limit, as one JSON object.
+"""
+
+from __future__ import annotations
+
+import argparse
+import hashlib
+import importlib.util
+import json
+import statistics
+import sys
+import time
+from pathlib import Path
+
+HERE = Path(__file__).resolve().parents[1]
+K8_ROUNDS = 64
+
+
+def _smoke():
+    """This checkout's ``chip_smoke.py``, for the card's line and the cases."""
+    spec = importlib.util.spec_from_file_location("chip_smoke", HERE / "chip_smoke.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _digest(*arrays) -> str:
+    return hashlib.blake2b(b"".join(a.tobytes() for a in arrays), digest_size=8).hexdigest()
+
+
+def _host_ms(fn, reps):
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        out = fn()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times), out
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--root", default=str(HERE))
+    ap.add_argument("--out", default=None, help="also write the JSON here")
+    args = ap.parse_args(argv)
+    sys.path[0] = str(Path(args.root).resolve())
+    sys.path.insert(1, str(HERE / "tests"))
+
+    import numpy as np
+    import torch
+
+    if not torch.cuda.is_available():
+        print("profile_periodic: no CUDA device", file=sys.stderr)
+        return 2
+    smoke = _smoke()
+    import test_torch_periodic_cases as cases
+
+    from distributed_tpu_torch.ops import amm, rebalance
+    from distributed_tpu_torch.profile_waves import kernel_times
+
+    dev = torch.device("cuda", 0)
+    report = {"root": args.root, "card": smoke.smi_line()}
+
+    # K8
+    batch = cases.drop_round(np.random.default_rng(62), smoke.AMM_KEYS, smoke.AMM_WORKERS)
+    k8_args = [torch.from_numpy(np.asarray(a)).to(dev) for a in batch]
+    drops, mem = amm.drop_rounds_cuda(*k8_args, K8_ROUNDS)
+    drops, mem = drops.cpu().numpy(), mem.cpu().numpy()
+    ms = {k: smoke.cuda_ms(lambda k=k: amm.drop_rounds_cuda(*k8_args, k)) for k in (1, 8, K8_ROUNDS)}
+    kernels = kernel_times(torch, lambda: amm.drop_rounds_cuda(*k8_args, K8_ROUNDS))
+    report.update(
+        k8_case=f"{smoke.AMM_KEYS}x{smoke.AMM_WORKERS}", k8_ms=ms[K8_ROUNDS], k8_ms_rounds=ms,
+        k8_rounds_with_drops=int((drops >= 0).any(axis=0).sum()),
+        k8_kernels={name: {"ms": t, "count": n} for name, (t, n) in kernels.items()},
+        k8_digest=_digest(drops, mem),
+    )
+
+    # K9, and the host plan the scheduler's gate takes below 512 candidates
+    N, W = smoke.REBALANCE_KEYS, smoke.REBALANCE_WORKERS
+    reb = cases.rebalance_case(np.random.default_rng(63), N, W)
+    rounds = rebalance.round_count(reb)
+    k9_args = rebalance.padded_inputs(reb, dev)
+    k9_ms = smoke.cuda_ms(lambda: rebalance.rebalance_rounds(*k9_args, rounds), reps=5, warmup=1)
+    kernels = kernel_times(torch, lambda: rebalance.rebalance_rounds(*k9_args, rounds))
+    plan_ms, moves = _host_ms(lambda: rebalance.plan_rebalance(reb, device=dev), 3)
+    wss, _ = cases.rebalance_fleet(reb)
+    py_ms, py_moves = _host_ms(lambda: cases.rebalance_plan_python(wss, None), 3)
+    report.update(
+        k9_case=f"{N}x{W}", k9_rounds=rounds, k9_ms=k9_ms,
+        k9_device_ms=sum(t for t, _ in kernels.values()),
+        k9_kernels=sum(n for _, n in kernels.values()), k9_plan_ms=plan_ms, k9_moves=len(moves),
+        k9_digest=_digest(np.asarray(moves, np.int64)),
+        python_plan_ms=py_ms, python_moves=len(py_moves),
+    )
+    text = json.dumps(report)
+    print(text)
+    if args.out:
+        Path(args.out).parent.mkdir(parents=True, exist_ok=True)
+        Path(args.out).write_text(text + "\n")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

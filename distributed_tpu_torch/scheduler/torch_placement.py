@@ -110,7 +110,9 @@ class _DaemonExecutor:
         self._q.put((fut, fn, args))
         return fut
 
-    def shutdown(self) -> None:
+    def shutdown(self, wait: bool = False, cancel_futures: bool = False) -> None:
+        # the reference's WorkStealing.close passes both; like the
+        # reference's executor this one neither waits nor cancels
         self._q.put(None)
         if self._idle.is_set():
             # nothing in flight: drop the exit hook so repeated

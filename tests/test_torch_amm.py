@@ -1,0 +1,212 @@
+"""The Active Memory Manager's device path in the port
+(``distributed_tpu_torch/ops/amm.py``, ``scheduler/amm.py``) against the
+reference, on the CPU.
+
+- ``drop_rounds_reference`` against the reference's jitted
+  ``_drop_rounds``: the drops and the final memory **exactly equal**, on
+  the reference's own test family and on AMM-sized rounds with up to 64
+  holders a key; ``plan_drops`` exactly equal to the reference's.
+- The **re-validation contract** (``test_torch_periodic_cases.check_drops``: never
+  the last replica, never an excluded holder, the fullest eligible holder
+  at each round's start, every satisfiable drop planned).
+- A row whose holders are all excluded drops nothing (its argmax is
+  worker 0, which is not eligible).
+- The reference's sans-io AMM scenario (``tests/test_mirror.py``) with the
+  port installed on ``device="cpu"``: the same remove-replicas messages as
+  the reference's device round, ``launches`` > 0, ``failures`` == 0, and a
+  planted failure counted and raised out of the policy's generator.
+- One live ``LocalCluster`` round with the port's paths installed.
+"""
+
+from __future__ import annotations
+
+import asyncio
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from distributed_tpu import config
+from distributed_tpu.ops import amm as ref
+from distributed_tpu.scheduler.amm import ActiveMemoryManagerExtension, ReduceReplicas
+from distributed_tpu.utils.test import StubScheduler
+from distributed_tpu_torch.ops import amm as port
+import test_torch_periodic_cases as pc
+from distributed_tpu_torch.scheduler.amm import install_amm
+from distributed_tpu_torch.scheduler.mirror import TorchMirror
+from distributed_tpu_torch.scheduler.periodic import install_periodic
+
+from conftest import gen_test
+from test_mirror import _state
+
+
+def _reference_family(seed, R=60, W=12):
+    """tests/test_ops_stealing_amm.py's over-replicated state."""
+    rng = np.random.default_rng(seed)
+    holders = rng.random((R, W)) < 0.4
+    holders[:, 0] |= ~holders.any(axis=1)
+    excluded = (rng.random((R, W)) < 0.1) & holders
+    nbytes = rng.uniform(1e3, 1e6, R).astype(np.float32)
+    desired = np.maximum(1, rng.integers(1, 3, R))
+    ndrop = np.maximum(holders.sum(1) - desired, 0).astype(np.int32)
+    mem = (holders * nbytes[:, None]).sum(0).astype(np.float32)
+    return port.DropBatch(holders, excluded, nbytes, ndrop, mem)
+
+
+def _cases():
+    out = [(f"reference{s}", _reference_family(s)) for s in range(4)]
+    out += [("reference_wide", _reference_family(7, R=2000, W=64))]
+    out += [(f"amm{R}x{W}", pc.drop_round(np.random.default_rng(R), R, W, max_holders=min(64, W)))
+            for R, W in ((300, 8), (1000, 64), (2048, 130))]
+    return out
+
+
+@pytest.mark.parametrize("name,batch", _cases(), ids=[n for n, _ in _cases()])
+def test_drop_rounds_equal_reference(name, batch):
+    K = 64
+    d_r, m_r = ref._drop_rounds(*map(jnp.asarray, batch), K=K)
+    d_p, m_p = port.drop_rounds_reference(*(torch.from_numpy(np.asarray(a)) for a in batch), K)
+    np.testing.assert_array_equal(d_p.numpy(), np.asarray(d_r))
+    np.testing.assert_array_equal(m_p.numpy(), np.asarray(m_r))
+    got = port.plan_drops(batch, device="cpu")
+    assert got == ref.plan_drops(ref.DropBatch(*batch))
+    assert pc.check_drops(batch, port.plan_drop_rounds(batch, device="cpu")) == len(got) > 0
+
+
+def test_drop_never_the_last_replica_and_empty():
+    batch = port.DropBatch(np.asarray([[True, True, False]]), np.zeros((1, 3), bool),
+                           np.asarray([100.0], np.float32), np.asarray([5], np.int32),
+                           np.asarray([100.0, 100.0, 0.0], np.float32))
+    assert len(port.plan_drops(batch, device="cpu")) == 1
+    empty = port.DropBatch(np.zeros((0, 4), bool), np.zeros((0, 4), bool), np.zeros(0, np.float32),
+                           np.zeros(0, np.int32), np.zeros(4, np.float32))
+    assert port.plan_drops(empty, device="cpu") == []
+
+
+def test_rows_without_an_eligible_holder_drop_nothing():
+    """Every holder excluded: the score row is all -inf, argmax picks worker
+    0, and ``ok`` must stay false there (ops/amm.py:54-56)."""
+    holders = np.zeros((4, 6), bool)
+    holders[:, 2:5] = True
+    excluded = holders.copy()
+    excluded[1, 3] = False
+    batch = port.DropBatch(holders, excluded, np.full(4, 10.0, np.float32),
+                           np.full(4, 2, np.int32), np.arange(6, dtype=np.float32))
+    got = port.plan_drops(batch, device="cpu")
+    assert got == ref.plan_drops(ref.DropBatch(*batch)) == [(1, 3)]
+
+
+def test_plan_drops_needs_cuda_by_default(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        port.plan_drops(_reference_family(0))
+
+
+# ------------------------------------------------------------ sans-io
+
+
+def _amm_state():
+    """tests/test_mirror.py's shared-fleet AMM scene: four memory keys on
+    one worker, replicated to two more."""
+    state = _state(n_workers=6, nthreads=1)
+    sched = StubScheduler(state)
+    amm = ActiveMemoryManagerExtension(sched, policies=[ReduceReplicas()], register=False,
+                                       start=False)
+    for i in range(4):
+        key = f"mem-{i}"
+        state.new_task(key, None).priority = (0,)
+        state._transition(key, "memory", "seed", nbytes=1000, worker=list(state.workers)[0])
+        for ws in list(state.workers.values())[1:3]:
+            state.add_replica(state.tasks[key], ws)
+    return state, sched, amm
+
+
+def _removals(sched):
+    return sorted((addr, tuple(sorted(msg["keys"]))) for _, wmsgs in sched.sent
+                  for addr, msgs in wmsgs.items() for msg in msgs if msg["op"] == "remove-replicas")
+
+
+def test_sans_io_round_equals_reference_device_round():
+    """The port's round sends the reference's device round's removals; the
+    mirror is the port's, and nothing falls back to a python pack."""
+    with config.set({"scheduler.jax.min-workers": 0, "scheduler.jax.periodic-min-workers": 0}):
+        r_state, r_sched, r_amm = _amm_state()
+        policy = next(iter(r_amm.policies))
+        policy.DEVICE_MIN_TASKS = 1
+        r_amm.run_once()
+    state, sched, amm = _amm_state()
+    policy = next(iter(amm.policies))
+    policy.DEVICE_MIN_TASKS = 1
+    path = install_amm(policy, device="cpu", min_workers=0, periodic_min_workers=0)
+    TorchMirror.adopt(state, device="cpu")
+    amm.run_once()
+    assert _removals(sched) == _removals(r_sched) != []
+    assert path.counters() == {"launches": 1, "failures": 0, "cycles_device": 1, "cycles_host": 0}
+    assert state.mirror.oracle_packs == 0
+
+
+def test_sans_io_gate_keeps_small_fleets_on_the_host():
+    state, sched, amm = _amm_state()
+    path = install_amm(next(iter(amm.policies)), device="cpu")
+    amm.run_once()
+    assert path.counters() == {"launches": 0, "failures": 0, "cycles_device": 0, "cycles_host": 1}
+    assert _removals(sched)
+
+
+def test_planted_failure_propagates_from_the_generator(monkeypatch):
+    """The plan raises: the policy's generator raises it (the manager then
+    logs a failing policy, as for any), the path counts and keeps it, and
+    no python drop is suggested in its place."""
+    state, sched, amm = _amm_state()
+    policy = next(iter(amm.policies))
+    policy.DEVICE_MIN_TASKS = 1
+    path = install_amm(policy, device="cpu", min_workers=0, periodic_min_workers=0)
+    boom = RuntimeError("planted")
+
+    def fail(*args, **kwargs):
+        raise boom
+
+    monkeypatch.setattr(port, "plan_drops", fail)
+    amm.pending = {}
+    with pytest.raises(RuntimeError, match="planted"):
+        list(policy.run())
+    assert path.failures == 1 and path.errors == [boom] and path.cycles_host == 0
+    amm.run_once()
+    assert path.failures == 2 and not _removals(sched)
+
+
+# ------------------------------------------------------------- live
+
+
+@gen_test(timeout=120)
+async def test_device_amm_drop_live_with_the_port():
+    """tests/test_ops_stealing_amm.py's live AMM round with the port's paths
+    installed: broadcast replicas beyond demand are trimmed by the port's
+    plan, and the data stays gatherable."""
+    from distributed_tpu.client.client import Client
+    from distributed_tpu.deploy.local import LocalCluster
+
+    async with LocalCluster(n_workers=4, threads_per_worker=1) as cluster:
+        handle = install_periodic(cluster.scheduler, device="cpu", min_workers=0,
+                                  periodic_min_workers=0)
+        amm = cluster.scheduler.extensions["amm"]
+        next(p for p in amm.policies if isinstance(p, ReduceReplicas)).DEVICE_MIN_TASKS = 1
+        async with Client(cluster.scheduler_address) as c:
+            futs = await c.scatter(list(range(6)), broadcast=True)
+            state = cluster.scheduler.state
+            for _ in range(100):
+                if len(state.replicated_tasks) >= 6:
+                    break
+                await asyncio.sleep(0.05)
+            assert state.replicated_tasks
+            n_before = sum(len(state.tasks[f.key].who_has) for f in futs)
+            amm.run_once()
+            for _ in range(100):
+                await asyncio.sleep(0.05)
+                if sum(len(state.tasks[f.key].who_has) for f in futs) < n_before:
+                    break
+            else:
+                pytest.fail("the port's AMM round dropped nothing")
+            assert await c.gather(futs) == list(range(6))
+        assert handle.amm.launches > 0 and handle.failures == 0

@@ -16,9 +16,10 @@ from __future__ import annotations
 import numpy as np
 import pytest
 import torch
+import test_torch_periodic_cases as cases
 
 from distributed_tpu_torch import graphs
-from distributed_tpu_torch.ops import flash, leveled, partition
+from distributed_tpu_torch.ops import amm, flash, leveled, partition, stealing
 
 pytestmark = pytest.mark.cuda
 
@@ -500,3 +501,116 @@ def test_torch_placement_plans_on_its_planner_thread(cuda):
         finally:
             executor.shutdown()
         assert got == placement._plan_from_arrays(*args)
+
+
+# ---------------------------------------------------- periodic paths (K6-K8)
+
+
+def _steal_args(batch, dev):
+    """plan_steals' padded tensors for ``batch`` on ``dev``."""
+    T = len(batch.task_victim)
+    Tp = stealing._bucket(T, floor=64)
+
+    def pad(a, fill, dtype):
+        buf = np.full(Tp, fill, dtype)
+        buf[:T] = a
+        return torch.from_numpy(buf).to(dev)
+
+    return (pad(batch.task_victim, 0, np.int32), pad(batch.task_key, stealing.IMAX, np.int32),
+            pad(batch.task_cost, 0, np.float32), pad(batch.task_compute, 0, np.float32),
+            *(torch.as_tensor(a).to(dev) for a in (batch.occ, batch.nthreads, batch.idle,
+                                                   batch.running)))
+
+
+@pytest.mark.parametrize("W,T,victims", [(16, 200, 8), (512, 8192, 32), (1000, 8192, 32),
+                                         (33, 5000, 33), (4096, 8192, 32), (64, 20_000, 32)])
+def test_steal_kernel_matches_plain(cuda, W, T, victims):
+    """K7 == the plain version on the CPU bit for bit (thief_of and occ),
+    twice, one launch a cycle; the last two cases run on global scratch
+    (4,096 workers, 20,000 tasks: past the block's shared memory)."""
+    batch = cases.steal_cycle(np.random.default_rng(W + T), W, n_tasks=T,
+                                       n_victims=victims)
+    want = stealing.steal_rounds_reference(*_steal_args(batch, "cpu"), 8)
+    args = _steal_args(batch, cuda)
+    before = stealing.steal_rounds_cuda.launches
+    got = stealing.steal_rounds_cuda(*args, 8)
+    again = stealing.steal_rounds_cuda(*args, 8)
+    torch.cuda.synchronize()
+    assert stealing.steal_rounds_cuda.launches == before + 2
+    for g, a, w in zip(got, again, want):
+        assert torch.equal(g.cpu(), w) and torch.equal(a, g)
+    n = cases.check_steals(batch, got[0][:T].cpu().numpy())
+    assert n > 0
+
+
+def test_steal_kernel_uses_shared_memory_while_it_fits(cuda):
+    lib = stealing._build.load()
+    assert stealing._layout(lib, 8192, 1024)[1]
+    assert not stealing._layout(lib, 8192, 4096)[1]
+
+
+def test_plan_steals_on_the_card(cuda):
+    batch = cases.steal_cycle(np.random.default_rng(5), 300, n_tasks=1500)
+    np.testing.assert_array_equal(stealing.plan_steals(batch),
+                                  stealing.plan_steals(batch, device="cpu"))
+
+
+@pytest.mark.parametrize("R,W,blocks", [(64, 12, None), (16_384, 512, None), (16_384, 512, 1),
+                                        (3000, 100, 3), (5000, 1000, None)])
+def test_drop_kernel_matches_plain(cuda, R, W, blocks):
+    """K8 == the plain version on the CPU bit for bit (drops and memory)
+    at any grid, twice, one launch a plan."""
+    batch = cases.drop_round(np.random.default_rng(R + W), R, W, max_holders=min(64, W))
+    K = 64
+    cpu = [torch.from_numpy(np.asarray(a)) for a in batch]
+    want = amm.drop_rounds_reference(*cpu, K)
+    dev = [t.to(cuda) for t in cpu]
+    before = amm.drop_rounds_cuda.launches
+    got = amm.drop_rounds_cuda(*dev, K, blocks=blocks)
+    again = amm.drop_rounds_cuda(*dev, K, blocks=blocks)
+    torch.cuda.synchronize()
+    assert amm.drop_rounds_cuda.launches == before + 2
+    for g, a, w in zip(got, again, want):
+        assert torch.equal(g.cpu(), w) and torch.equal(a, g)
+    rounds = amm.plan_drop_rounds(batch)
+    assert cases.check_drops(batch, rounds) > 0
+
+
+def test_drop_kernel_keeps_rows_without_an_eligible_holder(cuda):
+    """A row whose holders are all excluded: its argmax is worker 0 and it
+    drops nothing, on the card as on the CPU."""
+    holders = np.zeros((4, 6), bool)
+    holders[:, 2:5] = True
+    excluded = holders.copy()
+    excluded[1, 3] = False
+    batch = amm.DropBatch(holders, excluded, np.full(4, 10.0, np.float32),
+                          np.full(4, 2, np.int32), np.arange(6, dtype=np.float32))
+    assert amm.plan_drops(batch) == amm.plan_drops(batch, device="cpu") == [(1, 3)]
+
+
+def test_mirror_device_view_row_uploads(cuda):
+    """TorchMirror's device view on the card equals the host rows bit for
+    bit: one full upload at first use and after growth, nothing on a fresh
+    view, exactly the dirty rows otherwise."""
+    from distributed_tpu_torch.scheduler.mirror import DEVICE_FIELDS, TorchMirror
+
+    rng = np.random.default_rng(0)
+    state = cases.StandInState()
+    mirror = state.mirror = TorchMirror(state)
+    workers = [state.add_worker(f"w{i}", 2) for i in range(40)]
+    for n_dirty in (None, 0, 1, 7, 40, "grow"):
+        before = mirror.stats()
+        if n_dirty == "grow":
+            workers += [state.add_worker(f"g{i}", 1) for i in range(mirror.cap)]
+        elif n_dirty:
+            for ws in rng.choice(workers, n_dirty, replace=False):
+                state.update(ws, rng)
+        view = mirror.device_view()
+        torch.cuda.synchronize()
+        for name in DEVICE_FIELDS:
+            assert view[name].device.type == "cuda"
+            np.testing.assert_array_equal(view[name].cpu().numpy(), getattr(mirror, name))
+        after = mirror.stats()
+        full = n_dirty in (None, "grow")
+        assert after["full_uploads"] - before["full_uploads"] == full
+        assert after["rows_uploaded"] - before["rows_uploaded"] == (0 if full else n_dirty)

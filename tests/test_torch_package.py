@@ -14,16 +14,28 @@ from pathlib import Path
 import numpy as np
 import pytest
 import torch
+import test_torch_periodic_cases as cases
 
 import distributed_tpu_torch
 from distributed_tpu_torch import graphs, native
-from distributed_tpu_torch.ops import _build, flash, leveled, partition
+from distributed_tpu_torch.ops import (
+    _build,
+    amm,
+    flash,
+    leveled,
+    partition,
+    rebalance,
+    stealing,
+)
 from distributed_tpu_torch.scheduler import plan
+from distributed_tpu_torch.scheduler.mirror import TorchMirror
+from distributed_tpu_torch.scheduler.periodic import install_periodic
 from distributed_tpu_torch.scheduler.torch_placement import TorchPlacement
 
 ROOT = Path(__file__).resolve().parents[1]
 PKG = ROOT / "distributed_tpu_torch"
-PORT_FILES = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+# chip_smoke.py runs on a machine without JAX, and so does the test helper it imports
+PORT_FILES = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py", ROOT / "tests" / "test_torch_periodic_cases.py"]
 
 
 def _module_names():
@@ -103,6 +115,14 @@ def _entry_calls():
             graph[0], graph[1][graph[2]], graph[2], graph[3], 4),
         "TorchPlacement": lambda: TorchPlacement(),
         "resolve_device": lambda: distributed_tpu_torch.resolve_device(None),
+        "plan_steals": lambda: stealing.plan_steals(
+            cases.steal_cycle(np.random.default_rng(0), 8, n_tasks=20)),
+        "plan_drops": lambda: amm.plan_drops(
+            cases.drop_round(np.random.default_rng(0), 10, 4, max_holders=4)),
+        "plan_rebalance": lambda: rebalance.plan_rebalance(
+            cases.rebalance_case(np.random.default_rng(0), 50, 4)),
+        "TorchMirror.device_view": lambda: TorchMirror(cases.StandInState()).device_view(),
+        "install_periodic": lambda: install_periodic(object()),
     }
 
 
@@ -159,14 +179,20 @@ def test_wrappers_raise_off_cpu_without_cuda():
                                   device="meta")
     with pytest.raises(RuntimeError, match="CUDA"):
         partition.partition_rounds(prun)
+    batch = cases.steal_cycle(np.random.default_rng(0), 8, n_tasks=64)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        stealing.steal_rounds(*(torch.as_tensor(np.asarray(a)).to("meta") for a in batch), 8)
+    drop = cases.drop_round(np.random.default_rng(0), 10, 4, max_holders=4)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        amm.drop_rounds(*(torch.as_tensor(np.asarray(a)).to("meta") for a in drop), 4)
 
 
 def test_library_path_keys_on_sources():
     path = _build.library_path()
     assert path.parent == _build.BUILD_DIR
     assert path.name.startswith("libdtpu_kernels-") and path.suffix == ".so"
-    assert {p.name for p in _build.CSRC.glob("*.cu")} == {"flash_bwd.cu", "flash_fwd.cu",
-                                                            "partition.cu", "place_wave.cu"}
+    assert {p.name for p in _build.CSRC.glob("*.cu")} == {
+        "amm_drop.cu", "flash_bwd.cu", "flash_fwd.cu", "partition.cu", "place_wave.cu", "steal.cu"}
     assert {p.name for p in _build.CSRC.glob("*.cuh")} == {"hopper.cuh"}
 
 
