@@ -16,7 +16,9 @@ and prints no result):
    host pack ``distributed_tpu_torch/native/graphpack.cpp`` (g++), at once;
    K3's tensor-core kernels' registers and spills from ptxas (into the
    ``flash_bwd`` entry of the kernels line), failing if they spill or if
-   ptxas serialised their wgmma (warning C7512);
+   ptxas serialised their wgmma (warning C7512), and those of every
+   instantiation of K7 and K8 (into the ``steal`` and ``amm_drop``
+   entries), failing if one spills;
 2. flash attention forward (kernel K2) at seq 8192, 16 heads, head dim
    128 in bf16, causal and not (the tensor-core body), plus f32 at seq
    1024 / head dim 64 (the CUDA-core body), against the plain version on
@@ -75,8 +77,10 @@ and prints no result):
    rebalance plan (K9, torch ops: 262,144 keys on 512 workers, the
    invariants, the same moves and memory as the CPU run, beside the time
    of the scheduler's host plan on the same keys); each with its time,
-   the plain version's time on the card, its bound and its launches, and
-   no path may count a failure.  Its inputs and replays come from
+   the plain version's time on the card, its bound and its launches (K7
+   and K8 also ``chain_ms``, the dependent adds their contract orders,
+   and their split by phase from the kernel's own timeline), and no path
+   may count a failure.  Its inputs and replays come from
    ``tests/test_torch_periodic_cases.py``.
 
 The last three lines are the card's ``nvidia-smi`` name and power limit,
@@ -179,22 +183,16 @@ def phase_env():
 K3_TC_KERNELS = ("bwd_dkdv_tc_kernel", "bwd_dq_tc_kernel")
 
 
-def ptxas_entries(log, names):
+def _ptxas(log, label):
     """{label: {"registers": n, "spill_bytes": stores + loads}} for every
-    entry function of the ptxas log whose name holds one of ``names``;
-    the label is the name with its type, head dim and causal flag."""
+    entry function of the ptxas log that ``label(mangled name)`` names
+    (None: skipped)."""
     out, cur = {}, None
     for ln in log.splitlines():
         m = re.search(r"Compiling entry function '([^']+)'", ln)
         if m:
-            mangled = m[1]
-            name = next((n for n in names if n in mangled), None)
-            cur = None
-            if name is not None:
-                dtype = "bf16" if "bfloat16" in mangled else "f16"
-                dim = re.search(r"Li(\d+)E", mangled)[1]
-                causal = "causal" if "Lb1E" in mangled else "full"
-                cur = f"{name}<{dtype},{dim},{causal}>"
+            cur = label(m[1])
+            if cur is not None:
                 out[cur] = {}
             continue
         if cur is None:
@@ -208,10 +206,48 @@ def ptxas_entries(log, names):
     return out
 
 
+def ptxas_entries(log, names):
+    """``_ptxas`` of K3's kernels whose name holds one of ``names``, each
+    labelled with its type, head dim and causal flag."""
+    def label(mangled):
+        name = next((n for n in names if n in mangled), None)
+        if name is None:
+            return None
+        dtype = "bf16" if "bfloat16" in mangled else "f16"
+        dim = re.search(r"Li(\d+)E", mangled)[1]
+        causal = "causal" if "Lb1E" in mangled else "full"
+        return f"{name}<{dtype},{dim},{causal}>"
+
+    return _ptxas(log, label)
+
+
+# the periodic kernels whose registers and spills phase 1 reports:
+# source -> kernel; K7 is instantiated per level of XLA's windows, K8 per
+# width of its holder lists
+PERIODIC_KERNELS = {"steal.cu": "steal_kernel", "amm_drop.cu": "amm_drop_kernel"}
+
+
+def periodic_ptxas(log):
+    """{source: _ptxas of its kernel}, each instantiation labelled with its
+    template argument (K7's window levels, K8's list entry)."""
+    out = {}
+    for src, name in PERIODIC_KERNELS.items():
+        def label(mangled, name=name):
+            if name not in mangled:
+                return None
+            m = re.search(name + r"I(?:Li(\d+)E|([a-z]))E", mangled)
+            arg = m and (m[1] or {"s": "int16", "i": "int32"}.get(m[2], m[2]))
+            return f"{name}<{arg}>" if arg else name
+
+        out[src] = _ptxas(log.split(f"== {src}", 1)[1].split("\n== ", 1)[0], label)
+    return out
+
+
 def phase_build():
-    """Builds everything; returns K3's tensor-core kernels' registers and
-    spills from ptxas, and fails where ptxas serialised their wgmma
-    (C7512) or they spill."""
+    """Builds everything; returns the registers and spills from ptxas of
+    K3's tensor-core kernels and of the periodic kernels (K7, K8), and
+    fails where ptxas serialised K3's wgmma (C7512) or any of them
+    spills."""
     from distributed_tpu_torch import native
     from distributed_tpu_torch.ops import _build
 
@@ -228,7 +264,7 @@ def phase_build():
         if "registers" in ln or "spill" in ln or ln.startswith("==") or "C7512" in ln:
             print("  ptxas", ln.strip())
     if log == "(cached)":
-        return {}
+        return {}, {}
     bwd_log = log.split("== flash_bwd.cu", 1)[1].split("\n== ", 1)[0]
     check("C7512" not in bwd_log, "ptxas serialised wgmma in flash_bwd.cu (C7512)")
     k3 = ptxas_entries(bwd_log, K3_TC_KERNELS)
@@ -237,7 +273,14 @@ def phase_build():
         print(f"  K3 {label}: {info.get('registers')} registers, "
               f"{info.get('spill_bytes')} spill bytes")
         check(info.get("spill_bytes") == 0, f"{label} spills: {info}")
-    return k3
+    periodic = periodic_ptxas(log)
+    for src, kernels in periodic.items():
+        check(kernels, f"ptxas reported no kernel of {src}")
+        for label, info in kernels.items():
+            print(f"  {src} {label}: {info.get('registers')} registers, "
+                  f"{info.get('spill_bytes')} spill bytes")
+            check(info.get("spill_bytes") == 0, f"{src} {label} spills: {info}")
+    return k3, periodic
 
 
 # ------------------------------------------------------------ phase 2
@@ -1261,6 +1304,22 @@ def _rebalance_bound_ms(N, W, rounds):
     return _bound(nbytes, ops)
 
 
+def steal_case(pc, name):
+    """Phase 6's balance cycle on fleet ``name``: the batch, and its fleet
+    (occupancy, threads, idle, running) as the mirror's device view holds
+    it, empty slots (zeros) up to the mirror's capacity, a power of two."""
+    i, W = next((i, W) for i, (n, W) in enumerate(STEAL_FLEETS) if n == name)
+    batch = pc.steal_cycle(np.random.default_rng(60 + i), W, threads=THREADS)
+    cap = 1 << max(W - 1, 7).bit_length()
+    fleet = []
+    for a, dtype in ((batch.occ, np.float32), (batch.nthreads, np.int32),
+                     (batch.idle, bool), (batch.running, bool)):
+        buf = np.zeros(cap, dtype)
+        buf[:W] = a
+        fleet.append(buf)
+    return batch, tuple(fleet)
+
+
 def _padded_steal(stealing, batch, fleet, dev):
     """plan_steals' padded task tensors on ``dev`` with the fleet arrays
     ``fleet`` (occ, nthreads, idle, running)."""
@@ -1277,14 +1336,63 @@ def _padded_steal(stealing, batch, fleet, dev):
             *(torch.as_tensor(a).to(dev) for a in fleet))
 
 
-def phase_periodic():
+def _steal_chain_ms(stealing, cpu_args, rounds, sm_mhz):
+    """The floor the contract puts under K7's rounds, whatever its design:
+    a victim's candidates' compute is summed in slot order, then its
+    accepted moves are taken off it in slot order, two chains of dependent
+    f32 adds.  Per round the longest run of one victim's candidates plus
+    the most moves accepted from one victim, at FADD_CYCLES an add and the
+    SM clock.  The rounds are the plain version's on the CPU, run one at a
+    time (their composition must equal one run of all of them)."""
+    victim, key, cost, compute, occ, nthreads, idle, running = cpu_args
+    threads = nthreads.clamp_min(1).to(torch.float32)
+    latency = torch.tensor(stealing.LATENCY, dtype=torch.float32)
+    W, adds = len(occ), 0
+    thieves = torch.full_like(victim, -1)
+    for _ in range(rounds):
+        usable = key != stealing.IMAX
+        primary = torch.where(usable, -(occ / threads)[victim.long()], float("inf"))
+        by_key = torch.argsort(key, stable=True)
+        order = by_key[torch.argsort(primary[by_key], stable=True)]
+        nc = min(int((idle & running).sum()), int(usable.sum()), W)
+        slots = order[:nc][usable[order[:nc]]]
+        runs = torch.bincount(victim[slots].long(), minlength=W)
+        th, occ = stealing.steal_rounds_reference(victim, key, cost, compute, occ, nthreads,
+                                                   idle, running, 1)
+        moved = th >= 0
+        adds += int(runs.max()) + int(torch.bincount(victim[moved].long(), minlength=W).max())
+        thieves = torch.where(moved, th, thieves)
+        key = torch.where(moved, stealing.IMAX, key)
+        idle = idle & ~((occ / threads) > latency)
+    th_all, occ_all = stealing.steal_rounds_reference(*cpu_args, rounds)
+    check(torch.equal(thieves, th_all) and torch.equal(occ, occ_all),
+          "K7's chain: the rounds one at a time differ from one run")
+    return adds * FADD_CYCLES / (sm_mhz * 1e3)
+
+
+def _drop_chain_ms(drops_cpu, sm_mhz):
+    """The floor the contract puts under K8's sums, whatever its design: a
+    worker's shed bytes are added in row order, a chain of dependent f32
+    adds.  Per round the most drops one worker takes, at FADD_CYCLES an
+    add and the SM clock."""
+    adds = sum(int(np.bincount(col[col >= 0]).max()) for col in drops_cpu.T if (col >= 0).any())
+    return adds * FADD_CYCLES / (sm_mhz * 1e3)
+
+
+def _phase_line(split, phases):
+    return " ".join(f"{p} {split[p]['total_ms']:.4f} ({split[p]['median_ms']:.4f})" for p in phases)
+
+
+def phase_periodic(ptxas=None):
     """Phase 6: the scheduler's periodic device paths at full width, as the
     port's paths call them: the fleet mirror's device view (K6) feeding a
     balance cycle's plan (K7, ``StealingPath.plan``, what the steal
     executor runs), an AMM round (K8, ``AmmPath.run_device``) and a
     rebalance plan (K9, ``RebalancePath.plan_device``), on stand-in
-    workers and keys with the fields those paths read."""
+    workers and keys with the fields those paths read.  ``ptxas``: phase
+    1's registers and spills of K7 and K8, put into their entries."""
     from distributed_tpu_torch.ops import amm, rebalance, stealing
+    from distributed_tpu_torch.profile_periodic import kernel_timeline
     from distributed_tpu_torch.scheduler.amm import AmmPath
     from distributed_tpu_torch.scheduler.mirror import DEVICE_FIELDS, TorchMirror
     from distributed_tpu_torch.scheduler.rebalance import RebalancePath
@@ -1294,11 +1402,12 @@ def phase_periodic():
     import test_torch_periodic_cases as pc
 
     card = smi_line()
+    sm_mhz = sm_clock_mhz()
+    ptxas = ptxas or {}
     # a balance cycle's Jacobi rounds: what the path runs, plan_steals' default
     steal_rounds = inspect.signature(stealing.plan_steals).parameters["rounds"].default
     rng = np.random.default_rng
-    steal_cases = {name: pc.steal_cycle(rng(60 + i), W, threads=THREADS)
-                   for i, (name, W) in enumerate(STEAL_FLEETS)}
+    steal_cases = {name: steal_case(pc, name) for name, _ in STEAL_FLEETS}
     drop_batch = pc.drop_round(rng(62), AMM_KEYS, AMM_WORKERS)
     reb_batch = pc.rebalance_case(rng(63), REBALANCE_KEYS, REBALANCE_WORKERS)
 
@@ -1335,7 +1444,7 @@ def phase_periodic():
     mirror = state.mirror = TorchMirror(state)
     views, seen, thieves, mirror_log = 0, {}, {}, []
     for name, W in STEAL_FLEETS:
-        batch = steal_cases[name]
+        batch = steal_cases[name][0]
         cap0 = mirror.cap
         ws_list = _stand_in_workers(state, W)
         before = mirror.stats()
@@ -1396,7 +1505,9 @@ def phase_periodic():
     # K7: each cycle against the plain version on the CPU on the fleet it saw
     cases_out, err_max = {}, 0.0
     for name, W in STEAL_FLEETS:
-        batch = steal_cases[name]
+        batch = steal_cases[name][0]
+        check(all(np.array_equal(a, b) for a, b in zip(seen[name], steal_cases[name][1])),
+              f"steal {name}: the mirror's view is not steal_case's fleet")
         T = len(batch.task_victim)
         cpu_args = _padded_steal(stealing, batch, seen[name], "cpu")
         th_cpu, occ_cpu = stealing.steal_rounds_reference(*cpu_args, steal_rounds)
@@ -1421,19 +1532,27 @@ def phase_periodic():
         plain_ms = cuda_ms(lambda: stealing.steal_rounds_reference(*args, steal_rounds),
                            reps=5, warmup=1)
         bound_ms, bound_by = _steal_bound_ms(len(args[0]), len(args[4]), steal_rounds)
+        chain_ms = _steal_chain_ms(stealing, cpu_args, steal_rounds, sm_mhz)
+        split = kernel_timeline(
+            torch, lambda st: stealing.steal_rounds_cuda(*args, steal_rounds, stamps=st),
+            1 + steal_rounds * len(stealing.STEAL_PHASES), stealing.STEAL_PHASES)
         err_max = max(err_max, err)
         print(f"[{card}] steal {name}: T {T} W {len(args[4])} steals {n_steals}: == CPU run, repeat "
               f"identical, replay holds; plain on the card agreement {agree:.6f} occ err {occ_err_p:.3g}; "
               f"K7 kernel_ms {ms:.4f} plain_ms {plain_ms:.4f} bound_ms {bound_ms:.7f} ({bound_by}) "
-              f"launches 1 a cycle")
+              f"chain_ms {chain_ms:.5f} launches 1 a cycle")
+        print(f"[{card}] steal {name} phases, ms over {split['rounds']} rounds (median a round): "
+              + _phase_line(split, stealing.STEAL_PHASES))
         cases_out[name] = dict(T=T, W=len(args[4]), steals=n_steals, ms=ms, plain_ms=plain_ms,
-                               bound_ms=bound_ms, bound_by=bound_by, card_plain_agreement=agree)
+                               bound_ms=bound_ms, bound_by=bound_by, chain_ms=chain_ms,
+                               card_plain_agreement=agree, phases=split)
     head = cases_out["fleet512"]
     entries["steal"] = dict(
         name="steal", route="cuda", source="distributed_tpu_torch/ops/csrc/steal.cu",
         replaces="distributed_tpu/ops/stealing.py:77", launches=launches["steal"],
         max_abs_err=err_max, ms=head["ms"], plain_ms=head["plain_ms"], bound_ms=head["bound_ms"],
-        bound_by=head["bound_by"], library_ms=None, case="fleet512", cases=cases_out)
+        bound_by=head["bound_by"], library_ms=None, chain_ms=head["chain_ms"], case="fleet512",
+        cases=cases_out, ptxas=ptxas.get("steal.cu"))
 
     # K8: the round's suggestions against the plain version on the CPU
     got_drops = [(ts.row, ws.idx) for _, ts, (ws,) in suggestions]
@@ -1457,15 +1576,21 @@ def phase_periodic():
     ms = cuda_ms(lambda: amm.drop_rounds_cuda(*dev_t, Kp))
     plain_ms = cuda_ms(lambda: amm.drop_rounds_reference(*dev_t, Kp), reps=3, warmup=1)
     bound_ms, bound_by = _drop_bound_ms(AMM_KEYS, AMM_WORKERS, Kp, d_cpu.numpy())
+    chain_ms = _drop_chain_ms(d_cpu.numpy(), sm_mhz)
+    split = kernel_timeline(torch, lambda st: amm.drop_rounds_cuda(*dev_t, Kp, stamps=st),
+                            2 + Kp * len(amm.DROP_PHASES), amm.DROP_PHASES, first=2)
     print(f"[{card}] amm {AMM_KEYS} keys x {AMM_WORKERS} workers, K {K} (padded {Kp}): {n_drops} drops "
           f"== CPU run, repeat identical, replay holds; plain on the card agreement {agree:.6f}; "
           f"K8 kernel_ms {ms:.4f} plain_ms {plain_ms:.4f} bound_ms {bound_ms:.7f} ({bound_by}) "
-          f"launches 1 a plan")
+          f"chain_ms {chain_ms:.5f} launches 1 a plan")
+    print(f"[{card}] amm phases, ms over {split['rounds']} rounds (median a round): prologue "
+          f"{split['first_ms']:.4f} " + _phase_line(split, amm.DROP_PHASES))
     entries["amm_drop"] = dict(
         name="amm_drop", route="cuda", source="distributed_tpu_torch/ops/csrc/amm_drop.cu",
         replaces="distributed_tpu/ops/amm.py:43", launches=launches["amm_drop"], max_abs_err=err,
         ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
-        case=f"{AMM_KEYS}x{AMM_WORKERS}", rounds=K, drops=n_drops, card_plain_agreement=agree)
+        chain_ms=chain_ms, case=f"{AMM_KEYS}x{AMM_WORKERS}", rounds=K, drops=n_drops,
+        card_plain_agreement=agree, phases=split, ptxas=ptxas.get("amm_drop.cu"))
 
     # K9: invariants, the CPU run's moves and memory, time beside the host plan
     got_moves = [(ts.row, s.idx, r.idx) for ts, s, r in moves]
@@ -1547,13 +1672,13 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     t0 = time.perf_counter()
     phase_env()
-    k3_ptxas = phase_build()
+    k3_ptxas, periodic_ptxas_info = phase_build()
     flash_entry = phase_flash()
     bwd_entry = phase_flash_bwd(flash_entry, k3_ptxas)
     wave_entry, oneshot = phase_placement()
     hints_1m = phase_streamed(wave_entry, oneshot)
     partition_entry = phase_partition(wave_entry, hints_1m)
-    periodic_entries = phase_periodic()
+    periodic_entries = phase_periodic(periodic_ptxas_info)
     kernels = [flash_entry, bwd_entry, wave_entry, partition_entry, *periodic_entries]
     print(f"total_s {time.perf_counter() - t0:.1f}")
     print(smi_line())

@@ -6,7 +6,9 @@ plain C interface, and loaded with ``ctypes``.  The library lands in
 ``build/torch_kernels/`` at the repository root under a name keyed on
 the sources, the headers beside them and the flags, so an edited source
 or header is rebuilt at its next use.
-A build that fails raises: there is no fallback.
+A build that fails raises: there is no fallback.  nvcc's output (ptxas's
+registers and spills) is kept beside the library, so a process that
+finds the library built still reads it (``build_info["log"]``).
 
 Each C entry point launches on the stream it is given, allocates
 nothing and returns ``cudaGetLastError()``; :func:`check` turns a
@@ -62,13 +64,15 @@ SIGNATURES = {
         _vp, _vp, _vp, _vp, _vp, _vp,   # victim key cost compute nthreads running
         _vp, _vp, _vp, _vp,             # occ idle (in/out) thief_of taken
         _vp,                            # scratch: null = shared memory
+        _vp,                            # stamps (optional timeline, or null)
         _i, _i, _i,                     # T W rounds
         _vp,                            # stream
     ),
-    "dtpu_amm_drop_grid": (ctypes.POINTER(_i),),  # -> blocks
+    "dtpu_amm_drop_grid": (_i, ctypes.POINTER(_i)),  # W -> blocks
     "dtpu_amm_drop": (
         _vp, _vp, _vp, _vp, _vp,        # holders excluded nbytes ndrop mem
-        _vp, _vp,                       # drops scratch
+        _vp, _vp, _vp,                  # drops scratch list
+        _vp,                            # stamps (optional timeline, or null)
         _i, _i, _i, _i,                 # R W K blocks
         _vp,                            # stream
     ),
@@ -164,7 +168,12 @@ def load() -> ctypes.CDLL:
         if not torch.cuda.is_available():
             raise RuntimeError("the CUDA kernels need a CUDA device")
         out = library_path()
-        log = _compile(out) if not out.exists() else "(cached)"
+        saved = out.with_suffix(".log")  # nvcc's output when it built the library
+        if out.exists():
+            log = saved.read_text() if saved.exists() else "(cached)"
+        else:
+            log = _compile(out)
+            saved.write_text(log)
         lib = ctypes.CDLL(str(out))
         for name, argtypes in SIGNATURES.items():
             fn = getattr(lib, name)

@@ -19,10 +19,11 @@ jitted ``_drop_rounds`` (``amm.py:43-74``) as XLA computes it on the CPU:
 - :func:`drop_rounds_reference`, the rounds in torch ops, expression for
   expression (the ``segment_sum`` as ``index_add_`` in row order);
 - :func:`drop_rounds_cuda`, the hand-written kernel ``csrc/amm_drop.cu``
-  (K8): all rounds in one cooperative launch.  Each round buckets its
-  drops by worker, stably, so each worker adds its own drops in row
-  order, and the kernel reproduces the plain version on the CPU bit for
-  bit.
+  (K8): all rounds in one cooperative launch.  Each row's eligible
+  holders are listed once, and a round picks from the list; each round
+  buckets its drops by worker, stably, so each worker adds its own drops
+  in row order, and the kernel reproduces the plain version on the CPU
+  bit for bit.
 
 :func:`drop_rounds` picks by the device of the tensors: the plain version
 for CPU tensors, the kernel otherwise (which raises off CUDA).
@@ -42,6 +43,7 @@ from distributed_tpu_torch.ops.leveled import _bucket
 
 MAX_ROUNDS = 64    # plan_drop_rounds' bound on K
 MAX_BLOCKS = 1024  # csrc/amm_drop.cu: the most blocks its block prefix has room for
+SHORT_LIST = 32767  # csrc/amm_drop.cu: the most workers its int16 holder lists hold
 
 
 class DropBatch(NamedTuple):
@@ -78,13 +80,20 @@ def drop_rounds_reference(holders, excluded, nbytes, ndrop, mem, rounds: int):
     return drops, mem
 
 
-def drop_rounds_cuda(holders, excluded, nbytes, ndrop, mem, rounds: int, blocks: int | None = None):
+def drop_rounds_cuda(holders, excluded, nbytes, ndrop, mem, rounds: int, blocks: int | None = None,
+                     stamps=None):
     """The rounds through the hand-written kernel ``csrc/amm_drop.cu``: one
     cooperative launch of ``blocks`` blocks (by default as many as the
     card holds at once, up to two a multiprocessor) for all rounds.  Same
     arguments and results as :func:`drop_rounds_reference`, and the
     result does not depend on the grid; ``drop_rounds_cuda.launches``
-    counts the launches (none without rows, workers or rounds)."""
+    counts the launches (none without rows, workers or rounds).
+
+    ``stamps``, an int64 CUDA tensor of ``2 + rounds * len(DROP_PHASES)``
+    set to 0, receives the device clock (ns) at the start, at the end of
+    the prologue and at the end of each phase of each round that ran (the
+    run stops after a round that dropped nothing); the results do not
+    change."""
     dev = mem.device
     if dev.type != "cuda":
         raise RuntimeError(f"drop_rounds_cuda needs CUDA tensors, got {dev}")
@@ -96,6 +105,10 @@ def drop_rounds_cuda(holders, excluded, nbytes, ndrop, mem, rounds: int, blocks:
     ):
         if t.dtype != dtype or tuple(t.shape) != shape or t.device != dev:
             raise ValueError(f"drop_rounds_cuda: {name} must be {dtype}{list(shape)} on {dev}")
+    n_stamps = 2 + max(rounds, 0) * len(DROP_PHASES)
+    if stamps is not None and (stamps.dtype != torch.int64 or tuple(stamps.shape) != (n_stamps,)
+                               or stamps.device != dev or not stamps.is_contiguous()):
+        raise ValueError(f"drop_rounds_cuda: stamps must be a contiguous int64[{n_stamps}] on {dev}")
     if blocks is not None and not 1 <= blocks <= MAX_BLOCKS:
         raise ValueError(f"drop_rounds_cuda: blocks must lie in [1, {MAX_BLOCKS}], got {blocks}")
     drops = torch.full((R, max(rounds, 0)), -1, dtype=torch.int32, device=dev)
@@ -110,20 +123,27 @@ def drop_rounds_cuda(holders, excluded, nbytes, ndrop, mem, rounds: int, blocks:
     with torch.cuda.device(dev):
         if blocks is None:
             grid = ctypes.c_int(0)
-            _build.check(lib.dtpu_amm_drop_grid(ctypes.byref(grid)), "dtpu_amm_drop_grid")
+            _build.check(lib.dtpu_amm_drop_grid(W, ctypes.byref(grid)), "dtpu_amm_drop_grid")
             blocks = grid.value
         # rows' picks, replica counts and bucketed bytes; workers' totals and
-        # bucket starts; blocks' totals and their (block, worker) counts
-        scratch = torch.empty(3 * R + 2 * W + blocks * (W + 1), dtype=torch.int32, device=dev)
+        # bucket starts; blocks' totals and their (block, worker) counts;
+        # rows' list lengths; and each row's list of eligible holders
+        scratch = torch.empty(4 * R + 2 * W + blocks * (W + 1), dtype=torch.int32, device=dev)
+        lists = torch.empty(R * W, dtype=torch.int16 if W <= SHORT_LIST else torch.int32,
+                            device=dev)
         _build.check(lib.dtpu_amm_drop(
             P(hold), P(excluded.contiguous()), P(nbytes.contiguous()), P(left), P(mem_out),
-            P(drops), P(scratch), R, W, int(rounds), blocks, _build.stream_handle(dev),
+            P(drops), P(scratch), P(lists), None if stamps is None else P(stamps), R, W,
+            int(rounds), blocks, _build.stream_handle(dev),
         ), "dtpu_amm_drop")
         drop_rounds_cuda.launches += 1
     return drops, mem_out
 
 
 drop_rounds_cuda.launches = 0  # kernel launches in this process
+
+# the phases of a round in K8's timeline, in order
+DROP_PHASES = ("picks", "offsets", "placement", "sums")
 
 
 def drop_rounds(holders, excluded, nbytes, ndrop, mem, rounds: int):

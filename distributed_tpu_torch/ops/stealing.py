@@ -25,8 +25,10 @@ the CPU:
   ``partition.xla_row_sum``; the two occupancy scatters as
   ``index_add_``, victims first, each in slot order);
 - :func:`steal_rounds_cuda`, the hand-written kernel ``csrc/steal.cu``
-  (K7): all rounds in one launch of one block.  It sums in the same
-  orders, so it reproduces the plain version on the CPU bit for bit.
+  (K7): all rounds in one launch of one block.  A round finds only the
+  first slots' tasks of the order (a radix select of the cut, then a
+  sort of the tasks under it), and it sums in the same orders, so it
+  reproduces the plain version on the CPU bit for bit.
 
 :func:`steal_rounds` picks by the device of the tensors: the plain version
 for CPU tensors, the kernel otherwise (which raises off CUDA).
@@ -125,14 +127,19 @@ def steal_rounds_reference(task_victim, task_key, task_cost, task_compute,
 
 
 def steal_rounds_cuda(task_victim, task_key, task_cost, task_compute,
-                      occ, nthreads, idle, running, rounds: int):
+                      occ, nthreads, idle, running, rounds: int, stamps=None):
     """The rounds through the hand-written kernel ``csrc/steal.cu``: one
     launch of one block for all rounds.  Same arguments and results as
     :func:`steal_rounds_reference`; ``steal_rounds_cuda.launches`` counts
     the launches (none for a cycle without tasks or rounds).
 
     The block sorts in shared memory while the tasks and workers fit
-    there, and in global scratch this wrapper allocates beyond that."""
+    there, and in global scratch this wrapper allocates beyond that.
+
+    ``stamps``, an int64 CUDA tensor of ``1 + rounds * len(STEAL_PHASES)``,
+    receives the device clock (ns) at the start and at the end of each
+    phase of each round (``profile_periodic.phase_split`` reads it); the
+    results do not change."""
     dev = occ.device
     if dev.type != "cuda":
         raise RuntimeError(f"steal_rounds_cuda needs CUDA tensors, got {dev}")
@@ -145,6 +152,10 @@ def steal_rounds_cuda(task_victim, task_key, task_cost, task_compute,
     ):
         if t.dtype != dtype or t.shape != (n,) or t.device != dev:
             raise ValueError(f"steal_rounds_cuda: {name} must be {dtype}[{n}] on {dev}")
+    n_stamps = 1 + max(rounds, 0) * len(STEAL_PHASES)
+    if stamps is not None and (stamps.dtype != torch.int64 or stamps.shape != (n_stamps,)
+                               or stamps.device != dev or not stamps.is_contiguous()):
+        raise ValueError(f"steal_rounds_cuda: stamps must be a contiguous int64[{n_stamps}] on {dev}")
     occ_out = occ.contiguous().clone()
     thief_of = torch.full((T,), -1, dtype=torch.int32, device=dev)
     if T == 0 or W == 0 or rounds <= 0:
@@ -160,13 +171,17 @@ def steal_rounds_cuda(task_victim, task_key, task_cost, task_compute,
             P(task_victim.contiguous()), P(task_key.contiguous()), P(task_cost.contiguous()),
             P(task_compute.contiguous()), P(nthreads.contiguous()),
             P(running.contiguous()), P(occ_out), P(idle_w), P(thief_of), P(taken),
-            None if in_smem else P(scratch), T, W, int(rounds), _build.stream_handle(dev),
+            None if in_smem else P(scratch), None if stamps is None else P(stamps),
+            T, W, int(rounds), _build.stream_handle(dev),
         ), "dtpu_steal")
         steal_rounds_cuda.launches += 1
     return thief_of, occ_out
 
 
 steal_rounds_cuda.launches = 0  # kernel launches in this process
+
+# the phases of a round in K7's timeline, in order
+STEAL_PHASES = ("keys", "tasks", "thieves", "slots", "sums", "criterion", "apply")
 
 
 def _layout(lib, T: int, W: int) -> tuple[int, bool]:

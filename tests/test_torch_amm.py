@@ -97,6 +97,99 @@ def test_rows_without_an_eligible_holder_drop_nothing():
     assert got == ref.plan_drops(ref.DropBatch(*batch)) == [(1, 3)]
 
 
+def _drop_rounds_by_lists(batch, rounds, shuffle=None):
+    """K8's rule (csrc/amm_drop.cu) in numpy: each row's eligible holders
+    listed once; a round's pick is the first maximum of the round-start
+    memory over the row's list, ties to the lowest worker, and drops only
+    if that memory is above -inf or the worker is 0 (the dense argmax of
+    an all -inf row); the dropped holder leaves the list, the last entry
+    taking its place; the bytes shed summed in row order.  ``shuffle``, a
+    generator, permutes each list first: its order must not matter."""
+    holders, excluded, nbytes, ndrop, mem = (np.asarray(a) for a in batch)
+    R, W = holders.shape
+    nrep, left = holders.sum(1), ndrop.astype(np.int64).copy()
+    mem = mem.astype(np.float32).copy()
+    lists = [list(np.flatnonzero(holders[r] & ~excluded[r])) for r in range(R)]
+    if shuffle is not None:
+        lists = [list(shuffle.permutation(lst)) for lst in lists]
+    drops = np.full((R, rounds), -1, np.int32)
+    for k in range(rounds):
+        picks = []
+        for r, lst in enumerate(lists):
+            if not lst or left[r] <= 0 or nrep[r] <= 1:
+                continue
+            best, bi, at = np.float32(-np.inf), W, -1
+            for j, w in enumerate(lst):
+                if mem[w] > best or (mem[w] == best and w < bi):
+                    best, bi, at = mem[w], w, j
+            if best == -np.inf and bi != 0:
+                continue
+            lst[at] = lst[-1]
+            lst.pop()
+            left[r] -= 1
+            nrep[r] -= 1
+            drops[r, k] = bi
+            picks.append((r, bi))
+        shed = np.zeros(W, np.float32)
+        for r, w in picks:
+            shed[w] = np.float32(shed[w] + nbytes[r])
+        mem = np.maximum(mem - shed, np.float32(0))
+    return drops, mem
+
+
+def _list_cases():
+    rng = np.random.default_rng
+    out = {"reference0": _reference_family(0), "reference_wide": _reference_family(7, R=500, W=64)}
+    for R, W in ((300, 45), (400, 100)):
+        out[f"amm{R}x{W}"] = pc.drop_round(rng(R + W), R, W, max_holders=min(64, W))
+    # ties: memory of a few distinct values
+    b = pc.drop_round(rng(5), 300, 70, max_holders=40)
+    out["ties"] = b._replace(mem=rng(6).integers(0, 3, 70).astype(np.float32) * 1e6,
+                             nbytes=np.full(300, 1e6, np.float32))
+    # rows held by all W workers, a few with every holder excluded
+    W = 37
+    holders = np.ones((60, W), bool)
+    excluded = rng(7).random((60, W)) < 0.2
+    excluded[:5] = True
+    out["all_held"] = port.DropBatch(holders, excluded, rng(8).uniform(1e3, 1e6, 60).astype(np.float32),
+                                     rng(9).integers(1, W, 60).astype(np.int32),
+                                     rng(10).uniform(0, 1e7, W).astype(np.float32))
+    # -inf memory: a row whose eligible holders are all at -inf drops only
+    # from worker 0 (rows 0-4, first round: no drop, 0, no drop, 4, no drop)
+    b = _reference_family(11, R=80, W=12)
+    mem = b.mem.copy()
+    mem[[0, 3, 5, 6, 7]] = -np.inf
+    mem[[1, 2]] = np.float32(5e5)
+    held = np.zeros((5, 12), bool)
+    out_of_use = np.zeros((5, 12), bool)
+    for r, (h, e) in enumerate((({1, 3, 5}, {1}), ({0, 6}, ()), ({0, 3}, {0}), ({2, 3, 4}, ()),
+                                ({3, 5, 6}, ()))):
+        held[r, list(h)] = True
+        out_of_use[r, list(e)] = True
+    out["neg_inf"] = port.DropBatch(np.concatenate([held, b.holders]),
+                                    np.concatenate([out_of_use, b.excluded]),
+                                    np.concatenate([np.full(5, 1e3, np.float32), b.nbytes]),
+                                    np.concatenate([np.full(5, 2, np.int32), b.ndrop]), mem)
+    return out
+
+
+@pytest.mark.parametrize("shuffled", [False, True])
+@pytest.mark.parametrize("name", list(_list_cases()))
+def test_compact_list_picks_equal_the_dense_argmax(name, shuffled):
+    """K8's picks from per-row lists of eligible holders, with the dropped
+    holder removed, equal the plain version's dense first argmax round
+    after round, drops and memory, on ties, rows without an eligible
+    holder, rows held by every worker, W not a multiple of 32 and -inf
+    memory; in any order of the lists."""
+    batch = _list_cases()[name]
+    K = 64
+    want = port.drop_rounds_reference(*(torch.from_numpy(np.asarray(a)) for a in batch), K)
+    got = _drop_rounds_by_lists(batch, K, np.random.default_rng(1) if shuffled else None)
+    np.testing.assert_array_equal(got[0], want[0].numpy())
+    np.testing.assert_array_equal(got[1], want[1].numpy())
+    assert (got[0] >= 0).sum() > 0
+
+
 def test_plan_drops_needs_cuda_by_default(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):

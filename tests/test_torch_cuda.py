@@ -543,6 +543,37 @@ def test_steal_kernel_matches_plain(cuda, W, T, victims):
     assert n > 0
 
 
+@pytest.mark.parametrize("W", [300, 512, 1000, 4096])
+@pytest.mark.parametrize("T", [64, 1500, 8192])
+def test_steal_kernel_matches_plain_on_tied_cycles(cuda, W, T):
+    """K7 on cycles full of ties (victims at one load, runs of equal keys
+    across victims: the select's cut falls inside runs of equal
+    composites) == the plain version on the CPU bit for bit, twice; 4,096
+    workers run on global scratch."""
+    batch = cases.tied_steal_cycle(np.random.default_rng(W + T), W, n_tasks=T)
+    want = stealing.steal_rounds_reference(*_steal_args(batch, "cpu"), 8)
+    args = _steal_args(batch, cuda)
+    got = stealing.steal_rounds_cuda(*args, 8)
+    again = stealing.steal_rounds_cuda(*args, 8)
+    for g, a, w in zip(got, again, want):
+        assert torch.equal(g.cpu(), w) and torch.equal(a, g)
+    assert cases.check_steals(batch, got[0][:T].cpu().numpy()) > 0
+
+
+@pytest.mark.parametrize("W", [512, 1000, 4096])
+def test_steal_kernel_timeline(cuda, W):
+    """A run with ``stamps`` gives the run without them, and its marks
+    rise through every phase of every round."""
+    batch = cases.steal_cycle(np.random.default_rng(W), W)
+    args = _steal_args(batch, cuda)
+    stamps = torch.zeros(1 + 8 * len(stealing.STEAL_PHASES), dtype=torch.int64, device=cuda)
+    timed = stealing.steal_rounds_cuda(*args, 8, stamps=stamps)
+    plain = stealing.steal_rounds_cuda(*args, 8)
+    assert all(torch.equal(a, b) for a, b in zip(timed, plain))
+    t = stamps.cpu()
+    assert bool((t[1:] >= t[:-1]).all()) and bool((t > 0).all())
+
+
 def test_steal_kernel_uses_shared_memory_while_it_fits(cuda):
     lib = stealing._build.load()
     assert stealing._layout(lib, 8192, 1024)[1]
@@ -556,10 +587,11 @@ def test_plan_steals_on_the_card(cuda):
 
 
 @pytest.mark.parametrize("R,W,blocks", [(64, 12, None), (16_384, 512, None), (16_384, 512, 1),
-                                        (3000, 100, 3), (5000, 1000, None)])
+                                        (3000, 100, 3), (5000, 1000, None), (200, 40_000, None)])
 def test_drop_kernel_matches_plain(cuda, R, W, blocks):
     """K8 == the plain version on the CPU bit for bit (drops and memory)
-    at any grid, twice, one launch a plan."""
+    at any grid, twice, one launch a plan; past 32,767 workers its holder
+    lists are int32."""
     batch = cases.drop_round(np.random.default_rng(R + W), R, W, max_holders=min(64, W))
     K = 64
     cpu = [torch.from_numpy(np.asarray(a)) for a in batch]
@@ -574,6 +606,47 @@ def test_drop_kernel_matches_plain(cuda, R, W, blocks):
         assert torch.equal(g.cpu(), w) and torch.equal(a, g)
     rounds = amm.plan_drop_rounds(batch)
     assert cases.check_drops(batch, rounds) > 0
+
+
+@pytest.mark.parametrize("blocks", [1, 3, None])
+def test_drop_kernel_matches_plain_on_rows_held_by_every_worker(cuda, blocks):
+    """K8 on rows held by all 500 workers (lists of up to 500 holders, 16
+    a lane; some rows wholly excluded) == the plain version on the CPU bit
+    for bit at grids of 1, 3 and the default, twice."""
+    rng = np.random.default_rng(500)
+    R, W = 2000, 500
+    holders = np.ones((R, W), bool)
+    excluded = rng.random((R, W)) < 0.1
+    excluded[:20] = True
+    batch = amm.DropBatch(holders, excluded, rng.lognormal(12.0, 2.0, R).astype(np.float32),
+                          rng.integers(1, 64, R).astype(np.int32),
+                          rng.uniform(0, 1e9, W).astype(np.float32))
+    cpu = [torch.from_numpy(np.asarray(a)) for a in batch]
+    want = amm.drop_rounds_reference(*cpu, 64)
+    dev = [t.to(cuda) for t in cpu]
+    got = amm.drop_rounds_cuda(*dev, 64, blocks=blocks)
+    again = amm.drop_rounds_cuda(*dev, 64, blocks=blocks)
+    for g, a, w in zip(got, again, want):
+        assert torch.equal(g.cpu(), w) and torch.equal(a, g)
+    assert (got[0] >= 0).sum() > 0
+
+
+def test_drop_kernel_timeline(cuda):
+    """A run with ``stamps`` gives the run without them; its marks rise
+    through the prologue and every phase of the rounds that ran, and the
+    rounds after the first one that dropped nothing keep their zeros."""
+    batch = cases.drop_round(np.random.default_rng(62), 4096, 512)
+    dev = [torch.from_numpy(np.asarray(a)).to(cuda) for a in batch]
+    K = 64
+    stamps = torch.zeros(2 + K * len(amm.DROP_PHASES), dtype=torch.int64, device=cuda)
+    timed = amm.drop_rounds_cuda(*dev, K, stamps=stamps)
+    plain = amm.drop_rounds_cuda(*dev, K)
+    assert all(torch.equal(a, b) for a, b in zip(timed, plain))
+    ran = min(K, int((plain[0] >= 0).any(dim=0).sum()) + 1)  # and the round that found nothing
+    t = stamps.cpu()
+    n = 2 + ran * len(amm.DROP_PHASES)
+    assert bool((t[1:n] >= t[: n - 1]).all()) and bool((t[:n] > 0).all())
+    assert bool((t[n:] == 0).all())
 
 
 def test_drop_kernel_keeps_rows_without_an_eligible_holder(cuda):

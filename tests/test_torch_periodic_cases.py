@@ -60,6 +60,33 @@ def steal_cycle(rng, n_workers: int, threads: int = 2, n_tasks: int = MAX_TASKS,
     )
 
 
+def tied_steal_cycle(rng, n_workers: int, threads: int = 2, n_tasks: int = MAX_TASKS,
+                     n_victims: int = MAX_VICTIMS) -> StealBatch:
+    """A balance cycle full of ties: every victim at the same load, and
+    task i on victim ``i % n_victims`` with a key, compute and cost that
+    depend on ``i // n_victims`` only, so runs of ``n_victims`` tasks on
+    different victims share one (load, key) and only the task index orders
+    them; the load is 1 plus a victim's share of all the compute; half the
+    fleet idle."""
+    W = n_workers
+    idle = np.zeros(W, bool)
+    idle[rng.permutation(W)[: W // 2]] = True
+    busy = np.flatnonzero(~idle)
+    victims = rng.choice(busy, min(n_victims, len(busy)), replace=False)
+    rank = np.arange(n_tasks) // len(victims)
+    n_ranks = int(rank[-1]) + 1
+    compute = rng.uniform(0.05, 0.5, n_ranks).astype(np.float32)[rank]
+    cost = (rng.uniform(0.0, 0.05, n_ranks) + LATENCY).astype(np.float32)[rank]
+    occ = np.where(idle, rng.uniform(0.0, 0.15, W), rng.uniform(0.0, 0.1, W)).astype(np.float32)
+    occ[victims] = np.float32(1.0 + compute.sum() / len(victims))
+    level = rng.integers(0, 15, n_ranks)[rank]
+    return StealBatch(
+        task_victim=victims[np.arange(n_tasks) % len(victims)].astype(np.int32),
+        task_key=make_key(level, rank), task_cost=cost, task_compute=compute, occ=occ,
+        nthreads=np.full(W, threads, np.int32), idle=idle, running=np.ones(W, bool),
+    )
+
+
 def drop_round(rng, n_keys: int, n_workers: int, min_holders: int = 2,
                max_holders: int = 64, excluded_frac: float = 0.1) -> DropBatch:
     """One AMM round over ``n_keys`` replicated keys: each on

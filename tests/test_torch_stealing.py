@@ -161,6 +161,142 @@ def test_kernel_group_sum_equals_the_plain_row_sum(W):
     assert naive_differs or W <= 64
 
 
+def _sort_codes(x):
+    """K7's order-preserving u32 code of f32 values (csrc/steal.cu::sort_code):
+    -0 as +0, NaN after +inf."""
+    x = np.asarray(x, np.float32) + np.float32(0)
+    u = x.view(np.uint32)
+    code = np.where(u & np.uint32(0x80000000), ~u, u | np.uint32(0x80000000))
+    return np.where(np.isnan(x), np.uint32(0xFFFFFFFF), code).astype(np.uint64)
+
+
+def _composites(primary, key):
+    return (_sort_codes(primary) << np.uint64(32)) | np.asarray(key, np.int32).view(np.uint32)
+
+
+def _select_then_sort(comp, nc):
+    """K7's task order (csrc/steal.cu::select_tasks) in numpy: a radix
+    select of the nc-th smallest composite, most significant byte first
+    over the entries still in the running, stopping once a digit holds
+    exactly the entries still needed; the entries under the prefix, then
+    the first of those equal to it by task index; sorted by (composite,
+    index).  Returns the tasks and the passes taken."""
+    if nc == 0:
+        return np.zeros(0, np.int64), 0
+    prefix, shift, need, passes = 0, 64, nc, 0
+    while shift > 0:
+        first = shift == 64
+        shift -= 8
+        passes += 1
+        live = comp if first else comp[(comp >> np.uint64(shift + 8)) == np.uint64(prefix)]
+        hist = np.bincount(((live >> np.uint64(shift)) & np.uint64(255)).astype(np.int64),
+                           minlength=256)
+        cum = np.cumsum(hist)
+        d = int(np.argmax(cum >= need))
+        prefix = (prefix << 8) | d
+        need -= int(cum[d] - hist[d])
+        if hist[d] == need:
+            break
+    top = comp >> np.uint64(shift)
+    below = np.flatnonzero(top < np.uint64(prefix))
+    equal = np.flatnonzero(top == np.uint64(prefix))[:need]
+    assert len(below) == nc - need
+    sel = np.concatenate([below, equal])
+    return sel[np.lexsort((sel, comp[sel]))], passes
+
+
+def _round_state(batch, rounds_done):
+    """(primary, key, usable) of the round after ``rounds_done`` rounds of
+    the plain version: stolen tasks and padding carry IMAX and sort last."""
+    args = [torch.from_numpy(a) for a in _padded(batch)]
+    thief_of, occ = port.steal_rounds_reference(*args, rounds_done)
+    key = torch.where(thief_of >= 0, port.IMAX, args[1]).numpy()
+    vload = (occ / args[5].clamp_min(1).float()).numpy()
+    usable = key != port.IMAX
+    primary = np.where(usable, -vload[args[0].numpy()], np.float32(np.inf)).astype(np.float32)
+    return primary, key, usable
+
+
+def _full_order(primary, key):
+    """The plain version's task order: jnp.lexsort((key, primary)) as two
+    stable sorts."""
+    by_key = torch.argsort(torch.from_numpy(key), stable=True)
+    return by_key[torch.argsort(torch.from_numpy(primary)[by_key], stable=True)].numpy()
+
+
+def _select_cases():
+    rng = np.random.default_rng
+    out = {}
+    for W, T in ((512, 8192), (1000, 8192), (130, 2000)):
+        out[f"cycle{W}x{T}"] = pc.steal_cycle(rng(W + T), W, n_tasks=T)
+    for W, T in ((300, 1500), (512, 8192), (64, 64)):
+        out[f"tied{W}x{T}"] = pc.tied_steal_cycle(rng(W + T + 1), W, n_tasks=T)
+    return out
+
+
+@pytest.mark.parametrize("rounds_done", [0, 3])
+@pytest.mark.parametrize("name", list(_select_cases()))
+def test_select_then_sort_gives_the_first_entries_of_the_full_order(name, rounds_done):
+    """K7's threshold select, then its sort of the selected, equals the
+    first nc entries of the plain version's full stable order on scheduler
+    cycles and tie-heavy ones (runs of equal composites across the cut),
+    after rounds that stole tasks, for nc from 0 to the usable count and
+    each count a round can reach (the idle running thieves, W)."""
+    batch = _select_cases()[name]
+    primary, key, usable = _round_state(batch, rounds_done)
+    comp, order = _composites(primary, key), _full_order(primary, key)
+    W, n_us = len(batch.occ), int(usable.sum())
+    n_th = int((batch.idle & batch.running).sum())
+    for nc in sorted({0, 1, 31, 32, 33, n_th, min(n_th, n_us, W), W, n_us} - {-1}):
+        if nc > len(comp):
+            continue
+        got, passes = _select_then_sort(comp, nc)
+        np.testing.assert_array_equal(got, order[:nc], err_msg=f"nc {nc}")
+        assert passes <= 8
+
+
+@pytest.mark.parametrize("nc", [0, 1, 100, 1023, 1024])
+def test_select_then_sort_when_all_composites_are_equal(nc):
+    """One composite for every task: eight passes, then the first nc tasks
+    by index."""
+    comp = _composites(np.full(1024, -1.5, np.float32), np.full(1024, 7, np.int32))
+    got, passes = _select_then_sort(comp, nc)
+    np.testing.assert_array_equal(got, np.arange(nc))
+    assert passes == (8 if 0 < nc < 1024 else int(nc > 0))
+
+
+def test_select_then_sort_with_a_nan_primary_and_signed_zeros():
+    """A victim whose load is NaN sorts after the unusable tasks (IMAX
+    keys, +inf primaries), and -0 and +0 loads tie: the selection still
+    equals the full order, unusable entries in it included, as the slots
+    read them (cand_ok then rejects them)."""
+    batch = pc.steal_cycle(np.random.default_rng(9), 64, n_tasks=500, n_victims=4)
+    occ = batch.occ.copy()
+    victims = np.unique(batch.task_victim)
+    occ[victims[0]] = np.nan
+    occ[victims[1]] = -0.0
+    occ[victims[2]] = 0.0
+    primary, key, usable = _round_state(batch._replace(occ=occ), 0)
+    comp, order = _composites(primary, key), _full_order(primary, key)
+    n_us = int(usable.sum())
+    assert np.isnan(primary).sum() > 0 and len(comp) > n_us
+    for nc in (1, 64, n_us - 1, n_us, len(comp)):
+        got, _ = _select_then_sort(comp, nc)
+        np.testing.assert_array_equal(got, order[:nc], err_msg=f"nc {nc}")
+    assert not usable[order[:n_us]].all()  # the NaN victim's tasks come after the padding
+
+
+@pytest.mark.parametrize("W,T", [(300, 1500), (512, 8192), (64, 64)])
+def test_steal_rounds_equal_reference_on_tied_cycles(W, T):
+    """The plain version against the reference on the tie-heavy cycles the
+    card tests give K7: the same thieves and occupancy, steals that replay."""
+    batch = pc.tied_steal_cycle(np.random.default_rng(W + T + 1), W, n_tasks=T)
+    (th_r, occ_r), (th_p, occ_p) = _both(batch)
+    np.testing.assert_array_equal(th_p, th_r)
+    np.testing.assert_array_equal(occ_p, occ_r)
+    assert pc.check_steals(batch, th_p[:T]) > 0
+
+
 def test_plan_steals_equals_reference_on_its_unit_cases():
     """The reference's own cases (tests/test_ops_stealing_amm.py): low
     levels first, nothing when balanced, an empty batch."""
