@@ -11,7 +11,7 @@ and prints no result):
 
 0. environment: torch/CUDA versions, the card, its power limit, nvcc,
    whether triton imports;
-1. build: the six hand-written kernel sources from
+1. build: the seven hand-written kernel sources from
    ``distributed_tpu_torch/ops/csrc`` (nvcc, one process a source) and the
    host pack ``distributed_tpu_torch/native/graphpack.cpp`` (g++), at once;
    K3's tensor-core kernels' registers and spills from ptxas (into the
@@ -81,13 +81,32 @@ and prints no result):
    and K8 also ``chain_ms``, the dependent adds their contract orders,
    and their split by phase from the kernel's own timeline), and no path
    may count a failure.  Its inputs and replays come from
-   ``tests/test_torch_periodic_cases.py``.
+   ``tests/test_torch_periodic_cases.py``;
+7. the sharded placement engine (kernel K10, ``csrc/place_shard.cu``,
+   two launches a wave) with every shard on the one card
+   (``LocalShards``): phase 3's 1M-task DAG on its two fleets at layouts
+   1x1, 2x1, 4x2 and 8x1 through ``place_graph_leveled_sharded``; each
+   equal bit for bit to the plain shard body on the CPU and repeatable,
+   1x1 equal to phase 3's one-shot K1 result, every layout within
+   ``tests/test_sharded_engine.py``'s gate against it; K10's time (the
+   waves, events), the plain body's on the card, the bound, per-shard
+   upload bytes and the walls beside ``place_graph_leveled``'s; then the
+   mirror's workers-axis view (K11) on 512 workers and on 1,000 in a
+   capacity of 1,024 at dw = 1 and 2 (rows equal the host's, a fresh
+   cycle uploads nothing, the engine fed by it places as fed by the host
+   arrays, a 37-row view timed), ``ProcessGroupShards`` on NCCL with a
+   world of one (equal to ``LocalShards`` 1x1), and ``TorchPlacement``
+   with an explicit 4x2 layout of virtual shards on the 1M uniform batch
+   (hints equal a direct ``place_graph_streamed(mesh=...)``, 8 engine
+   shard rows, no failure).  Phase 1 also reports K10's registers and
+   spills and fails if one spills.
 
 The last three lines are the card's ``nvidia-smi`` name and power limit,
 one JSON object listing the kernels (``flash_fwd``, ``flash_bwd``,
-``place_wave``, ``partition``, ``steal``, ``amm_drop``, and the torch
-routes ``mirror_view`` and ``rebalance``) with their launches, errors and
-times, and ``{"ok": true, "device": {...}}``.
+``place_wave``, ``partition``, ``steal``, ``amm_drop``, ``place_shard``,
+and the torch routes ``mirror_view``, with the sharded view's numbers,
+and ``rebalance``) with their launches, errors and times, and
+``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -243,6 +262,16 @@ def periodic_ptxas(log):
     return out
 
 
+def shard_ptxas(log):
+    """_ptxas of K10's four instantiations, labelled with their template
+    arguments (uniform fleet, contention launch)."""
+    def label(mangled):
+        m = re.search(r"place_shard_kernelILb(\d)ELb(\d)E", mangled)
+        return m and f"place_shard_kernel<uniform={m[1]},contend={m[2]}>"
+
+    return _ptxas(log.split("== place_shard.cu", 1)[1].split("\n== ", 1)[0], label)
+
+
 def phase_build():
     """Builds everything; returns the registers and spills from ptxas of
     K3's tensor-core kernels and of the periodic kernels (K7, K8), and
@@ -274,6 +303,7 @@ def phase_build():
               f"{info.get('spill_bytes')} spill bytes")
         check(info.get("spill_bytes") == 0, f"{label} spills: {info}")
     periodic = periodic_ptxas(log)
+    periodic["place_shard.cu"] = shard_ptxas(log)
     for src, kernels in periodic.items():
         check(kernels, f"ptxas reported no kernel of {src}")
         for label, info in kernels.items():
@@ -1658,6 +1688,289 @@ def phase_periodic(ptxas=None):
     return [entries[k] for k in ("steal", "amm_drop", "mirror_view", "rebalance")]
 
 
+# ------------------------------------------------------------ phase 7
+
+
+# the sharded engine's layouts (tasks x workers), every shard on the one card
+SHARD_LAYOUTS = ("1x1", "2x1", "4x2", "8x1")
+SHARD_HEADLINE = ("8x1", "nonuniform")
+# tests/test_sharded_engine.py's gate against the single-device engine
+SHARD_MIN_AGREEMENT = 0.97
+SHARD_OCC_RTOL = SHARD_OCC_ATOL = 1e-4
+SHARD_START_RTOL = SHARD_START_ATOL = 1e-3
+# K11: the mirror's workers-axis view on phase 6's two fleets, dw = 1 and 2
+MIRROR_LAYOUTS = ("1x1", "4x2")
+
+
+def _shard_mesh(partition, layout, device):
+    dt, dw = (int(p) for p in layout.split("x"))
+    return partition.make_engine_mesh(layout=layout, devices=[device] * (dt * dw))
+
+
+def _shard_bound_ms(packed, W, D):
+    """K1's bound (the f16 wire read once, the codes, fleet, load and spans
+    once) plus each wave's two sets of ``[D, W]`` f32 partials, written
+    once and read once by the psum; K1's operations plus the psum adds."""
+    T, L = packed.n, packed.n_levels
+    nbytes = 16 * T + 8 * T + 13 * W + 4 * W + 4 * L + L * 2 * 2 * D * W * 4
+    ops = 40 * T + L * W * max(W.bit_length() - 1, 1) + L * 2 * D * W
+    return _bound(nbytes, ops)
+
+
+def _timed_waves(sharded, mesh, packed, fleet, body=None):
+    """A ShardedRun with every fused run's tiles shipped up front, and a
+    function that runs all its waves from a reset carry (no upload, no
+    download): what the waves cost on the card, launches and collectives."""
+    runs = sharded._plan_runs_sharded(packed.offsets, mesh.size)
+    Tp = sharded.sharded_pad(packed.n, runs, packed.offsets, mesh.size)
+    host = tuple(np.zeros(Tp, d) for _, d in sharded.TASK_FIELDS)
+    for buf, arr in zip(host, (packed.duration_s, packed.heavy_s, packed.heavy2_s,
+                               packed.xfer_pref_s, packed.xfer_pref2_s, packed.xfer_all_s)):
+        buf[: packed.n] = arr
+    Lp = sharded._bucket(packed.n_levels + 1, floor=64)
+    run = sharded.ShardedRun(mesh, packed, Tp, Lp, *fleet, body=body)
+    tiles = []
+    for Fl, waves in runs:
+        run._ship(host, Fl, waves)
+        tiles.append([dict(g.tiles) for g in run.groups])
+
+    def waves():
+        run.reset()
+        for (Fl, ws), per_group in zip(runs, tiles):
+            for g, t in zip(run.groups, per_group):
+                g.tiles = t
+            run.run_waves(Fl, ws)
+
+    return run, waves
+
+
+def phase_sharded(oneshot, ptxas=None):
+    """Phase 7: the sharded placement engine at full width, every shard on
+    the one card (``LocalShards``): the 1M-task DAG on phase 3's fleets at
+    1x1, 2x1, 4x2 and 8x1 through ``place_graph_leveled_sharded`` (kernel
+    K10, two launches a wave).  Each layout equals the plain shard body on
+    the CPU bit for bit and meets tests/test_sharded_engine.py's gate
+    against phase 3's one-shot K1 result (f16 wire), which 1x1 equals bit
+    for bit.  Then the mirror's workers-axis view (K11) on 512 workers and
+    on 1,000 in a capacity of 1,024 at dw = 1 and 2 feeding the engine,
+    ``ProcessGroupShards`` on NCCL with a world of 1, and ``TorchPlacement``
+    with an explicit 4x2 layout of virtual shards on the 1M uniform batch.
+    ``ptxas``: phase 1's registers and spills of K10."""
+    import torch.distributed as dist
+
+    from distributed_tpu_torch import graphs
+    from distributed_tpu_torch.ops import leveled, partition, sharded
+    from distributed_tpu_torch.scheduler import plan
+    from distributed_tpu_torch.scheduler.mirror import SHARDED_FIELDS, TorchMirror
+    from distributed_tpu_torch.scheduler.torch_placement import TorchPlacement
+
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "tests"))
+    import test_torch_periodic_cases as pc
+
+    card = smi_line()
+    dev = torch.device("cuda", torch.cuda.current_device())
+    t_phase = time.perf_counter()
+    graph = graphs.random_dag(N_TASKS, seed=0)
+    packed = leveled.pack_graph(*graph, bandwidth=BANDWIDTH, latency=LATENCY)
+    fleets = _fleets()
+    L = packed.n_levels
+
+    # the main path: place_graph_leveled_sharded as a user calls it, every count zeroed
+    sharded.place_shard_cuda.launches = 0
+    results, stats, walls = {}, {}, {}
+    for name, fleet in fleets.items():
+        for layout in SHARD_LAYOUTS:
+            st = {}
+            t0 = time.perf_counter()
+            results[layout, name] = sharded.place_graph_leveled_sharded(
+                _shard_mesh(partition, layout, dev), packed, *fleet, stats=st)
+            walls[layout, name] = (time.perf_counter() - t0) * 1e3
+            stats[layout, name] = st
+    launches = sharded.place_shard_cuda.launches
+    want = 2 * L * len(fleets) * len(SHARD_LAYOUTS)
+    check(launches == want, f"K10 launches {launches} != {want} (two a wave, one group a layout)")
+    print(f"[{card}] sharded main path: K10 launches {launches} (two a wave) over {L} waves, "
+          f"{len(SHARD_LAYOUTS)} layouts x {len(fleets)} fleets")
+
+    cases_out, err_max = {}, 0.0
+    for name, fleet in fleets.items():
+        running = fleet[2]
+        k1 = oneshot[name]
+        t0 = time.perf_counter()
+        leveled.place_graph_leveled(packed, *fleet)
+        torch.cuda.synchronize()
+        single_wall = (time.perf_counter() - t0) * 1e3
+        for layout in SHARD_LAYOUTS:
+            res = results[layout, name]
+            leveled.validate_leveled(packed, res, graph[2], graph[3], running)
+            check(np.isfinite(res.start_time).all() and np.isfinite(res.occupancy).all(),
+                  f"{layout} {name}: non-finite result")
+            mesh = _shard_mesh(partition, layout, dev)
+            t0 = time.perf_counter()
+            cpu = sharded.place_graph_leveled_sharded(
+                _shard_mesh(partition, layout, "cpu"), packed, *fleet)
+            cpu_s = time.perf_counter() - t0
+            err = max(float(np.abs(res.occupancy - cpu.occupancy).max()),
+                      float(np.abs(res.start_time - cpu.start_time).max()))
+            check(_same(res, cpu), f"{layout} {name}: K10 differs from the plain body on the CPU")
+            check(_same(sharded.place_graph_leveled_sharded(mesh, packed, *fleet), res),
+                  f"{layout} {name}: two K10 runs differ")
+            if layout == "1x1":
+                check(_same(res, k1), f"1x1 {name}: differs from phase 3's one-shot K1 result")
+            flipped = res.assignment != k1.assignment
+            agree = 1.0 - float(flipped.mean())
+            check(agree > SHARD_MIN_AGREEMENT, f"{layout} {name}: agreement {agree} with K1")
+            check(np.allclose(res.start_time, k1.start_time, rtol=SHARD_START_RTOL,
+                              atol=SHARD_START_ATOL), f"{layout} {name}: start times outside the gate")
+            # occupancy: the gate on every worker no flipped task touched.  On
+            # the uniform fleet the reference's own sharded engine moves 2 of
+            # the 1M tasks, whose ~0.5 s each is ~1e-3 of a worker's load, so
+            # the gate over all workers fails there for the reference too
+            touched = np.zeros(len(k1.occupancy), bool)
+            touched[res.assignment[flipped]] = touched[k1.assignment[flipped]] = True
+            occ_excess = float(np.max(np.abs(res.occupancy - k1.occupancy)
+                                      / (SHARD_OCC_ATOL + SHARD_OCC_RTOL * np.abs(k1.occupancy))))
+            check(np.allclose(res.occupancy[~touched], k1.occupancy[~touched],
+                              rtol=SHARD_OCC_RTOL, atol=SHARD_OCC_ATOL),
+                  f"{layout} {name}: occupancy outside the gate on workers no flipped task touched")
+            run, waves = _timed_waves(sharded, mesh, packed, fleet)
+            ms = cuda_ms(waves, reps=5, warmup=1)
+            prun, pwaves = _timed_waves(sharded, mesh, packed, fleet,
+                                        body=(sharded.shard_tentative_reference,
+                                              sharded.shard_contend_reference))
+            plain_ms = cuda_ms(pwaves, reps=3, warmup=1)
+            del run, prun
+            bound_ms, bound_by = _shard_bound_ms(packed, N_WORKERS, mesh.size)
+            h2d = [r["h2d_bytes"] for r in stats[layout, name]["shards"]]
+            print(f"[{card}] sharded {layout} {name}: == CPU plain ({cpu_s:.1f} s)"
+                  f"{', == phase 3 K1' if layout == '1x1' else ''}, agreement with K1 {agree:.6f} "
+                  f"({int(flipped.sum())} tasks, {int(touched.sum())} workers touched; occupancy "
+                  f"over all workers at {occ_excess:.3f}x the gate); "
+                  f"K10 waves ms {ms:.3f} plain ms {plain_ms:.3f} bound_ms {bound_ms:.4f} ({bound_by}); "
+                  f"runs {stats[layout, name]['runs']} h2d_bytes per shard {h2d[0]} (total {sum(h2d)}); "
+                  f"wall ms sharded {walls[layout, name]:.1f} single-device {single_wall:.1f}")
+            err_max = max(err_max, err)
+            cases_out[f"{layout}_{name}"] = dict(
+                max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                agreement_k1=agree, flipped_tasks=int(flipped.sum()), occ_gate_excess=occ_excess,
+                runs=stats[layout, name]["runs"], h2d_bytes_per_shard=h2d,
+                wall_ms=walls[layout, name], single_wall_ms=single_wall, cpu_s=cpu_s)
+        torch.cuda.empty_cache()
+
+    # K11: the mirror's workers-axis view on the card feeding the engine
+    TorchMirror.launches = 0
+    state = pc.StandInState()
+    mirror = state.mirror = TorchMirror(state)
+    mirror_cases = {}
+    for fname, W in STEAL_FLEETS:
+        ws_list = _stand_in_workers(state, W)
+        rng = np.random.default_rng(W)
+        for ws in ws_list[::5]:
+            ws.occupancy = float(rng.uniform(0, 4))
+            mirror.mark(ws)
+        fv = mirror.fleet_view()
+        host = (fv.nthreads.copy(), fv.occupancy.copy(), fv.running.copy())
+        for layout in MIRROR_LAYOUTS:
+            mesh = _shard_mesh(partition, layout, dev)
+            before = mirror.sharded_stats()
+            view = mirror.sharded_device_view(mesh)
+            first = mirror.sharded_stats()
+            same_rows = all(np.array_equal(torch.cat(view[f]).cpu().numpy(), getattr(mirror, f))
+                            for f in SHARDED_FIELDS)
+            check(same_rows, f"K11 {fname} {layout}: view rows differ from the host's")
+            fresh = mirror.sharded_device_view(mesh)
+            after = mirror.sharded_stats()
+            check(after["rows_uploaded"] == first["rows_uploaded"]
+                  and after["full_packs"] == first["full_packs"],
+                  f"K11 {fname} {layout}: a fresh cycle uploaded {after} after {first}")
+            got = sharded.place_graph_leveled_sharded(mesh, packed, *host, fleet_dev=fresh)
+            ref = sharded.place_graph_leveled_sharded(mesh, packed, *host)
+            check(_same(got, ref), f"K11 {fname} {layout}: fleet_dev placement differs from host-fed")
+            print(f"[{card}] mirror sharded view {fname} (capacity {mirror.cap}) {layout}: "
+                  f"rows == host, full packs {first['full_packs']} (before {before['full_packs']}), "
+                  f"fresh cycle rows uploaded {[a - b for a, b in zip(after['rows_uploaded'], first['rows_uploaded'])]}, "
+                  f"fleet_dev placement == host-fed")
+            mirror_cases[f"{fname}_{layout}"] = dict(capacity=mirror.cap, n_shards=after["n_shards"],
+                                                     full_packs=after["full_packs"],
+                                                     rows_uploaded=after["rows_uploaded"])
+    mesh2 = _shard_mesh(partition, "4x2", dev)
+    ws37 = np.random.default_rng(81).choice(list(state.workers.values()), TIMED_DIRTY, replace=False)
+
+    def dirty_view():
+        for ws in ws37:
+            mirror.mark(ws)
+        return mirror.sharded_device_view(mesh2)
+
+    view_ms = cuda_ms(dirty_view)
+    full_ms = cuda_ms(lambda: [torch.from_numpy(getattr(mirror, f)[j * mirror.cap // 2:(j + 1) * mirror.cap // 2]
+                                                .copy()).to(dev) for f in SHARDED_FIELDS for j in range(2)])
+    print(f"[{card}] mirror sharded view, {TIMED_DIRTY} dirty rows, dw 2, capacity {mirror.cap}: "
+          f"ms {view_ms:.4f} full pack ms {full_ms:.4f}; views that uploaded {TorchMirror.launches}")
+
+    # ProcessGroupShards on NCCL, a world of one, against LocalShards 1x1
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}", world_size=1, rank=0,
+                            device_id=dev)
+    try:
+        mesh1 = _shard_mesh(partition, "1x1", dev)
+        for name, fleet in fleets.items():
+            got = sharded.place_graph_leveled_sharded(mesh1, packed, *fleet,
+                                                      comm=sharded.ProcessGroupShards(mesh1))
+            check(_same(got, results["1x1", name]), f"NCCL world 1 {name}: differs from LocalShards 1x1")
+        print(f"[{card}] ProcessGroupShards on NCCL (world 1) == LocalShards 1x1 on both fleets")
+    finally:
+        dist.destroy_process_group()
+
+    # the extension: TorchPlacement with an explicit 4x2 layout of virtual shards
+    placement = TorchPlacement(sync=True, mesh_enabled=True, mesh_layout="4x2",
+                               mesh_shard_devices=[dev] * 8)
+    check(placement._mesh == mesh2, "TorchPlacement built another mesh")
+    addrs = [f"tcp://10.1.{w // 256}.{w % 256}:8788" for w in range(N_WORKERS)]
+    keys = [f"task-{i}" for i in range(N_TASKS)]
+    engine = {}
+    t0 = time.perf_counter()
+    hints = placement._plan_from_arrays(keys, *graph, *fleets["uniform"], addrs, BANDWIDTH,
+                                        LATENCY, stats=engine)
+    ext_ms = (time.perf_counter() - t0) * 1e3
+    pk, direct = leveled.place_graph_streamed(*graph, *fleets["uniform"], bandwidth=BANDWIDTH,
+                                              latency=LATENCY, mesh=mesh2)
+    check(hints == plan.hints_from_placement(keys, pk, direct, addrs),
+          "TorchPlacement 4x2 hints differ from the direct place_graph_streamed(mesh=...) call")
+    check(len(engine.get("shards", ())) == 8, f"engine shards: {engine.get('shards')}")
+    check(placement.enabled, "the planner disabled itself")
+    print(f"[{card}] TorchPlacement 4x2 virtual shards, 1M uniform batch: hints == direct "
+          f"place_graph_streamed(mesh=...), engine_shards 8 rows, _plan_from_arrays wall_ms {ext_ms:.1f}")
+    phase_s = time.perf_counter() - t_phase
+    print(f"[{card}] phase 7 s {phase_s:.1f}")
+
+    head = cases_out["_".join(SHARD_HEADLINE)]
+    entry = {
+        "name": "place_shard",
+        "route": "cuda",
+        "source": "distributed_tpu_torch/ops/csrc/place_shard.cu",
+        "replaces": "distributed_tpu/ops/leveled.py:1140",
+        "launches": launches,
+        "max_abs_err": err_max,
+        "ms": head["ms"],
+        "plain_ms": head["plain_ms"],
+        "bound_ms": head["bound_ms"],
+        "bound_by": head["bound_by"],
+        "library_ms": None,
+        "case": "_".join(SHARD_HEADLINE),
+        "cases": cases_out,
+        "ptxas": ptxas or {},
+        "phase_s": phase_s,
+    }
+    mirror_entry = dict(sharded_view_ms=view_ms, sharded_full_pack_ms=full_ms,
+                        sharded_case=f"{TIMED_DIRTY} dirty rows, dw 2, capacity {mirror.cap}",
+                        sharded_views=mirror_cases, sharded_launches=TorchMirror.launches)
+    return entry, mirror_entry
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1679,7 +1992,11 @@ def main() -> int:
     hints_1m = phase_streamed(wave_entry, oneshot)
     partition_entry = phase_partition(wave_entry, hints_1m)
     periodic_entries = phase_periodic(periodic_ptxas_info)
-    kernels = [flash_entry, bwd_entry, wave_entry, partition_entry, *periodic_entries]
+    shard_entry, mirror_sharded = phase_sharded(oneshot, periodic_ptxas_info.get("place_shard.cu"))
+    for e in periodic_entries:
+        if e["name"] == "mirror_view":
+            e.update(mirror_sharded)
+    kernels = [flash_entry, bwd_entry, wave_entry, partition_entry, *periodic_entries, shard_entry]
     print(f"total_s {time.perf_counter() - t0:.1f}")
     print(smi_line())
     print(json.dumps({"kernels": kernels}))

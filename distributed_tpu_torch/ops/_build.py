@@ -51,6 +51,19 @@ SIGNATURES = {
         _vp,                            # stream
     ),
     "dtpu_place_waves_grid": (_i, _i, ctypes.POINTER(_i)),  # W uniform -> blocks
+    "dtpu_place_shard": (
+        _vp, _vp, _vp, _vp, _vp, _vp,   # dur16 heavy heavy2 xp16 xp2_16 xa16 (tiles)
+        _vp, _vp, _vp,                  # shard_ids assign load
+        _vp, _vp, _vp, _vp,             # inv_t running ovt0 tl (null in launch A)
+        _vp, _vp, _vp, _vp,             # tgt wt spread sorted (scratch)
+        _vp, _vp, _vp,                  # cnt start tot (scratch)
+        _vp, _vp, _vp,                  # part aslice cslice (out)
+        _i, _i, _i, _i, _i, _i, _i,     # W S K Fl k f w_run
+        _i, _i, _i,                     # uniform contend bx
+        _f, _f,                         # ovt_c inv_c
+        _vp,                            # stream
+    ),
+    "dtpu_place_shard_grid": (_i, _i, ctypes.POINTER(_i)),  # W S -> blocks per shard
     "dtpu_partition": (
         _vp, _vp, _vp, _vp,             # init lab0 lab1 durations
         _vp, _vp, _vp, _vp, _vp, _vp,   # in_off in_nbr in_w out_off out_nbr out_w

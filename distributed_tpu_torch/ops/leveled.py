@@ -1056,10 +1056,17 @@ def place_graph_streamed(
     min_stream: int = 262144,
     timings: dict | None = None,
     device=None,
+    mesh=None,
+    fleet_dev=None,
+    stats: dict | None = None,
 ) -> tuple[PackedGraph, LeveledResult]:
     """Fused pack + place: the upload overlaps the pack's row fill, and
-    the waves run as their rows land.  The reference's single-device
-    ``place_graph_streamed`` (its ``mesh=None`` branch).
+    the waves run as their rows land.  The reference's
+    ``place_graph_streamed``; with ``mesh`` (an engine mesh from
+    ``ops/partition.make_engine_mesh``) its mesh branch, which
+    :func:`distributed_tpu_torch.ops.sharded.place_graph_streamed_sharded`
+    runs on the mesh's devices (``device`` is then not used; ``fleet_dev``
+    and ``stats`` pass through to the sharded engine).
 
     - The topology phase (``graphpack_topo``: edge passes, Kahn peel,
       counting sort) runs on the calling thread; sorted order does not
@@ -1095,6 +1102,14 @@ def place_graph_streamed(
     Returns ``(packed, result)``; ``packed``'s host arrays are fully
     filled by return time.
     """
+    if mesh is not None:
+        from distributed_tpu_torch.ops import sharded
+
+        return sharded.place_graph_streamed_sharded(
+            durations, out_bytes, src, dst, nthreads, occupancy0, running, mesh,
+            bandwidth=bandwidth, latency=latency, chunk_rows=chunk_rows,
+            min_stream=min_stream, timings=timings, fleet_dev=fleet_dev, stats=stats,
+        )
     dev = resolve_device(device)
     durations, out_bytes, src, dst = _graph_arrays(durations, out_bytes, src, dst)
     T = len(durations)
@@ -1114,27 +1129,10 @@ def place_graph_streamed(
     if len(out_bytes) != T or len(dst) != E:
         raise ValueError("durations/out_bytes and src/dst must have equal lengths")
 
-    lib = native.load()
-    P = native.as_ptr
     t0 = time.perf_counter()
-    level, perm, heavy, heavy2, indeg, inv = (np.empty(T, np.int32) for _ in range(6))
-    offsets_buf = np.empty(T + 1, np.int32)  # the pass writes [0, n_levels]
-    dep_total = np.empty(T, np.float32)
-    n_levels = lib.graphpack_topo(
-        T, E, P(out_bytes), P(src), P(dst),
-        P(level), P(perm), P(offsets_buf),
-        P(heavy), P(heavy2), P(dep_total), P(indeg), P(inv),
-    )
-    if n_levels < 0:
-        raise ValueError("graph has a cycle")
-    offsets = offsets_buf[: n_levels + 1].copy()
-    dur_s, xp_s, xp2_s, xa_s = (np.empty(T, np.float32) for _ in range(4))
-    heavy_s, heavy2_s = np.empty(T, np.int32), np.empty(T, np.int32)
-    packed = PackedGraph(
-        perm=perm, level=level, offsets=offsets, n_levels=int(n_levels),
-        duration_s=dur_s, heavy_s=heavy_s, heavy2_s=heavy2_s,
-        xfer_pref_s=xp_s, xfer_pref2_s=xp2_s, xfer_all_s=xa_s,
-    )
+    topo = _StreamPack(durations, out_bytes, src, dst, bandwidth, latency)
+    offsets, n_levels = topo.offsets, topo.n_levels
+    packed = topo.alloc(T)
     if timings is not None:
         timings["topo_s"] = time.perf_counter() - t0
 
@@ -1149,45 +1147,18 @@ def place_graph_streamed(
     run = LeveledRun(packed, nthreads, occupancy0, running, device=dev, fmt=fmt,
                      upload=False)
 
-    C = max(min(chunk_rows, T), 1)
-    bounds = [(i0, min(i0 + C, T)) for i0 in range(0, T, C)]
-    done = [threading.Event() for _ in bounds]
-    fill_err: list[Exception] = []
-    fill_args = (
-        P(durations), P(out_bytes), P(perm), P(inv), P(heavy), P(heavy2),
-        P(dep_total), P(indeg), 1.0 / bandwidth, float(latency),
-        P(dur_s), P(heavy_s), P(heavy2_s), P(xp_s), P(xp2_s), P(xa_s),
-    )
-
-    def filler():
-        try:
-            for (i0, i1), evt in zip(bounds, done):
-                lib.graphpack_fill(i0, i1, *fill_args)
-                evt.set()
-        except Exception as exc:  # reported to the calling thread, which raises
-            fill_err.append(exc)
-            for evt in done:
-                evt.set()
-
     timed = timings is not None and dev.type == "cuda"
     waves_clock = _DeviceClock(timed)
-    fill_wait_s = encode_s = 0.0
+    encode_s = 0.0
     launches = 0
     wave, seg_from, seg_min = 0, 0, max(T // 4, 4096)
-    th = threading.Thread(target=filler, name="graphpack-fill", daemon=True)
-    th.start()
     try:
         with run.uploader(timed) as up:
             down = _Downloader(run)
-            for (i0, i1), evt in zip(bounds, done):
-                t1 = time.perf_counter()
-                evt.wait()
+            for i0, i1 in topo.fill(chunk_rows):
                 t2 = time.perf_counter()
-                if fill_err:
-                    raise RuntimeError("graph pack fill failed") from fill_err[0]
                 up.send(i0, i1)
                 encode_s += time.perf_counter() - t2
-                fill_wait_s += t2 - t1
                 last = wave
                 while last < n_levels and offsets[last + 1] <= i1:
                     last += 1
@@ -1202,7 +1173,7 @@ def place_graph_streamed(
                     down.segment(seg_from, rows_done)
                     seg_from = rows_done
     finally:
-        th.join()
+        topo.join()
     if wave != n_levels:
         raise RuntimeError(f"placed {wave} of {n_levels} waves")
     codes, spans_h, load_h = down.finish()
@@ -1210,13 +1181,97 @@ def place_graph_streamed(
     result = _finalize(packed, codes, spans_h, load_h)
     if timings is not None:
         timings.update(
-            fill_wait_s=fill_wait_s, encode_s=encode_s, launches=launches,
+            fill_wait_s=topo.fill_wait_s, encode_s=encode_s, launches=launches,
             wait_s=down.wait_s, finalize_s=time.perf_counter() - t3,
         )
         if timed:
             timings.update(upload_ms=up.clock.ms(), waves_ms=waves_clock.ms())
         timings["total_s"] = time.perf_counter() - t0
     return packed, result
+
+
+
+class _StreamPack:
+    """The streamed driver's pack: the topology pass (``graphpack_topo``)
+    on the calling thread at construction, then the row fill
+    (``graphpack_fill``) on a worker thread, a chunk at a time (the C call
+    releases the GIL).  Raises ``ValueError`` on a cycle."""
+
+    def __init__(self, durations, out_bytes, src, dst, bandwidth: float, latency: float):
+        T, E = len(durations), len(src)
+        self.lib = native.load()
+        P = native.as_ptr
+        self.level, self.perm, self.heavy, self.heavy2, self.indeg, self.inv = (
+            np.empty(T, np.int32) for _ in range(6))
+        offsets_buf = np.empty(T + 1, np.int32)  # the pass writes [0, n_levels]
+        self.dep_total = np.empty(T, np.float32)
+        n_levels = self.lib.graphpack_topo(
+            T, E, P(out_bytes), P(src), P(dst),
+            P(self.level), P(self.perm), P(offsets_buf),
+            P(self.heavy), P(self.heavy2), P(self.dep_total), P(self.indeg), P(self.inv),
+        )
+        if n_levels < 0:
+            raise ValueError("graph has a cycle")
+        self.T = T
+        self.n_levels = int(n_levels)
+        self.offsets = offsets_buf[: n_levels + 1].copy()
+        self.inputs = (durations, out_bytes, 1.0 / bandwidth, float(latency))
+        self.fill_wait_s = 0.0
+        self._thread: threading.Thread | None = None
+
+    def alloc(self, size: int, zero: bool = False) -> PackedGraph:
+        """The fill's target arrays, ``size >= T`` rows (zeroed with
+        ``zero``; past T they are never written), as a :class:`PackedGraph`
+        of their first T rows.  ``self.bufs`` keeps the full arrays."""
+        new = np.zeros if zero else np.empty
+        self.bufs = (new(size, np.float32), new(size, np.int32), new(size, np.int32),
+                     new(size, np.float32), new(size, np.float32), new(size, np.float32))
+        dur_s, heavy_s, heavy2_s, xp_s, xp2_s, xa_s = (b[: self.T] for b in self.bufs)
+        return PackedGraph(
+            perm=self.perm, level=self.level, offsets=self.offsets, n_levels=self.n_levels,
+            duration_s=dur_s, heavy_s=heavy_s, heavy2_s=heavy2_s,
+            xfer_pref_s=xp_s, xfer_pref2_s=xp2_s, xfer_all_s=xa_s,
+        )
+
+    def fill(self, chunk_rows: int):
+        """Start the fill and yield each chunk's ``(i0, i1)`` once its rows
+        are filled; raises on the calling thread if the fill failed."""
+        T = self.T
+        C = max(min(chunk_rows, T), 1)
+        bounds = [(i0, min(i0 + C, T)) for i0 in range(0, T, C)]
+        done = [threading.Event() for _ in bounds]
+        fill_err: list[Exception] = []
+        P = native.as_ptr
+        durations, out_bytes, inv_bw, latency = self.inputs
+        fill_args = (
+            P(durations), P(out_bytes), P(self.perm), P(self.inv), P(self.heavy),
+            P(self.heavy2), P(self.dep_total), P(self.indeg), inv_bw, latency,
+            *(P(b) for b in self.bufs),
+        )
+
+        def filler():
+            try:
+                for (i0, i1), evt in zip(bounds, done):
+                    self.lib.graphpack_fill(i0, i1, *fill_args)
+                    evt.set()
+            except Exception as exc:  # reported to the calling thread, which raises
+                fill_err.append(exc)
+                for evt in done:
+                    evt.set()
+
+        self._thread = threading.Thread(target=filler, name="graphpack-fill", daemon=True)
+        self._thread.start()
+        for (i0, i1), evt in zip(bounds, done):
+            t1 = time.perf_counter()
+            evt.wait()
+            self.fill_wait_s += time.perf_counter() - t1
+            if fill_err:
+                raise RuntimeError("graph pack fill failed") from fill_err[0]
+            yield i0, i1
+
+    def join(self) -> None:
+        if self._thread is not None:
+            self._thread.join()
 
 
 def _finalize(packed: PackedGraph, codes: np.ndarray, spans_h: np.ndarray,

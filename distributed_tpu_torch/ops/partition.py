@@ -1,8 +1,9 @@
 """Graph partitioner: priority-order blocks + capped label propagation,
 PyTorch + CUDA port.
 
-The counterpart of ``distributed_tpu/ops/partition.py`` without its mesh
-helpers.  The scheduler's plan path sends every batch whose dense score
+The counterpart of ``distributed_tpu/ops/partition.py``, with its engine
+mesh helpers (:func:`make_engine_mesh`, :func:`shard_bucket`).  The
+scheduler's plan path sends every batch whose dense score
 matrix fits (``_bucket(T) * lanes <= DENSE_LIMIT``) here instead of to the
 leveled engine, so on a fleet of 1024 lanes every graph of up to 16,384
 tasks is placed by this module, and on 16 lanes every graph of up to
@@ -42,6 +43,7 @@ scheduler runs when it is configured with ``partitioner="numpy"``.
 
 from __future__ import annotations
 
+from dataclasses import dataclass
 from typing import NamedTuple
 
 import numpy as np
@@ -403,3 +405,92 @@ def partition_padded(
     run = PartitionRun(durations, weights, src, dst, n_workers, iters=iters, device=dev)
     partition_rounds(run)
     return run.result()
+
+
+# ------------------------------------------------------------ engine mesh
+
+#: axis names of the scheduler's engine mesh, in order: "tasks" is the
+#: data-parallel wave axis, "workers" shards the fleet mirror's rows
+ENGINE_AXES = ("tasks", "workers")
+
+
+@dataclass(frozen=True)
+class EngineMesh:
+    """A ``(tasks, workers)`` grid of shards, the port's counterpart of the
+    reference's ``jax.sharding.Mesh`` over :data:`ENGINE_AXES`.
+
+    ``devices`` lists the shards' devices in the flattened row-major
+    order: shard ``d`` sits at ``divmod(d, dw)`` and owns rows
+    ``[d * Fl, (d + 1) * Fl)`` of every wave's window.  A device may
+    appear more than once, so one card can hold several shards.  Meshes
+    compare by value."""
+
+    dt: int
+    dw: int
+    devices: tuple[torch.device, ...]
+
+    axis_names = ENGINE_AXES
+
+    def __post_init__(self):
+        if self.dt < 1 or self.dw < 1 or len(self.devices) != self.dt * self.dw:
+            raise ValueError(f"a {self.dt}x{self.dw} mesh needs {self.dt * self.dw} "
+                             f"devices, got {len(self.devices)}")
+
+    @property
+    def shape(self) -> dict[str, int]:
+        return {"tasks": self.dt, "workers": self.dw}
+
+    @property
+    def size(self) -> int:
+        return self.dt * self.dw
+
+    def workers_index(self, shard: int) -> int:
+        """The ``workers``-axis coordinate of shard ``shard``."""
+        return shard % self.dw
+
+
+def make_engine_mesh(n_devices: int | None = None, layout: str = "auto",
+                     devices=None) -> EngineMesh:
+    """The scheduler co-processor mesh: 2-D ``(tasks, workers)``.
+
+    ``layout`` is ``"auto"`` (factor the device count as close to square
+    as possible, the workers axis the smaller factor) or ``"TxW"``, e.g.
+    ``"4x2"``.  Without ``devices`` the mesh takes the visible CUDA
+    devices (raising when there is none); ``n_devices`` of ``None``/``0``
+    means all of them, and a larger count is cut to what exists.  An
+    explicit ``devices`` list may repeat a device: that is how one card,
+    or the CPU, holds several shards.  A layout that needs more devices
+    than there are raises ``ValueError``, as the reference's does.
+    """
+    if devices is None:
+        first = resolve_device(None)
+        devices = [torch.device("cuda", i) for i in range(torch.cuda.device_count())] or [first]
+    devices = [resolve_device(d) for d in devices]
+    if n_devices:
+        devices = devices[: min(int(n_devices), len(devices))]
+    n = len(devices)
+    if layout and layout != "auto":
+        dt, dw = (int(p) for p in str(layout).lower().split("x"))
+        if dt * dw > n:
+            raise ValueError(f"layout {layout} needs {dt * dw} devices, have {n}")
+        devices = devices[: dt * dw]
+    else:
+        if n == 0:
+            raise ValueError("an engine mesh needs at least one device")
+        dw = 1
+        for f in range(int(np.sqrt(n)), 0, -1):
+            if n % f == 0:
+                dw = f
+                break
+        dt = n // dw
+    return EngineMesh(dt, dw, tuple(devices))
+
+
+def shard_bucket(n: int, n_shards: int, floor: int = 2048) -> int:
+    """Per-shard power-of-two bucket for a wave of ``n`` tasks split over
+    ``n_shards`` shards: every shard's slice has this one length."""
+    need = max(-(-n // max(n_shards, 1)), 1)
+    b = floor
+    while b < need:
+        b *= 2
+    return b

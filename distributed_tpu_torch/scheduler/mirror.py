@@ -25,8 +25,19 @@ from the scheduler's state instead of rebuilt every cycle.
 :meth:`TorchMirror.adopt` swaps it in for the reference's mirror on a
 live ``SchedulerState`` (``state.mirror``), keeping every slot.  The
 class is duck-typed against the state and imports nothing of the
-reference.  The mesh-sharded view (``sharded_device_view``) is not here;
-:meth:`sharded_stats` reports no shards.
+reference.
+
+- **Sharded view** (:meth:`sharded_device_view`, K11).  For the sharded
+  placement engine (``ops/sharded.py``): the fleet rows split over an
+  engine mesh's ``workers`` axis, slot ``s`` in block ``s // (cap // dw)``,
+  each block on the device of its shard.  A full pack at first use, on
+  growth or on a mesh that is not equal to the last one; otherwise only
+  the dirty rows, grouped by owning block.  Unlike :meth:`device_view`,
+  a block is never written in place: a dirty block is copied on the
+  device and the copy is written and kept (the reference replaces its
+  arrays the same way), so a view handed to a plan on another thread
+  never changes under it.  The per-shard counters count the exact
+  payload, as ``bytes_uploaded`` does.
 """
 
 from __future__ import annotations
@@ -65,6 +76,8 @@ FIELDS: tuple[tuple[str, Any], ...] = (
 _MIN_CAP = 8
 
 DEVICE_FIELDS = ("nthreads", "occupancy", "running", "idle")
+#: the fields the sharded placement engine reads (the reference's default)
+SHARDED_FIELDS = ("nthreads", "occupancy", "running")
 
 
 class MirrorParityError(AssertionError):
@@ -136,7 +149,7 @@ class TorchMirror:
         self.ws_of: list = [None] * self.cap
         self._dirty: set[int] = set()
         self._device_dirty: set[int] = set()
-        self._sdev_dirty: set[int] = set()  # the sharded view's (not ported): stays empty
+        self._sdev_dirty: set[int] = set()  # the sharded view's dirty rows
         self._members_dirty = True
         self._live_slots = np.zeros(0, np.int32)
         self._live_list: list = []
@@ -149,6 +162,11 @@ class TorchMirror:
         #: recorded on the uploading stream after every device_view that
         #: wrote to the card; None before the first
         self.upload_event: torch.cuda.Event | None = None
+        # the sharded view: field -> [dw] blocks, and the mesh and capacity
+        # they were packed for
+        self._sdev: dict[str, list[torch.Tensor]] = {}
+        self._sdev_mesh = None
+        self._sdev_cap = -1
         # counters (diagnostics, metrics and tests)
         self.generation = 0
         self.deltas_applied = 0
@@ -161,6 +179,11 @@ class TorchMirror:
         self.oracle_checks = 0
         self.oracle_failures = 0
         self.oracle_packs = 0
+        # per workers-axis shard of the sharded view: a fresh cycle uploads
+        # no row on any shard, and full_packs grows only at growth or a new mesh
+        self.shard_rows_uploaded: list[int] = []
+        self.shard_bytes_uploaded: list[int] = []
+        self.shard_full_packs: list[int] = []
 
     @classmethod
     def adopt(cls, state, device=None) -> "TorchMirror":
@@ -210,9 +233,12 @@ class TorchMirror:
         lp[: self.cap] = self._live_pos
         self._live_pos = lp
         self.cap = new_cap
-        # shapes changed: the device cache is rebuilt wholesale
+        # shapes changed: the device caches are rebuilt wholesale (growth
+        # also remaps slots to shards: rows per shard doubled)
         self._dev.clear()
         self._device_dirty.clear()
+        self._sdev.clear()
+        self._sdev_dirty.clear()
 
     # ---------------------------------------------------- delta sources
 
@@ -284,6 +310,7 @@ class TorchMirror:
                 self.idle[slot] = is_running and ws.address in idle
                 self.status[slot] = STATUS_CODES.get(ws.status, STATUS_UNKNOWN)
         self._device_dirty.update(self._dirty)
+        self._sdev_dirty.update(self._dirty)
         self._dirty.clear()
         self.rows_refreshed += n
         self.generation += 1
@@ -384,10 +411,89 @@ class TorchMirror:
             self._staged = torch.cuda.Event()
             self._staged.record(torch.cuda.current_stream(self.device))
 
+    def sharded_device_view(
+        self, mesh, fields: tuple[str, ...] = SHARDED_FIELDS,
+    ) -> dict[str, list[torch.Tensor]] | None:
+        """The fleet rows split over ``mesh``'s ``workers`` axis (an
+        ``EngineMesh``): ``{field: [block_0, ..., block_{dw-1}]}``, block
+        ``j`` holding slots ``[j*cap/dw, (j+1)*cap/dw)`` on the device of
+        shard ``j`` (the first ``tasks`` row of the mesh); the blocks
+        joined in order are the capacity-sized field.  ``None`` when
+        ``cap % dw != 0``.
+
+        Upload cost per call: nothing when no row changed since the last
+        sharded view, the dirty rows grouped by owning shard otherwise
+        (each dirty block copied on its device first: a returned block is
+        never written), and a full pack per shard at first use, at growth
+        or on a mesh not equal to the last one.  The copies run on the
+        calling thread's current stream; a reader on another stream waits
+        for it (the planner thread and the loop share the default one)."""
+        with self.state.wall.phase("mirror.upload"):
+            return self._sharded_device_view(mesh, fields)
+
+    def _sharded_device_view(self, mesh, fields: tuple[str, ...]):
+        self.refresh()
+        n_shards = int(mesh.shape["workers"])
+        if n_shards <= 0 or self.cap % n_shards != 0:
+            return None
+        if len(self.shard_rows_uploaded) != n_shards:
+            # first sharded view, or a mesh of another width: the counters restart
+            self.shard_rows_uploaded = [0] * n_shards
+            self.shard_bytes_uploaded = [0] * n_shards
+            self.shard_full_packs = [0] * n_shards
+        if self._sdev_cap != self.cap or self._sdev_mesh != mesh:
+            # equality, not identity: an equal mesh rebuilt per cycle re-packs nothing
+            self._sdev.clear()
+            self._sdev_cap = self.cap
+            self._sdev_mesh = mesh
+        rows_per_shard = self.cap // n_shards
+        devices = [mesh.devices[j] for j in range(n_shards)]
+        wrote = set()
+        if self._sdev_dirty and self._sdev:
+            by_shard: dict[int, list[int]] = {}
+            for slot in sorted(self._sdev_dirty):
+                by_shard.setdefault(slot // rows_per_shard, []).append(slot)
+            for j, slots in sorted(by_shard.items()):
+                rows = np.asarray(slots, np.int64)
+                idx = torch.from_numpy(rows - j * rows_per_shard).to(devices[j])
+                for name, blocks in self._sdev.items():
+                    vals = getattr(self, name)[rows]
+                    block = blocks[j].clone()
+                    block.index_copy_(0, idx, torch.from_numpy(vals).to(devices[j]))
+                    blocks[j] = block
+                    self.shard_bytes_uploaded[j] += int(vals.nbytes)
+                self.shard_rows_uploaded[j] += len(slots)
+                wrote.add(devices[j])
+            self.rows_uploaded += len(self._sdev_dirty)
+            self.state.trace.emit("kernel", "mirror-upload", "", n=len(self._sdev_dirty),
+                                  dest="shard-scatter")
+        missing = [f for f in fields if f not in self._sdev]
+        if missing:
+            for name in missing:
+                host = getattr(self, name)
+                self._sdev[name] = [
+                    torch.from_numpy(host[j * rows_per_shard:(j + 1) * rows_per_shard].copy())
+                    .to(devices[j]) for j in range(n_shards)
+                ]
+            for j in range(n_shards):
+                self.shard_full_packs[j] += 1
+            self.full_uploads += 1
+            self.state.trace.emit("kernel", "mirror-upload", "", n=self.cap, dest="shard-full")
+            wrote.update(devices)
+        self._sdev_dirty.clear()
+        if any(d.type == "cuda" for d in wrote):
+            TorchMirror.launches += 1
+        return {f: list(self._sdev[f]) for f in fields}
+
     def sharded_stats(self) -> dict[str, Any]:
-        """Per-shard upload counters: the mesh-sharded view is not part of
-        this mirror, so there are no shards."""
-        return {"n_shards": 0, "rows_uploaded": [], "bytes_uploaded": [], "full_packs": []}
+        """Per-shard upload counters of :meth:`sharded_device_view` (empty
+        lists before its first call), one entry per ``workers`` shard."""
+        return {
+            "n_shards": len(self.shard_rows_uploaded),
+            "rows_uploaded": list(self.shard_rows_uploaded),
+            "bytes_uploaded": list(self.shard_bytes_uploaded),
+            "full_packs": list(self.shard_full_packs),
+        }
 
     # ----------------------------------------------------------- oracle
 

@@ -1,7 +1,7 @@
 """Whole-graph placement on the card behind the scheduler's placement hook.
 
 The port's own copy of ``distributed_tpu/scheduler/jax_placement.py``'s
-``JaxPlacement``, without its mesh branch.  Inject it with
+``JaxPlacement``, mesh branch included.  Inject it with
 ``Scheduler(placement=TorchPlacement())`` (or a ``LocalCluster``'s
 ``scheduler_kwargs={"placement": ...}``): the scheduler's state calls
 ``plan_graph`` at ``update_graph`` time and consults the hints through
@@ -17,13 +17,25 @@ tests).  ``_plan_from_arrays`` routes a batch as the reference does:
   DENSE_LIMIT``), the partitioner (``ops/partition.py``, kernel K4) and
   absolute home hints ``(None, addr)``;
 - otherwise the leveled engine (``scheduler/plan.py`` on the streamed
-  driver, kernel K1) and follow-this-dependency hints.
+  driver, kernel K1) and follow-this-dependency hints; with an engine
+  mesh, the streamed driver's mesh branch (``ops/sharded.py``, kernel
+  K10 on every shard), fed by the mirror's workers-axis view (K11) when
+  the state's mirror is a :class:`TorchMirror`, and the per-shard stats
+  go to ``state.observe_engine_shards``.
+
+The mesh (``mesh_enabled``/``mesh_devices``/``mesh_layout``, the
+reference's ``scheduler.jax.mesh`` defaults, plus ``mesh_shard_devices``
+for shards that share a device) is built at construction: ``"auto"``
+turns it on only when at least two devices are visible, and a layout
+that cannot be satisfied raises there.
 
 A failure of either engine propagates: the planner logs it and disables
 itself (``enabled`` turns False), as the reference's handler does, and
 the scheduler's python oracle carries the graphs from then on.  The
-reference's numpy fallback after a failed device partition is not
-copied: a missing or broken card must show, not be absorbed.
+reference's fallbacks are not copied, neither its numpy partitioner
+after a failed device partition nor its single-device engine after a
+failed sharded one or an unsatisfiable mesh: a missing or broken card
+must show, not be absorbed.
 
 The constructor's defaults are the reference's ``scheduler.jax``
 configuration defaults.  A hint is a speculative placement: tasks the
@@ -48,6 +60,7 @@ import torch
 from distributed_tpu_torch._device import resolve_device
 from distributed_tpu_torch.ops import partition as part
 from distributed_tpu_torch.scheduler import plan as planning
+from distributed_tpu_torch.scheduler.mirror import TorchMirror
 
 logger = logging.getLogger("distributed_tpu_torch.placement")
 
@@ -137,16 +150,29 @@ class TorchPlacement:
     ``drift_yield``: let a home that is an extreme backlog outlier yield to
     an idle worker.  ``device=None`` means CUDA and raises here, at
     construction, when there is none.
+
+    ``mesh_enabled``: ``None`` ("auto": the sharded engine when at least
+    two devices are visible), ``True`` or ``False``; ``mesh_devices``:
+    how many of them (0: all); ``mesh_layout``: ``"auto"`` or ``"TxW"``;
+    ``mesh_shard_devices``: the shards' devices, one entry a shard and
+    repeats allowed (several shards on one card), instead of the visible
+    devices of ``device``'s type.
     """
 
     def __init__(self, min_batch: int = 512, max_batch: int | None = None,
                  min_workers: int = 8, sync: bool = False,
                  min_transfer_ratio: float = 0.02, partitioner: str = "auto",
                  home_depth: int | str | None = "inf", drift_yield: bool = True,
-                 device=None):
+                 device=None, mesh_enabled: bool | None = None, mesh_devices: int = 0,
+                 mesh_layout: str = "auto", mesh_shard_devices=None):
         if partitioner not in ("auto", "numpy", "off"):
             raise ValueError(f"partitioner {partitioner!r}: expected auto, numpy or off")
         self.device = resolve_device(device)
+        self.mesh_enabled = mesh_enabled
+        self.mesh_devices = int(mesh_devices)
+        self.mesh_layout = str(mesh_layout)
+        self.mesh_shard_devices = mesh_shard_devices
+        self._mesh = self._get_mesh()
         self.min_batch = min_batch
         self.max_batch = max_batch or 1_000_000
         self.min_workers = min_workers
@@ -187,6 +213,27 @@ class TorchPlacement:
         self.plan = {
             k: a for k, a in self.plan.items() if a[0] is not None or a[1] != addr
         }
+
+    # -------------------------------------------------------------- mesh
+
+    def _get_mesh(self):
+        """The engine mesh (built once, at construction), or None when the
+        mesh branch is off: on ``mesh_shard_devices``, else every visible
+        device of ``device``'s type."""
+        if self.mesh_enabled is False:
+            return None
+        if self.mesh_shard_devices is not None:
+            devices = list(self.mesh_shard_devices)
+        elif self.device.type == "cuda":
+            devices = [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+        else:
+            devices = [self.device]
+        if self.mesh_enabled is None and len(devices) < 2:
+            # auto on one device: the single-device engine (a 1x1 mesh
+            # places the same, with two launches a wave instead of one a graph)
+            return None
+        return part.make_engine_mesh(self.mesh_devices or None, self.mesh_layout,
+                                     devices=devices)
 
     def wants(self, ts) -> bool:
         return self.enabled and ts.key in self.plan
@@ -355,17 +402,20 @@ class TorchPlacement:
             loop = asyncio.get_running_loop() if not self.sync else None
         except RuntimeError:
             loop = None
+        engine: dict = {}
         if loop is None:
             try:
                 state.wall.push("kernel.dispatch", stimulus_id)
                 try:
-                    plan = self._plan_from_arrays(*snapshot)
+                    plan = self._plan_from_arrays(*snapshot, stats=engine)
                 finally:
                     state.wall.pop()
             except Exception:
                 logger.exception("device planning failed; disabling co-processor")
                 self.enabled = False
                 return 0
+            if engine.get("shards"):
+                state.observe_engine_shards(engine["shards"])
             self.plan.update(plan)
             self.plan_stim = stimulus_id
             self.plans_computed += 1
@@ -380,7 +430,7 @@ class TorchPlacement:
             # the async plan bills its wall to the planner thread's stack
             wall.push("kernel.dispatch", stimulus_id)
             try:
-                return self._plan_from_arrays(*args)
+                return self._plan_from_arrays(*args, stats=engine)
             finally:
                 wall.pop()
 
@@ -398,7 +448,8 @@ class TorchPlacement:
                     logger.exception("device planning failed; disabling co-processor")
                     self.enabled = False
             try:
-                loop.call_soon_threadsafe(self._merge, plan, state, stimulus_id)
+                loop.call_soon_threadsafe(self._merge, plan, state, stimulus_id,
+                                          engine.get("shards"))
             except RuntimeError:
                 # loop closed before the plan landed
                 self.plans_inflight -= 1
@@ -419,10 +470,12 @@ class TorchPlacement:
             self._executor.shutdown()
             self._executor = None
 
-    def _merge(self, plan, state, stimulus_id: str = "") -> None:
+    def _merge(self, plan, state, stimulus_id: str = "", engine_shards=None) -> None:
         """Land an async plan on the loop thread, keeping only hints for
         tasks still pending."""
         self.plans_inflight -= 1
+        if engine_shards:
+            state.observe_engine_shards(engine_shards)
         if not plan:
             return
         live = {
@@ -460,7 +513,10 @@ class TorchPlacement:
         """Synchronous array snapshot of the batch and the fleet (the task
         graph must not be touched off the loop).  The fleet comes from the
         state's persistent mirror when it has one (copied: the planner
-        reads it while the loop mutates the live buffers)."""
+        reads it while the loop mutates the live buffers).  With an engine
+        mesh and a :class:`TorchMirror`, the mirror's workers-axis view is
+        taken here, on the loop: its blocks never change after they are
+        handed out."""
         index = {ts.key: i for i, ts in enumerate(batch)}
         keys = [ts.key for ts in batch]
         src: list[int] = []
@@ -484,23 +540,33 @@ class TorchPlacement:
             occupancy = np.asarray([ws.occupancy for ws in workers], np.float32)
             running = np.asarray([ws in state.running for ws in workers], bool)
             addrs = [ws.address for ws in workers]
+        mesh = self._mesh
+        fleet_dev = None
+        if mesh is not None and isinstance(mirror, TorchMirror):
+            fleet_dev = mirror.sharded_device_view(mesh)
         return (
             keys, durations, out_bytes,
             np.asarray(src, np.int32), np.asarray(dst, np.int32),
             nthreads, occupancy, running, addrs, state.bandwidth,
-            state.transfer_latency,
+            state.transfer_latency, mesh, fleet_dev,
         )
 
     def _plan_from_arrays(self, keys, durations, out_bytes, src, dst, nthreads,
                           occupancy, running, addrs, bandwidth,
-                          transfer_latency=0.0) -> dict:
+                          transfer_latency=0.0, mesh=None, fleet_dev=None,
+                          stats: dict | None = None) -> dict:
         """Plan on pure arrays (safe off the loop) and return the hints.
 
         The partitioner while ``_bucket(T)`` times the lanes fits
         ``DENSE_LIMIT``: a worker appears once per thread as a lane (a
         2-thread worker should receive twice the work), and each task's
         lane folds back to its worker as an absolute home.  Otherwise the
-        leveled engine (``scheduler/plan.py``)."""
+        leveled engine (``scheduler/plan.py``), through the sharded engine
+        when there is a mesh (``mesh``, else the placement's own), fed by
+        ``fleet_dev`` when given; ``stats`` then receives the engine's
+        ``n_shards``, ``runs`` and per-shard ``shards`` rows."""
+        if mesh is None:
+            mesh = self._mesh
         run_idx = np.flatnonzero(running)
         lanes: list[int] = []
         for wi in run_idx:
@@ -524,7 +590,8 @@ class TorchPlacement:
                 return planning.hints_from_partition(keys, labels, lanes, addrs)
             return planning.plan_from_arrays(
                 keys, durations, out_bytes, src, dst, nthreads, occupancy, running,
-                addrs, bandwidth, transfer_latency, device=self.device,
+                addrs, bandwidth, transfer_latency, device=self.device, mesh=mesh,
+                fleet_dev=fleet_dev, stats=stats,
             )
 
     def __repr__(self) -> str:

@@ -19,7 +19,7 @@ import torch
 import test_torch_periodic_cases as cases
 
 from distributed_tpu_torch import graphs
-from distributed_tpu_torch.ops import amm, flash, leveled, partition, stealing
+from distributed_tpu_torch.ops import amm, flash, leveled, partition, sharded, stealing
 
 pytestmark = pytest.mark.cuda
 
@@ -276,6 +276,87 @@ def test_wave_kernel_rejects_too_many_workers(cuda):
     W = leveled.MAX_WORKERS_CUDA + 1
     with pytest.raises(ValueError, match="at most"):
         leveled.place_graph_leveled(packed, *_fleet(W, False), device=cuda)
+
+
+SHARD_LAYOUTS = ["1x1", "2x1", "4x2", "8x1"]
+
+
+def _shard_mesh(layout, device):
+    dt, dw = (int(p) for p in layout.split("x"))
+    return partition.make_engine_mesh(layout=layout, devices=[device] * (dt * dw))
+
+
+@pytest.mark.parametrize("layout", SHARD_LAYOUTS)
+@pytest.mark.parametrize("W", [37, 512, 1000])
+@pytest.mark.parametrize("mixed", [False, True])
+def test_shard_kernel_matches_plain(cuda, layout, W, mixed):
+    """K10, every shard of the mesh on the one card: it sums each shard's
+    partials per worker in task order, as index_add_ does on the CPU, so it
+    reproduces the plain shard body there bit for bit, repeats, makes two
+    launches a wave, and at 1x1 equals K1.  The uniform fleet's wave 0 is
+    all ties (every worker at load 0)."""
+    durations, out_bytes, src, dst = graphs.random_dag(60000, seed=8)
+    packed = leveled.pack_graph(durations, out_bytes, src, dst)
+    fleet = _fleet(W, mixed)
+    before = sharded.place_shard_cuda.launches
+    got = sharded.place_graph_leveled_sharded(_shard_mesh(layout, cuda), packed, *fleet)
+    assert sharded.place_shard_cuda.launches == before + 2 * packed.n_levels
+    leveled.validate_leveled(packed, got, src, dst, fleet[2])
+    again = sharded.place_graph_leveled_sharded(_shard_mesh(layout, cuda), packed, *fleet)
+    want = sharded.place_graph_leveled_sharded(_shard_mesh(layout, "cpu"), packed, *fleet)
+    others = [want, again]
+    if layout == "1x1":
+        others.append(leveled.place_graph_leveled(packed, *fleet, device=cuda))
+    for other in others:
+        for field in ("assignment", "choice", "occupancy", "start_time"):
+            np.testing.assert_array_equal(getattr(got, field), getattr(other, field))
+
+
+def test_shard_kernel_sums_in_task_order(cuda):
+    """One wide wave on few workers over 4 shards, with durations whose
+    per-shard sums depend on the order of the adds."""
+    n = 24_581
+    rng = np.random.default_rng(0)
+    durations = (rng.uniform(0, 1, n) * 10.0 ** rng.integers(-3, 4, n)).astype(np.float32)
+    packed = leveled.pack_graph(durations, np.zeros(n, np.float32), np.zeros(0, np.int32),
+                                np.zeros(0, np.int32))
+    fleet = _fleet(3, False)
+    got = sharded.place_graph_leveled_sharded(_shard_mesh("4x1", cuda), packed, *fleet)
+    want = sharded.place_graph_leveled_sharded(_shard_mesh("4x1", "cpu"), packed, *fleet)
+    np.testing.assert_array_equal(got.occupancy, want.occupancy)
+    np.testing.assert_array_equal(got.assignment, want.assignment)
+
+
+def test_shard_kernel_fed_by_the_mirror_view(cuda):
+    """K11's blocks on the card (1,000 workers in a capacity of 1,024,
+    dw = 2) feed K10 as the host arrays do."""
+    from distributed_tpu_torch.scheduler.mirror import TorchMirror
+
+    state = cases.StandInState()
+    m = state.mirror = TorchMirror(state, device=cuda)
+    for i in range(1000):
+        state.add_worker(f"w{i}", 2)
+    rng = np.random.default_rng(3)
+    for ws in list(state.workers.values())[::7]:
+        state.update(ws, rng)
+    fv = m.fleet_view()
+    assert m.cap == 1024
+    fleet = (fv.nthreads.copy(), fv.occupancy.copy(), fv.running.copy())
+    packed = leveled.pack_graph(*graphs.random_dag(40000, seed=9))
+    mesh = _shard_mesh("2x2", cuda)
+    view = m.sharded_device_view(mesh)
+    assert all(b.device == cuda for b in view["occupancy"])
+    got = sharded.place_graph_leveled_sharded(mesh, packed, *fleet, fleet_dev=view)
+    want = sharded.place_graph_leveled_sharded(_shard_mesh("2x2", "cpu"), packed, *fleet)
+    np.testing.assert_array_equal(got.assignment, want.assignment)
+    np.testing.assert_array_equal(got.occupancy, want.occupancy)
+
+
+def test_shard_kernel_rejects_too_many_workers(cuda):
+    packed = leveled.pack_graph(*graphs.random_dag(100, seed=0))
+    fleet = _fleet(leveled.MAX_WORKERS_CUDA + 1, False)
+    with pytest.raises(ValueError, match="at most"):
+        sharded.place_graph_leveled_sharded(_shard_mesh("1x1", cuda), packed, *fleet)
 
 
 @pytest.mark.parametrize("W", [37, 512, 4096])

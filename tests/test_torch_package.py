@@ -25,6 +25,7 @@ from distributed_tpu_torch.ops import (
     leveled,
     partition,
     rebalance,
+    sharded,
     stealing,
 )
 from distributed_tpu_torch.scheduler import plan
@@ -123,6 +124,15 @@ def _entry_calls():
             cases.rebalance_case(np.random.default_rng(0), 50, 4)),
         "TorchMirror.device_view": lambda: TorchMirror(cases.StandInState()).device_view(),
         "install_periodic": lambda: install_periodic(object()),
+        "make_engine_mesh": lambda: partition.make_engine_mesh(),
+        "place_graph_leveled_sharded": lambda: sharded.place_graph_leveled_sharded(
+            partition.make_engine_mesh(layout="1x1"), packed, *fleet),
+        "place_graph_streamed(mesh)": lambda: leveled.place_graph_streamed(
+            *graph, *fleet, min_stream=1, mesh=partition.make_engine_mesh()),
+        "TorchMirror.sharded_device_view": lambda: TorchMirror(
+            cases.StandInState(), device="cpu").sharded_device_view(partition.make_engine_mesh()),
+        "TorchPlacement(mesh)": lambda: TorchPlacement(mesh_enabled=True, mesh_layout="1x1"),
+        "make_engine_mesh(cuda list)": lambda: partition.make_engine_mesh(devices=["cuda:0"]),
     }
 
 
@@ -192,7 +202,8 @@ def test_library_path_keys_on_sources():
     assert path.parent == _build.BUILD_DIR
     assert path.name.startswith("libdtpu_kernels-") and path.suffix == ".so"
     assert {p.name for p in _build.CSRC.glob("*.cu")} == {
-        "amm_drop.cu", "flash_bwd.cu", "flash_fwd.cu", "partition.cu", "place_wave.cu", "steal.cu"}
+        "amm_drop.cu", "flash_bwd.cu", "flash_fwd.cu", "partition.cu", "place_shard.cu",
+        "place_wave.cu", "steal.cu"}
     assert {p.name for p in _build.CSRC.glob("*.cuh")} == {"hopper.cuh"}
 
 
