@@ -11,14 +11,14 @@ and prints no result):
 
 0. environment: torch/CUDA versions, the card, its power limit, nvcc,
    whether triton imports;
-1. build: the seven hand-written kernel sources from
+1. build: the eight hand-written kernel sources from
    ``distributed_tpu_torch/ops/csrc`` (nvcc, one process a source) and the
    host pack ``distributed_tpu_torch/native/graphpack.cpp`` (g++), at once;
    K3's tensor-core kernels' registers and spills from ptxas (into the
    ``flash_bwd`` entry of the kernels line), failing if they spill or if
    ptxas serialised their wgmma (warning C7512), and those of every
    instantiation of K7 and K8 (into the ``steal`` and ``amm_drop``
-   entries), failing if one spills;
+   entries) and of K12 (``shuffle_bucket``), failing if one spills;
 2. flash attention forward (kernel K2) at seq 8192, 16 heads, head dim
    128 in bf16, causal and not (the tensor-core body), plus f32 at seq
    1024 / head dim 64 (the CUDA-core body), against the plain version on
@@ -99,13 +99,33 @@ and prints no result):
    with an explicit 4x2 layout of virtual shards on the 1M uniform batch
    (hints equal a direct ``place_graph_streamed(mesh=...)``, 8 engine
    shard rows, no failure).  Phase 1 also reports K10's registers and
-   spills and fails if one spills.
+   spills and fails if one spills;
+8. the device data plane and long context, 8 virtual shards on the card
+   (``LocalShards``).  The shuffle (kernel K12, ``csrc/shuffle_bucket.cu``):
+   8 x 8,388,608 rows (int32 keys uniform in [0, 2^30), [4] f32 values,
+   ~TPC-H lineitem at scale factor 10) through ``shuffle_on_mesh`` and
+   ``compact_shuffle_output`` at the default capacity (rows conserved as a
+   multiset, every row on ``mix32(key) % 8``, a row moved one shard on
+   caught), a synthetic Zipf(1.1) skew over 2,526 key values, picked so that
+   its fullest destination exceeds the default capacity (it must raise there,
+   and conserve every row at capacity = rows), ``DeviceRun.exchange``
+   on 8 ragged partitions of up to 2,097,152 rows (== the CPU run), K12 ==
+   its plain version bit for bit on every case and repeated, K12 / plain /
+   bound / ``all_to_all`` / ``shuffle_on_mesh`` times, and
+   ``maybe_initialize`` on NCCL with a world of one (``ProcessGroupShards``
+   == ``LocalShards``).  Long context at seq 16,384 (2,048 a shard), 16
+   heads, dim 128, bf16, causal and not: ``ring_attention`` (K2 a visible
+   block, an f32 lse merge) within ``ring_attention.ring_excess`` of the
+   plain ring, a ring with one step left out rejected; ``ulysses_attention``
+   within K2's contract of the plain forward on the whole sequence; their
+   K2 launches and times beside K2 on the whole sequence and SDPA.
 
 The last three lines are the card's ``nvidia-smi`` name and power limit,
 one JSON object listing the kernels (``flash_fwd``, ``flash_bwd``,
 ``place_wave``, ``partition``, ``steal``, ``amm_drop``, ``place_shard``,
-and the torch routes ``mirror_view``, with the sharded view's numbers,
-and ``rebalance``) with their launches, errors and times, and
+``shuffle_bucket``, and the torch routes ``mirror_view``, with the
+sharded view's numbers, ``rebalance``, ``ring_attention`` and
+``ulysses``) with their launches, errors and times, and
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -272,6 +292,22 @@ def shard_ptxas(log):
     return _ptxas(log.split("== place_shard.cu", 1)[1].split("\n== ", 1)[0], label)
 
 
+SHUFFLE_VEC = {"c": 1, "NS_2U2E": 2, "i": 4, "4int2": 8, "4int4": 16}  # copy bytes by template
+
+
+def shuffle_ptxas(log):
+    """_ptxas of K12's four kernels, the templated ones labelled with their
+    copy width in bytes."""
+    def label(mangled):
+        m = re.search(r"(hist_kernel|scan_kernel|scatter_kernel|tail_kernel)"
+                      r"(?:I(4int4|4int2|NS_2U2E|i|c)E)?", mangled)
+        if not m:
+            return None
+        return f"{m[1]}<{SHUFFLE_VEC[m[2]]}>" if m[2] else m[1]
+
+    return _ptxas(log.split("== shuffle_bucket.cu", 1)[1].split("\n== ", 1)[0], label)
+
+
 def phase_build():
     """Builds everything; returns the registers and spills from ptxas of
     K3's tensor-core kernels and of the periodic kernels (K7, K8), and
@@ -304,6 +340,7 @@ def phase_build():
         check(info.get("spill_bytes") == 0, f"{label} spills: {info}")
     periodic = periodic_ptxas(log)
     periodic["place_shard.cu"] = shard_ptxas(log)
+    periodic["shuffle_bucket.cu"] = shuffle_ptxas(log)
     for src, kernels in periodic.items():
         check(kernels, f"ptxas reported no kernel of {src}")
         for label, info in kernels.items():
@@ -1971,6 +2008,397 @@ def phase_sharded(oneshot, ptxas=None):
     return entry, mirror_entry
 
 
+# ------------------------------------------------------------ phase 8
+
+# the data plane: 8 virtual shards on the card, ~TPC-H lineitem at SF10
+# (~60M rows) moved by a dask-dataframe shuffle (merge, set_index)
+SHUF_SHARDS = 8
+SHUF_ROWS = 8_388_608         # rows a shard: 67,108,864 in all
+SHUF_WIDTH = 4                # f32 values a row: 20 B a row with the key
+SHUF_RAGGED = 2_097_152       # DeviceRun.exchange's partitions, cut ragged
+ZIPF_KEYS = 2_526             # the skewed case's key values: its fullest destination
+                              # gets ~27 % of a shard, past the default capacity's 25 %
+ZIPF_A = 1.1
+# long context: seq 16,384 over 8 shards (2,048 each), 16 heads, dim 128, bf16
+LC_SEQ, LC_HEADS, LC_DIM, LC_SHARDS = 16_384, 16, 128, 8
+
+
+def _shuffle_bound_ms(S, n, width, n_dev, cap, masked=False):
+    """Bytes: keys, values (and valid) read once, the send buffers
+    (padding included) and sent written once."""
+    nbytes = S * n * (4 + 4 * width + (1 if masked else 0))
+    nbytes += S * n_dev * (cap * (4 + 4 * width) + 4)
+    return nbytes / PEAK_BYTES_S * 1e3, "bytes"
+
+
+def _routing_ok(ici, parts, n_dev):
+    return all(bool((ici._mix32(k) % n_dev == d).all()) for d, (k, _) in enumerate(parts))
+
+
+def _sorted_rows(keys, vals):
+    """The rows in (key, value bits) order: the multiset, comparable bytewise."""
+    cols = [keys] + [vals.view(torch.int32)[:, c] for c in range(vals.shape[1])]
+    order = torch.arange(keys.shape[0], device=keys.device)
+    for col in reversed(cols):
+        order = order[torch.argsort(col[order], stable=True)]
+    return keys[order], vals[order]
+
+
+def _same_bytes(a, b):
+    return a.shape == b.shape and a.dtype == b.dtype and torch.equal(
+        a.contiguous().view(torch.uint8), b.contiguous().view(torch.uint8))
+
+
+def _bucket_vs_plain(ici, kp, vp, valid, n_dev, cap, label):
+    """K12 on every shard against the plain version, bit for bit, twice."""
+    first = ici.shuffle_bucket_cuda(kp, vp, valid, n_dev, cap)
+    again = ici.shuffle_bucket_cuda(kp, vp, valid, n_dev, cap)
+    err = 0.0
+    for s in range(len(kp)):
+        want = ici.shuffle_bucket_reference(kp[s], vp[s], None if valid is None else valid[s],
+                                            n_dev, cap)
+        for w, a, b in zip(want, (first[0][s], first[1][s], first[2][s]),
+                           (again[0][s], again[1][s], again[2][s])):
+            check(_same_bytes(w, a), f"{label}: K12 differs from its plain version on shard {s}")
+            check(_same_bytes(a, b), f"{label}: K12 does not repeat itself on shard {s}")
+        err = max(err, (first[1][s].float() - want[1].float()).abs().max().item())
+        del want
+    return first, err
+
+
+def _zipf_keys(n, g, dev):
+    """``n`` keys Zipf(a = 1.1) over 1..ZIPF_KEYS, key 1 the busiest
+    (inverse CDF on the card): a truncation check, not a deployment's skew."""
+    p = torch.arange(1, ZIPF_KEYS + 1, dtype=torch.float64, device=dev) ** -ZIPF_A
+    cdf = torch.cumsum(p / p.sum(), 0)
+    u = torch.rand(n, generator=g, device=dev, dtype=torch.float64)
+    return (torch.searchsorted(cdf, u).clamp_max(ZIPF_KEYS - 1) + 1).to(torch.int32)
+
+
+def phase_data_plane(ptxas=None):
+    """Phase 8, the shuffle: K12 and the data plane's main path."""
+    from distributed_tpu_torch.ops import comm, ici
+    from distributed_tpu_torch.parallel import multihost
+    from distributed_tpu_torch.shuffle import device as dshuffle
+
+    dev = torch.device("cuda", 0)
+    card = smi_line()
+    t_phase = time.perf_counter()
+    S, n, n_dev = SHUF_SHARDS, SHUF_ROWS, SHUF_SHARDS
+    mesh = ici.make_mesh_1d(S, devices=[dev] * S)
+    g = torch.Generator(device=dev).manual_seed(8)
+    keys = torch.randint(0, 1 << 30, (S * n,), generator=g, device=dev, dtype=torch.int32)
+    vals = torch.rand((S * n, SHUF_WIDTH), generator=g, device=dev)
+    zkeys = _zipf_keys(S * n, g, dev)
+    cap = ici.default_capacity(n, n_dev)
+
+    # the main path, through the entry points a user calls
+    ici.shuffle_bucket_cuda.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ko, vo, counts, sent = ici.shuffle_on_mesh(mesh, keys, vals)
+    parts = ici.compact_shuffle_output(ko, vo, counts, n_dev)
+    torch.cuda.synchronize()
+    first_wall = (time.perf_counter() - t0) * 1e3
+    zo = ici.shuffle_on_mesh(mesh, zkeys, vals)
+    try:
+        ici.compact_shuffle_output(zo[0], zo[1], zo[2], n_dev)
+        zipf_raised = False
+    except ValueError as exc:
+        zipf_raised = "truncated" in str(exc)
+    zmax = int(torch.stack(zo[3]).max())
+    del zo
+    zfull = ici.shuffle_on_mesh(mesh, zkeys, vals, capacity=n)
+    zparts = ici.compact_shuffle_output(zfull[0], zfull[1], zfull[2], n_dev)
+    del zfull
+    lengths = [SHUF_RAGGED - SHUF_RAGGED // 56 * i for i in range(S)]  # down to 7/8
+    rkeys = [keys[i * n: i * n + m] for i, m in enumerate(lengths)]
+    rvals = [vals[i * n: i * n + m] for i, m in enumerate(lengths)]
+    run = dshuffle.DeviceRun("phase8", 1, S, S, devices=[dev] * S)
+    for i in range(S):
+        run.register(i, rkeys[i], rvals[i])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    run.exchange()
+    torch.cuda.synchronize()
+    run_ms = (time.perf_counter() - t0) * 1e3
+    torch.cuda.synchronize()
+    launches = ici.shuffle_bucket_cuda.launches
+    check(launches == 16, f"K12 launches on the main path {launches}, expected 16 (4 calls)")
+
+    # the results, by the repo's own means
+    check(all(p[0].device == dev for p in parts), "outputs left the card")
+    check(sum(len(k) for k, _ in parts) == S * n, "rows lost")
+    check(_routing_ok(ici, parts, n_dev), "a row landed off mix32(key) % 8")
+    bad = [(k.clone(), v) for k, v in parts]
+    bad[1] = (torch.cat([parts[0][0][:1], parts[1][0]]), torch.cat([parts[0][1][:1], parts[1][1]]))
+    bad[0] = (parts[0][0][1:], parts[0][1][1:])
+    check(not _routing_ok(ici, bad, n_dev), "the routing check passes a row sent one shard on")
+    del bad
+    out_k = torch.cat([k for k, _ in parts])
+    out_v = torch.cat([v for _, v in parts])
+    a, b = _sorted_rows(keys, vals), _sorted_rows(out_k, out_v)
+    check(_same_bytes(a[0], b[0]) and _same_bytes(a[1], b[1]),
+          "the multiset of (key, value) rows changed")
+    del a, b, out_k, out_v
+    check(zipf_raised, f"the Zipf case did not raise at the default capacity {cap} "
+          f"(largest true count {zmax})")
+    check(sum(len(k) for k, _ in zparts) == S * n and _routing_ok(ici, zparts, n_dev),
+          "the Zipf case at capacity = rows lost or misrouted rows")
+    a, b = _sorted_rows(zkeys, vals), _sorted_rows(torch.cat([k for k, _ in zparts]),
+                                                     torch.cat([v for _, v in zparts]))
+    check(_same_bytes(a[0], b[0]) and _same_bytes(a[1], b[1]), "the Zipf case changed the rows")
+    del a, b, zparts
+    print(f"[{card}] shuffle {S} x {n} rows, int32 keys in [0, 2^30), [{SHUF_WIDTH}] f32 values, "
+          f"capacity {cap}: rows conserved, every row on mix32(key) % {n_dev}, a row moved one "
+          f"shard on caught; first call wall_ms {first_wall:.1f}")
+    print(f"[{card}] Zipf a={ZIPF_A} over {ZIPF_KEYS} keys: raised at capacity {cap} "
+          f"(largest true count {zmax}, {zmax / n:.4f} of a shard); at capacity {n} every row kept")
+    cpu = dshuffle.DeviceRun("phase8", 1, S, S, devices=["cpu"] * S)
+    for i in range(S):
+        cpu.register(i, rkeys[i].cpu(), rvals[i].cpu())
+    cpu.exchange()
+    for d in range(S):
+        check(run.outputs[d][0].device == dev, "DeviceRun output off the card")
+        check(_same_bytes(run.outputs[d][0].cpu(), cpu.outputs[d][0])
+              and _same_bytes(run.outputs[d][1].cpu(), cpu.outputs[d][1]),
+              f"DeviceRun output {d} differs from the CPU run")
+    print(f"[{card}] DeviceRun.exchange {S} ragged partitions ({min(lengths)}-{max(lengths)} rows): "
+          f"outputs == the CPU run bit for bit; exchange wall_ms {run_ms:.1f}")
+    del run, cpu
+
+    # K12 against its plain version, both cases, bit for bit and repeated
+    kp, vp = list(keys.split(n)), list(vals.split(n))
+    zp = list(zkeys.split(n))
+    _, err = _bucket_vs_plain(ici, kp, vp, None, n_dev, cap, "uniform")
+    _, zerr = _bucket_vs_plain(ici, zp, vp, None, n_dev, cap, "zipf, default capacity")
+    _bucket_vs_plain(ici, zp, vp, None, n_dev, n, "zipf, capacity = rows")
+    mask = [torch.rand(n, generator=g, device=dev) < 0.9 for _ in range(S)]
+    _bucket_vs_plain(ici, kp, vp, mask, n_dev, cap, "masked")
+    print(f"[{card}] K12 == shuffle_bucket_reference bit for bit (uniform, Zipf at both "
+          f"capacities, masked), repeated")
+
+    # times
+    k12_ms = cuda_ms(lambda: ici.shuffle_bucket_cuda(kp, vp, None, n_dev, cap))
+    plain_ms = cuda_ms(lambda: [ici.shuffle_bucket_reference(kp[s], vp[s], None, n_dev, cap)
+                                for s in range(S)], reps=3, warmup=1)
+    zk12_ms = cuda_ms(lambda: ici.shuffle_bucket_cuda(zp, vp, None, n_dev, n), reps=5)
+    sk, sv, sc = ici.shuffle_bucket_cuda(kp, vp, None, n_dev, cap)
+    local = comm.LocalShards(mesh)
+
+    def exchange():
+        local.all_to_all(sk)
+        local.all_to_all(sv)
+        local.all_to_all([c[:, None] for c in sc])
+
+    a2a_ms = cuda_ms(exchange)
+    mesh_ms = cuda_ms(lambda: ici.shuffle_on_mesh(mesh, keys, vals), reps=5)
+    bound_ms, bound_by = _shuffle_bound_ms(S, n, SHUF_WIDTH, n_dev, cap)
+    zbound_ms, _ = _shuffle_bound_ms(S, n, SHUF_WIDTH, n_dev, n)
+    del sk, sv, sc
+    print(f"[{card}] K12 ms {k12_ms:.4f} plain_ms {plain_ms:.3f} bound_ms {bound_ms:.4f} "
+          f"({bound_by}); Zipf at capacity {n}: K12 ms {zk12_ms:.4f} bound_ms {zbound_ms:.4f}; "
+          f"all_to_all ms {a2a_ms:.4f}; shuffle_on_mesh ms {mesh_ms:.4f}")
+
+    # ProcessGroupShards on NCCL, a world of one, against LocalShards at one shard
+    import socket
+
+    import torch.distributed as dist
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    check(multihost.maybe_initialize(f"localhost:{port}", 0, 1, local_device_ids=[0]),
+          "maybe_initialize did not start a group")
+    try:
+        check(dist.get_backend() == "nccl" and not multihost.is_multihost(), "NCCL world of one")
+        mesh1 = ici.make_mesh_1d(1, devices=[dev])
+        got = ici.shuffle_on_mesh(mesh1, kp[0], vp[0], comm=comm.ProcessGroupShards(mesh1))
+        want = ici.shuffle_on_mesh(mesh1, kp[0], vp[0])
+        check(all(_same_bytes(x[0], y[0]) for x, y in zip(got, want)),
+              "ProcessGroupShards (NCCL, world 1) differs from LocalShards")
+        ring = ici.ring_exchange(mesh1, kp[0], comm=comm.ProcessGroupShards(mesh1))
+        check(_same_bytes(ring[0], kp[0]), "ring_exchange over a world of one moved data")
+    finally:
+        dist.destroy_process_group()
+    print(f"[{card}] maybe_initialize (NCCL, world 1) + ProcessGroupShards == LocalShards at one "
+          f"shard: shuffle_on_mesh, ring_exchange")
+    phase_s = time.perf_counter() - t_phase
+    print(f"[{card}] phase 8 shuffle s {phase_s:.1f}")
+    return {
+        "name": "shuffle_bucket",
+        "route": "cuda",
+        "source": "distributed_tpu_torch/ops/csrc/shuffle_bucket.cu",
+        "replaces": "distributed_tpu/ops/ici.py:57",
+        "launches": launches,
+        "max_abs_err": max(err, zerr),
+        "ms": k12_ms,
+        "plain_ms": plain_ms,
+        "bound_ms": bound_ms,
+        "bound_by": bound_by,
+        "library_ms": None,
+        "case": f"{S} x {n} rows, 20 B, capacity {cap}",
+        "zipf_full_capacity_ms": zk12_ms,
+        "zipf_full_capacity_bound_ms": zbound_ms,
+        "all_to_all_ms": a2a_ms,
+        "shuffle_on_mesh_ms": mesh_ms,
+        "device_run_exchange_ms": run_ms,
+        "ptxas": ptxas or {},
+        "phase_s": phase_s,
+    }
+
+
+def _plain_whole(flash, q, k, v, causal, scale, heads_at_once=2):
+    """The plain forward over the whole sequence and its u (P|V|)/l term,
+    a few heads at a time ([H, N, D])."""
+    qt, kt, vt = (x.transpose(0, 1).contiguous() for x in (q, k, v))
+    o, pv = [], []
+    u = flash.P_ROUNDOFF.get(q.dtype, 0.0)
+    for h in range(0, qt.shape[0], heads_at_once):
+        sl = slice(h, h + heads_at_once)
+        o_h, lse_h = flash.flash_forward_reference(qt[sl], kt[sl], vt[sl], causal, scale)
+        o.append(o_h)
+        pv.append(u * flash.pv_rounding_term(qt[sl], kt[sl], vt[sl], causal, scale, lse_h))
+        del lse_h
+    return torch.cat(o), torch.cat(pv)
+
+
+def _ring_missing_a_step(flash, ring_attention, q, k, v, n, causal, scale, step=1):
+    """A planted fault: the ring's fold of each shard's visible blocks
+    (flash_forward, then ``_merge``) with ring step ``step`` left out."""
+    qt, kt, vt = (ring_attention._heads_first(x.chunk(n)) for x in (q, k, v))
+    out = []
+    for d in range(n):
+        o = lse = None
+        for s in range(n):
+            owner = (d - s) % n
+            if s != step and ring_attention._visible(d, owner, causal):
+                o_b, lse_b = flash.flash_forward(qt[d], kt[owner], vt[owner],
+                                                 causal and owner == d, scale)
+                o, lse = ring_attention._merge(o, lse, o_b, lse_b)
+        out.append(o)
+    return out
+
+
+def _ulysses_plain(ulysses, flash, mesh, q, k, v, causal, scale):
+    """Ulysses with the local attention's plain version: the same two
+    all_to_alls around flash_forward_reference on each head group."""
+    from distributed_tpu_torch.ops import comm, ici
+
+    local = comm.LocalShards(mesh)
+    n = mesh.size
+    parts = [ulysses.seq_to_heads(local, ici.local_parts(mesh, local, x), n) for x in (q, k, v)]
+    outs = []
+    for qh, kh, vh in zip(*parts):
+        o, _ = flash.flash_forward_reference(*(x.transpose(0, 1).contiguous() for x in (qh, kh, vh)),
+                                             causal, scale)
+        outs.append(o.transpose(0, 1))
+    return ulysses.heads_to_seq(local, outs, n)
+
+
+def phase_long_context():
+    """Phase 8, long context: ring attention (K2 a block) and Ulysses (K2
+    on each head group) on 8 virtual shards."""
+    from distributed_tpu_torch.ops import flash, ici, ring_attention, ulysses
+
+    dev = torch.device("cuda", 0)
+    card = smi_line()
+    t_phase = time.perf_counter()
+    dtype = torch.bfloat16
+    q, k, v = _flash_inputs(LC_SEQ, LC_HEADS, LC_DIM, dtype, seed=12)
+    scale = 1.0 / LC_DIM ** 0.5
+    mesh = ici.make_mesh_1d(LC_SHARDS, axis="sp", devices=[dev] * LC_SHARDS)
+    cases = (("causal", True), ("full", False))
+    ring_out, uly_out = {}, {}
+    flash.flash_forward_cuda.launches = 0
+    for label, causal in cases:
+        ring_out[label] = ring_attention.ring_attention(mesh, q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    ring_launches = flash.flash_forward_cuda.launches
+    n = LC_SHARDS
+    check(ring_launches == n * (n + 1) // 2 + n * n, f"ring K2 launches {ring_launches}")
+    flash.flash_forward_cuda.launches = 0
+    for label, causal in cases:
+        uly_out[label] = ulysses.ulysses_attention(mesh, q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    uly_launches = flash.flash_forward_cuda.launches
+    check(uly_launches == 2 * n, f"Ulysses K2 launches {uly_launches}")
+
+    res = {}
+    qt, kt, vt = (x.transpose(0, 1).contiguous() for x in (q, k, v))
+    for label, causal in cases:
+        out = ring_out[label]
+        check(all(o.shape == (LC_SEQ // n, LC_HEADS, LC_DIM) and o.dtype == dtype
+                  and bool(torch.isfinite(o.float()).all()) for o in out), f"ring {label} output")
+        plain = ring_attention.ring_attention_reference(mesh, q, k, v, causal=causal)
+        terms = ring_attention.ring_rounding_terms(q, k, v, n, causal, scale)
+        excess = max(ring_attention.ring_excess(out[i], plain[i], terms[i]) for i in range(n))
+        err = max((out[i].float() - plain[i].float()).abs().max().item() for i in range(n))
+        bad = _ring_missing_a_step(flash, ring_attention, q, k, v, n, causal, scale)
+        fault = max(ring_attention.ring_excess(bad[i].to(dtype).transpose(0, 1), plain[i], terms[i])
+                    for i in range(n))
+        del bad, terms, plain
+        check(excess <= 0.0, f"ring {label}: beyond the bound by {excess} (max abs err {err})")
+        check(fault > 0.0, f"ring {label}: the bound passes a ring with one step left out")
+        uo = torch.cat(uly_out[label])
+        o_p, pv = _plain_whole(flash, q, k, v, causal, scale)
+        uexcess = flash.o_excess(uo.transpose(0, 1), o_p, pv)
+        uerr = (uo.transpose(0, 1).float() - o_p.float()).abs().max().item()
+        whole, _ = flash.flash_forward_cuda(qt, kt, vt, causal, scale)
+        same_as_k2 = torch.equal(uo.transpose(0, 1), whole)
+        del o_p, pv
+        check(uexcess <= 0.0, f"Ulysses {label}: beyond K2's contract by {uexcess}")
+        ring_ms = cuda_ms(lambda: ring_attention.ring_attention(mesh, q, k, v, causal=causal), reps=5)
+        ring_plain_ms = cuda_ms(lambda: ring_attention.ring_attention_reference(
+            mesh, q, k, v, causal=causal), reps=2, warmup=1)
+        uly_ms = cuda_ms(lambda: ulysses.ulysses_attention(mesh, q, k, v, causal=causal), reps=5)
+        uly_plain_ms = cuda_ms(lambda: _ulysses_plain(ulysses, flash, mesh, q, k, v, causal, scale),
+                               reps=2, warmup=1)
+        k2_ms = cuda_ms(lambda: flash.flash_forward_cuda(qt, kt, vt, causal, scale), reps=5)
+        lib_ms = cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+            qt[None], kt[None], vt[None], is_causal=causal, scale=scale), reps=5)
+        bound_ms, bound_by = _flash_bound_ms(LC_SEQ, LC_HEADS, LC_DIM, dtype, causal)
+        res[label] = dict(ring_ms=ring_ms, ring_plain_ms=ring_plain_ms, ring_err=err,
+                          ring_excess=excess, ring_fault_excess=fault, ulysses_ms=uly_ms,
+                          ulysses_err=uerr, ulysses_excess=uexcess, ulysses_equals_k2=same_as_k2,
+                          ulysses_plain_ms=uly_plain_ms, k2_whole_ms=k2_ms, library_ms=lib_ms, bound_ms=bound_ms,
+                          bound_by=bound_by)
+        print(f"[{card}] seq {LC_SEQ} ({n} shards) {LC_HEADS} heads dim {LC_DIM} bf16 {label}: "
+              f"ring ms {ring_ms:.3f} (plain ring {ring_plain_ms:.1f}; err {err:.3g}, excess "
+              f"{excess:.3g}, a step left out {fault:.3g}); Ulysses ms {uly_ms:.3f} (err {uerr:.3g}, "
+              f"excess {uexcess:.3g}, == K2 on the whole sequence: {same_as_k2}; plain "
+              f"{uly_plain_ms:.1f}); K2 whole "
+              f"sequence ms {k2_ms:.3f}; SDPA ms {lib_ms:.3f}; bound ms {bound_ms:.3f} ({bound_by})")
+        torch.cuda.empty_cache()
+    phase_s = time.perf_counter() - t_phase
+    print(f"[{card}] ring K2 launches {ring_launches}, Ulysses K2 launches {uly_launches}; "
+          f"phase 8 long context s {phase_s:.1f}")
+    c = res["causal"]
+
+    def entry(name, route_of, launches, ms_key, plain_key, err_key):
+        return {
+            "name": name,
+            "route": "torch",
+            "source": f"distributed_tpu_torch/ops/{name}.py",
+            "replaces": route_of,
+            "launches": launches,
+            "max_abs_err": max(r[err_key] for r in res.values()),
+            "ms": c[ms_key],
+            "plain_ms": c[plain_key],
+            "bound_ms": c["bound_ms"],
+            "bound_by": c["bound_by"],
+            "library_ms": c["library_ms"],
+            "case": f"seq {LC_SEQ}, {n} shards, {LC_HEADS} heads, dim {LC_DIM}, bf16, causal",
+            "cases": res,
+            "phase_s": phase_s,
+        }
+
+    return [entry("ring_attention", "distributed_tpu/ops/ring_attention.py:65", ring_launches,
+                  "ring_ms", "ring_plain_ms", "ring_err"),
+            entry("ulysses", "distributed_tpu/ops/ulysses.py:184", uly_launches,
+                  "ulysses_ms", "ulysses_plain_ms", "ulysses_err")]
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1996,7 +2424,10 @@ def main() -> int:
     for e in periodic_entries:
         if e["name"] == "mirror_view":
             e.update(mirror_sharded)
-    kernels = [flash_entry, bwd_entry, wave_entry, partition_entry, *periodic_entries, shard_entry]
+    shuffle_entry = phase_data_plane(periodic_ptxas_info.get("shuffle_bucket.cu"))
+    long_context = phase_long_context()
+    kernels = [flash_entry, bwd_entry, wave_entry, partition_entry, *periodic_entries, shard_entry,
+               shuffle_entry, *long_context]
     print(f"total_s {time.perf_counter() - t0:.1f}")
     print(smi_line())
     print(json.dumps({"kernels": kernels}))

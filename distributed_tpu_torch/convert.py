@@ -2,12 +2,16 @@
 
 Both packages keep their placement inputs as numpy arrays, so a
 conversion is a check of names, dtypes and shapes; with it the two
-engines see bit-identical input in the parity tests.
+engines see bit-identical input in the parity tests.  The data plane's
+arrays are global in the reference (sharded over a mesh axis) and lists
+of per-shard tensors in the port: :func:`shards_from_numpy` and
+:func:`numpy_from_shards` go from one to the other.
 """
 
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 from distributed_tpu_torch.ops.leveled import PackedGraph
 
@@ -47,3 +51,18 @@ def fleet_from_numpy(nthreads, occupancy0, running):
     if not (nthreads.shape == occupancy0.shape == running.shape) or nthreads.ndim != 1:
         raise ValueError("fleet arrays must be 1-D and of one length")
     return nthreads, occupancy0, running
+
+
+def shards_from_numpy(arr, n_shards: int) -> list[torch.Tensor]:
+    """A global array split evenly along its first axis into ``n_shards``
+    CPU tensors (copies)."""
+    arr = np.ascontiguousarray(arr)
+    if arr.shape[0] % n_shards:
+        raise ValueError(f"a first axis of {arr.shape[0]} does not split over {n_shards} shards")
+    return [torch.from_numpy(c.copy()) for c in np.split(arr, n_shards)]
+
+
+def numpy_from_shards(parts) -> np.ndarray:
+    """The shards joined along their first axis, as the reference's global
+    array of the same data reads (``np.asarray`` of it)."""
+    return np.concatenate([p.detach().cpu().numpy() for p in parts])

@@ -89,6 +89,12 @@ SIGNATURES = {
         _i, _i, _i, _i,                 # R W K blocks
         _vp,                            # stream
     ),
+    "dtpu_shuffle_bucket": (
+        _vp, _vp, _vp, _vp, _vp,        # key, value, valid, send_k, send_v pointer tables
+        _vp, _vp,                       # sent [S, n_dev] hist (scratch [S, tiles, n_dev])
+        _i, _i, _i, _i, _i, _i,         # S n n_dev cap row_bytes vec
+        _vp,                            # stream
+    ),
     "dtpu_flash_fwd": (
         _vp, _vp, _vp, _vp, _vp,        # q k v o lse
         _i, _i, _i, _i, _i, _i,         # H N Nk D dtype causal

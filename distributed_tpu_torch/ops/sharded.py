@@ -44,13 +44,13 @@ from __future__ import annotations
 
 import ctypes
 import time
-import warnings
 from typing import NamedTuple
 
 import numpy as np
 import torch
 
 from distributed_tpu_torch.ops import _build
+from distributed_tpu_torch.ops.comm import LocalShards, ProcessGroupShards  # noqa: F401
 from distributed_tpu_torch.ops.leveled import (
     MAX_WORKERS_CUDA,
     SMALL_WAVE,
@@ -92,71 +92,7 @@ def _plan_runs_sharded(offsets: np.ndarray, n_shards: int):
 
 # ----------------------------------------------------------- collectives
 
-
-class LocalShards:
-    """Every shard of ``mesh`` in this process (``local`` = all of them, in
-    shard order).  The collectives are plain tensor ops in shard order."""
-
-    def __init__(self, mesh: EngineMesh):
-        self.mesh = mesh
-        self.n_shards = mesh.size
-        self.local = list(range(mesh.size))
-
-    def psum(self, parts: list[torch.Tensor]) -> torch.Tensor:
-        """The elementwise sum of the shards' partials, added in shard
-        order on the first shard's device."""
-        acc = parts[0]
-        for p in parts[1:]:
-            acc = acc + p.to(acc.device)
-        return acc
-
-    def all_gather(self, parts: list[torch.Tensor]) -> torch.Tensor:
-        """The shards' slices concatenated in shard order."""
-        dev = parts[0].device
-        return torch.cat([p.to(dev) for p in parts])
-
-    def gather_workers(self, blocks: list[torch.Tensor]) -> torch.Tensor:
-        """The ``workers``-axis blocks of a fleet field, joined in order."""
-        return self.all_gather(blocks)
-
-
-class ProcessGroupShards:
-    """One shard a rank: rank ``r`` of ``group`` (the default group when
-    None) holds shard ``r`` of ``mesh``, whose size must be the world's.
-    Its device is the mesh's entry for that shard."""
-
-    def __init__(self, mesh: EngineMesh, group=None):
-        import torch.distributed as dist
-
-        self.dist = dist
-        self.group = group
-        self.mesh = mesh
-        self.n_shards = mesh.size
-        world = dist.get_world_size(group)
-        if world != mesh.size:
-            raise ValueError(f"a {mesh.dt}x{mesh.dw} mesh needs {mesh.size} ranks, the group has {world}")
-        self.local = [dist.get_rank(group)]
-
-    def psum(self, parts: list[torch.Tensor]) -> torch.Tensor:
-        out = parts[0].clone()
-        self.dist.all_reduce(out, group=self.group)
-        return out
-
-    def all_gather(self, parts: list[torch.Tensor]) -> torch.Tensor:
-        p = parts[0].contiguous()
-        out = torch.empty(self.n_shards * p.numel(), dtype=p.dtype, device=p.device)
-        with warnings.catch_warnings():
-            # newer torch names it all_gather_single; the card's torch has only this
-            warnings.simplefilter("ignore", FutureWarning)
-            self.dist.all_gather_into_tensor(out, p, group=self.group)
-        return out
-
-    def gather_workers(self, blocks: list[torch.Tensor]) -> torch.Tensor:
-        """This rank's block gathered over the whole group, then the blocks
-        of the first ``tasks`` row (every row holds the same blocks)."""
-        mine = blocks[self.mesh.workers_index(self.local[0])]
-        full = self.all_gather([mine]).view(self.mesh.dt, -1)
-        return full[0].contiguous()
+# LocalShards and ProcessGroupShards live in ops/comm.py (imported above)
 
 
 # ------------------------------------------------------------ shard state

@@ -40,6 +40,11 @@ from distributed_tpu_torch.scheduler.periodic import install_periodic
 from conftest import gen_test
 from test_mirror import _state
 
+# the suite runs as 6 pytest-xdist workers on 8 cores: torch on 2 threads a worker
+# keeps the JAX package's timing tests on time (one whole-suite run: without the cap
+# test_worker_ttl_evicts_silent_worker_and_recomputes failed, with it it passed)
+torch.set_num_threads(2)
+
 
 def _reference_family(seed, R=60, W=12):
     """tests/test_ops_stealing_amm.py's over-replicated state."""

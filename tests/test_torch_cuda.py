@@ -19,7 +19,22 @@ import torch
 import test_torch_periodic_cases as cases
 
 from distributed_tpu_torch import graphs
-from distributed_tpu_torch.ops import amm, flash, leveled, partition, sharded, stealing
+from distributed_tpu_torch.ops import (
+    amm,
+    flash,
+    ici,
+    leveled,
+    partition,
+    ring_attention,
+    sharded,
+    stealing,
+    ulysses,
+)
+
+# the suite runs as 6 pytest-xdist workers on 8 cores: torch on 2 threads a worker
+# keeps the JAX package's timing tests on time (one whole-suite run: without the cap
+# test_worker_ttl_evicts_silent_worker_and_recomputes failed, with it it passed)
+torch.set_num_threads(2)
 
 pytestmark = pytest.mark.cuda
 
@@ -768,3 +783,173 @@ def test_mirror_device_view_row_uploads(cuda):
         full = n_dirty in (None, "grow")
         assert after["full_uploads"] - before["full_uploads"] == full
         assert after["rows_uploaded"] - before["rows_uploaded"] == (0 if full else n_dirty)
+
+
+# ------------------------------------------------ the shuffle's bucket pass
+
+
+def _bucket_inputs(cuda, S, n, row, masked, seed, one_dest=False, all_masked=False):
+    """S shards of n rows: int32 keys, ``row`` = (shape, dtype) values."""
+    shape, dtype = row
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    keys = torch.randint(-(2 ** 31), 2 ** 31 - 1, (S, n), generator=g, dtype=torch.int64)
+    keys = keys.to(torch.int32)
+    if one_dest:
+        keys[-1] = 7  # the last shard sends every row to one destination
+    vals = (torch.randn((S, n, *shape), generator=g) * 100).to(dtype)
+    valid = None
+    if masked or all_masked:
+        valid = torch.rand((S, n), generator=g) < 0.7
+        if all_masked:
+            valid[0] = False
+    put = [x.to(cuda) for x in (keys, vals)]
+    return (list(put[0].unbind(0)), list(put[1].unbind(0)),
+            None if valid is None else list(valid.to(cuda).unbind(0)))
+
+
+ROWS = {"4B": ((1,), torch.float32), "8B": ((4,), torch.float16), "20B": ((5,), torch.float32),
+        "16B": ((4,), torch.int32)}
+
+
+@pytest.mark.parametrize("S", [1, 3, 8])
+@pytest.mark.parametrize("row", sorted(ROWS))
+@pytest.mark.parametrize("case", ["plain", "masked", "one_dest", "all_masked", "truncated"])
+def test_shuffle_bucket_kernel_matches_plain(cuda, S, row, case):
+    """K12 equals shuffle_bucket_reference bit for bit (keys, value bytes,
+    sent, the zero padding), and repeats itself."""
+    n, n_dev = 10_000 + S, 8
+    keys, vals, valid = _bucket_inputs(cuda, S, n, ROWS[row], case == "masked", S * 31 + n,
+                                       one_dest=case == "one_dest",
+                                       all_masked=case == "all_masked")
+    cap = 200 if case == "truncated" else ici.default_capacity(n, n_dev)
+    before = ici.shuffle_bucket_cuda.launches
+    got = ici.shuffle_bucket(keys, vals, valid, n_dev, cap)
+    again = ici.shuffle_bucket_cuda(keys, vals, valid, n_dev, cap)
+    torch.cuda.synchronize()
+    assert ici.shuffle_bucket_cuda.launches == before + 8
+    for s in range(S):
+        want = ici.shuffle_bucket_reference(keys[s], vals[s], None if valid is None else valid[s],
+                                            n_dev, cap)
+        for w, g1, g2 in zip(want, (got[0][s], got[1][s], got[2][s]),
+                             (again[0][s], again[1][s], again[2][s])):
+            assert w.dtype == g1.dtype and w.shape == g1.shape
+            wb = w.contiguous().view(torch.uint8)
+            assert torch.equal(wb, g1.contiguous().view(torch.uint8))
+            assert torch.equal(wb, g2.contiguous().view(torch.uint8))
+    if case == "all_masked":
+        assert int(got[2][0].sum()) == 0 and not got[0][0].any()
+
+
+@pytest.mark.parametrize("n_dev", [1, 3, 1024])
+def test_shuffle_bucket_kernel_destination_counts(cuda, n_dev):
+    keys, vals, valid = _bucket_inputs(cuda, 2, 5000, ROWS["4B"], True, n_dev)
+    got = ici.shuffle_bucket_cuda(keys, vals, valid, n_dev, 64)
+    for s in range(2):
+        want = ici.shuffle_bucket_reference(keys[s], vals[s], valid[s], n_dev, 64)
+        assert all(torch.equal(a.view(torch.uint8), b.view(torch.uint8))
+                   for a, b in zip(want, (got[0][s], got[1][s], got[2][s])))
+
+
+def test_shuffle_on_mesh_on_the_card(cuda):
+    """8 virtual shards on one card through LocalShards: equal to the CPU run."""
+    rng = np.random.default_rng(0)
+    keys = rng.integers(0, 1 << 30, 8 * 4096).astype(np.int32)
+    vals = rng.random((8 * 4096, 4)).astype(np.float32)
+    valid = rng.random(8 * 4096) < 0.9
+    card = ici.shuffle_on_mesh(ici.make_mesh_1d(8, devices=[cuda] * 8), keys, vals, valid=valid)
+    host = ici.shuffle_on_mesh(ici.make_mesh_1d(8, devices=["cpu"] * 8), keys, vals, valid=valid)
+    for a, b in zip(card, host):
+        for x, y in zip(a, b):
+            assert x.device.type == "cuda"
+            assert torch.equal(x.cpu().view(torch.uint8), y.view(torch.uint8))
+
+
+def test_shuffle_bucket_refuses_bad_shapes(cuda):
+    keys, vals, _ = _bucket_inputs(cuda, 1, 100, ROWS["4B"], False, 0)
+    with pytest.raises(ValueError, match="destinations"):
+        ici.shuffle_bucket_cuda(keys, vals, None, ici.MAX_DESTS_CUDA + 1, 16)
+    with pytest.raises(ValueError, match="int32"):
+        ici.shuffle_bucket_cuda([k.long() for k in keys], vals, None, 8, 16)
+
+
+# --------------------------------------------------------- long context
+
+
+def _ring_missing_a_step(q, k, v, n, causal, scale, step=1):
+    """A planted fault: the ring's fold of each shard's visible blocks
+    (flash_forward, then ``_merge``) with ring step ``step`` left out."""
+    qt, kt, vt = (ring_attention._heads_first(x.chunk(n)) for x in (q, k, v))
+    out = []
+    for d in range(n):
+        o = lse = None
+        for s in range(n):
+            owner = (d - s) % n
+            if s != step and ring_attention._visible(d, owner, causal):
+                o_b, lse_b = flash.flash_forward(qt[d], kt[owner], vt[owner],
+                                                 causal and owner == d, scale)
+                o, lse = ring_attention._merge(o, lse, o_b, lse_b)
+        out.append(o)
+    return out
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=str)
+def test_ring_attention_on_the_card(cuda, causal, dtype):
+    """The ring with K2 a block against the plain ring, within
+    ring_attention.ring_excess; one step left out fails it."""
+    g = torch.Generator(device=cuda).manual_seed(3)
+    q, k, v = (torch.randn(8 * 256, 4, 64, generator=g, device=cuda).to(dtype) for _ in range(3))
+    mesh = ici.make_mesh_1d(8, axis="sp", devices=[cuda] * 8)
+    before = flash.flash_forward_cuda.launches
+    out = ring_attention.ring_attention(mesh, q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert flash.flash_forward_cuda.launches - before == (36 if causal else 64)
+    plain = ring_attention.ring_attention_reference(mesh, q, k, v, causal=causal)
+    terms = ring_attention.ring_rounding_terms(q, k, v, 8, causal, 64 ** -0.5)
+    assert max(ring_attention.ring_excess(out[i], plain[i], terms[i]) for i in range(8)) <= 0.0
+    bad = _ring_missing_a_step(q, k, v, 8, causal, 64 ** -0.5)
+    fault = [ring_attention.ring_excess(bad[i].to(dtype).transpose(0, 1), plain[i], terms[i])
+             for i in range(8)]
+    assert max(fault) > 0.0
+
+
+def test_ulysses_on_the_card_equals_k2_on_the_whole_sequence(cuda):
+    g = torch.Generator(device=cuda).manual_seed(4)
+    q, k, v = (torch.randn(8 * 256, 16, 128, generator=g, device=cuda).to(torch.bfloat16)
+               for _ in range(3))
+    mesh = ici.make_mesh_1d(8, axis="sp", devices=[cuda] * 8)
+    out = torch.cat(ulysses.ulysses_attention(mesh, q, k, v, causal=True))
+    whole = flash.flash_attention(q, k, v, causal=True)
+    qt, kt, vt = (x.transpose(0, 1).contiguous() for x in (q, k, v))
+    o_p, lse_p = flash.flash_forward_reference(qt, kt, vt, True, 128 ** -0.5)
+    pv = flash.P_ROUNDOFF[torch.bfloat16] * flash.pv_rounding_term(qt, kt, vt, True,
+                                                                   128 ** -0.5, lse_p)
+    assert flash.o_excess(out.transpose(0, 1), o_p, pv) <= 0.0
+    assert flash.o_excess(whole.transpose(0, 1), o_p, pv) <= 0.0
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_ulysses_on_the_card_runs_k2_at_a_ragged_length(cuda, causal):
+    """8 x 1000 rows: the gathered 8,000 do not divide by 128, and each
+    head group still goes through K2 (one launch a shard), within K2's
+    contract against the plain forward on the whole sequence."""
+    g = torch.Generator(device=cuda).manual_seed(5)
+    q, k, v = (torch.randn(8 * 1000, 8, 64, generator=g, device=cuda).to(torch.bfloat16)
+               for _ in range(3))
+    mesh = ici.make_mesh_1d(8, axis="sp", devices=[cuda] * 8)
+    before = flash.flash_forward_cuda.launches
+    out = torch.cat(ulysses.ulysses_attention(mesh, q, k, v, causal=causal))
+    torch.cuda.synchronize()
+    assert flash.flash_forward_cuda.launches - before == 8
+    qt, kt, vt = (x.transpose(0, 1).contiguous() for x in (q, k, v))
+    o_p, lse_p = flash.flash_forward_reference(qt, kt, vt, causal, 64 ** -0.5)
+    pv = flash.P_ROUNDOFF[torch.bfloat16] * flash.pv_rounding_term(qt, kt, vt, causal,
+                                                                   64 ** -0.5, lse_p)
+    assert flash.o_excess(out.transpose(0, 1), o_p, pv) <= 0.0
+
+
+def test_ulysses_refuses_a_head_dim_k2_cannot_take(cuda):
+    q = torch.zeros(8 * 128, 8, 32, device=cuda)
+    mesh = ici.make_mesh_1d(8, axis="sp", devices=[cuda] * 8)
+    with pytest.raises(ValueError, match="head dim"):
+        ulysses.ulysses_attention(mesh, q, q, q)

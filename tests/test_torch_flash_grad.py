@@ -24,6 +24,11 @@ from distributed_tpu.ops import flash as jf
 from distributed_tpu.ops.ring_attention import reference_attention as jref
 from distributed_tpu_torch.ops import flash as tf
 
+# the suite runs as 6 pytest-xdist workers on 8 cores: torch on 2 threads a worker
+# keeps the JAX package's timing tests on time (one whole-suite run: without the cap
+# test_worker_ttl_evicts_silent_worker_and_recomputes failed, with it it passed)
+torch.set_num_threads(2)
+
 TOL = dict(rtol=2e-5, atol=2e-5)
 
 

@@ -18,6 +18,11 @@ from distributed_tpu_torch import graphs
 from distributed_tpu_torch.convert import fleet_from_numpy, packed_from_numpy
 from distributed_tpu_torch.ops import leveled as tl
 
+# the suite runs as 6 pytest-xdist workers on 8 cores: torch on 2 threads a worker
+# keeps the JAX package's timing tests on time (one whole-suite run: without the cap
+# test_worker_ttl_evicts_silent_worker_and_recomputes failed, with it it passed)
+torch.set_num_threads(2)
+
 BW = 100e6
 
 

@@ -29,6 +29,11 @@ from distributed_tpu_torch.scheduler.mirror import MirrorParityError, TorchMirro
 
 from test_mirror import _flip_status, _state, _submit
 
+# the suite runs as 6 pytest-xdist workers on 8 cores: torch on 2 threads a worker
+# keeps the JAX package's timing tests on time (one whole-suite run: without the cap
+# test_worker_ttl_evicts_silent_worker_and_recomputes failed, with it it passed)
+torch.set_num_threads(2)
+
 
 def _trace_step(state, rng, step, graph_n):
     """One step of tests/test_mirror.py's random trace; returns graph_n."""

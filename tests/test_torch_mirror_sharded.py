@@ -32,6 +32,11 @@ from distributed_tpu_torch.scheduler.torch_placement import TorchPlacement
 
 from test_leveled import BW, random_dag
 
+# the suite runs as 6 pytest-xdist workers on 8 cores: torch on 2 threads a worker
+# keeps the JAX package's timing tests on time (one whole-suite run: without the cap
+# test_worker_ttl_evicts_silent_worker_and_recomputes failed, with it it passed)
+torch.set_num_threads(2)
+
 FIELD_BYTES = sum(np.dtype(d).itemsize for d in (np.int32, np.float32, np.bool_))  # 9 a row
 
 

@@ -29,6 +29,11 @@ from distributed_tpu_torch.ops import leveled as tl
 from test_leveled import BW, random_dag
 from test_torch_leveled import PACK_GRAPHS
 
+# the suite runs as 6 pytest-xdist workers on 8 cores: torch on 2 threads a worker
+# keeps the JAX package's timing tests on time (one whole-suite run: without the cap
+# test_worker_ttl_evicts_silent_worker_and_recomputes failed, with it it passed)
+torch.set_num_threads(2)
+
 ROOT = Path(__file__).resolve().parents[1]
 PACK_FIELDS = ("perm", "level", "offsets", "duration_s", "heavy_s", "heavy2_s",
                "xfer_pref_s", "xfer_pref2_s", "xfer_all_s")

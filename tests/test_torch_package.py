@@ -22,16 +22,25 @@ from distributed_tpu_torch.ops import (
     _build,
     amm,
     flash,
+    ici,
     leveled,
     partition,
     rebalance,
+    ring_attention,
     sharded,
     stealing,
+    ulysses,
 )
 from distributed_tpu_torch.scheduler import plan
 from distributed_tpu_torch.scheduler.mirror import TorchMirror
 from distributed_tpu_torch.scheduler.periodic import install_periodic
 from distributed_tpu_torch.scheduler.torch_placement import TorchPlacement
+from distributed_tpu_torch.shuffle import device as device_shuffle
+
+# the suite runs as 6 pytest-xdist workers on 8 cores: torch on 2 threads a worker
+# keeps the JAX package's timing tests on time (one whole-suite run: without the cap
+# test_worker_ttl_evicts_silent_worker_and_recomputes failed, with it it passed)
+torch.set_num_threads(2)
 
 ROOT = Path(__file__).resolve().parents[1]
 PKG = ROOT / "distributed_tpu_torch"
@@ -102,6 +111,7 @@ def _entry_calls():
     fleet = (np.full(2, 1, np.int32), np.zeros(2, np.float32), np.ones(2, bool))
     q = np.zeros((8, 1, 64), np.float32)
     graph = graphs.random_dag(20, seed=0)
+    keys = np.arange(16, dtype=np.int32)
     return {
         "place_graph_leveled": lambda: leveled.place_graph_leveled(packed, *fleet),
         "place_graph_streamed": lambda: leveled.place_graph_streamed(
@@ -133,7 +143,29 @@ def _entry_calls():
             cases.StandInState(), device="cpu").sharded_device_view(partition.make_engine_mesh()),
         "TorchPlacement(mesh)": lambda: TorchPlacement(mesh_enabled=True, mesh_layout="1x1"),
         "make_engine_mesh(cuda list)": lambda: partition.make_engine_mesh(devices=["cuda:0"]),
+        "make_mesh_1d": lambda: ici.make_mesh_1d(),
+        "make_mesh_1d(cuda list)": lambda: ici.make_mesh_1d(devices=["cuda:0"] * 2),
+        "shuffle_on_mesh": lambda: ici.shuffle_on_mesh(ici.make_mesh_1d(), keys, keys[:, None]),
+        "ring_exchange": lambda: ici.ring_exchange(ici.make_mesh_1d(), keys),
+        "ring_attention": lambda: ring_attention.ring_attention(
+            ici.make_mesh_1d(axis="sp"), q, q, q),
+        "ulysses_attention": lambda: ulysses.ulysses_attention(
+            ici.make_mesh_1d(axis="sp"), q, q, q),
+        "DeviceRun.exchange": lambda: _device_run(keys).exchange(),
+        "DeviceShuffleStore run": lambda: _store_run(keys).exchange(),
     }
+
+
+def _device_run(keys):
+    run = device_shuffle.DeviceRun("s", 1, 1, 1)
+    run.register(0, keys, keys[:, None])
+    return run
+
+
+def _store_run(keys):
+    run = device_shuffle.DeviceShuffleStore().get_or_create("s", 1, 1, 1)
+    run.register(0, keys, keys[:, None])
+    return run
 
 
 @pytest.mark.parametrize("entry", sorted(_entry_calls()))
@@ -195,6 +227,9 @@ def test_wrappers_raise_off_cpu_without_cuda():
     drop = cases.drop_round(np.random.default_rng(0), 10, 4, max_holders=4)
     with pytest.raises(RuntimeError, match="CUDA"):
         amm.drop_rounds(*(torch.as_tensor(np.asarray(a)).to("meta") for a in drop), 4)
+    keys = [torch.zeros(64, dtype=torch.int32, device="meta")]
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ici.shuffle_bucket(keys, [torch.zeros(64, 4, device="meta")], None, 8, 16)
 
 
 def test_library_path_keys_on_sources():
@@ -203,7 +238,7 @@ def test_library_path_keys_on_sources():
     assert path.name.startswith("libdtpu_kernels-") and path.suffix == ".so"
     assert {p.name for p in _build.CSRC.glob("*.cu")} == {
         "amm_drop.cu", "flash_bwd.cu", "flash_fwd.cu", "partition.cu", "place_shard.cu",
-        "place_wave.cu", "steal.cu"}
+        "place_wave.cu", "shuffle_bucket.cu", "steal.cu"}
     assert {p.name for p in _build.CSRC.glob("*.cuh")} == {"hopper.cuh"}
 
 

@@ -25,6 +25,11 @@ from distributed_tpu_torch.ops import partition as tp
 
 from test_leveled import random_dag
 
+# the suite runs as 6 pytest-xdist workers on 8 cores: torch on 2 threads a worker
+# keeps the JAX package's timing tests on time (one whole-suite run: without the cap
+# test_worker_ttl_evicts_silent_worker_and_recomputes failed, with it it passed)
+torch.set_num_threads(2)
+
 # the kernel's constants (csrc/partition.cu)
 THREADS, WARPS = 256, 8
 BUCKET_LANES, CHAIN_BLOCK = 64, 512

@@ -35,6 +35,12 @@ from distributed_tpu_torch.scheduler.torch_placement import TorchPlacement
 
 from conftest import gen_test
 from test_leveled import random_dag
+import torch
+
+# the suite runs as 6 pytest-xdist workers on 8 cores: torch on 2 threads a worker
+# keeps the JAX package's timing tests on time (one whole-suite run: without the cap
+# test_worker_ttl_evicts_silent_worker_and_recomputes failed, with it it passed)
+torch.set_num_threads(2)
 
 
 def _fleet(W, seed):

@@ -36,6 +36,11 @@ from distributed_tpu_torch.scheduler.rebalance import RebalancePath, install_reb
 import test_torch_periodic_cases as pc
 from test_ops_stealing_amm import _rebalance_setup
 
+# the suite runs as 6 pytest-xdist workers on 8 cores: torch on 2 threads a worker
+# keeps the JAX package's timing tests on time (one whole-suite run: without the cap
+# test_worker_ttl_evicts_silent_worker_and_recomputes failed, with it it passed)
+torch.set_num_threads(2)
+
 
 def _cases():
     out = [(f"reference{s}", port.RebalanceBatch(*_rebalance_setup(s))) for s in range(4)]

@@ -38,6 +38,12 @@ from distributed_tpu_torch.ops import leveled, sharded
 from distributed_tpu_torch.ops.partition import EngineMesh, make_engine_mesh, shard_bucket
 
 from test_leveled import BW, random_dag, workers
+import torch
+
+# the suite runs as 6 pytest-xdist workers on 8 cores: torch on 2 threads a worker
+# keeps the JAX package's timing tests on time (one whole-suite run: without the cap
+# test_worker_ttl_evicts_silent_worker_and_recomputes failed, with it it passed)
+torch.set_num_threads(2)
 
 ROOT = Path(__file__).resolve().parents[1]
 MESH_LAYOUTS = ["1x1", "2x1", "4x2", "8x1"]

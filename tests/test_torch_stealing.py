@@ -46,6 +46,11 @@ from conftest import gen_test
 from test_mirror import _flip_status, _steal_state
 from test_ops_stealing_amm import _slow, random_steal_batch
 
+# the suite runs as 6 pytest-xdist workers on 8 cores: torch on 2 threads a worker
+# keeps the JAX package's timing tests on time (one whole-suite run: without the cap
+# test_worker_ttl_evicts_silent_worker_and_recomputes failed, with it it passed)
+torch.set_num_threads(2)
+
 
 def _padded(batch):
     """The reference's plan_steals padding, as numpy arrays."""

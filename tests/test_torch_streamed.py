@@ -32,6 +32,12 @@ from distributed_tpu_torch.scheduler import plan
 
 from test_leveled import BW, random_dag, workers
 from test_torch_native import table_gap_ulps
+import torch
+
+# the suite runs as 6 pytest-xdist workers on 8 cores: torch on 2 threads a worker
+# keeps the JAX package's timing tests on time (one whole-suite run: without the cap
+# test_worker_ttl_evicts_silent_worker_and_recomputes failed, with it it passed)
+torch.set_num_threads(2)
 
 FIELDS = ("assignment", "choice", "occupancy", "start_time")
 
