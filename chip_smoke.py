@@ -82,24 +82,29 @@ and prints no result):
    and their split by phase from the kernel's own timeline), and no path
    may count a failure.  Its inputs and replays come from
    ``tests/test_torch_periodic_cases.py``;
-7. the sharded placement engine (kernel K10, ``csrc/place_shard.cu``,
-   two launches a wave) with every shard on the one card
-   (``LocalShards``): phase 3's 1M-task DAG on its two fleets at layouts
-   1x1, 2x1, 4x2 and 8x1 through ``place_graph_leveled_sharded``; each
-   equal bit for bit to the plain shard body on the CPU and repeatable,
-   1x1 equal to phase 3's one-shot K1 result, every layout within
-   ``tests/test_sharded_engine.py``'s gate against it; K10's time (the
-   waves, events), the plain body's on the card, the bound, per-shard
-   upload bytes and the walls beside ``place_graph_leveled``'s; then the
-   mirror's workers-axis view (K11) on 512 workers and on 1,000 in a
-   capacity of 1,024 at dw = 1 and 2 (rows equal the host's, a fresh
-   cycle uploads nothing, the engine fed by it places as fed by the host
-   arrays, a 37-row view timed), ``ProcessGroupShards`` on NCCL with a
-   world of one (equal to ``LocalShards`` 1x1), and ``TorchPlacement``
-   with an explicit 4x2 layout of virtual shards on the 1M uniform batch
-   (hints equal a direct ``place_graph_streamed(mesh=...)``, 8 engine
-   shard rows, no failure).  Phase 1 also reports K10's registers and
-   spills and fails if one spills;
+7. the sharded placement engine (kernel K10, ``csrc/place_shard.cu``)
+   with every shard on the one card (``LocalShards``, so K10's run mode:
+   one cooperative launch a fused run, the psums in shard order, the
+   load, the span and the slice writes inside it): phase 3's 1M-task DAG
+   on its two fleets at layouts 1x1, 2x1, 4x2 and 8x1 through
+   ``place_graph_leveled_sharded``, one run-mode launch a fused run and
+   no step-mode launch on that path; each equal bit for bit to the plain
+   shard body on the CPU and repeatable, 1x1 equal to phase 3's one-shot
+   K1 result, every layout within ``tests/test_sharded_engine.py``'s gate
+   against it; K10's time (the waves, events) in run mode and in step
+   mode (the two-launch loop through the explicit pair, whose carry must
+   equal the run mode's), the run mode's device idle share, the plain
+   body's time on the card, the bound, per-shard upload bytes and the
+   walls beside ``place_graph_leveled``'s; then the mirror's workers-axis
+   view (K11) on 512 workers and on 1,000 in a capacity of 1,024 at dw =
+   1 and 2 (rows equal the host's, a fresh cycle uploads nothing, the
+   engine fed by it places as fed by the host arrays, a 37-row view
+   timed), ``ProcessGroupShards`` on NCCL with a world of one (equal to
+   ``LocalShards`` 1x1, in step mode), and ``TorchPlacement`` with an
+   explicit 4x2 layout of virtual shards on the 1M uniform batch (hints
+   equal a direct ``place_graph_streamed(mesh=...)``, 8 engine shard rows,
+   run mode, no failure).  Phase 1 also reports the registers and spills
+   of K10's six instantiations and fails if one spills;
 8. the device data plane and long context, 8 virtual shards on the card
    (``LocalShards``).  The shuffle (kernel K12, ``csrc/shuffle_bucket.cu``):
    8 x 8,388,608 rows (int32 keys uniform in [0, 2^30), [4] f32 values,
@@ -283,11 +288,15 @@ def periodic_ptxas(log):
 
 
 def shard_ptxas(log):
-    """_ptxas of K10's four instantiations, labelled with their template
-    arguments (uniform fleet, contention launch)."""
+    """_ptxas of K10's six instantiations, labelled with their template
+    arguments: the step mode's (uniform fleet, contention launch) and the
+    run mode's (uniform fleet)."""
     def label(mangled):
         m = re.search(r"place_shard_kernelILb(\d)ELb(\d)E", mangled)
-        return m and f"place_shard_kernel<uniform={m[1]},contend={m[2]}>"
+        if m:
+            return f"place_shard_kernel<uniform={m[1]},contend={m[2]}>"
+        m = re.search(r"place_shard_run_kernelILb(\d)E", mangled)
+        return m and f"place_shard_run_kernel<uniform={m[1]}>"
 
     return _ptxas(log.split("== place_shard.cu", 1)[1].split("\n== ", 1)[0], label)
 
@@ -1755,9 +1764,10 @@ def _shard_bound_ms(packed, W, D):
 
 
 def _timed_waves(sharded, mesh, packed, fleet, body=None):
-    """A ShardedRun with every fused run's tiles shipped up front, and a
+    """A ShardedRun with every fused run's tiles shipped up front, a
     function that runs all its waves from a reset carry (no upload, no
-    download): what the waves cost on the card, launches and collectives."""
+    download): what the waves cost on the card, launches and collectives,
+    and the shipped plan ``[(Fl, waves, each group's tiles)]``."""
     runs = sharded._plan_runs_sharded(packed.offsets, mesh.size)
     Tp = sharded.sharded_pad(packed.n, runs, packed.offsets, mesh.size)
     host = tuple(np.zeros(Tp, d) for _, d in sharded.TASK_FIELDS)
@@ -1766,37 +1776,40 @@ def _timed_waves(sharded, mesh, packed, fleet, body=None):
         buf[: packed.n] = arr
     Lp = sharded._bucket(packed.n_levels + 1, floor=64)
     run = sharded.ShardedRun(mesh, packed, Tp, Lp, *fleet, body=body)
-    tiles = []
+    plan = []
     for Fl, waves in runs:
         run._ship(host, Fl, waves)
-        tiles.append([dict(g.tiles) for g in run.groups])
+        plan.append((Fl, waves, [dict(g.tiles) for g in run.groups]))
 
     def waves():
         run.reset()
-        for (Fl, ws), per_group in zip(runs, tiles):
-            for g, t in zip(run.groups, per_group):
+        for Fl, ws, tiles in plan:
+            for g, t in zip(run.groups, tiles):
                 g.tiles = t
             run.run_waves(Fl, ws)
 
-    return run, waves
+    return run, waves, plan
 
 
 def phase_sharded(oneshot, ptxas=None):
     """Phase 7: the sharded placement engine at full width, every shard on
     the one card (``LocalShards``): the 1M-task DAG on phase 3's fleets at
     1x1, 2x1, 4x2 and 8x1 through ``place_graph_leveled_sharded`` (kernel
-    K10, two launches a wave).  Each layout equals the plain shard body on
-    the CPU bit for bit and meets tests/test_sharded_engine.py's gate
+    K10 in run mode, one launch a fused run).  Each layout equals the
+    plain shard body on the CPU bit for bit and the step mode (two launches
+    a wave) on the card, and meets tests/test_sharded_engine.py's gate
     against phase 3's one-shot K1 result (f16 wire), which 1x1 equals bit
     for bit.  Then the mirror's workers-axis view (K11) on 512 workers and
     on 1,000 in a capacity of 1,024 at dw = 1 and 2 feeding the engine,
     ``ProcessGroupShards`` on NCCL with a world of 1, and ``TorchPlacement``
     with an explicit 4x2 layout of virtual shards on the 1M uniform batch.
-    ``ptxas``: phase 1's registers and spills of K10."""
+    ``oneshot``: phase 3's K1 results by fleet (None: placed here, so the
+    phase runs alone); ``ptxas``: phase 1's registers and spills of K10."""
     import torch.distributed as dist
 
     from distributed_tpu_torch import graphs
     from distributed_tpu_torch.ops import leveled, partition, sharded
+    from distributed_tpu_torch.profile_sharded import idle_share, k10_launches
     from distributed_tpu_torch.scheduler import plan
     from distributed_tpu_torch.scheduler.mirror import SHARDED_FIELDS, TorchMirror
     from distributed_tpu_torch.scheduler.torch_placement import TorchPlacement
@@ -1811,22 +1824,37 @@ def phase_sharded(oneshot, ptxas=None):
     packed = leveled.pack_graph(*graph, bandwidth=BANDWIDTH, latency=LATENCY)
     fleets = _fleets()
     L = packed.n_levels
+    if oneshot is None:
+        oneshot = {name: leveled.place_graph_leveled(packed, *fleet) for name, fleet in fleets.items()}
 
     # the main path: place_graph_leveled_sharded as a user calls it, every count zeroed
-    sharded.place_shard_cuda.launches = 0
-    results, stats, walls = {}, {}, {}
+    step_pair = (sharded.shard_tentative, sharded.shard_contend)
+    sharded.place_shard_cuda.launches = sharded.place_shard_run_cuda.launches = 0
+    results, stats, walls, launched = {}, {}, {}, {}
     for name, fleet in fleets.items():
         for layout in SHARD_LAYOUTS:
             st = {}
+            counts = sharded.place_shard_run_cuda.launches, sharded.place_shard_cuda.launches
             t0 = time.perf_counter()
             results[layout, name] = sharded.place_graph_leveled_sharded(
                 _shard_mesh(partition, layout, dev), packed, *fleet, stats=st)
             walls[layout, name] = (time.perf_counter() - t0) * 1e3
             stats[layout, name] = st
-    launches = sharded.place_shard_cuda.launches
-    want = 2 * L * len(fleets) * len(SHARD_LAYOUTS)
-    check(launches == want, f"K10 launches {launches} != {want} (two a wave, one group a layout)")
-    print(f"[{card}] sharded main path: K10 launches {launches} (two a wave) over {L} waves, "
+            launched[layout, name] = (sharded.place_shard_run_cuda.launches - counts[0],
+                                      sharded.place_shard_cuda.launches - counts[1])
+    launches, step_launches = sharded.place_shard_run_cuda.launches, sharded.place_shard_cuda.launches
+    n_runs = {layout: len(sharded._plan_runs_sharded(packed.offsets, _shard_mesh(partition, layout, dev).size))
+              for layout in SHARD_LAYOUTS}
+    # each placement: one run-mode launch a fused run, no step-mode launch
+    for (layout, name), took in launched.items():
+        check(took == (n_runs[layout], 0),
+              f"{layout} {name}: K10 (run, step) launches {took} != ({n_runs[layout]}, 0)")
+    want = len(fleets) * sum(n_runs.values())
+    check(launches == want and step_launches == 0,
+          f"K10 run-mode launches {launches} != {want} (one a fused run) or step-mode launches "
+          f"{step_launches} != 0")
+    print(f"[{card}] sharded main path: K10 run mode, {launches} launches (one a fused run: "
+          f"{n_runs} runs a layout) over {L} waves, step-mode launches {step_launches}, "
           f"{len(SHARD_LAYOUTS)} layouts x {len(fleets)} fleets")
 
     cases_out, err_max = {}, 0.0
@@ -1870,25 +1898,36 @@ def phase_sharded(oneshot, ptxas=None):
             check(np.allclose(res.occupancy[~touched], k1.occupancy[~touched],
                               rtol=SHARD_OCC_RTOL, atol=SHARD_OCC_ATOL),
                   f"{layout} {name}: occupancy outside the gate on workers no flipped task touched")
-            run, waves = _timed_waves(sharded, mesh, packed, fleet)
+            run, waves, _ = _timed_waves(sharded, mesh, packed, fleet)
+            check(run.mode == "run", f"{layout} {name}: ShardedRun took {run.mode} mode")
+            srun, swaves, _ = _timed_waves(sharded, mesh, packed, fleet, body=step_pair)
             ms = cuda_ms(waves, reps=5, warmup=1)
-            prun, pwaves = _timed_waves(sharded, mesh, packed, fleet,
-                                        body=(sharded.shard_tentative_reference,
-                                              sharded.shard_contend_reference))
+            step_ms = cuda_ms(swaves, reps=5, warmup=1)
+            carry = [getattr(run.replicas[dev], f) for f in ("assign", "choices", "load", "spans")]
+            check(all(torch.equal(a, getattr(srun.replicas[dev], f)) for a, f in
+                      zip(carry, ("assign", "choices", "load", "spans"))),
+                  f"{layout} {name}: run mode and step mode differ")
+            idle = idle_share(torch, waves, k10_launches(sharded, waves))
+            prun, pwaves, _ = _timed_waves(sharded, mesh, packed, fleet, body=sharded.PLAIN_BODY)
             plain_ms = cuda_ms(pwaves, reps=3, warmup=1)
-            del run, prun
+            del run, srun, prun
             bound_ms, bound_by = _shard_bound_ms(packed, N_WORKERS, mesh.size)
             h2d = [r["h2d_bytes"] for r in stats[layout, name]["shards"]]
             print(f"[{card}] sharded {layout} {name}: == CPU plain ({cpu_s:.1f} s)"
                   f"{', == phase 3 K1' if layout == '1x1' else ''}, agreement with K1 {agree:.6f} "
                   f"({int(flipped.sum())} tasks, {int(touched.sum())} workers touched; occupancy "
                   f"over all workers at {occ_excess:.3f}x the gate); "
-                  f"K10 waves ms {ms:.3f} plain ms {plain_ms:.3f} bound_ms {bound_ms:.4f} ({bound_by}); "
+                  f"K10 waves ms run mode {ms:.3f} (idle share {idle['idle_share']:.3f}, "
+                  f"{idle['traced_idle_share']:.3f} of the traced call's wall) "
+                  f"step mode {step_ms:.3f} (== run mode) plain ms {plain_ms:.3f} "
+                  f"bound_ms {bound_ms:.4f} ({bound_by}); "
                   f"runs {stats[layout, name]['runs']} h2d_bytes per shard {h2d[0]} (total {sum(h2d)}); "
                   f"wall ms sharded {walls[layout, name]:.1f} single-device {single_wall:.1f}")
             err_max = max(err_max, err)
             cases_out[f"{layout}_{name}"] = dict(
-                max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                max_abs_err=err, ms=ms, step_ms=step_ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by=bound_by, launches=launched[layout, name][0],
+                step_launches=launched[layout, name][1], **idle,
                 agreement_k1=agree, flipped_tasks=int(flipped.sum()), occ_gate_excess=occ_excess,
                 runs=stats[layout, name]["runs"], h2d_bytes_per_shard=h2d,
                 wall_ms=walls[layout, name], single_wall_ms=single_wall, cpu_s=cpu_s)
@@ -1954,11 +1993,18 @@ def phase_sharded(oneshot, ptxas=None):
                             device_id=dev)
     try:
         mesh1 = _shard_mesh(partition, "1x1", dev)
+        pg = sharded.ProcessGroupShards(mesh1)
+        pg_mode = sharded.shard_mode(pg, [dev])
+        counts = sharded.place_shard_run_cuda.launches, sharded.place_shard_cuda.launches
         for name, fleet in fleets.items():
-            got = sharded.place_graph_leveled_sharded(mesh1, packed, *fleet,
-                                                      comm=sharded.ProcessGroupShards(mesh1))
+            got = sharded.place_graph_leveled_sharded(mesh1, packed, *fleet, comm=pg)
             check(_same(got, results["1x1", name]), f"NCCL world 1 {name}: differs from LocalShards 1x1")
-        print(f"[{card}] ProcessGroupShards on NCCL (world 1) == LocalShards 1x1 on both fleets")
+        took = (sharded.place_shard_run_cuda.launches - counts[0],
+                sharded.place_shard_cuda.launches - counts[1])
+        check(pg_mode == "step" and took == (0, 2 * L * len(fleets)),
+              f"NCCL world 1: mode {pg_mode}, (run, step) launches {took}")
+        print(f"[{card}] ProcessGroupShards on NCCL (world 1) == LocalShards 1x1 on both fleets; "
+              f"mode {pg_mode} (step launches {took[1]}, two a wave)")
     finally:
         dist.destroy_process_group()
 
@@ -1969,10 +2015,14 @@ def phase_sharded(oneshot, ptxas=None):
     addrs = [f"tcp://10.1.{w // 256}.{w % 256}:8788" for w in range(N_WORKERS)]
     keys = [f"task-{i}" for i in range(N_TASKS)]
     engine = {}
+    counts = sharded.place_shard_run_cuda.launches, sharded.place_shard_cuda.launches
     t0 = time.perf_counter()
     hints = placement._plan_from_arrays(keys, *graph, *fleets["uniform"], addrs, BANDWIDTH,
                                         LATENCY, stats=engine)
     ext_ms = (time.perf_counter() - t0) * 1e3
+    took = (sharded.place_shard_run_cuda.launches - counts[0],
+            sharded.place_shard_cuda.launches - counts[1])
+    check(took == (n_runs["4x2"], 0), f"TorchPlacement 4x2: (run, step) launches {took}")
     pk, direct = leveled.place_graph_streamed(*graph, *fleets["uniform"], bandwidth=BANDWIDTH,
                                               latency=LATENCY, mesh=mesh2)
     check(hints == plan.hints_from_placement(keys, pk, direct, addrs),
@@ -1980,7 +2030,8 @@ def phase_sharded(oneshot, ptxas=None):
     check(len(engine.get("shards", ())) == 8, f"engine shards: {engine.get('shards')}")
     check(placement.enabled, "the planner disabled itself")
     print(f"[{card}] TorchPlacement 4x2 virtual shards, 1M uniform batch: hints == direct "
-          f"place_graph_streamed(mesh=...), engine_shards 8 rows, _plan_from_arrays wall_ms {ext_ms:.1f}")
+          f"place_graph_streamed(mesh=...), engine_shards 8 rows, mode run ({took[0]} launches), "
+          f"_plan_from_arrays wall_ms {ext_ms:.1f}")
     phase_s = time.perf_counter() - t_phase
     print(f"[{card}] phase 7 s {phase_s:.1f}")
 
@@ -1991,8 +2042,11 @@ def phase_sharded(oneshot, ptxas=None):
         "source": "distributed_tpu_torch/ops/csrc/place_shard.cu",
         "replaces": "distributed_tpu/ops/leveled.py:1140",
         "launches": launches,
+        "launches_step": step_launches,
+        "mode": "run",
         "max_abs_err": err_max,
         "ms": head["ms"],
+        "step_ms": head["step_ms"],
         "plain_ms": head["plain_ms"],
         "bound_ms": head["bound_ms"],
         "bound_by": head["bound_by"],

@@ -63,6 +63,17 @@ SIGNATURES = {
         _f, _f,                         # ovt_c inv_c
         _vp,                            # stream
     ),
+    "dtpu_place_shard_run": (
+        _vp, _vp, _vp, _vp, _vp, _vp,   # dur16 heavy heavy2 xp16 xp2_16 xa16 (tiles)
+        _vp, _vp,                       # shard_ids waves (i32 [3, K]: offs fs widxs)
+        _vp, _vp, _vp, _vp,             # assign choices load spans (the carry, in place)
+        _vp, _vp, _vp,                  # inv_t running ovt0
+        _vp, _vp, _vp, _vp, _vp,        # tl tgt wt spread sorted (scratch)
+        _vp, _vp, _vp,                  # cnt start tot (scratch)
+        _i, _i, _i, _i, _i, _i, _i,     # W S K Fl w_run uniform bx
+        _f, _f,                         # ovt_c inv_c
+        _vp,                            # stream
+    ),
     "dtpu_place_shard_grid": (_i, _i, ctypes.POINTER(_i)),  # W S -> blocks per shard
     "dtpu_partition": (
         _vp, _vp, _vp, _vp,             # init lab0 lab1 durations

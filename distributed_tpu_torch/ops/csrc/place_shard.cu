@@ -11,8 +11,35 @@
 // d*Fl + j (leveled.py:1159-1166); ranks >= f (the wave's true size) are
 // padding.  Each shard computes K1's wave body on its own rows against the
 // replicated assignment and load, and the shards combine through two
-// collectives a wave, which the host issues between two launches of this
-// kernel (ops/sharded.py):
+// psums and an all_gather a wave.  One launch holds every shard of the
+// process that lives on this device (gridDim.y = S shards, gridDim.x =
+// blocks per shard).  Two modes:
+//
+// Run mode (place_shard_run_kernel), when every shard lives in this
+// process on this one device: every wave of a fused run in one
+// cooperative launch, as the reference runs a fused run as one program (a
+// fori_loop over the run's K waves with psum, all_gather and
+// dynamic_update_slice inside).  The collectives become work inside the
+// launch: the psums are adds in shard order, acc = part[0]; acc = acc +
+// part[1]; ..., as LocalShards.psum adds them, and the all_gather plus the
+// slice update are each row's writes into the replicated assignment at
+// offset + rank.  A wave k reads its offset, size and span slot from a
+// small int32 table [offs | fs | widxs] shipped with the run's tiles, and a
+// padding wave (fs = 0) is skipped, as the reference's lax.cond skips it.
+// Eight grid barriers a wave, K1's:
+//
+//   rank + tentative + counts | chunk offsets | scatter | sums, psum ->
+//   tl | contend (the slice writes) + counts | chunk offsets | scatter |
+//   sums, psum, load += wave load, the span
+//
+// A warp a worker adds that worker's bucket of every shard in shard order
+// and then the shards' sums in shard order, so the psum needs no barrier
+// of its own.  The next wave's rank reads the load only after the last
+// barrier of the wave before.
+//
+// Step mode (place_shard_kernel), for shards that a process group or
+// several devices hold: two launches a wave, the collectives issued by the
+// host between them (ops/sharded.py):
 //
 //   launch A (CONTEND = false): the worker order by load / threads, the
 //     three candidates per row, the first argmin, and each shard's
@@ -24,23 +51,27 @@
 //   psum of the partials, load += wave load, the span and the all_gather
 //     of the slices (torch ops on the host's side).
 //
-// One launch holds every shard of the process that lives on this device
-// (gridDim.y = S shards, gridDim.x = blocks per shard), so under
-// LocalShards a wave is two launches whatever D is.
-//
 // The order rules are K1's (csrc/place_wave.cu), and its device functions
 // are copied here, adapted to a shard index, so that K1 stays as it is.  A
 // shard's partial per worker is summed in task order, as CPU index_add_ and
 // the reference's segment_sum do: each valid row's (worker, work) pair is
 // bucketed by worker with a stable counting sort (per-chunk counts,
 // per-worker offsets over the chunks in order, a warp-serial scatter that
-// keeps row order), and one warp per (shard, worker) then adds its bucket
-// front to back.  Products that feed a sum are written with
-// __fmul_rn/__fadd_rn so nvcc makes no FMA.  A padding row writes
+// keeps row order), and one warp per (shard, worker) -- in run mode per
+// worker, over its shards in order -- then adds its bucket front to back.
+// Products that feed a sum are written with __fmul_rn/__fadd_rn so nvcc
+// makes no FMA, and no sum uses a float atomic.  A padding row writes
 // assign = -1 and would add +0.0; the kernel skips its adds.  Every block
 // sorts the W workers itself (a bitonic sort of (key, index) pairs, so ties
-// go by index as a stable argsort), and launch A keeps each row's spread
-// candidate for launch B.
+// go by index as a stable argsort), and the tentative pass keeps each row's
+// spread candidate for the contention pass.  Data that a launch writes and
+// reads again (the assignment, the load, tl) is read through L2 (__ldcg),
+// never through the non-coherent read-only path.
+//
+// Bound on an H100: bytes, as K1's (each row's 16 B of wire read once, its
+// assignment and choice written once, the [S][W] partials); the waves form
+// a chain of grid barriers, which is what the run mode's single launch
+// shortens against the step mode's ~20 host-issued ops a wave.
 
 #include <cooperative_groups.h>
 #include <cuda_fp16.h>
@@ -76,12 +107,14 @@ struct ShardArgs {
   const __half* xp2_16;
   const __half* xa16;
   const int* shard_ids;  // [S] global shard index of each tile row
-  const int* assign;     // [Tp] the replicated assignment (earlier waves final)
-  const float* load;     // [W] the replicated cumulative load
+  int* assign;           // [Tp] the replicated assignment (earlier waves final; run mode writes)
+  int* choices;          // [Tp] the replicated choices (run mode writes)
+  float* load;           // [W] the replicated cumulative load (run mode adds the wave load)
+  float* spans;          // [Lp] per-wave span (run mode writes)
   const float* inv_t;    // [W] 1 / max(nthreads, 1)
   const uint8_t* running;
   const float* ovt0;     // [W] occ0 / threads, +inf where not running
-  const float* tl;       // [W] the summed tentative load (launch B)
+  float* tl;             // [W] the summed tentative load (step: launch B's input; run: its psum)
   int* tgt;              // [S][Fl] the worker a row's work is summed on, -1 padding
   float* wt;             // [S][Fl] ... and that work
   int* spread;           // [S][Fl] launch A's spread candidate, for launch B
@@ -92,8 +125,13 @@ struct ShardArgs {
   float* part;           // [S][W] out: the shard's partial per worker
   int* aslice;           // [S][Fl] out (launch B): assignment, -1 on padding rows
   int* cslice;           // [S][Fl] out (launch B): choice
-  int W, K, Fl, k, f, w_run;
+  int W, K, Fl, w_run;
   float ovt_c, inv_c;
+};
+
+// the wave a pass works on: its tile slot k and its true size f
+struct Wave {
+  int k, f;
 };
 
 struct Task {
@@ -102,8 +140,8 @@ struct Task {
   bool ok1, ok2, valid;
 };
 
-__device__ __forceinline__ Task load_task(const ShardArgs& a, int s, int j) {
-  const size_t g = (static_cast<size_t>(s) * a.K + a.k) * a.Fl + j;
+__device__ __forceinline__ Task load_task(const ShardArgs& a, Wave wv, int s, int j) {
+  const size_t g = (static_cast<size_t>(s) * a.K + wv.k) * a.Fl + j;
   Task t;
   t.dur = __half2float(a.dur16[g]);
   t.xp = __half2float(a.xp16[g]);
@@ -112,10 +150,10 @@ __device__ __forceinline__ Task load_task(const ShardArgs& a, int s, int j) {
   const int h = a.heavy[g];
   const int h2 = a.heavy2[g];
   t.rank = a.shard_ids[s] * a.Fl + j;
-  t.valid = t.rank < a.f;
+  t.valid = t.rank < wv.f;
   // heavy deps sit in earlier waves: their assignment is final
-  const int pref = (t.valid && h >= 0) ? __ldg(a.assign + h) : -1;
-  const int pref2 = (t.valid && h2 >= 0) ? __ldg(a.assign + h2) : -1;
+  const int pref = (t.valid && h >= 0) ? __ldcg(a.assign + h) : -1;
+  const int pref2 = (t.valid && h2 >= 0) ? __ldcg(a.assign + h2) : -1;
   t.p = max(pref, 0);
   t.p2 = max(pref2, 0);
   t.ok1 = pref >= 0;
@@ -133,7 +171,7 @@ __host__ __device__ __forceinline__ int pow2_at_least(int n) {
 // ascending load / threads, stopped workers last, ties by index
 __device__ __forceinline__ unsigned long long rank_entry(const ShardArgs& a, int w) {
   if (w >= a.W) return ~0ull;
-  const float key = a.running[w] ? __fmul_rn(__ldg(a.load + w), a.inv_t[w]) + 0.f : INFINITY;
+  const float key = a.running[w] ? __fmul_rn(__ldcg(a.load + w), a.inv_t[w]) + 0.f : INFINITY;
   const unsigned u = __float_as_uint(key);
   const unsigned code = (u & 0x80000000u) ? ~u : (u | 0x80000000u);
   return (static_cast<unsigned long long>(code) << 32) | static_cast<unsigned>(w);
@@ -188,9 +226,9 @@ __device__ void block_rank(const ShardArgs& a, unsigned long long* s_sort, int* 
 
 // launch A for row j of shard s: the first choice, as the reference's c0/c1/c2
 template <bool UNIFORM>
-__device__ __forceinline__ void tentative(const ShardArgs& a, const int* s_order, int s, int j,
-                                          int block) {
-  const Task t = load_task(a, s, j);
+__device__ __forceinline__ void tentative(const ShardArgs& a, Wave wv, const int* s_order, int s,
+                                          int j, int block) {
+  const Task t = load_task(a, wv, s, j);
   const int sp = s_order[min(t.rank / block, a.W - 1)];
   float c0, c1, c2;
   if (UNIFORM) {
@@ -209,17 +247,20 @@ __device__ __forceinline__ void tentative(const ShardArgs& a, const int* s_order
   a.spread[r] = sp;
 }
 
-// launch B for row j of shard s: the contention round, the final choice
-template <bool UNIFORM>
-__device__ __forceinline__ void contend(const ShardArgs& a, int s, int j) {
-  const Task t = load_task(a, s, j);
+// launch B for row j of shard s: the contention round, the final choice;
+// the step mode writes it into the shard's slices, the run mode straight
+// into the replicated assignment at offset + rank (the gather and the
+// slice update), padding rows' -1 included
+template <bool UNIFORM, bool RUN>
+__device__ __forceinline__ void contend(const ShardArgs& a, Wave wv, int s, int j, int offset) {
+  const Task t = load_task(a, wv, s, j);
   const size_t r = static_cast<size_t>(s) * a.Fl + j;
   const int sp = a.spread[r];
   const int tent = a.tgt[r];
   const float tw = a.wt[r];  // 0 on a padding row, so its own share is 0
-  const float tl_p = __ldg(a.tl + t.p);
-  const float tl_p2 = __ldg(a.tl + t.p2);
-  const float tl_s = __ldg(a.tl + sp);
+  const float tl_p = __ldcg(a.tl + t.p);
+  const float tl_p2 = __ldcg(a.tl + t.p2);
+  const float tl_s = __ldcg(a.tl + sp);
   float d0, d1, d2;
   if (UNIFORM) {
     const float corr = __fmul_rn(tw, a.inv_c);
@@ -240,8 +281,14 @@ __device__ __forceinline__ void contend(const ShardArgs& a, int s, int j) {
   }
   const int ch = argmin3(d0, d1, d2);
   const int w = t.valid ? sel3(ch, t.p, t.p2, sp) : -1;
-  a.aslice[r] = w;
-  a.cslice[r] = ch;
+  if (RUN) {
+    const size_t g = static_cast<size_t>(offset) + t.rank;
+    a.assign[g] = w;
+    a.choices[g] = ch;
+  } else {
+    a.aslice[r] = w;
+    a.cslice[r] = ch;
+  }
   a.tgt[r] = w;
   a.wt[r] = t.valid ? t.dur + sel3(ch, t.xp, t.xp2, t.xa) : 0.f;
 }
@@ -378,8 +425,33 @@ __device__ void scatter_chunk(const ShardArgs& a, int* s_next, int* s_part, int*
   }
 }
 
-// one warp per (shard, worker) adds its bucket front to back (K1's serial
-// chain through shuffles) into part[s][w]
+// a bucket of n values added front to back by one warp (K1's serial chain
+// through shuffles): the lanes load 256 values at a time and every lane
+// runs the same chain over them, so the order is the bucket's
+__device__ __forceinline__ float bucket_sum(const float* p, int n, int lane) {
+  float sum = 0.f;
+  for (int base = 0; base < n; base += 256) {
+    float v[8];
+#pragma unroll
+    for (int k = 0; k < 8; ++k) {
+      const int j = base + 32 * k + lane;
+      v[k] = j < n ? __ldcg(p + j) : 0.f;
+    }
+#pragma unroll
+    for (int k = 0; k < 8; ++k) {
+      const int left = n - base - 32 * k;  // the same in every lane
+      if (left <= 0) break;
+#pragma unroll
+      for (int t = 0; t < 32; ++t) {
+        const float x = __shfl_sync(0xffffffffu, v[k], t);
+        if (t < left) sum = __fadd_rn(sum, x);
+      }
+    }
+  }
+  return sum;
+}
+
+// one warp per (shard, worker) adds its bucket into part[s][w]
 __device__ void bucket_sums(const ShardArgs& a) {
   constexpr int kWarps = kThreads / 32;
   const int lane = threadIdx.x & 31;
@@ -389,32 +461,55 @@ __device__ void bucket_sums(const ShardArgs& a) {
   for (int q = (threadIdx.x / 32) * nblocks + block_id; q < pairs; q += nblocks * kWarps) {
     const int s = q / a.W;
     const float* p = a.sorted + static_cast<size_t>(s) * a.Fl + __ldcg(a.start + q);
-    const int n = __ldcg(a.tot + q);
-    float sum = 0.f;
-    for (int base = 0; base < n; base += 256) {
-      float v[8];
-#pragma unroll
-      for (int k = 0; k < 8; ++k) {
-        const int j = base + 32 * k + lane;
-        v[k] = j < n ? __ldcg(p + j) : 0.f;
-      }
-#pragma unroll
-      for (int k = 0; k < 8; ++k) {
-        const int left = n - base - 32 * k;  // the same in every lane
-        if (left <= 0) break;
-#pragma unroll
-        for (int t = 0; t < 32; ++t) {
-          const float x = __shfl_sync(0xffffffffu, v[k], t);
-          if (t < left) sum = __fadd_rn(sum, x);
-        }
-      }
-    }
+    const float sum = bucket_sum(p, __ldcg(a.tot + q), lane);
     if (lane == 0) a.part[q] = sum;
   }
 }
 
+// run mode: one warp per worker adds its bucket of every shard, then the
+// shards' sums in shard order (the psum, acc = part[0]; acc = acc +
+// part[1]; ...).  The tentative pass leaves the psum in tl; the wave-load
+// pass (FINISH) adds it to the load and puts the wave's span, the largest
+// wave load / threads over running workers (0 where not running), into
+// spans[wi]: a max is exact in any order, and non-negative floats order as
+// their bit patterns, so an integer atomicMax takes it across the blocks
+template <bool FINISH>
+__device__ void shard_order_sums(const ShardArgs& a, int wi, float* s_max) {
+  constexpr int kWarps = kThreads / 32;
+  const int lane = threadIdx.x & 31;
+  const int nblocks = gridDim.x * gridDim.y;
+  const int block_id = blockIdx.y * gridDim.x + blockIdx.x;
+  const int S = gridDim.y;
+  float m = 0.f;  // every span term is >= 0
+  for (int w = (threadIdx.x / 32) * nblocks + block_id; w < a.W; w += nblocks * kWarps) {
+    float acc = 0.f;
+    for (int s = 0; s < S; ++s) {
+      const size_t q = static_cast<size_t>(s) * a.W + w;
+      const float* p = a.sorted + static_cast<size_t>(s) * a.Fl + __ldcg(a.start + q);
+      const float sum = bucket_sum(p, __ldcg(a.tot + q), lane);
+      acc = s == 0 ? sum : __fadd_rn(acc, sum);
+    }
+    if (lane == 0) {
+      if (FINISH) {
+        a.load[w] = __fadd_rn(__ldcg(a.load + w), acc);
+        m = fmaxf(m, a.running[w] ? __fmul_rn(acc, a.inv_t[w]) : 0.f);
+      } else {
+        a.tl[w] = acc;
+      }
+    }
+  }
+  if (FINISH) {
+    if (lane == 0) s_max[threadIdx.x / 32] = m;
+    __syncthreads();
+    if (threadIdx.x == 0) {
+      for (int k = 1; k < kWarps; ++k) m = fmaxf(m, s_max[k]);
+      atomicMax(reinterpret_cast<int*>(a.spans + wi), __float_as_int(m));
+    }
+  }
+}
+
 template <bool UNIFORM, bool CONTEND>
-__global__ void __launch_bounds__(kThreads, 1) place_shard_kernel(ShardArgs a) {
+__global__ void __launch_bounds__(kThreads, 1) place_shard_kernel(ShardArgs a, Wave wv) {
   cg::grid_group grid = cg::this_grid();
   extern __shared__ unsigned long long smem[];
   // [P] the sort buffer, then (as [W] i32) counts and bucket cursors
@@ -432,12 +527,12 @@ __global__ void __launch_bounds__(kThreads, 1) place_shard_kernel(ShardArgs a) {
   const int hi = min(lo + chunk, a.Fl);
 
   if (CONTEND) {
-    for (int j = lo + threadIdx.x; j < hi; j += kThreads) contend<UNIFORM>(a, s, j);
+    for (int j = lo + threadIdx.x; j < hi; j += kThreads) contend<UNIFORM, false>(a, wv, s, j, 0);
   } else {
     block_rank(a, s_sort, s_order);
-    const int block = max((a.f + a.w_run - 1) / a.w_run, 1);
+    const int block = max((wv.f + a.w_run - 1) / a.w_run, 1);
     for (int j = lo + threadIdx.x; j < hi; j += kThreads) {
-      tentative<UNIFORM>(a, s_order, s, j, block);
+      tentative<UNIFORM>(a, wv, s_order, s, j, block);
     }
   }
   __syncthreads();  // s_order is read above; s_work overlays the sort buffer only
@@ -450,27 +545,135 @@ __global__ void __launch_bounds__(kThreads, 1) place_shard_kernel(ShardArgs a) {
   bucket_sums(a);
 }
 
+// run mode: the K waves of a fused run; table = [offs | fs | widxs], K each
+template <bool UNIFORM>
+__global__ void __launch_bounds__(kThreads, 1) place_shard_run_kernel(ShardArgs a,
+                                                                      const int* table) {
+  cg::grid_group grid = cg::this_grid();
+  extern __shared__ unsigned long long smem[];
+  unsigned long long* s_sort = smem;
+  int* s_work = reinterpret_cast<int*>(smem);
+  int* s_order = reinterpret_cast<int*>(smem + pow2_at_least(a.W));
+  __shared__ int s_part[kThreads / 32];
+  __shared__ float s_max[kThreads / 32];
+  __shared__ int s_tgt[kPiece];
+  __shared__ float s_wt[kPiece];
+  const int s = blockIdx.y;
+  const int G = gridDim.x;
+  const int chunk = max(((a.Fl + G - 1) / G + 31) / 32 * 32, 32);
+  const int nb = (a.Fl + chunk - 1) / chunk;
+  const int lo = min(static_cast<int>(blockIdx.x) * chunk, a.Fl);
+  const int hi = min(lo + chunk, a.Fl);
+
+  for (int k = 0; k < a.K; ++k) {
+    const Wave wv{k, __ldg(table + a.K + k)};
+    if (wv.f == 0) continue;  // a padding wave: the same in every block
+    const int offset = __ldg(table + k);
+    const int wi = __ldg(table + 2 * a.K + k);
+    if (blockIdx.x == 0 && blockIdx.y == 0 && threadIdx.x == 0) a.spans[wi] = 0.f;
+    block_rank(a, s_sort, s_order);
+    const int block = max((wv.f + a.w_run - 1) / a.w_run, 1);
+    for (int j = lo + threadIdx.x; j < hi; j += kThreads) {
+      tentative<UNIFORM>(a, wv, s_order, s, j, block);
+    }
+    __syncthreads();
+    count_chunk(a, s_work, s, lo, hi);
+    grid.sync();
+    chunk_offsets(a, nb);
+    grid.sync();
+    scatter_chunk(a, s_work, s_part, s_tgt, s_wt, s, lo, hi);
+    grid.sync();
+    shard_order_sums<false>(a, wi, s_max);
+    grid.sync();
+    for (int j = lo + threadIdx.x; j < hi; j += kThreads) {
+      contend<UNIFORM, true>(a, wv, s, j, offset);
+    }
+    __syncthreads();
+    count_chunk(a, s_work, s, lo, hi);
+    grid.sync();
+    chunk_offsets(a, nb);
+    grid.sync();
+    scatter_chunk(a, s_work, s_part, s_tgt, s_wt, s, lo, hi);
+    grid.sync();
+    shard_order_sums<true>(a, wi, s_max);
+    grid.sync();
+  }
+}
+
 size_t smem_bytes(int W) {
   return sizeof(unsigned long long) * pow2_at_least(W) + sizeof(int) * static_cast<size_t>(W);
 }
 
-template <bool UNIFORM, bool CONTEND>
-const void* kernel_ptr() {
-  return reinterpret_cast<const void*>(place_shard_kernel<UNIFORM, CONTEND>);
+constexpr int kMaxWorkers = 8192;  // ops/leveled.py MAX_WORKERS_CUDA
+constexpr int kVariants = 6;       // step A/B and run, each uniform or not
+
+const void* variant(int i) {
+  switch (i) {
+    case 0: return reinterpret_cast<const void*>(place_shard_kernel<false, false>);
+    case 1: return reinterpret_cast<const void*>(place_shard_kernel<false, true>);
+    case 2: return reinterpret_cast<const void*>(place_shard_kernel<true, false>);
+    case 3: return reinterpret_cast<const void*>(place_shard_kernel<true, true>);
+    case 4: return reinterpret_cast<const void*>(place_shard_run_kernel<false>);
+    default: return reinterpret_cast<const void*>(place_shard_run_kernel<true>);
+  }
 }
 
-const void* pick(int uniform, int contend) {
-  if (uniform) return contend ? kernel_ptr<true, true>() : kernel_ptr<true, false>();
-  return contend ? kernel_ptr<false, true>() : kernel_ptr<false, false>();
+ShardArgs shard_args(const void* dur16, const void* heavy, const void* heavy2, const void* xp16,
+                     const void* xp2_16, const void* xa16, const void* shard_ids, void* assign,
+                     void* load, const void* inv_t, const void* running, const void* ovt0,
+                     void* tl, void* tgt, void* wt, void* spread, void* sorted, void* cnt,
+                     void* start, void* tot, int W, int K, int Fl, int w_run, float ovt_c,
+                     float inv_c) {
+  ShardArgs a = {};
+  a.dur16 = static_cast<const __half*>(dur16);
+  a.heavy = static_cast<const int*>(heavy);
+  a.heavy2 = static_cast<const int*>(heavy2);
+  a.xp16 = static_cast<const __half*>(xp16);
+  a.xp2_16 = static_cast<const __half*>(xp2_16);
+  a.xa16 = static_cast<const __half*>(xa16);
+  a.shard_ids = static_cast<const int*>(shard_ids);
+  a.assign = static_cast<int*>(assign);
+  a.load = static_cast<float*>(load);
+  a.inv_t = static_cast<const float*>(inv_t);
+  a.running = static_cast<const uint8_t*>(running);
+  a.ovt0 = static_cast<const float*>(ovt0);
+  a.tl = static_cast<float*>(tl);
+  a.tgt = static_cast<int*>(tgt);
+  a.wt = static_cast<float*>(wt);
+  a.spread = static_cast<int*>(spread);
+  a.sorted = static_cast<float*>(sorted);
+  a.cnt = static_cast<int*>(cnt);
+  a.start = static_cast<int*>(start);
+  a.tot = static_cast<int*>(tot);
+  a.W = W;
+  a.K = K;
+  a.Fl = Fl;
+  a.w_run = w_run;
+  a.ovt_c = ovt_c;
+  a.inv_c = inv_c;
+  return a;
+}
+
+cudaError_t launch(const void* kernel, ShardArgs* a, void* extra, int bx, int S, int W,
+                   void* stream_ptr) {
+  void* args[] = {a, extra};
+  cudaError_t err = cudaLaunchCooperativeKernel(kernel, dim3(bx, S), dim3(kThreads), args,
+                                                smem_bytes(W),
+                                                static_cast<cudaStream_t>(stream_ptr));
+  if (err != cudaSuccess) return err;
+  return cudaGetLastError();
 }
 
 }  // namespace
 
-// blocks per shard of a launch holding S shards of W workers: the grid
-// (bx, S) must be resident at once for its grid barriers, so bx * S never
-// exceeds one block per SM of the smallest occupancy of the four variants
+// the setup of every launch on the current device: each variant's dynamic
+// shared memory limit (set once here, for the most workers a launch takes,
+// not at each launch) and the blocks per shard of a launch holding S shards
+// of W workers: the grid (bx, S) must be resident at once for its grid
+// barriers, so bx * S never exceeds one block per SM of the smallest
+// occupancy of the six variants
 extern "C" int dtpu_place_shard_grid(int W, int S, int* bx) {
-  if (W <= 0 || S <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (W <= 0 || W > kMaxWorkers || S <= 0) return static_cast<int>(cudaErrorInvalidValue);
   int dev = 0, sms = 0, coop = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err == cudaSuccess) err = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
@@ -479,29 +682,28 @@ extern "C" int dtpu_place_shard_grid(int W, int S, int* bx) {
   if (!coop) return static_cast<int>(cudaErrorNotSupported);
   const size_t smem = smem_bytes(W);
   int occ = 1;
-  for (int u = 0; u < 2; ++u) {
-    for (int c = 0; c < 2; ++c) {
-      const void* kernel = pick(u, c);
-      err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                 static_cast<int>(smem));
-      int o = 0;
-      if (err == cudaSuccess) {
-        err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&o, kernel, kThreads, smem);
-      }
-      if (err != cudaSuccess) return static_cast<int>(err);
-      occ = min(occ, o);
+  for (int i = 0; i < kVariants; ++i) {
+    const void* kernel = variant(i);
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(smem_bytes(kMaxWorkers)));
+    int o = 0;
+    if (err == cudaSuccess) {
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&o, kernel, kThreads, smem);
     }
+    if (err != cudaSuccess) return static_cast<int>(err);
+    occ = min(occ, o);
   }
   if (occ < 1 || S > sms) return static_cast<int>(cudaErrorCooperativeLaunchTooLarge);
   *bx = sms / S;
   return static_cast<int>(cudaSuccess);
 }
 
-// one launch (A: contend = 0, B: contend = 1) of wave slot k of a fused run
-// for the S shards of this device.  Tiles are [S][K][Fl] in the f16 wire;
-// shard_ids i32[S]; assign i32[Tp]; load, inv_t, ovt0, tl f32[W]; running
-// u8[W]; scratch tgt/wt/spread/sorted [S][Fl], cnt [S][W][bx], start/tot
-// [S][W]; out part f32[S][W], aslice/cslice i32[S][Fl] (launch B).  W <= 8192.
+// step mode: one launch (A: contend = 0, B: contend = 1) of wave slot k of
+// a fused run for the S shards of this device.  Tiles are [S][K][Fl] in the
+// f16 wire; shard_ids i32[S]; assign i32[Tp]; load, inv_t, ovt0, tl f32[W];
+// running u8[W]; scratch tgt/wt/spread/sorted [S][Fl], cnt [S][W][bx],
+// start/tot [S][W]; out part f32[S][W], aslice/cslice i32[S][Fl] (launch
+// B).  W <= 8192; bx from dtpu_place_shard_grid, called first.
 extern "C" int dtpu_place_shard(
     const void* dur16, const void* heavy, const void* heavy2, const void* xp16,
     const void* xp2_16, const void* xa16, const void* shard_ids, const void* assign,
@@ -509,50 +711,45 @@ extern "C" int dtpu_place_shard(
     void* tgt, void* wt, void* spread, void* sorted, void* cnt, void* start, void* tot,
     void* part, void* aslice, void* cslice, int W, int S, int K, int Fl, int k, int f,
     int w_run, int uniform, int contend, int bx, float ovt_c, float inv_c, void* stream_ptr) {
-  cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
-  if (W <= 0 || S <= 0 || K <= 0 || Fl <= 0 || k < 0 || k >= K || f < 0 || w_run <= 0 ||
-      bx <= 0 || (contend && tl == nullptr)) {
+  if (W <= 0 || W > kMaxWorkers || S <= 0 || K <= 0 || Fl <= 0 || k < 0 || k >= K || f < 0 ||
+      w_run <= 0 || bx <= 0 || (contend && tl == nullptr)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  ShardArgs a;
-  a.dur16 = static_cast<const __half*>(dur16);
-  a.heavy = static_cast<const int*>(heavy);
-  a.heavy2 = static_cast<const int*>(heavy2);
-  a.xp16 = static_cast<const __half*>(xp16);
-  a.xp2_16 = static_cast<const __half*>(xp2_16);
-  a.xa16 = static_cast<const __half*>(xa16);
-  a.shard_ids = static_cast<const int*>(shard_ids);
-  a.assign = static_cast<const int*>(assign);
-  a.load = static_cast<const float*>(load);
-  a.inv_t = static_cast<const float*>(inv_t);
-  a.running = static_cast<const uint8_t*>(running);
-  a.ovt0 = static_cast<const float*>(ovt0);
-  a.tl = static_cast<const float*>(tl);
-  a.tgt = static_cast<int*>(tgt);
-  a.wt = static_cast<float*>(wt);
-  a.spread = static_cast<int*>(spread);
-  a.sorted = static_cast<float*>(sorted);
-  a.cnt = static_cast<int*>(cnt);
-  a.start = static_cast<int*>(start);
-  a.tot = static_cast<int*>(tot);
+  // launch A only reads the assignment and the load; tl is launch B's input
+  ShardArgs a = shard_args(dur16, heavy, heavy2, xp16, xp2_16, xa16, shard_ids,
+                           const_cast<void*>(assign), const_cast<void*>(load), inv_t, running,
+                           ovt0, const_cast<void*>(tl), tgt, wt, spread, sorted, cnt, start, tot,
+                           W, K, Fl, w_run, ovt_c, inv_c);
   a.part = static_cast<float*>(part);
   a.aslice = static_cast<int*>(aslice);
   a.cslice = static_cast<int*>(cslice);
-  a.W = W;
-  a.K = K;
-  a.Fl = Fl;
-  a.k = k;
-  a.f = f;
-  a.w_run = w_run;
-  a.ovt_c = ovt_c;
-  a.inv_c = inv_c;
-  const void* kernel = pick(uniform, contend);
-  const size_t smem = smem_bytes(W);
-  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  void* args[] = {&a};
-  err = cudaLaunchCooperativeKernel(kernel, dim3(bx, S), dim3(kThreads), args, smem, stream);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  return static_cast<int>(cudaGetLastError());
+  Wave wv{k, f};
+  return static_cast<int>(launch(variant(2 * (uniform != 0) + (contend != 0)), &a, &wv, bx, S,
+                                 W, stream_ptr));
+}
+
+// run mode: every wave of a fused run in one launch, for the S shards of
+// this device, which must be every shard of the mesh in shard order
+// (shard_ids[s] = s), so that the psums and the slice writes cover them
+// all.  table i32[3][K]: each wave slot's offset, true size (0: a padding
+// wave, skipped) and span slot.  assign, choices i32[Tp], load f32[W] and
+// spans f32[Lp] are the replicated carry, updated in place; tl f32[W] is
+// scratch; the rest as dtpu_place_shard.
+extern "C" int dtpu_place_shard_run(
+    const void* dur16, const void* heavy, const void* heavy2, const void* xp16,
+    const void* xp2_16, const void* xa16, const void* shard_ids, const void* table,
+    void* assign, void* choices, void* load, void* spans, const void* inv_t,
+    const void* running, const void* ovt0, void* tl, void* tgt, void* wt, void* spread,
+    void* sorted, void* cnt, void* start, void* tot, int W, int S, int K, int Fl, int w_run,
+    int uniform, int bx, float ovt_c, float inv_c, void* stream_ptr) {
+  if (W <= 0 || W > kMaxWorkers || S <= 0 || K <= 0 || Fl <= 0 || w_run <= 0 || bx <= 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  ShardArgs a = shard_args(dur16, heavy, heavy2, xp16, xp2_16, xa16, shard_ids, assign, load,
+                           inv_t, running, ovt0, tl, tgt, wt, spread, sorted, cnt, start, tot,
+                           W, K, Fl, w_run, ovt_c, inv_c);
+  a.choices = static_cast<int*>(choices);
+  a.spans = static_cast<float*>(spans);
+  const int* tab = static_cast<const int*>(table);
+  return static_cast<int>(launch(variant(4 + (uniform != 0)), &a, &tab, bx, S, W, stream_ptr));
 }

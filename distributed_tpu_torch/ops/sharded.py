@@ -30,19 +30,32 @@ implementations, and the collectives are explicit calls in a fixed order:
 The shard body has two implementations with one contract:
 :func:`shard_tentative_reference` / :func:`shard_contend_reference`, the
 reference's ``local`` body in torch ops (the CPU path, and the plain
-version the kernel is held against), and :func:`place_shard_cuda`, the
-hand-written kernel ``csrc/place_shard.cu``: two launches a wave for all
-the shards a process holds on one device, each shard's partials summed in
-task order as the plain version on the CPU sums them.
+version the kernel is held against), and the hand-written kernel
+``csrc/place_shard.cu`` (K10) for all the shards a process holds on one
+device, each shard's partials summed in task order as the plain version
+on the CPU sums them.  K10 runs in one of two modes, which
+:func:`shard_mode` picks from the comm, the shards' devices and the body:
+
+- run mode (:func:`place_shard_run_cuda`), when every shard lives in this
+  process on one CUDA device (``LocalShards``, the default body): one
+  cooperative launch a fused run, every wave of it, with the psums in
+  shard order, the load, the span and the slice writes inside the launch,
+  as the reference runs a fused run as one program;
+- step mode (:func:`place_shard_cuda`), for ``ProcessGroupShards``, a
+  ``LocalShards`` mesh over several devices, or the explicit pair
+  ``(shard_tentative, shard_contend)``: two launches a wave, the
+  collectives issued by the host between them.
 
 The device of each shard comes from the mesh: a CUDA mesh runs the
 kernel, a CPU mesh the plain version.  No path moves from one to the
-other when the kernel cannot be built or launched: it raises.
+other, or from run mode to step mode, when the kernel cannot be built or
+launched: it raises.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 import time
 from typing import NamedTuple
 
@@ -140,6 +153,7 @@ class _Group:
         self.wl_part = torch.empty(S, W, dtype=f32, device=dev)
         self.start = torch.empty(S, W, dtype=i32, device=dev)
         self.tot = torch.empty(S, W, dtype=i32, device=dev)
+        self.tl = torch.empty(W, dtype=f32, device=dev)  # run mode's tentative psum
 
 
 def _fleet_from_tensors(nthreads: torch.Tensor, running: torch.Tensor,
@@ -248,12 +262,19 @@ def shard_contend_reference(g: _Group, rep: _Replica, k: int, f: int, tl: torch.
     g.cslice.copy_(choice)
 
 
-def place_shard_cuda(g: _Group, rep: _Replica, k: int, f: int, tl: torch.Tensor | None = None) -> None:
-    """One launch of the hand-written kernel ``csrc/place_shard.cu`` for
-    the group's shards: launch A without ``tl`` (into ``g.tl_part``),
-    launch B with it (into ``g.aslice``, ``g.cslice``, ``g.wl_part``)."""
+def _check_tensors(name: str, device: torch.device, entries) -> None:
+    """Each ``(label, tensor, dtype, numel)`` a contiguous tensor on ``device``."""
+    for label, t, dtype, n in entries:
+        if t.dtype != dtype or t.numel() != n or not t.is_contiguous() or t.device != device:
+            raise ValueError(f"{name}: {label} must be a contiguous {dtype}[{n}] on {device}")
+
+
+def _kernel_setup(g: _Group, rep: _Replica, name: str) -> tuple[ctypes.CDLL, int]:
+    """The kernel library and the run's wave slots K, after the group's
+    grid and count scratch (the first time) and the checks every launch of
+    either mode makes."""
     if g.device.type != "cuda":
-        raise RuntimeError(f"place_shard_cuda needs CUDA tensors, got {g.device}")
+        raise RuntimeError(f"{name} needs CUDA tensors, got {g.device}")
     fl = rep.fleet
     W, S, Fl = fl.W, len(g.shards), g.Fl
     if W > MAX_WORKERS_CUDA:
@@ -265,16 +286,26 @@ def place_shard_cuda(g: _Group, rep: _Replica, k: int, f: int, tl: torch.Tensor 
         g.bx = bx.value
         g.cnt = torch.empty(S * W * g.bx, dtype=torch.int32, device=g.device)
     K = int(g.tiles["dur"].shape[1])
-    for name, t, dtype, n in (
+    _check_tensors(name, g.device, (
         *((n, g.tiles[n], _TORCH_DTYPE[d], S * K * Fl) for n, d in TASK_FIELDS),
         ("shard_ids", g.shard_ids, torch.int32, S),
         ("assign", rep.assign, torch.int32, rep.assign.numel()),
         ("load", rep.load, torch.float32, W), ("inv_t", fl.inv_t, torch.float32, W),
         ("running", fl.running, torch.bool, W), ("ovt0", fl.ovt0, torch.float32, W),
-        *((("tl", tl, torch.float32, W),) if tl is not None else ()),
-    ):
-        if t.dtype != dtype or t.numel() != n or not t.is_contiguous() or t.device != g.device:
-            raise ValueError(f"place_shard_cuda: {name} must be a contiguous {dtype}[{n}] on {g.device}")
+    ))
+    return lib, K
+
+
+def place_shard_cuda(g: _Group, rep: _Replica, k: int, f: int, tl: torch.Tensor | None = None) -> None:
+    """One step-mode launch of the hand-written kernel
+    ``csrc/place_shard.cu`` for the group's shards: launch A without
+    ``tl`` (into ``g.tl_part``), launch B with it (into ``g.aslice``,
+    ``g.cslice``, ``g.wl_part``)."""
+    fl = rep.fleet
+    W, S, Fl = fl.W, len(g.shards), g.Fl
+    lib, K = _kernel_setup(g, rep, "place_shard_cuda")
+    if tl is not None:
+        _check_tensors("place_shard_cuda", g.device, (("tl", tl, torch.float32, W),))
     if not 0 <= k < K:
         raise ValueError(f"place_shard_cuda: wave slot {k} outside [0, {K})")
     P = _build.ptr
@@ -290,7 +321,57 @@ def place_shard_cuda(g: _Group, rep: _Replica, k: int, f: int, tl: torch.Tensor 
     place_shard_cuda.launches += 1
 
 
-place_shard_cuda.launches = 0  # launches in this process
+place_shard_cuda.launches = 0  # step-mode launches in this process
+
+
+def place_shard_run_cuda(g: _Group, rep: _Replica) -> None:
+    """One run-mode launch of ``csrc/place_shard.cu``: every wave of the
+    fused run whose tiles and wave table (``g.tiles["waves"]``, from
+    :func:`wave_table`) the group holds, for a group that holds every
+    shard of the mesh in shard order.  Updates the replica's assignment,
+    choices, load and spans in place."""
+    fl = rep.fleet
+    W, S, Fl = fl.W, len(g.shards), g.Fl
+    lib, K = _kernel_setup(g, rep, "place_shard_run_cuda")
+    if g.shards != list(range(S)):
+        raise ValueError(f"place_shard_run_cuda: the group holds shards {g.shards}, not all in order")
+    _check_tensors("place_shard_run_cuda", g.device, (
+        ("waves", g.tiles["waves"], torch.int32, 3 * K),
+        ("choices", rep.choices, torch.int32, rep.assign.numel()),
+        ("spans", rep.spans, torch.float32, rep.spans.numel()),
+    ))
+    P = _build.ptr
+    rc = lib.dtpu_place_shard_run(
+        *(P(g.tiles[n]) for n, _ in TASK_FIELDS), P(g.shard_ids), P(g.tiles["waves"]),
+        P(rep.assign), P(rep.choices), P(rep.load), P(rep.spans), P(fl.inv_t), P(fl.running),
+        P(fl.ovt0), P(g.tl), P(g.tgt), P(g.wt), P(g.spread), P(g.sorted), P(g.cnt), P(g.start),
+        P(g.tot), W, S, K, Fl, fl.w_run, int(fl.uniform), g.bx, fl.ovt_c, fl.inv_c,
+        _build.stream_handle(g.device),
+    )
+    _build.check(rc, "dtpu_place_shard_run")
+    place_shard_run_cuda.launches += 1
+
+
+place_shard_run_cuda.launches = 0  # run-mode launches (one a fused run) in this process
+
+
+def place_shard_run_reference(g: _Group, rep: _Replica) -> None:
+    """What one run-mode launch computes, in torch ops: for each wave slot
+    of the table (a padding wave, ``fs = 0``, skipped), the plain pair on
+    the group's shards with the psums in shard order between, then the
+    load, the span and the slices written at the wave's offset."""
+    F = g.Fl * len(g.shards)
+    for k, (offset, f, wi) in enumerate(zip(*g.tiles["waves"].tolist())):
+        if f == 0:
+            continue
+        shard_tentative_reference(g, rep, k, f)
+        tl = functools.reduce(torch.add, g.tl_part)  # in shard order, as LocalShards.psum
+        shard_contend_reference(g, rep, k, f, tl)
+        wl = functools.reduce(torch.add, g.wl_part)
+        rep.load.add_(wl)
+        rep.spans[wi] = torch.where(rep.fleet.running, wl * rep.fleet.inv_t, 0.0).max()
+        rep.assign[offset: offset + F] = g.aslice.view(-1)
+        rep.choices[offset: offset + F] = g.cslice.view(-1)
 
 
 def shard_tentative(g: _Group, rep: _Replica, k: int, f: int) -> None:
@@ -310,6 +391,37 @@ def shard_contend(g: _Group, rep: _Replica, k: int, f: int, tl: torch.Tensor) ->
         place_shard_cuda(g, rep, k, f, tl)
 
 
+PLAIN_BODY = (shard_tentative_reference, shard_contend_reference)
+
+
+def shard_mode(comm, devices, body=None) -> str:
+    """Which wave loop a run takes: ``"run"`` (K10's run mode, one launch a
+    fused run) when the body is the device rule (``None``), the comm is
+    :class:`LocalShards` and every shard's device is one CUDA device;
+    ``"plain"`` for the plain pair, or the device rule on CPU shards;
+    otherwise ``"step"`` (two launches a wave and host collectives: a
+    process group, several devices, or an explicit pair)."""
+    if body is not None:
+        return "plain" if tuple(body) == PLAIN_BODY else "step"
+    devs = {torch.device(d) for d in devices}
+    if all(d.type == "cpu" for d in devs):
+        return "plain"
+    if isinstance(comm, LocalShards) and len(devs) == 1 and next(iter(devs)).type == "cuda":
+        return "run"
+    return "step"
+
+
+def wave_table(packed: PackedGraph, waves: list[int], K: int, Lp: int) -> np.ndarray:
+    """i32 ``[3, K]``: each wave slot's offset, size and span slot, as the
+    reference's ``_ShardedRunState`` passes ``offs``, ``fs`` and ``widxs`` to its fused
+    run; padding slots are ``(T, 0, Lp - 1)``."""
+    table = np.empty((3, K), np.int32)
+    table[0], table[1], table[2] = packed.n, 0, Lp - 1
+    for i, w in enumerate(waves):
+        table[:, i] = packed.offsets[w], packed.offsets[w + 1] - packed.offsets[w], w
+    return table
+
+
 # ------------------------------------------------------------ the driver
 
 
@@ -325,9 +437,11 @@ class ShardedRun:
     fleet as ``workers``-axis blocks, gathered on each device, so a fresh
     cycle ships no fleet rows; the host ``nthreads``/``occupancy0``/
     ``running`` still seed the load carry and the uniform/wide decisions
-    and must equal the device rows.  ``body`` is ``(tentative, contend)``,
-    by default the device rule of :func:`shard_tentative`; the card's
-    checks pass the plain pair to run it on the card.
+    and must equal the device rows.  ``body`` is ``(tentative, contend)``
+    for the two-launch loop (the device rule ``(shard_tentative,
+    shard_contend)``, or ``PLAIN_BODY`` to run the plain pair on the
+    card); None (the default) lets :func:`shard_mode` pick the loop, run
+    mode where it can.
     """
 
     def __init__(self, mesh: EngineMesh, packed: PackedGraph, Tp: int, Lp: int,
@@ -340,7 +454,7 @@ class ShardedRun:
         self.packed = packed
         self.Tp, self.Lp = Tp, Lp
         self.D = mesh.size
-        self.body = body or (shard_tentative, shard_contend)
+        self.body = body
         self.wide, self.uniform, thr_h, run_h, occ_h = _worker_params(
             nthreads, occupancy0, running
         )
@@ -353,6 +467,7 @@ class ShardedRun:
         for d in self.comm.local:
             groups.setdefault(mesh.devices[d], []).append(d)
         self.groups = [_Group(dev, shards, W) for dev, shards in groups.items()]
+        self.mode = shard_mode(self.comm, list(groups), body)
         if fleet_dev is not None:
             full = [self.comm.gather_workers(list(fleet_dev[f]))
                     for f in ("nthreads", "running", "occupancy")]
@@ -393,11 +508,15 @@ class ShardedRun:
 
     def _ship(self, host_bufs, Fl: int, waves: list[int]) -> int:
         """Assemble the run's ``[K, F]`` tiles from the ``Tp``-sized host
-        arrays and ship each shard exactly its ``[K, Fl]`` slice; returns
+        arrays and ship each shard exactly its ``[K, Fl]`` slice, and each
+        group the run's :func:`wave_table` (``tiles["waves"]``); returns
         K.  Rows of padding waves stay zero."""
         packed, D = self.packed, self.D
         F = Fl * D
         K = _bucket(len(waves), floor=1)
+        table = torch.from_numpy(wave_table(packed, waves, K, self.Lp))
+        for g in self.groups:
+            g.tiles["waves"] = table.to(g.device)
         for (name, dtype), buf in zip(TASK_FIELDS, host_bufs):
             tile = np.zeros((K, F), dtype)
             for i, w in enumerate(waves):
@@ -432,14 +551,18 @@ class ShardedRun:
             rep.spans.zero_()
 
     def run_waves(self, Fl: int, waves: list[int]) -> None:
-        """The waves of one fused run on the shipped tiles: per wave, launch
-        A on every group, psum, launch B, psum, then on every replica the
-        load, the span and the gathered slices.  A padding wave of the
-        reference's fused run (``fs = 0``) skips its body there, so it is
-        not run here."""
+        """The waves of one fused run on the shipped tiles.  Run mode: one
+        launch.  Otherwise, per wave, launch A on every group, psum,
+        launch B, psum, then on every replica the load, the span and the
+        gathered slices.  A padding wave of the reference's fused run
+        (``fs = 0``) skips its body there, so it is not run here."""
         for g in self.groups:
             g.shape_for(Fl)
-        tentative, contend = self.body
+        if self.mode == "run":
+            (g,) = self.groups
+            place_shard_run_cuda(g, self.replicas[g.device])
+            return
+        tentative, contend = self.body or (shard_tentative, shard_contend)
         comm = self.comm
         F = Fl * self.D
         for k, w in enumerate(waves):

@@ -13,6 +13,8 @@ machine does not have, so they run on the CPU (``test_torch_placement.py``).
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import pytest
 import torch
@@ -301,23 +303,41 @@ def _shard_mesh(layout, device):
     return partition.make_engine_mesh(layout=layout, devices=[device] * (dt * dw))
 
 
+def _step_mode(monkeypatch):
+    """Every ShardedRun made from here on takes the explicit two-launch
+    pair, K10's step mode (what a process group or several devices run)."""
+    monkeypatch.setattr(sharded, "ShardedRun", functools.partial(
+        sharded.ShardedRun, body=(sharded.shard_tentative, sharded.shard_contend)))
+
+
+def _k10_launches():
+    return sharded.place_shard_run_cuda.launches, sharded.place_shard_cuda.launches
+
+
+@pytest.mark.parametrize("mode", ["run", "step"])
 @pytest.mark.parametrize("layout", SHARD_LAYOUTS)
 @pytest.mark.parametrize("W", [37, 512, 1000])
 @pytest.mark.parametrize("mixed", [False, True])
-def test_shard_kernel_matches_plain(cuda, layout, W, mixed):
+def test_shard_kernel_matches_plain(cuda, layout, W, mixed, mode, monkeypatch):
     """K10, every shard of the mesh on the one card: it sums each shard's
     partials per worker in task order, as index_add_ does on the CPU, so it
-    reproduces the plain shard body there bit for bit, repeats, makes two
-    launches a wave, and at 1x1 equals K1.  The uniform fleet's wave 0 is
-    all ties (every worker at load 0)."""
+    reproduces the plain shard body there bit for bit, repeats, and at 1x1
+    equals K1.  Run mode (ShardedRun's own rule here) makes one launch a
+    fused run; step mode (the explicit pair) two launches a wave.  The
+    uniform fleet's wave 0 is all ties (every worker at load 0)."""
     durations, out_bytes, src, dst = graphs.random_dag(60000, seed=8)
     packed = leveled.pack_graph(durations, out_bytes, src, dst)
     fleet = _fleet(W, mixed)
-    before = sharded.place_shard_cuda.launches
-    got = sharded.place_graph_leveled_sharded(_shard_mesh(layout, cuda), packed, *fleet)
-    assert sharded.place_shard_cuda.launches == before + 2 * packed.n_levels
+    mesh = _shard_mesh(layout, cuda)
+    if mode == "step":
+        _step_mode(monkeypatch)
+    before = _k10_launches()
+    got = sharded.place_graph_leveled_sharded(mesh, packed, *fleet)
+    took = tuple(a - b for a, b in zip(_k10_launches(), before))
+    runs = len(sharded._plan_runs_sharded(packed.offsets, mesh.size))
+    assert took == ((runs, 0) if mode == "run" else (0, 2 * packed.n_levels))
     leveled.validate_leveled(packed, got, src, dst, fleet[2])
-    again = sharded.place_graph_leveled_sharded(_shard_mesh(layout, cuda), packed, *fleet)
+    again = sharded.place_graph_leveled_sharded(mesh, packed, *fleet)
     want = sharded.place_graph_leveled_sharded(_shard_mesh(layout, "cpu"), packed, *fleet)
     others = [want, again]
     if layout == "1x1":
@@ -325,6 +345,26 @@ def test_shard_kernel_matches_plain(cuda, layout, W, mixed):
     for other in others:
         for field in ("assignment", "choice", "occupancy", "start_time"):
             np.testing.assert_array_equal(getattr(got, field), getattr(other, field))
+
+
+@pytest.mark.parametrize("layout", SHARD_LAYOUTS)
+@pytest.mark.parametrize("mixed", [False, True])
+def test_shard_run_mode_equals_step_mode(cuda, layout, mixed, monkeypatch):
+    """On 512 workers, uniform and mixed: run mode, twice, and step mode
+    are bit-identical to each other and to the plain body on the CPU."""
+    durations, out_bytes, src, dst = graphs.random_dag(100_000, seed=13)
+    packed = leveled.pack_graph(durations, out_bytes, src, dst)
+    fleet = _fleet(512, mixed)
+    mesh = _shard_mesh(layout, cuda)
+    run = [sharded.place_graph_leveled_sharded(mesh, packed, *fleet) for _ in range(2)]
+    plain = sharded.place_graph_leveled_sharded(_shard_mesh(layout, "cpu"), packed, *fleet)
+    _step_mode(monkeypatch)
+    before = _k10_launches()
+    step = sharded.place_graph_leveled_sharded(mesh, packed, *fleet)
+    assert _k10_launches()[0] == before[0]
+    for other in (run[1], step, plain):
+        for field in ("assignment", "choice", "occupancy", "start_time"):
+            np.testing.assert_array_equal(getattr(run[0], field), getattr(other, field))
 
 
 def test_shard_kernel_sums_in_task_order(cuda):
@@ -361,7 +401,10 @@ def test_shard_kernel_fed_by_the_mirror_view(cuda):
     mesh = _shard_mesh("2x2", cuda)
     view = m.sharded_device_view(mesh)
     assert all(b.device == cuda for b in view["occupancy"])
+    before = _k10_launches()
     got = sharded.place_graph_leveled_sharded(mesh, packed, *fleet, fleet_dev=view)
+    runs = len(sharded._plan_runs_sharded(packed.offsets, mesh.size))
+    assert tuple(a - b for a, b in zip(_k10_launches(), before)) == (runs, 0)  # run mode
     want = sharded.place_graph_leveled_sharded(_shard_mesh("2x2", "cpu"), packed, *fleet)
     np.testing.assert_array_equal(got.assignment, want.assignment)
     np.testing.assert_array_equal(got.occupancy, want.occupancy)
