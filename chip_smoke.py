@@ -123,14 +123,42 @@ and prints no result):
    block, an f32 lse merge) within ``ring_attention.ring_excess`` of the
    plain ring, a ring with one step left out rejected; ``ulysses_attention``
    within K2's contract of the plain forward on the whole sequence; their
-   K2 launches and times beside K2 on the whole sequence and SDPA.
+   K2 launches and times beside K2 on the whole sequence and SDPA;
+9. long-context training at phase 8's sizes: ``ring_attention(...)`` and
+   ``ulysses_attention(...)`` then ``backward`` with a seeded dO, causal and
+   not (and Ulysses at a ragged 8 x 1,000 rows): the ring's hand-written
+   backward runs K3 on every visible block (36 / 64 launches) from the
+   merged lse and O, Ulysses K3 on each head group (8); every shard's ring
+   gradients within ``ring_attention.ring_bwd_excess`` of autograd through
+   the plain ring, both planted faults (a ring step left out, a block's
+   dK/dV left on the wrong shard) rejected, two backward calls
+   bit-identical; each Ulysses head group's K3 within ``flash.bwd_excess``
+   of the plain backward on its residuals and the autograd gradients equal
+   to K3's; ``ProcessGroupShards`` on NCCL with a world of one equal to
+   ``LocalShards``; the step, the backward, K3's share (profiler), the
+   plain backward, SDPA's backward on the whole sequence and the bound;
+10. the round-1 batched placers as torch ops: ``decide_workers``
+   sequential on 2,048 ready tasks and parallel on 32,768, onto 512
+   workers x 2 threads with ~10 % of rows restricted (assignments equal
+   the CPU run bit for bit, and the sequential occupancy; the parallel
+   occupancy, whose sums CUDA's ``index_add_`` reorders, within
+   ``K1_LOAD_RTOL``), ``place_rootish`` (exact) and
+   ``occupancy_after_finish`` on the 32,768, ``place_graph`` (the
+   wavefront) on phase 3's DAG and fleets (validated; against the CPU run
+   K1's gate: each wave from the CPU run's state agrees >= 0.999 with
+   the load within ``K1_LOAD_RTOL`` on untouched workers, and end to end
+   imbalance and makespan within 1 %), ``sharded_decide_workers`` (K15) at 2x1, 4x2
+   and 8x1 on 8,192 tasks equal to the single-device parallel assignment;
+   each timed beside its CPU run and bound.
 
 The last three lines are the card's ``nvidia-smi`` name and power limit,
 one JSON object listing the kernels (``flash_fwd``, ``flash_bwd``,
 ``place_wave``, ``partition``, ``steal``, ``amm_drop``, ``place_shard``,
 ``shuffle_bucket``, and the torch routes ``mirror_view``, with the
-sharded view's numbers, ``rebalance``, ``ring_attention`` and
-``ulysses``) with their launches, errors and times, and
+sharded view's numbers, ``rebalance``, ``ring_attention``, ``ulysses``,
+``ring_attention_bwd``, ``ulysses_bwd``, ``decide_workers``,
+``wavefront`` and ``sharded_decide_workers``) with their launches, errors
+and times, and
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -2453,6 +2481,541 @@ def phase_long_context():
                   "ulysses_ms", "ulysses_plain_ms", "ulysses_err")]
 
 
+# ------------------------------------------------------------ phase 9
+
+
+LT_REPS = 5                  # CUDA-event repetitions of each phase 9 and 10 time
+LT_PLAIN_HEADS = 2           # heads a pass of the plain ring's autograd (its saved scores)
+ULY_RAGGED = 1_000           # rows a shard of Ulysses' ragged case: a sequence of 8,000
+K3_NAMES = ("bwd_delta_kernel", "bwd_dkdv_", "bwd_dq_")
+
+
+def _leaves(q, k, v):
+    return tuple(x.detach().requires_grad_() for x in (q, k, v))
+
+
+def _train_step(fn, mesh, q, k, v, do, causal, comm=None):
+    """Forward then backward into fresh leaves, as a user trains through
+    ``fn``: the leaves' gradients."""
+    leaves = _leaves(q, k, v)
+    out = fn(mesh, *leaves, causal=causal, comm=comm)
+    torch.autograd.backward(out, list(do.chunk(len(out))))
+    return tuple(x.grad for x in leaves)
+
+
+def _head_groups(ulysses, mesh, xs):
+    """The ``[H / n, N, D]`` head groups Ulysses' local attention gets, for
+    each of ``xs`` (no autograd)."""
+    from distributed_tpu_torch.ops import comm, ici
+
+    local = comm.LocalShards(mesh)
+    with torch.no_grad():
+        return [[h.transpose(0, 1).contiguous()
+                 for h in ulysses.seq_to_heads(local, ici.local_parts(mesh, local, x), mesh.size)]
+                for x in xs]
+
+
+def _ulysses_checks(flash, ulysses, mesh, q, k, v, do, grads, causal, scale, label):
+    """Per head group, K3 on K2's residuals within ``flash.bwd_excess`` of
+    the plain backward on the same residuals, and the autograd gradients
+    equal to K3's mapped back through ``heads_to_seq``.  Returns (max
+    excess, max abs err, the plain residuals for timing)."""
+    from distributed_tpu_torch.ops import comm
+
+    local = comm.LocalShards(mesh)
+    qh, kh, vh, doh = _head_groups(ulysses, mesh, (q, k, v, do))
+    excess, err, k3_grads, plain_res = [], 0.0, [], []
+    for qt, kt, vt, dot in zip(qh, kh, vh, doh):
+        o, lse = flash.flash_forward_cuda(qt, kt, vt, causal, scale)
+        res = (qt, kt, vt, o, lse, dot)
+        got = flash.flash_backward_cuda(*res, causal, scale)
+        plain = flash.flash_backward_reference(*res, causal, scale)
+        terms = flash.bwd_rounding_terms(*res, causal, scale)
+        excess.append(max(flash.bwd_excess(got, plain, terms)))
+        err = max(err, *((a.float() - b.float()).abs().max().item() for a, b in zip(got, plain)))
+        k3_grads.append(got)
+        o_p, lse_p = flash.flash_forward_reference(qt, kt, vt, causal, scale)
+        plain_res.append((qt, kt, vt, o_p, lse_p, dot))
+        del o, lse, plain, terms
+    for i, g in enumerate(grads):
+        back = torch.cat(ulysses.heads_to_seq(local, [x[i].transpose(0, 1) for x in k3_grads],
+                                              mesh.size))
+        check(torch.equal(back, g), f"Ulysses {label}: the autograd gradient d{'qkv'[i]} is not "
+              f"K3's on its head groups' residuals")
+    check(max(excess) <= 0.0, f"Ulysses {label}: a head group beyond K3's contract by {excess}")
+    return max(excess), err, plain_res
+
+
+def phase_long_context_training():
+    """Phase 9, long-context training: ring attention and Ulysses forward
+    then backward on 8 virtual shards (K2 forward, K3 backward: a visible
+    block of the ring, a head group of Ulysses)."""
+    from distributed_tpu_torch.ops import comm, flash, ici, ring_attention, ulysses
+    from distributed_tpu_torch.parallel import multihost
+    from distributed_tpu_torch.profile_waves import kernel_times
+
+    dev = torch.device("cuda", 0)
+    card = smi_line()
+    t_phase = time.perf_counter()
+    dtype = torch.bfloat16
+    n = LC_SHARDS
+    q, k, v = _flash_inputs(LC_SEQ, LC_HEADS, LC_DIM, dtype, seed=12)
+    do = _flash_inputs(LC_SEQ, LC_HEADS, LC_DIM, dtype, seed=13)[0]
+    rq, rk, rv, rdo = _flash_inputs(n * ULY_RAGGED, LC_HEADS, LC_DIM, dtype, seed=14) + \
+        _flash_inputs(n * ULY_RAGGED, LC_HEADS, LC_DIM, dtype, seed=15)[:1]
+    scale = 1.0 / LC_DIM ** 0.5
+    mesh = ici.make_mesh_1d(n, axis="sp", devices=[dev] * n)
+    cases = (("causal", True), ("full", False))
+    ring, uly = ring_attention.ring_attention, ulysses.ulysses_attention
+
+    # the main path: forward and backward through autograd, as a user trains
+    flash.flash_forward_cuda.launches = flash.flash_backward_cuda.launches = 0
+    ring_grads = {label: _train_step(ring, mesh, q, k, v, do, causal) for label, causal in cases}
+    torch.cuda.synchronize()
+    ring_k2, ring_k3 = flash.flash_forward_cuda.launches, flash.flash_backward_cuda.launches
+    visible = n * (n + 1) // 2 + n * n
+    check(ring_k3 == visible, f"ring K3 launches {ring_k3} != {visible} (36 + 64)")
+    check(ring_k2 == visible, f"ring K2 launches {ring_k2} != {visible}")
+    flash.flash_forward_cuda.launches = flash.flash_backward_cuda.launches = 0
+    uly_grads = {label: _train_step(uly, mesh, q, k, v, do, causal) for label, causal in cases}
+    uly_grads["ragged"] = _train_step(uly, mesh, rq, rk, rv, rdo, True)
+    torch.cuda.synchronize()
+    uly_k2, uly_k3 = flash.flash_forward_cuda.launches, flash.flash_backward_cuda.launches
+    check(uly_k3 == 3 * n and uly_k2 == 3 * n, f"Ulysses K2 / K3 launches {uly_k2} / {uly_k3} "
+          f"!= {n} a training step")
+    print(f"[{card}] long-context training main path: ring K2 {ring_k2} / K3 {ring_k3} launches "
+          f"(causal + full), Ulysses K2 {uly_k2} / K3 {uly_k3} (causal, full, ragged "
+          f"{n} x {ULY_RAGGED})")
+
+    res = {}
+    for label, causal in cases:
+        grads = ring_grads[label]
+        for x, g in zip((q, k, v), grads):
+            check(g.shape == x.shape and g.dtype == dtype and bool(torch.isfinite(g.float()).all()),
+                  f"ring {label}: gradient {g.shape} {g.dtype}")
+        leaves = _leaves(q, k, v)
+        out = ring(mesh, *leaves, causal=causal)
+        dos = list(do.chunk(n))
+        again = torch.autograd.grad(out, leaves, dos, retain_graph=True)
+        again2 = torch.autograd.grad(out, leaves, dos, retain_graph=True)
+        check(all(torch.equal(a, b) for a, b in zip(again, again2)),
+              f"ring {label}: two backward calls differ")
+        check(all(torch.equal(a, b) for a, b in zip(again, grads)),
+              f"ring {label}: the training step's gradients differ from a backward on its graph")
+        o = torch.cat([x.detach() for x in out])
+        plain = ring_attention.ring_backward_reference(mesh, q, k, v, do, causal=causal,
+                                                       heads_at_once=LT_PLAIN_HEADS)
+        terms = ring_attention.ring_bwd_rounding_terms(q, k, v, o, do, n, causal, scale)
+        per_shard = [tuple(g.chunk(n)[i] for g in grads) for i in range(n)]
+        excess = [ring_attention.ring_bwd_excess(per_shard[i], plain[i], terms[i]) for i in range(n)]
+        err = max((a.float() - b.float()).abs().max().item()
+                  for i in range(n) for a, b in zip(per_shard[i], plain[i]))
+        fault_a, fault_b = ring_attention.ring_bwd_planted_faults(q, k, v, o, do, per_shard, n,
+                                                                  causal, scale)
+        fault_step = min(max(ring_attention.ring_bwd_excess(fault_a[i], plain[i], terms[i]))
+                         for i in range(n))
+        fault_home = max(ring_attention.ring_bwd_excess(fault_b[n // 2], plain[n // 2],
+                                                        terms[n // 2]))
+        del fault_a, fault_b, terms
+        worst = max(max(e) for e in excess)
+        check(worst <= 0.0, f"ring {label}: beyond ring_bwd_excess by {worst} (max abs err {err})")
+        check(fault_step > 0.0, f"ring {label}: the bound passes a ring step left out "
+              f"(least excess over the shards {fault_step})")
+        check(fault_home > 0.0, f"ring {label}: the bound passes dK/dV left on the wrong shard")
+
+        uexcess, uerr, plain_res = _ulysses_checks(flash, ulysses, mesh, q, k, v, do,
+                                                   uly_grads[label], causal, scale, label)
+        # times, CUDA events
+        step_ms = cuda_ms(lambda: _train_step(ring, mesh, q, k, v, do, causal), reps=LT_REPS)
+        bwd_ms = cuda_ms(lambda: torch.autograd.grad(out, leaves, dos, retain_graph=True),
+                         reps=LT_REPS)
+        kt_ = kernel_times(torch, lambda: torch.autograd.grad(out, leaves, dos, retain_graph=True))
+        k3_ms = sum(ms for name, (ms, _) in kt_.items() if any(x in name for x in K3_NAMES))
+        dev_ms = sum(ms for ms, _ in kt_.values())
+        plain_ms = cuda_ms(lambda: ring_attention.ring_backward_reference(
+            mesh, q, k, v, do, causal=causal, heads_at_once=LT_PLAIN_HEADS), reps=LT_REPS, warmup=1)
+        del out, leaves, again, again2, plain
+        uleaves = _leaves(q, k, v)
+        uout = uly(mesh, *uleaves, causal=causal)
+        ustep_ms = cuda_ms(lambda: _train_step(uly, mesh, q, k, v, do, causal), reps=LT_REPS)
+        ubwd_ms = cuda_ms(lambda: torch.autograd.grad(uout, uleaves, dos, retain_graph=True),
+                          reps=LT_REPS)
+        ukt = kernel_times(torch, lambda: torch.autograd.grad(uout, uleaves, dos, retain_graph=True))
+        uk3_ms = sum(ms for name, (ms, _) in ukt.items() if any(x in name for x in K3_NAMES))
+        uplain_ms = cuda_ms(lambda: [flash.flash_backward_reference(*r, causal, scale)
+                                     for r in plain_res], reps=LT_REPS, warmup=1)
+        del uout, uleaves, plain_res
+        qt, kt, vt, dot = (x.transpose(0, 1).contiguous() for x in (q, k, v, do))
+        qs, ks, vs = (x[None].requires_grad_() for x in (qt, kt, vt))
+        sdpa = torch.nn.functional.scaled_dot_product_attention(qs, ks, vs, is_causal=causal,
+                                                                scale=scale)
+        lib_ms = cuda_ms(lambda: torch.autograd.grad(sdpa, (qs, ks, vs), dot[None],
+                                                     retain_graph=True), reps=LT_REPS)
+        del sdpa, qs, ks, vs, qt, kt, vt, dot
+        bound_ms, bound_by = _bwd_bound_ms(LC_SEQ, LC_SEQ, LC_HEADS, LC_DIM, dtype, causal)
+        res[label] = dict(ring_step_ms=step_ms, ring_bwd_ms=bwd_ms, ring_k3_ms=k3_ms,
+                          ring_k3_share=k3_ms / bwd_ms, ring_bwd_device_ms=dev_ms,
+                          ring_plain_bwd_ms=plain_ms, ring_err=err, ring_excess=worst,
+                          ring_fault_step_excess=fault_step, ring_fault_home_excess=fault_home,
+                          ulysses_step_ms=ustep_ms, ulysses_bwd_ms=ubwd_ms, ulysses_k3_ms=uk3_ms,
+                          ulysses_k3_share=uk3_ms / ubwd_ms, ulysses_plain_bwd_ms=uplain_ms,
+                          ulysses_err=uerr, ulysses_excess=uexcess, library_ms=lib_ms,
+                          bound_ms=bound_ms, bound_by=bound_by)
+        print(f"[{card}] training seq {LC_SEQ} ({n} shards) {LC_HEADS} heads dim {LC_DIM} bf16 "
+              f"{label}: ring step ms {step_ms:.3f}, backward ms {bwd_ms:.3f} (K3 {k3_ms:.3f}, "
+              f"{k3_ms / bwd_ms:.0%}; device {dev_ms:.3f}), plain backward ms {plain_ms:.1f}; "
+              f"err {err:.3g}, excess {worst:.3g} (a step left out {fault_step:.3g}, dK/dV not "
+              f"home {fault_home:.3g}); Ulysses step ms {ustep_ms:.3f}, backward ms {ubwd_ms:.3f} "
+              f"(K3 {uk3_ms:.3f}), plain backward ms {uplain_ms:.1f}, err {uerr:.3g}, excess "
+              f"{uexcess:.3g}; SDPA backward (whole sequence) ms {lib_ms:.3f}; bound ms "
+              f"{bound_ms:.3f} ({bound_by})")
+        torch.cuda.empty_cache()
+    rexcess, rerr, _ = _ulysses_checks(flash, ulysses, mesh, rq, rk, rv, rdo, uly_grads["ragged"],
+                                       True, scale, "ragged")
+    print(f"[{card}] Ulysses ragged {n} x {ULY_RAGGED} causal: every head group within K3's "
+          f"contract (excess {rexcess:.3g}, err {rerr:.3g}), gradients == K3's")
+
+    # ProcessGroupShards on NCCL, a world of one, against LocalShards at one shard
+    import socket
+
+    import torch.distributed as dist
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    check(multihost.maybe_initialize(f"localhost:{port}", 0, 1, local_device_ids=[0]),
+          "maybe_initialize did not start a group")
+    try:
+        check(dist.get_backend() == "nccl", "NCCL world of one")
+        mesh1 = ici.make_mesh_1d(1, axis="sp", devices=[dev])
+        part = [x[:LC_SEQ // n] for x in (q, k, v, do)]
+        for fn in (ring, uly):
+            got = _train_step(fn, mesh1, *part, True, comm=comm.ProcessGroupShards(mesh1))
+            want = _train_step(fn, mesh1, *part, True)
+            check(all(torch.equal(a, b) for a, b in zip(got, want)),
+                  f"{fn.__name__}: ProcessGroupShards (NCCL, world 1) gradients differ")
+    finally:
+        dist.destroy_process_group()
+    print(f"[{card}] ProcessGroupShards (NCCL, world 1) == LocalShards at one shard: ring and "
+          f"Ulysses gradients")
+    phase_s = time.perf_counter() - t_phase
+    print(f"[{card}] phase 9 long-context training s {phase_s:.1f}")
+    c = res["causal"]
+
+    def entry(name, replaces, launches, prefix):
+        return {
+            "name": name,
+            "route": "torch",
+            "source": f"distributed_tpu_torch/ops/{prefix}.py",
+            "kernel": "flash_bwd (K3)",
+            "replaces": replaces,
+            "launches": launches,
+            "max_abs_err": max(r[f"{prefix.split('_')[0]}_err"] for r in res.values()),
+            "ms": c[f"{prefix.split('_')[0]}_bwd_ms"],
+            "plain_ms": c[f"{prefix.split('_')[0]}_plain_bwd_ms"],
+            "bound_ms": c["bound_ms"],
+            "bound_by": c["bound_by"],
+            "library_ms": c["library_ms"],
+            "case": f"backward, seq {LC_SEQ}, {n} shards, {LC_HEADS} heads, dim {LC_DIM}, bf16, "
+                    f"causal",
+            "cases": res,
+            "phase_s": phase_s,
+        }
+
+    return [entry("ring_attention_bwd", "distributed_tpu/ops/ring_attention.py:65", ring_k3,
+                  "ring_attention"),
+            entry("ulysses_bwd", "distributed_tpu/ops/ulysses.py:51", uly_k3, "ulysses")], \
+        ring_k2 + uly_k2, ring_k3 + uly_k3
+
+
+# ------------------------------------------------------------ phase 10
+
+
+R1_SEQ_TASKS = 2_048         # decide_workers(sequential=True)'s ready tasks
+R1_PAR_TASKS = 32_768        # decide_workers(sequential=False)'s ready tasks
+R1_SHARD_TASKS = 8_192       # K15's ready tasks
+R1_LAYOUTS = ("2x1", "4x2", "8x1")
+R1_RESTRICTED = 0.10         # share of rows with worker restrictions
+R1_BANDWIDTH = 100e6
+
+
+def r1_problem(B, W, seed):
+    """Host arrays of a batch of ``B`` ready tasks onto ``W`` workers of
+    ``THREADS`` threads (workers 0-7 stopped, occupancy uniform in [0, 5)
+    s): ~2 dependencies a task (Poisson) from a table of B / 2 keys, each
+    key held by 1-3 workers, ~10 % of rows restricted to a quarter of the
+    workers."""
+    rng = np.random.default_rng(seed)
+    D = B // 2
+    deg = rng.poisson(2.0, B)
+    edge_task = np.repeat(np.arange(B, dtype=np.int32), deg)
+    edge_dep = rng.integers(0, D, len(edge_task)).astype(np.int32)
+    holders = rng.integers(1, 4, D)
+    has = np.zeros((D, W), bool)
+    has[np.repeat(np.arange(D), holders), rng.integers(0, W, holders.sum())] = True
+    restrict = np.ones((B, W), bool)
+    rows = np.flatnonzero(rng.random(B) < R1_RESTRICTED)
+    restrict[rows] = rng.random((len(rows), W)) < 0.25
+    running = np.ones(W, bool)
+    running[:8] = False
+    workers = (np.full(W, THREADS, np.int32), rng.uniform(0, 5, W).astype(np.float32),
+               rng.uniform(0, 1e9, W).astype(np.float32), running)
+    batch = (rng.uniform(0.001, 1.0, B).astype(np.float32), (edge_task, edge_dep),
+             rng.uniform(1e3, 1e8, D).astype(np.float32), has, restrict)
+    return workers, batch
+
+
+def _decide_bound_ms(B, W, E, D):
+    """Inputs read once (fleet, batch rows, edges, dep sizes, the [D, W]
+    replica and [B, W] restriction masks), outputs written once; an add a
+    real edge and worker for the missing bytes, ~10 f32 operations a
+    (task, worker) for the cost and the three argmin passes."""
+    return _bound(13 * W + 5 * B + 8 * E + 4 * D + D * W + B * W + 4 * B + 4 * W,
+                     E * W + 10 * B * W)
+
+
+def _wavefront_bound_ms(T, E, W, waves):
+    """The graph's arrays read once (21 B a task, 8 an edge), the fleet,
+    assignment / start / wave written once; ~50 f32 operations a task and
+    a W log W worker sort a wave."""
+    return _bound(21 * T + 8 * E + 13 * W + 12 * T + 4 * W,
+                     50 * T + waves * W * max(W.bit_length() - 1, 1))
+
+
+def _host_ms(fn):
+    """Wall milliseconds of one call on the host CPU, and its result."""
+    t0 = time.perf_counter()
+    out = fn()
+    return (time.perf_counter() - t0) * 1e3, out
+
+
+def wave_lockstep(wavefront, graph, fleet, bandwidth=100e6):
+    """The wavefront on the card against its CPU run one wave at a time,
+    both from the CPU run's carry before the wave (as ``_lockstep`` holds
+    K1): (least agreement of a wave's placements, largest load error
+    relative to the largest load on the workers no disagreeing task
+    touched, tasks that disagreed, waves).  From one state the card differs
+    only where ``index_add_``'s atomics reorder a wave's f32 load sums and
+    a near-tie flips; run end to end, such a flip reorders the load sort of
+    every later wave."""
+    dev = graph.duration.device
+    gcpu = wavefront.GraphArrays(*(x.cpu() for x in graph))
+    nth, occ, run = (torch.as_tensor(x) for x in fleet)
+    fl_cpu = (nth.to(torch.int32), occ.to(torch.float32), run.to(torch.bool))
+    fl_dev = tuple(x.to(dev) for x in fl_cpu)
+    T = gcpu.n
+    carry = wavefront._Carry(torch.full((T,), -1, dtype=torch.int32), torch.zeros(T),
+                             torch.full((T,), -1, dtype=torch.int32), gcpu.indegree, fl_cpu[1],
+                             torch.zeros(()), torch.zeros((), dtype=torch.int32))
+    least, worst, flips, waves = 1.0, 0.0, 0, 0
+    while True:
+        nxt = wavefront._place_chunk(gcpu, *fl_cpu, carry, bandwidth, 1)
+        newly = (nxt.assign >= 0) & (carry.assign < 0)
+        if not bool(newly.any()):
+            return least, worst, flips, waves
+        card = wavefront._place_chunk(graph, *fl_dev, wavefront._Carry(*(x.to(dev) for x in carry)),
+                                      bandwidth, 1)
+        a_k, a_p = card.assign.cpu()[newly], nxt.assign[newly]
+        differ = a_k != a_p
+        touched = torch.zeros(len(run), dtype=torch.bool)
+        touched[a_k[differ].long()] = True
+        touched[a_p[differ].long()] = True
+        err = (card.load.cpu() - nxt.load)[~touched].abs().max().item() if bool((~touched).any()) \
+            else 0.0
+        least = min(least, 1.0 - int(differ.sum()) / int(newly.sum()))
+        worst = max(worst, err / max(nxt.load.abs().max().item(), 1e-30))
+        flips, waves, carry = flips + int(differ.sum()), waves + 1, nxt
+
+
+def phase_round1():
+    """Phase 10, the round-1 batched placers as torch ops on the card, each
+    against the same call on the CPU."""
+    from distributed_tpu_torch import graphs
+    from distributed_tpu_torch.ops import placement, wavefront
+    from distributed_tpu_torch.parallel import mesh as pmesh
+
+    dev = torch.device("cuda", 0)
+    card = smi_line()
+    t_phase = time.perf_counter()
+    W = N_WORKERS
+    seq_w, seq_b = r1_problem(R1_SEQ_TASKS, W, seed=30)
+    par_w, par_b = r1_problem(R1_PAR_TASKS, W, seed=31)
+    sh_w, sh_b = r1_problem(R1_SHARD_TASKS, W, seed=32)
+    durations, out_bytes, src, dst = graphs.random_dag(N_TASKS, seed=0)
+    fleets = _fleets()
+    layouts = {lay: pmesh.make_mesh(devices=[dev] * 8, layout=lay) for lay in R1_LAYOUTS}
+
+    def on(w, b, device):
+        return (placement.WorkerArrays(*w).to(device),
+                placement.build_batch_arrays(*b[:4], restrict=b[4], device=device))
+
+    cards = {"seq": on(seq_w, seq_b, dev), "par": on(par_w, par_b, dev), "shard": on(sh_w, sh_b, dev)}
+    graph = wavefront.GraphArrays.from_arrays(durations, out_bytes, src.astype(np.int64),
+                                              dst.astype(np.int64), device=dev)
+
+    # the main path: each placer as a user calls it, on the card
+    placement.decide_workers.launches = wavefront.place_graph.launches = 0
+    pmesh.sharded_decide_workers.launches = 0
+    got = {"seq": placement.decide_workers(*cards["seq"], R1_BANDWIDTH, sequential=True),
+           "par": placement.decide_workers(*cards["par"], R1_BANDWIDTH, sequential=False)}
+    placement.place_rootish.launches = placement.occupancy_after_finish.launches = 0
+    got_root = placement.place_rootish(R1_PAR_TASKS, cards["par"][0], max_tasks=R1_PAR_TASKS)
+    fin = (par_w[1], par_w[0], got["par"][0], cards["par"][1].duration)
+    got_fin = placement.occupancy_after_finish(*fin)
+    got_graph = {name: wavefront.place_graph(graph, *fleet) for name, fleet in fleets.items()}
+    got_shard = {lay: pmesh.sharded_decide_workers(m, *cards["shard"], R1_BANDWIDTH)
+                 for lay, m in layouts.items()}
+    torch.cuda.synchronize()
+    launches = {"decide_workers": placement.decide_workers.launches,
+                "place_rootish": placement.place_rootish.launches,
+                "occupancy_after_finish": placement.occupancy_after_finish.launches,
+                "wavefront": wavefront.place_graph.launches,
+                "sharded_decide_workers": pmesh.sharded_decide_workers.launches}
+    check(launches == {"decide_workers": 2, "place_rootish": 1, "occupancy_after_finish": 1,
+                       "wavefront": len(fleets), "sharded_decide_workers": len(R1_LAYOUTS)},
+          f"round-1 launches {launches}")
+
+    # against the CPU run of the same calls
+    cpu = {"seq": on(seq_w, seq_b, "cpu"), "par": on(par_w, par_b, "cpu"), "shard": on(sh_w, sh_b, "cpu")}
+    seq_cpu_ms, want_seq = _host_ms(lambda: placement.decide_workers(
+        *cpu["seq"], R1_BANDWIDTH, sequential=True, device="cpu"))
+    par_cpu_ms, want_par = _host_ms(lambda: placement.decide_workers(
+        *cpu["par"], R1_BANDWIDTH, sequential=False, device="cpu"))
+    for a, b, what in ((got["seq"][0], want_seq[0], "sequential assignment"),
+                       (got["seq"][1], want_seq[1], "sequential occupancy"),
+                       (got["par"][0], want_par[0], "parallel assignment")):
+        check(torch.equal(a.cpu(), b), f"decide_workers {what} differs from the CPU run")
+    occ_err = ((got["par"][1].cpu() - want_par[1]).abs().max()
+               / want_par[1].abs().max()).item()
+    check(occ_err <= K1_LOAD_RTOL, f"decide_workers parallel occupancy off the CPU run by "
+          f"{occ_err} of its largest (index_add_'s atomics reorder its f32 sums)")
+    placed = {k: int((v[0] >= 0).sum()) for k, v in got.items()}
+    print(f"[{card}] decide_workers on {W} workers x {THREADS}: sequential {R1_SEQ_TASKS} tasks "
+          f"({placed['seq']} placed) == CPU run bit for bit (assignment, occupancy); parallel "
+          f"{R1_PAR_TASKS} tasks ({placed['par']} placed): assignment == CPU run, occupancy "
+          f"within {occ_err:.3g} of its largest")
+
+    # place_rootish (integer ops: exact) and the release of the parallel batch's
+    # bookings (an index_add_ of f32: within K1_LOAD_RTOL of the CPU run)
+    root_cpu_ms, want_root = _host_ms(lambda: placement.place_rootish(
+        R1_PAR_TASKS, cpu["par"][0], max_tasks=R1_PAR_TASKS, device="cpu"))
+    check(torch.equal(got_root.cpu(), want_root), "place_rootish differs from the CPU run")
+    fin_cpu = (par_w[1], par_w[0], want_par[0], cpu["par"][1].duration)
+    fin_cpu_ms, want_fin = _host_ms(lambda: placement.occupancy_after_finish(*fin_cpu,
+                                                                              device="cpu"))
+    fin_err = ((got_fin.cpu() - want_fin).abs().max() / want_fin.abs().max().clamp(min=1e-30)).item()
+    check(fin_err <= K1_LOAD_RTOL, f"occupancy_after_finish off the CPU run by {fin_err}")
+    root_ms = cuda_ms(lambda: placement.place_rootish(R1_PAR_TASKS, cards["par"][0],
+                                                      max_tasks=R1_PAR_TASKS), reps=LT_REPS)
+    fin_ms = cuda_ms(lambda: placement.occupancy_after_finish(*fin), reps=LT_REPS)
+    root_bound = _bound(13 * W + 4 * R1_PAR_TASKS, 3 * W + 6 * R1_PAR_TASKS)
+    fin_bound = _bound(8 * W + 8 * R1_PAR_TASKS, 3 * R1_PAR_TASKS + 2 * W)
+    print(f"[{card}] place_rootish {R1_PAR_TASKS} tasks on {W} workers == CPU run: ms "
+          f"{root_ms:.4f} (CPU run {root_cpu_ms:.2f}, bound {root_bound[0]:.6f}); "
+          f"occupancy_after_finish of those {R1_PAR_TASKS} bookings within {fin_err:.3g} of the "
+          f"CPU run: ms {fin_ms:.4f} (CPU run {fin_cpu_ms:.2f}, bound {fin_bound[0]:.6f})")
+
+    graph_cpu = wavefront.GraphArrays(*(x.cpu() for x in graph))
+    wf = {}
+    for name, fleet in fleets.items():
+        g = got_graph[name]
+        wavefront.validate_placement(graph, g, fleet[2])
+        cpu_ms, want = _host_ms(lambda: wavefront.place_graph(graph_cpu, *fleet))
+        a, b = g.assignment.cpu(), want.assignment
+        agree = (a == b).float().mean().item()
+        run = fleet[2]
+        occ_k, occ_p = g.occupancy.cpu().numpy()[run], want.occupancy.numpy()[run]
+        imb_k, imb_p = occ_k.max() / occ_k.mean(), occ_p.max() / occ_p.mean()
+        span_k, span_p = g.start_time.max().item(), want.start_time.max().item()
+        check(int(g.n_waves) == int(want.n_waves), f"wavefront {name}: waves {int(g.n_waves)} "
+              f"!= CPU run's {int(want.n_waves)}")
+        least, load_err, flips, waves = wave_lockstep(wavefront, graph, fleet)
+        check(waves == int(want.n_waves), f"wavefront {name}: lockstep waves {waves}")
+        check(least >= K1_MIN_AGREEMENT, f"wavefront {name}: a wave agrees {least} with the CPU "
+              f"run from the same state")
+        check(load_err <= K1_LOAD_RTOL, f"wavefront {name}: load error {load_err} on untouched "
+              f"workers")
+        check(abs(imb_k - imb_p) <= QUALITY_RTOL * imb_p, f"wavefront {name}: imbalance "
+              f"{imb_k} against the CPU run's {imb_p}")
+        check(abs(span_k - span_p) <= QUALITY_RTOL * span_p, f"wavefront {name}: makespan "
+              f"{span_k} against the CPU run's {span_p}")
+        ms = cuda_ms(lambda: wavefront.place_graph(graph, *fleet), reps=LT_REPS, warmup=1)
+        bound_ms, bound_by = _wavefront_bound_ms(N_TASKS, len(src), W, int(g.n_waves))
+        wf[name] = dict(ms=ms, plain_ms=cpu_ms, agreement=agree, wave_agreement=least,
+                        wave_flips=flips, wave_load_err=load_err, imbalance=float(imb_k),
+                        occupancy_abs_err=(g.occupancy.cpu() - want.occupancy).abs().max().item(),
+                        imbalance_cpu=float(imb_p), makespan=span_k, makespan_cpu=span_p,
+                        waves=int(g.n_waves), exact=bool(torch.equal(a, b)), bound_ms=bound_ms,
+                        bound_by=bound_by)
+        print(f"[{card}] wavefront place_graph {N_TASKS} tasks {name}: validated, {int(g.n_waves)} waves, "
+              f"from the CPU run's state each wave agrees >= {least:.6f} ({flips} tasks flipped, "
+              f"load error {load_err:.3g}); end to end agreement {agree:.6f} (bit for bit: "
+              f"{wf[name]['exact']}), "
+              f"imbalance {imb_k:.6g} / CPU {imb_p:.6g}, makespan {span_k:.6g} / CPU "
+              f"{span_p:.6g}; ms {ms:.3f} (CPU run {cpu_ms:.1f}) bound_ms {bound_ms:.5f} "
+              f"({bound_by})")
+
+    single = placement.decide_workers(*cards["shard"], R1_BANDWIDTH, sequential=False)[0]
+    shard_cpu_ms, want_shard = _host_ms(lambda: placement.decide_workers(
+        *cpu["shard"], R1_BANDWIDTH, sequential=False, device="cpu"))
+    check(torch.equal(single.cpu(), want_shard[0]), "decide_workers (K15's batch) != CPU run")
+    sh_ms = {}
+    for lay, m in layouts.items():
+        check(torch.equal(got_shard[lay], single), f"sharded_decide_workers {lay} != the "
+              f"single-device parallel assignment")
+        sh_ms[lay] = cuda_ms(lambda: pmesh.sharded_decide_workers(m, *cards["shard"], R1_BANDWIDTH),
+                             reps=LT_REPS, warmup=1)
+    print(f"[{card}] sharded_decide_workers {R1_SHARD_TASKS} tasks x {W} workers at "
+          f"{', '.join(R1_LAYOUTS)} (8 virtual shards) == single-device decide_workers(parallel) "
+          f"== CPU run; ms {', '.join(f'{k} {v:.3f}' for k, v in sh_ms.items())}")
+
+    seq_ms = cuda_ms(lambda: placement.decide_workers(*cards["seq"], R1_BANDWIDTH, sequential=True),
+                     reps=LT_REPS, warmup=1)
+    par_ms = cuda_ms(lambda: placement.decide_workers(*cards["par"], R1_BANDWIDTH,
+                                                      sequential=False), reps=LT_REPS, warmup=1)
+    E = {k: int(len(b[1][0])) for k, b in (("seq", seq_b), ("par", par_b), ("shard", sh_b))}
+    seq_bound = _decide_bound_ms(R1_SEQ_TASKS, W, E["seq"], R1_SEQ_TASKS // 2)
+    par_bound = _decide_bound_ms(R1_PAR_TASKS, W, E["par"], R1_PAR_TASKS // 2)
+    sh_bound = _decide_bound_ms(R1_SHARD_TASKS, W, E["shard"], R1_SHARD_TASKS // 2)
+    print(f"[{card}] decide_workers ms: sequential {seq_ms:.3f} (CPU run {seq_cpu_ms:.1f}, bound "
+          f"{seq_bound[0]:.5f} {seq_bound[1]}), parallel {par_ms:.3f} (CPU run {par_cpu_ms:.1f}, "
+          f"bound {par_bound[0]:.5f} {par_bound[1]})")
+    phase_s = time.perf_counter() - t_phase
+    print(f"[{card}] phase 10 round-1 placers s {phase_s:.1f}")
+
+    def entry(name, source, replaces, ms, plain_ms, bound, case, err=0.0, **extra):
+        return dict(name=name, route="torch", source=source, replaces=replaces,
+                    launches=launches[name], max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                    plain_device="cpu", bound_ms=bound[0], bound_by=bound[1], library_ms=None,
+                    case=case, phase_s=phase_s, **extra)
+
+    head = SHARD_HEADLINE[0]
+    return [
+        entry("decide_workers", "distributed_tpu_torch/ops/placement.py",
+              "distributed_tpu/ops/placement.py:157", seq_ms, seq_cpu_ms, seq_bound,
+              f"sequential, {R1_SEQ_TASKS} tasks x {W} workers",
+              err=(got["par"][1].cpu() - want_par[1]).abs().max().item(),
+              parallel=dict(ms=par_ms, plain_ms=par_cpu_ms, bound_ms=par_bound[0],
+                            bound_by=par_bound[1], tasks=R1_PAR_TASKS, occupancy_rel_err=occ_err)),
+        entry("place_rootish", "distributed_tpu_torch/ops/placement.py",
+              "distributed_tpu/ops/placement.py:213", root_ms, root_cpu_ms, root_bound,
+              f"{R1_PAR_TASKS} tasks on {W} workers"),
+        entry("occupancy_after_finish", "distributed_tpu_torch/ops/placement.py",
+              "distributed_tpu/ops/placement.py:243", fin_ms, fin_cpu_ms, fin_bound,
+              f"{R1_PAR_TASKS} finished tasks on {W} workers",
+              err=(got_fin.cpu() - want_fin).abs().max().item(), rel_err=fin_err),
+        entry("wavefront", "distributed_tpu_torch/ops/wavefront.py",
+              "distributed_tpu/ops/wavefront.py:140", wf["nonuniform"]["ms"],
+              wf["nonuniform"]["plain_ms"], (wf["nonuniform"]["bound_ms"],
+                                             wf["nonuniform"]["bound_by"]),
+              f"{N_TASKS} tasks, {W} workers, non-uniform",
+              err=max(r["occupancy_abs_err"] for r in wf.values()), cases=wf),
+        entry("sharded_decide_workers", "distributed_tpu_torch/parallel/mesh.py",
+              "distributed_tpu/parallel/mesh.py:73", sh_ms[head], shard_cpu_ms, sh_bound,
+              f"{R1_SHARD_TASKS} tasks x {W} workers, {head}", layouts_ms=sh_ms),
+    ]
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2480,8 +3043,12 @@ def main() -> int:
             e.update(mirror_sharded)
     shuffle_entry = phase_data_plane(periodic_ptxas_info.get("shuffle_bucket.cu"))
     long_context = phase_long_context()
+    training, k2_training, k3_training = phase_long_context_training()
+    flash_entry["launches_long_context_training"] = k2_training
+    bwd_entry["launches_long_context_training"] = k3_training
+    round1 = phase_round1()
     kernels = [flash_entry, bwd_entry, wave_entry, partition_entry, *periodic_entries, shard_entry,
-               shuffle_entry, *long_context]
+               shuffle_entry, *long_context, *training, *round1]
     print(f"total_s {time.perf_counter() - t0:.1f}")
     print(smi_line())
     print(json.dumps({"kernels": kernels}))

@@ -20,6 +20,13 @@ every layout.
   ``torch.distributed`` group: ``all_reduce``,
   ``all_gather_into_tensor``, ``all_to_all_single`` and
   ``batch_isend_irecv``.
+
+``all_to_all`` and ``ppermute`` are differentiable on both, with the
+transposes ``jax.grad`` uses: the backward of ``all_to_all`` is
+``all_to_all`` and that of ``ppermute(shift)`` is ``ppermute(-shift)``.
+:class:`LocalShards`' are indexing and ``.to``, which autograd already
+follows; :class:`ProcessGroupShards`' go through :class:`_AllToAll` and
+:class:`_PPermute`.
 """
 
 from __future__ import annotations
@@ -115,21 +122,27 @@ class ProcessGroupShards:
     def all_to_all(self, parts: list[torch.Tensor]) -> list[torch.Tensor]:
         """This rank's ``[n, ...]`` blocks, block ``d`` to rank ``d``;
         returns ``[n, ...]`` whose block ``s`` came from rank ``s``."""
-        send = parts[0].contiguous()
-        if send.shape[0] != self.n_shards:
+        if parts[0].shape[0] != self.n_shards:
             raise ValueError(f"all_to_all needs {self.n_shards} blocks a shard")
-        out = torch.empty_like(send)
-        self.dist.all_to_all_single(out, send, group=self.group)
-        return [out]
+        return [_AllToAll.apply(self, parts[0])]
 
     def ppermute(self, parts: list[torch.Tensor], shift: int = 1) -> list[torch.Tensor]:
         """This rank's tensor goes to rank ``(r + shift) % n``; returns the
         one from rank ``(r - shift) % n``."""
+        return [_PPermute.apply(self, parts[0], shift)]
+
+    def _all_to_all(self, send: torch.Tensor) -> torch.Tensor:
+        send = send.contiguous()
+        out = torch.empty_like(send)
+        self.dist.all_to_all_single(out, send, group=self.group)
+        return out
+
+    def _ppermute(self, x: torch.Tensor, shift: int) -> torch.Tensor:
         n, r = self.n_shards, self.rank
-        x = parts[0].contiguous()
+        x = x.contiguous()
         dst, src = (r + shift) % n, (r - shift) % n
         if dst == r:
-            return [x.clone()]
+            return x.clone()
         out = torch.empty_like(x)
         g = self.group
         peer = self.dist.get_global_rank if g is not None else (lambda _g, i: i)
@@ -137,4 +150,31 @@ class ProcessGroupShards:
                self.dist.P2POp(self.dist.irecv, out, peer(g, src), g)]
         for req in self.dist.batch_isend_irecv(ops):
             req.wait()
-        return [out]
+        return out
+
+
+class _AllToAll(torch.autograd.Function):
+    """A rank's block transpose; its backward is the same exchange of the
+    gradient (``recv[d][s] = send[s][d]`` is its own transpose)."""
+
+    @staticmethod
+    def forward(ctx, comm, send):
+        ctx.comm = comm
+        return comm._all_to_all(send)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return None, ctx.comm._all_to_all(grad)
+
+
+class _PPermute(torch.autograd.Function):
+    """A ring shift; its backward shifts the gradient back."""
+
+    @staticmethod
+    def forward(ctx, comm, x, shift):
+        ctx.comm, ctx.shift = comm, shift
+        return comm._ppermute(x, shift)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return None, ctx.comm._ppermute(grad, -ctx.shift), None

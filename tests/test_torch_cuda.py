@@ -996,3 +996,107 @@ def test_ulysses_refuses_a_head_dim_k2_cannot_take(cuda):
     mesh = ici.make_mesh_1d(8, axis="sp", devices=[cuda] * 8)
     with pytest.raises(ValueError, match="head dim"):
         ulysses.ulysses_attention(mesh, q, q, q)
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=str)
+def test_ring_attention_backward_on_the_card(cuda, causal, dtype):
+    """The ring's backward, K3 a visible block (36 / 64 calls), within
+    ring_bwd_excess of autograd through the plain ring; both planted
+    faults rejected; two backward calls bit-identical."""
+    g = torch.Generator(device=cuda).manual_seed(6)
+    q, k, v, do = (torch.randn(8 * 256, 4, 64, generator=g, device=cuda).to(dtype)
+                   for _ in range(4))
+    mesh = ici.make_mesh_1d(8, axis="sp", devices=[cuda] * 8)
+    leaves = tuple(x.clone().requires_grad_() for x in (q, k, v))
+    out = ring_attention.ring_attention(mesh, *leaves, causal=causal)
+    dos = list(do.chunk(8))
+    before = flash.flash_backward_cuda.launches
+    grads = torch.autograd.grad(out, leaves, dos, retain_graph=True)
+    torch.cuda.synchronize()
+    assert flash.flash_backward_cuda.launches - before == (36 if causal else 64)
+    again = torch.autograd.grad(out, leaves, dos)
+    assert all(torch.equal(a, b) for a, b in zip(grads, again))
+    per_shard = [tuple(x.chunk(8)[i] for x in grads) for i in range(8)]
+    plain = ring_attention.ring_backward_reference(mesh, q, k, v, do, causal=causal)
+    o = torch.cat([x.detach() for x in out])
+    terms = ring_attention.ring_bwd_rounding_terms(q, k, v, o, do, 8, causal, 64 ** -0.5)
+    excess = [max(ring_attention.ring_bwd_excess(per_shard[i], plain[i], terms[i]))
+              for i in range(8)]
+    assert max(excess) <= 0.0, excess
+    fault_a, fault_b = ring_attention.ring_bwd_planted_faults(q, k, v, o, do, per_shard, 8, causal,
+                                                              64 ** -0.5)
+    assert min(max(ring_attention.ring_bwd_excess(fault_a[i], plain[i], terms[i]))
+               for i in range(8)) > 0.0
+    assert max(ring_attention.ring_bwd_excess(fault_b[4], plain[4], terms[4])) > 0.0
+
+
+@pytest.mark.parametrize("n_local", [256, 1000])
+@pytest.mark.parametrize("causal", [False, True])
+def test_ulysses_backward_on_the_card(cuda, n_local, causal):
+    """Ulysses' backward: one K3 call a head group (8), the gradients equal
+    K3's on K2's residuals of each head group mapped back, each within
+    flash.bwd_excess of the plain backward; 8 x 1000 rows is ragged."""
+    g = torch.Generator(device=cuda).manual_seed(7)
+    q, k, v, do = (torch.randn(8 * n_local, 16, 128, generator=g, device=cuda).to(torch.bfloat16)
+                   for _ in range(4))
+    mesh = ici.make_mesh_1d(8, axis="sp", devices=[cuda] * 8)
+    leaves = tuple(x.clone().requires_grad_() for x in (q, k, v))
+    out = ulysses.ulysses_attention(mesh, *leaves, causal=causal)
+    before = flash.flash_backward_cuda.launches
+    grads = torch.autograd.grad(out, leaves, list(do.chunk(8)))
+    torch.cuda.synchronize()
+    assert flash.flash_backward_cuda.launches - before == 8
+    local = ici.LocalShards(mesh)
+    heads = [[h.transpose(0, 1).contiguous() for h in ulysses.seq_to_heads(local, list(x.chunk(8)), 8)]
+             for x in (q, k, v, do)]
+    k3 = []
+    for qt, kt, vt, dot in zip(*heads):
+        o, lse = flash.flash_forward_cuda(qt, kt, vt, causal, 128 ** -0.5)
+        res = (qt, kt, vt, o, lse, dot)
+        got = flash.flash_backward_cuda(*res, causal, 128 ** -0.5)
+        plain = flash.flash_backward_reference(*res, causal, 128 ** -0.5)
+        terms = flash.bwd_rounding_terms(*res, causal, 128 ** -0.5)
+        assert max(flash.bwd_excess(got, plain, terms)) <= 0.0
+        k3.append(got)
+    for i, gr in enumerate(grads):
+        back = torch.cat(ulysses.heads_to_seq(local, [x[i].transpose(0, 1) for x in k3], 8))
+        assert torch.equal(back, gr)
+
+
+def test_round1_placers_on_the_card_equal_the_cpu(cuda):
+    """decide_workers (both modes), K15 at 4x2 and place_graph on the card
+    against the CPU run: assignments exact (the missing bytes add in edge
+    order on both), the parallel occupancy within f32 reordering (CUDA
+    index_add_), the wavefront wave by wave from the CPU run's state
+    within K1's gate (``chip_smoke.wave_lockstep``)."""
+    import chip_smoke
+
+    from distributed_tpu_torch.ops import placement, wavefront
+    from distributed_tpu_torch.parallel import mesh as pmesh
+
+    w, b = chip_smoke.r1_problem(1024, 64, seed=3)
+
+    def on(device):
+        return (placement.WorkerArrays(*w).to(device),
+                placement.build_batch_arrays(*b[:4], restrict=b[4], device=device))
+
+    for sequential in (True, False):
+        got = placement.decide_workers(*on(cuda), 1e8, sequential=sequential)
+        want = placement.decide_workers(*on("cpu"), 1e8, sequential=sequential, device="cpu")
+        assert torch.equal(got[0].cpu(), want[0])
+        torch.testing.assert_close(got[1].cpu(), want[1], rtol=1e-5, atol=0.0)
+    m = pmesh.make_mesh(devices=[cuda] * 8, layout="4x2")
+    single = placement.decide_workers(*on(cuda), 1e8, sequential=False)[0]
+    assert torch.equal(pmesh.sharded_decide_workers(m, *on(cuda), 1e8), single)
+    dur, ob, src, dst = graphs.random_dag(50_000, seed=2)
+    fleet = (np.full(64, 2, np.int32), np.zeros(64, np.float32), np.ones(64, bool))
+    gd = wavefront.GraphArrays.from_arrays(dur, ob, src.astype(np.int64), dst.astype(np.int64),
+                                           device=cuda)
+    res = wavefront.place_graph(gd, *fleet)
+    wavefront.validate_placement(gd, res, fleet[2])
+    want = wavefront.place_graph(wavefront.GraphArrays(*(x.cpu() for x in gd)), *fleet)
+    assert int(res.n_waves) == int(want.n_waves)
+    least, load_err, _, waves = chip_smoke.wave_lockstep(wavefront, gd, fleet)
+    assert waves == int(want.n_waves)
+    assert least >= chip_smoke.K1_MIN_AGREEMENT and load_err <= chip_smoke.K1_LOAD_RTOL

@@ -25,12 +25,15 @@ from distributed_tpu_torch.ops import (
     ici,
     leveled,
     partition,
+    placement,
     rebalance,
     ring_attention,
     sharded,
     stealing,
     ulysses,
+    wavefront,
 )
+from distributed_tpu_torch.parallel import mesh as parallel_mesh
 from distributed_tpu_torch.scheduler import plan
 from distributed_tpu_torch.scheduler.mirror import TorchMirror
 from distributed_tpu_torch.scheduler.periodic import install_periodic
@@ -112,6 +115,10 @@ def _entry_calls():
     q = np.zeros((8, 1, 64), np.float32)
     graph = graphs.random_dag(20, seed=0)
     keys = np.arange(16, dtype=np.int32)
+    workers = placement.WorkerArrays(*fleet[:2], np.zeros(2, np.float32), fleet[2])
+    batch = placement.PlacementBatch(np.ones(4, np.float32), np.ones(4, bool), np.zeros(1, np.int32),
+                                     np.zeros(1, np.int32), np.ones(1, np.float32),
+                                     np.ones((1, 2), bool))
     return {
         "place_graph_leveled": lambda: leveled.place_graph_leveled(packed, *fleet),
         "place_graph_streamed": lambda: leveled.place_graph_streamed(
@@ -153,6 +160,17 @@ def _entry_calls():
             ici.make_mesh_1d(axis="sp"), q, q, q),
         "DeviceRun.exchange": lambda: _device_run(keys).exchange(),
         "DeviceShuffleStore run": lambda: _store_run(keys).exchange(),
+        "decide_workers": lambda: placement.decide_workers(workers, batch, 1e8),
+        "build_batch_arrays": lambda: placement.build_batch_arrays(
+            np.ones(4, np.float32), (np.zeros(1, np.int32), np.zeros(1, np.int32)),
+            np.ones(1, np.float32), np.ones((1, 2), bool)),
+        "place_rootish": lambda: placement.place_rootish(4, workers, max_tasks=8),
+        "occupancy_after_finish": lambda: placement.occupancy_after_finish(
+            fleet[1], fleet[0], np.zeros(1, np.int32), np.ones(1, np.float32)),
+        "GraphArrays.from_arrays": lambda: wavefront.GraphArrays.from_arrays(*graph),
+        "make_mesh": lambda: parallel_mesh.make_mesh(),
+        "sharded_decide_workers": lambda: parallel_mesh.sharded_decide_workers(
+            parallel_mesh.make_mesh(), workers, batch, 1e8),
     }
 
 
