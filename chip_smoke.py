@@ -146,10 +146,28 @@ and prints no result):
    ``occupancy_after_finish`` on the 32,768, ``place_graph`` (the
    wavefront) on phase 3's DAG and fleets (validated; against the CPU run
    K1's gate: each wave from the CPU run's state agrees >= 0.999 with
-   the load within ``K1_LOAD_RTOL`` on untouched workers, and end to end
-   imbalance and makespan within 1 %), ``sharded_decide_workers`` (K15) at 2x1, 4x2
+   the load within ``K1_LOAD_RTOL`` on untouched workers, end to end
+   imbalance and makespan within 1 %, and the whole result equal to the CPU
+   run bit for bit: the loads add in task order), ``sharded_decide_workers`` (K15) at 2x1, 4x2
    and 8x1 on 8,192 tasks equal to the single-device parallel assignment;
-   each timed beside its CPU run and bound.
+   each timed beside its CPU run and bound;
+11. the host periphery: ``tensor_sizeof`` of a K12 shuffle's output (2^20
+   int32 keys and [2^20, 4] f32 values: 4,194,304 and 16,777,216 B); the
+   ``"torch"`` wire family on those CUDA tensors (frames equal to the
+   card's bytes, ``device: "cuda"`` in the header, loaded back on the card
+   bit for bit, bfloat16 refused; dumps and loads ms); the device trace
+   (``torch.profiler`` over every thread), in this process after phases
+   1-10 as on a long-lived worker, taken once and holding every kernel its
+   launches made, of a task on a pool thread made before it (the thread's
+   card the same after its launches): K2 at seq 8192 bf16
+   under the task's span (the profiler's device-side annotation of the span,
+   its launch inside the span, joined by correlation id), and a second K2
+   launch after the span not attributed (a reader that attributes by time
+   is rejected), K2 traced beside untraced; ``entry()`` on the card equal to its CPU run bit for
+   bit and ``dryrun_multichip(8)`` with every assertion (K1, K10, K12, K2
+   launches counted); ``join_process_group`` on stand-in workers over NCCL
+   at a world of one (a second join creates nothing, a mismatched world
+   raises, the group destroyed); the build-info line.
 
 The last three lines are the card's ``nvidia-smi`` name and power limit,
 one JSON object listing the kernels (``flash_fwd``, ``flash_bwd``,
@@ -170,9 +188,11 @@ import inspect
 import json
 import math
 import re
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -250,6 +270,9 @@ def phase_env():
         print(f"triton {triton.__version__}")
     except ImportError:
         print("triton absent")
+    from distributed_tpu_torch.diagnostics import device_profile
+
+    print(f"torch.profiler profile_all_threads: {device_profile.available()}")
 
 
 K3_TC_KERNELS = ("bwd_dkdv_tc_kernel", "bwd_dq_tc_kernel")
@@ -2939,6 +2962,8 @@ def phase_round1():
               f"{imb_k} against the CPU run's {imb_p}")
         check(abs(span_k - span_p) <= QUALITY_RTOL * span_p, f"wavefront {name}: makespan "
               f"{span_k} against the CPU run's {span_p}")
+        check(all(torch.equal(x.cpu(), y) for x, y in zip(g, want)),
+              f"wavefront {name}: not the CPU run bit for bit")
         ms = cuda_ms(lambda: wavefront.place_graph(graph, *fleet), reps=LT_REPS, warmup=1)
         bound_ms, bound_by = _wavefront_bound_ms(N_TASKS, len(src), W, int(g.n_waves))
         wf[name] = dict(ms=ms, plain_ms=cpu_ms, agreement=agree, wave_agreement=least,
@@ -3016,6 +3041,324 @@ def phase_round1():
     ]
 
 
+# ------------------------------------------------------------ phase 11
+
+
+PERI_SHARDS = 8
+PERI_ROWS = 1 << 20             # the device-shuffle output ROADMAP queue 3 sizes: 2^20 rows
+PERI_SHARD_ROWS = PERI_ROWS + (1 << 16)  # rows a shard sends: each receives ~2^20 + 2^16
+PERI_REPS = 5                   # CUDA-event repetitions of the wire and K2 times
+TRACE_KEY = "task-k2"
+K2_SYMBOL = "flash_fwd_tc_kernel"  # K2's tensor-core body, the bf16 case's kernel
+
+
+LAUNCH_PREFIXES = ("cudaLaunch", "cuLaunch")
+NS = 1e-3  # a trace's times are microseconds written to the nanosecond
+
+
+def task_spans(trace: dict, key) -> list[dict]:
+    """The spans ``annotate(key)`` left in a ``trace.json`` (loaded), each
+    with its thread's ``tid``."""
+    name = str(key)
+    return [e for e in trace["traceEvents"]
+            if e.get("ph") == "X" and e.get("cat") == "user_annotation" and e.get("name") == name]
+
+
+def task_kernels(trace: dict, key) -> list[tuple[dict, dict, dict]]:
+    """``(span, launch, kernel)`` for every kernel a task launched.
+
+    The profiler itself ties a kernel to the span open on the thread that
+    launched it (CUPTI's external correlation): it writes a
+    ``gpu_user_annotation`` with the span's ``External id`` over that
+    span's kernels on each stream.  A kernel is the task's when it lies in
+    such an interval on its stream and its launch call, found by
+    correlation id, was made while the span was open.  The launch's own
+    ``tid`` is not read: the profiler maps the runtime's thread handles to
+    ids once, and a new thread that gets a finished thread's handle
+    inherits its id (torch 2.11 on the card: a second pool thread's launches
+    carried the first one's id).  Times are compared within a clock, host
+    with host and device with device."""
+    events = [e for e in trace["traceEvents"] if e.get("ph") == "X"]
+    launches = {e["args"]["correlation"]: e for e in events
+                if e.get("cat") in ("cuda_runtime", "cuda_driver")
+                and e.get("name", "").startswith(LAUNCH_PREFIXES)}
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    out = []
+    for span in task_spans(trace, key):
+        ext = span["args"]["External id"]
+        t0, t1 = span["ts"], span["ts"] + span["dur"]
+        on_device = [a for a in events if a.get("cat") == "gpu_user_annotation"
+                     and a.get("args", {}).get("External id") == ext]
+        for kernel in kernels:
+            launch = launches.get(kernel["args"]["correlation"])
+            if launch is None or not t0 <= launch["ts"] <= t1:
+                continue
+            if any((a["pid"], a["tid"]) == (kernel["pid"], kernel["tid"])
+                   and a["ts"] - NS <= kernel["ts"]
+                   and kernel["ts"] + kernel["dur"] <= a["ts"] + a["dur"] + NS
+                   for a in on_device):
+                out.append((span, launch, kernel))
+    return out
+
+
+def _k2_launches(trace):
+    """K2's launches in the trace, in time order: (launch, kernel) joined by
+    correlation id."""
+    events = [e for e in trace["traceEvents"] if e.get("ph") == "X"]
+    kernels = {e["args"]["correlation"]: e for e in events
+               if e.get("cat") == "kernel" and K2_SYMBOL in e.get("name", "")}
+    launches = sorted((e for e in events if e.get("cat") == "cuda_runtime"
+                       and e["args"].get("correlation") in kernels), key=lambda e: e["ts"])
+    return [(e, kernels[e["args"]["correlation"]]) for e in launches]
+
+
+def _attributed_by_time(trace, key):
+    """A wrong reader, the planted fault: every K2 kernel that started
+    after the task's span opened belongs to the task."""
+    (span,) = task_spans(trace, key)
+    return [e for e in trace["traceEvents"] if e.get("ph") == "X" and e.get("cat") == "kernel"
+            and K2_SYMBOL in e.get("name", "") and e["ts"] >= span["ts"]]
+
+
+def _only_the_task_launch(kernels, inside, outside):
+    """True when ``kernels`` is K2's kernel of the launch inside the span,
+    and not that of the launch after it."""
+    corr = sorted(k["args"]["correlation"] for k in kernels)
+    return corr == [inside["args"]["correlation"]] and outside["args"]["correlation"] not in corr
+
+
+def _trace_task(device_profile, flash, q, k, v, scale):
+    """Trace one task on a pool thread made before the trace: K2 under its
+    span, then a second K2 launch after the span, outside any annotation.
+    Returns (the pool thread's id, the trace's path, both outputs).  The
+    pool thread's current card is read before and after its launches: a
+    wrapper puts back the thread's own."""
+    import threading
+
+    with concurrent.futures.ThreadPoolExecutor(1) as pool:
+        tid = pool.submit(threading.get_native_id).result()
+        rep = device_profile.start()
+        check(rep["status"] == "OK", f"device_profile.start: {rep}")
+
+        def task():
+            before = torch.cuda.current_device()
+            with device_profile.annotate(TRACE_KEY):
+                o, _ = flash.flash_forward_cuda(q, k, v, True, scale)
+            o_after, _ = flash.flash_forward_cuda(q, k, v, True, scale)
+            torch.cuda.synchronize()
+            check(torch.cuda.current_device() == before,
+                  f"a launch moved the pool thread's card from {before} to {torch.cuda.current_device()}")
+            return o, o_after
+
+        try:
+            outs = pool.submit(task).result()
+        finally:
+            rep = device_profile.stop()
+    check(rep["status"] == "OK" and rep["files"] == [device_profile.TRACE_FILE],
+          f"device_profile.stop: {rep}")
+    return tid, Path(rep["logdir"]) / device_profile.TRACE_FILE, outs
+
+
+def _join_world_of_one(join):
+    """join_process_group on stand-in workers, NCCL at a world of one:
+    (its indices, a second join's, the mismatch's error)."""
+    import asyncio
+    import os
+    import socket
+    import types
+
+    import torch.distributed as dist
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    env = {"MASTER_ADDR": "localhost", "MASTER_PORT": str(port), "RANK": "0", "WORLD_SIZE": "1",
+           "LOCAL_RANK": "0"}
+    saved = {name: os.environ.get(name) for name in env}
+    os.environ.update(env)
+
+    async def joins():
+        loop = asyncio.get_running_loop()
+        first = types.SimpleNamespace(loop=loop, jax_device_indices=None)
+        second = types.SimpleNamespace(loop=loop, jax_device_indices=None)
+        check(await join.join_process_group(first), "the first join created no group")
+        check(dist.get_backend() == "nccl" and dist.get_world_size() == 1, "NCCL world of one")
+        one = torch.ones(1, device="cuda")
+        dist.all_reduce(one)
+        check(one.item() == 1.0, "all_reduce over the world of one")
+        check(not await join.join_process_group(second), "a second join created a group")
+        os.environ["WORLD_SIZE"] = "2"
+        try:
+            await join.join_process_group(types.SimpleNamespace(loop=loop, jax_device_indices=None))
+        except RuntimeError as exc:
+            refused = str(exc)
+        else:
+            refused = None
+        return first.jax_device_indices, second.jax_device_indices, refused
+
+    try:
+        return asyncio.run(joins())
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        for name, value in saved.items():
+            if value is None:
+                os.environ.pop(name, None)
+            else:
+                os.environ[name] = value
+
+
+def phase_periphery():
+    """Phase 11, the host periphery on the card: sizeof and the wire family
+    on a K12 shuffle's output, the device trace of a task on a pool thread
+    (K2 under its span; a launch after it not attributed), the NCCL join at
+    a world of one, build info, and the entry twin.  Returns the launches of
+    K1, K2, K10 and K12 its main path made."""
+    import torch.distributed as dist
+
+    from distributed_tpu_torch import entry as twin
+    from distributed_tpu_torch.diagnostics import device_profile
+    from distributed_tpu_torch.http.build_info import build_info_lines
+    from distributed_tpu_torch.ops import flash, ici, leveled, sharded
+    from distributed_tpu_torch.protocol.serialize import torch_dumps, torch_loads
+    from distributed_tpu_torch.utils.sizeof import tensor_sizeof
+    from distributed_tpu_torch.worker import join
+
+    dev = torch.device("cuda", 0)
+    card = smi_line()
+    t_phase = time.perf_counter()
+    check(not dist.is_initialized(), "a process group is up before phase 11")
+    counters = {"place_wave": leveled.place_waves_cuda, "flash_fwd": flash.flash_forward_cuda,
+                "place_shard": sharded.place_shard_run_cuda, "shuffle_bucket": ici.shuffle_bucket_cuda}
+    for fn in counters.values():
+        fn.launches = 0
+    sharded.place_shard_cuda.launches = 0
+
+    # sizeof and the wire, on a shuffle's output (shard 0's first 2^20 rows)
+    g = torch.Generator(device="cuda").manual_seed(11)
+    n_in = PERI_SHARDS * PERI_SHARD_ROWS
+    keys = torch.randint(0, 1 << 30, (n_in,), generator=g, device=dev, dtype=torch.int32)
+    vals = torch.rand((n_in, 4), generator=g, device=dev)
+    mesh = ici.make_mesh_1d(PERI_SHARDS, devices=[dev] * PERI_SHARDS)
+    ko, vo, counts, _ = ici.shuffle_on_mesh(mesh, keys, vals)
+    out_k, out_v = ici.compact_shuffle_output(ko, vo, counts, PERI_SHARDS)[0]
+    del keys, vals, ko, vo
+    check(out_k.shape[0] >= PERI_ROWS, f"shard 0 received {out_k.shape[0]} rows")
+    out_k, out_v = out_k[:PERI_ROWS].contiguous(), out_v[:PERI_ROWS].contiguous()
+    sizes = tensor_sizeof(out_k), tensor_sizeof(out_v)
+    check(sizes == (4_194_304, 16_777_216), f"tensor_sizeof of the shuffle output: {sizes}")
+    wire = {}
+    for name, t in (("keys", out_k), ("values", out_v)):
+        header, frames = torch_dumps(t)
+        host = t.cpu().numpy()
+        check(header["device"] == "cuda" and header["dtype"] == host.dtype.str
+              and header["shape"] == list(host.shape), f"wire header of the {name}: {header}")
+        check(bytes(frames[0]) == host.tobytes(), f"wire frames of the {name} differ from the card's")
+        back = torch_loads(header, frames)
+        check(back.device == torch.device("cuda", torch.cuda.current_device())
+              and back.dtype == t.dtype and torch.equal(back.view(torch.int32), t.view(torch.int32)),
+              f"the {name} did not come back on the card bit for bit")
+        wire[name] = (header, frames)
+    try:
+        torch_dumps(out_v.to(torch.bfloat16))
+    except TypeError:
+        pass
+    else:
+        raise RuntimeError("torch_dumps took a bfloat16 tensor: numpy cannot hold it")
+    dumps_ms = cuda_ms(lambda: torch_dumps(out_v), reps=PERI_REPS)
+    loads_ms = cuda_ms(lambda: torch_loads(*wire["values"]), reps=PERI_REPS)
+    print(f"[{card}] tensor_sizeof {sizes[0]} / {sizes[1]} B; the wire round trip on the card bit "
+          f"for bit; 16 MB values: torch_dumps ms {dumps_ms:.3f}, torch_loads ms {loads_ms:.3f} "
+          f"(events, median of {PERI_REPS}); bfloat16 raises in torch_dumps")
+    del wire
+
+    # the device trace, in this process after phases 1-10 (a long-lived
+    # worker's case): a task on a pool thread made before the trace
+    q, k, v = (x.transpose(0, 1).contiguous() for x in _flash_inputs(8192, 16, 128, torch.bfloat16, 5))
+    scale = 1.0 / 128 ** 0.5
+    k2_before = flash.flash_forward_cuda.launches
+    tid, path, (o_task, o_after) = _trace_task(device_profile, flash, q, k, v, scale)
+    check(flash.flash_forward_cuda.launches == k2_before + 2, "the traced task made not two K2 launches")
+    with open(path) as f:
+        trace = json.load(f)
+    shutil.rmtree(path.parent)
+    # from here on the launches compare and time; they are not counted
+    untraced, _ = flash.flash_forward_cuda(q, k, v, True, scale)
+    check(torch.equal(o_task, untraced) and torch.equal(o_after, untraced),
+          "K2 traced differs from K2 untraced")
+    k2_ms = cuda_ms(lambda: flash.flash_forward_cuda(q, k, v, True, scale), reps=PERI_REPS)
+    with tempfile.TemporaryDirectory() as logdir:
+        check(device_profile.start(logdir)["status"] == "OK", "the timing trace did not start")
+        try:
+            k2_traced_ms = cuda_ms(lambda: flash.flash_forward_cuda(q, k, v, True, scale),
+                                   reps=PERI_REPS)
+        finally:
+            rep = device_profile.stop()
+        check(rep["status"] == "OK", f"the timing trace: {rep}")
+    flash.flash_forward_cuda.launches = k2_before + 2
+    spans = task_spans(trace, TRACE_KEY)
+    check([s["tid"] for s in spans] == [tid], f"task span on {[s['tid'] for s in spans]}, pool {tid}")
+    launched = _k2_launches(trace)
+    check(len(launched) == 2, f"the trace holds {len(launched)} K2 launches, not the task's two")
+    (inside, _), (outside, _) = launched
+    (span,) = spans
+    check(span["ts"] <= inside["ts"] <= span["ts"] + span["dur"] < outside["ts"],
+          "the task's first K2 launch is not inside its span, or its second not after it")
+    found = task_kernels(trace, TRACE_KEY)
+    check(len(found) == 1 and found[0][1]["name"].startswith("cudaLaunch")
+          and K2_SYMBOL in found[0][2]["name"],
+          f"task kernels {[(lc['name'], kk['name']) for _, lc, kk in found]}")
+    check(_only_the_task_launch([kk for _, _, kk in found], inside, outside),
+          "the reader did not attribute exactly the task's K2 launch")
+    check(not _only_the_task_launch(_attributed_by_time(trace, TRACE_KEY), inside, outside),
+          "the check passed a reader that attributes the launch after the span")
+    print(f"[{card}] trace: span {TRACE_KEY!r} on the pool thread {tid}, its "
+          f"launch {found[0][1]['name']} (correlation {inside['args']['correlation']}) -> "
+          f"{found[0][2]['name'][:60]}...; the launch after the span (correlation "
+          f"{outside['args']['correlation']}) not attributed; a time-based reader rejected; "
+          f"K2 bf16 seq 8192 causal ms untraced {k2_ms:.3f}, traced {k2_traced_ms:.3f} "
+          f"(events, median of {PERI_REPS})")
+
+    # the entry twin: K1 on the tiny graph, then the dry run on 8 virtual shards
+    fn, args = twin.entry()
+    fn_cpu, args_cpu = twin.entry(device="cpu")
+    k1 = leveled.place_waves_cuda.launches
+    got = [x.cpu() for x in fn(*args)]
+    check(leveled.place_waves_cuda.launches == k1 + 1, "entry(): not one K1 launch")
+    want = fn_cpu(*args_cpu)
+    check(all(a.dtype == b.dtype and torch.equal(a.view(torch.int32), b.view(torch.int32))
+              for a, b in zip(got, want)), "entry() on the card differs from its CPU run")
+    before = {name: c.launches for name, c in counters.items()}
+    twin.dryrun_multichip(PERI_SHARDS)
+    dry = {name: c.launches - before[name] for name, c in counters.items()}
+    check(dry["place_wave"] == 1 and dry["place_shard"] >= 1 and dry["shuffle_bucket"] >= 1
+          and dry["flash_fwd"] >= 1 and sharded.place_shard_cuda.launches == 0,
+          f"dryrun_multichip's launches {dry}")
+    launches = {name: c.launches for name, c in counters.items()}
+    torch.cuda.synchronize()
+    print(f"[{card}] entry() == entry(device='cpu') bit for bit; dryrun_multichip(8) passed, "
+          f"its launches {dry}")
+
+    # the join, NCCL at a world of one
+    first, second, refused = _join_world_of_one(join)
+    check(first == second == [0], f"join indices {first}, {second}")
+    check(refused is not None and "already exists" in refused, f"the mismatched join: {refused}")
+    check(not dist.is_initialized(), "phase 11's group was left up")
+    print(f"[{card}] join_process_group (NCCL, world 1): jax_device_indices {first}, a second "
+          f"join created nothing, WORLD_SIZE=2 against it raised")
+
+    # build info
+    (info,) = build_info_lines("worker", mesh="False/auto")
+    name = torch.cuda.get_device_name(dev)
+    check(f'torch="{torch.__version__}"' in info and f'cuda="{torch.version.cuda}"' in info
+          and f'device="{name}"' in info and 'backend="cuda"' in info, f"build info: {info}")
+    print(info.splitlines()[-1])
+    phase_s = time.perf_counter() - t_phase
+    print(f"[{card}] phase 11 periphery s {phase_s:.1f}; launches {launches}")
+    return launches, dict(dumps_ms=dumps_ms, loads_ms=loads_ms, k2_ms=k2_ms,
+                          k2_traced_ms=k2_traced_ms, phase_s=phase_s)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3047,6 +3390,11 @@ def main() -> int:
     flash_entry["launches_long_context_training"] = k2_training
     bwd_entry["launches_long_context_training"] = k3_training
     round1 = phase_round1()
+    periphery, periphery_ms = phase_periphery()
+    for e in (flash_entry, wave_entry, shard_entry, shuffle_entry):
+        e["launches"] += periphery[e["name"]]
+        e["launches_periphery"] = periphery[e["name"]]
+    flash_entry["periphery_ms"] = periphery_ms
     kernels = [flash_entry, bwd_entry, wave_entry, partition_entry, *periodic_entries, shard_entry,
                shuffle_entry, *long_context, *training, *round1]
     print(f"total_s {time.perf_counter() - t0:.1f}")

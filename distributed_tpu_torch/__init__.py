@@ -12,4 +12,6 @@ at first use (``ops/_build.py``).
 
 from distributed_tpu_torch._device import resolve_device
 
-__all__ = ["resolve_device"]
+__version__ = "0.1.0"
+
+__all__ = ["__version__", "resolve_device"]

@@ -10,9 +10,10 @@ A build that fails raises: there is no fallback.  nvcc's output (ptxas's
 registers and spills) is kept beside the library, so a process that
 finds the library built still reads it (``build_info["log"]``).
 
-Each C entry point launches on the stream it is given, allocates
-nothing and returns ``cudaGetLastError()``; :func:`check` turns a
-non-zero code into an exception.
+Each C entry point launches on the stream it is given (:func:`launch`
+calls it on the device's current stream), allocates nothing and returns
+``cudaGetLastError()``; :func:`check` turns a non-zero code into an
+exception.
 """
 
 from __future__ import annotations
@@ -220,8 +221,23 @@ def check(rc: int, name: str) -> None:
         raise RuntimeError(f"{name}: CUDA error {rc}")
 
 
-def stream_handle(device: torch.device) -> ctypes.c_void_p:
-    return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
+def launch(device: torch.device, entry, *args) -> int:
+    """Call the C entry point ``entry(*args, stream)`` on ``device``'s
+    current stream, with ``device`` the calling thread's current device
+    for the call and the thread's own put back after it.  The library
+    links its own CUDA runtime, which launches in the thread's current
+    context: on a thread where torch never set a device (a worker's task
+    thread) there is none, and a launch fails with cudaErrorInvalidValue,
+    so ``set_device`` makes the device's context current.  Putting the
+    thread's device back keeps a launch from moving its caller's default
+    card (a mesh over several cards launches on each in turn)."""
+    prev = torch.cuda.current_device()
+    torch.cuda.set_device(device)
+    try:
+        return entry(*args, ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream))
+    finally:
+        if torch.cuda.current_device() != prev:
+            torch.cuda.set_device(prev)
 
 
 def ptr(t: torch.Tensor) -> ctypes.c_void_p:

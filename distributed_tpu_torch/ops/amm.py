@@ -131,10 +131,10 @@ def drop_rounds_cuda(holders, excluded, nbytes, ndrop, mem, rounds: int, blocks:
         scratch = torch.empty(4 * R + 2 * W + blocks * (W + 1), dtype=torch.int32, device=dev)
         lists = torch.empty(R * W, dtype=torch.int16 if W <= SHORT_LIST else torch.int32,
                             device=dev)
-        _build.check(lib.dtpu_amm_drop(
+        _build.check(_build.launch(dev, lib.dtpu_amm_drop,
             P(hold), P(excluded.contiguous()), P(nbytes.contiguous()), P(left), P(mem_out),
             P(drops), P(scratch), P(lists), None if stamps is None else P(stamps), R, W,
-            int(rounds), blocks, _build.stream_handle(dev),
+            int(rounds), blocks,
         ), "dtpu_amm_drop")
         drop_rounds_cuda.launches += 1
     return drops, mem_out

@@ -140,10 +140,9 @@ def flash_forward_cuda(qt, kt, vt, causal: bool, scale: float):
     lse = torch.empty((h, n, 1), dtype=torch.float32, device=qt.device)
     lib = _build.load()
     P = _build.ptr
-    rc = lib.dtpu_flash_fwd(
+    rc = _build.launch(qt.device, lib.dtpu_flash_fwd,
         P(qt), P(kt), P(vt), P(o), P(lse),
         h, n, kt.shape[1], d, _DTYPES[qt.dtype], int(bool(causal)), float(scale),
-        _build.stream_handle(qt.device),
     )
     _build.check(rc, "dtpu_flash_fwd")
     flash_forward_cuda.launches += 1
@@ -303,10 +302,9 @@ def flash_backward_cuda(qt, kt, vt, o, lse, do, causal: bool, scale: float):
     scratch = torch.empty(2 * h * padded, dtype=torch.float32, device=qt.device)
     lib = _build.load()
     P = _build.ptr
-    rc = lib.dtpu_flash_bwd(
+    rc = _build.launch(qt.device, lib.dtpu_flash_bwd,
         P(qt), P(kt), P(vt), P(o), P(lse), P(do), P(dq), P(dk), P(dv), P(scratch),
         h, n, kt.shape[1], d, _DTYPES[qt.dtype], int(bool(causal)), float(scale),
-        _build.stream_handle(qt.device),
     )
     _build.check(rc, "dtpu_flash_bwd")
     flash_backward_cuda.launches += 1

@@ -193,9 +193,9 @@ def shuffle_bucket_cuda(keys: list, values: list, valid: list | None, n_dev: int
             table(send_k), table(send_v)]
     lib = _build.load()
     P = _build.ptr
-    rc = lib.dtpu_shuffle_bucket(
+    rc = _build.launch(dev, lib.dtpu_shuffle_bucket,
         *(P(t) if t is not None else None for t in tabs), P(sent), P(hist),
-        S, n, n_dev, B, row_bytes, vec, _build.stream_handle(dev),
+        S, n, n_dev, B, row_bytes, vec,
     )
     _build.check(rc, "dtpu_shuffle_bucket")
     shuffle_bucket_cuda.launches += 4 if tiles else 2

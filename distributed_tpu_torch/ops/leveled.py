@@ -982,7 +982,7 @@ def place_waves_cuda(run: LeveledRun, first: int, last: int, stamps=None) -> Non
     if sc.tgt.numel() < F or sc.wt.numel() < F or sc.sorted.numel() < F:
         raise ValueError(f"place_waves_cuda: scratch too small for a wave of {F} tasks")
     P = _build.ptr
-    rc = lib.dtpu_place_waves(
+    rc = _build.launch(run.device, lib.dtpu_place_waves,
         P(wire.dur), P(wire.heavy), P(wire.heavy2), P(wire.xp), P(wire.xp2), P(wire.xa),
         None if run.cost_table is None else P(run.cost_table),
         P(run.assign), P(run.choices), P(run.load), P(run.spans),
@@ -992,7 +992,6 @@ def place_waves_cuda(run: LeveledRun, first: int, last: int, stamps=None) -> Non
         None if stamps is None else P(stamps),
         W, first, last, fleet.w_run, int(fleet.uniform), sc.blocks,
         fleet.ovt_c, fleet.inv_c,
-        _build.stream_handle(run.device),
     )
     _build.check(rc, "dtpu_place_waves")
     place_waves_cuda.launches += 1

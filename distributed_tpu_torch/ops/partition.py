@@ -355,12 +355,12 @@ def partition_cuda(run: PartitionRun, blocks: int | None = None, stamps=None) ->
             raise ValueError(f"partition_cuda: {name} must be a contiguous {dtype}[{n}] on {run.device}")
     P = _build.ptr
     with torch.cuda.device(run.device):
-        _build.check(lib.dtpu_partition(
+        _build.check(_build.launch(run.device, lib.dtpu_partition,
             P(run.init), P(sc.lab[0]), P(sc.lab[1]), P(run.durations),
             P(csr.in_off), P(csr.in_nbr), P(csr.in_w), P(csr.out_off), P(csr.out_nbr),
             P(csr.out_w), P(sc.blocked), P(sc.cnt), P(sc.sorted),
             None if stamps is None else P(stamps), T, W, run.iters, run.thresh, run.bonus,
-            blocks or 0, sc.cnt_blocks, _build.stream_handle(run.device),
+            blocks or 0, sc.cnt_blocks,
         ), "dtpu_partition")
         partition_cuda.launches += 1
     run.labels = sc.lab[(run.iters - 1) % 2]

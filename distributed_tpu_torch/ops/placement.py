@@ -15,7 +15,8 @@ scheduler's path.
 
 Sums, as XLA's CPU backend adds them: ``missing`` adds each task's edges in
 edge order (:func:`segment_sum_in_order`, exact on every device: a round
-adds each task's next edge, so no two adds meet one element in a launch);
+adds each task's next edge, so no two adds meet one element in a launch;
+the wavefront's loads use it too);
 the occupancy sums of the parallel mode and :func:`occupancy_after_finish`
 are ``index_add_``, in index order on the CPU, in the atomics' order on
 CUDA (the card holds them to a tolerance, the assignments exactly).
@@ -91,10 +92,13 @@ def pad_to_bucket(n: int, buckets=(32, 128, 512, 2048, 8192, 32768)) -> int:
 def segment_sum_in_order(data: torch.Tensor, seg: torch.Tensor, n: int) -> torch.Tensor:
     """``out[s] = sum of data[i] over seg[i] == s``, each segment added in
     index order from zero (XLA's CPU scatter-add), on any device: round r
-    adds each segment's r-th entry, every segment at most once a round.
-    Entries that are zero throughout add nothing and are left out (a sum
-    from +0.0 in round-to-nearest is never -0.0), so the batch's padding
-    edges, all on row 0, cost no rounds."""
+    adds each segment's r-th entry, every segment at most once a round, so
+    no two adds of a launch meet one element.  The entries are laid out
+    round after round, so a round is one ``index_add_`` of a slice and the
+    host reads the rounds' sizes once.  Entries that are zero throughout
+    add nothing and are left out (a sum from +0.0 in round-to-nearest is
+    never -0.0), so the batch's padding edges, all on row 0, cost no
+    rounds."""
     out = torch.zeros((n, *data.shape[1:]), dtype=data.dtype, device=data.device)
     keep = data.ne(0).flatten(1).any(dim=1) if data.dim() > 1 else data.ne(0)
     data, seg = data[keep], seg.long()[keep]
@@ -106,9 +110,12 @@ def segment_sum_in_order(data: torch.Tensor, seg: torch.Tensor, n: int) -> torch
     first[1:] = s[1:] != s[:-1]
     start = torch.cummax(torch.where(first, torch.arange(len(s), device=s.device), 0), 0)[0]
     rank = torch.arange(len(s), device=s.device) - start
-    for r in range(int(rank.max()) + 1):
-        sel = order[rank == r]
-        out.index_add_(0, seg[sel], data[sel])
+    by_round = order[torch.argsort(rank, stable=True)]
+    seg, data = seg[by_round], data[by_round]
+    i = 0
+    for size in torch.bincount(rank).tolist():
+        out.index_add_(0, seg[i:i + size], data[i:i + size])
+        i += size
     return out
 
 

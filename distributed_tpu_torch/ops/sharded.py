@@ -309,13 +309,13 @@ def place_shard_cuda(g: _Group, rep: _Replica, k: int, f: int, tl: torch.Tensor 
     if not 0 <= k < K:
         raise ValueError(f"place_shard_cuda: wave slot {k} outside [0, {K})")
     P = _build.ptr
-    rc = lib.dtpu_place_shard(
+    rc = _build.launch(g.device, lib.dtpu_place_shard,
         *(P(g.tiles[n]) for n, _ in TASK_FIELDS), P(g.shard_ids), P(rep.assign),
         P(rep.load), P(fl.inv_t), P(fl.running), P(fl.ovt0), None if tl is None else P(tl),
         P(g.tgt), P(g.wt), P(g.spread), P(g.sorted), P(g.cnt), P(g.start), P(g.tot),
         P(g.wl_part if tl is not None else g.tl_part), P(g.aslice), P(g.cslice),
         W, S, K, Fl, k, f, fl.w_run, int(fl.uniform), int(tl is not None), g.bx,
-        fl.ovt_c, fl.inv_c, _build.stream_handle(g.device),
+        fl.ovt_c, fl.inv_c,
     )
     _build.check(rc, "dtpu_place_shard")
     place_shard_cuda.launches += 1
@@ -341,12 +341,11 @@ def place_shard_run_cuda(g: _Group, rep: _Replica) -> None:
         ("spans", rep.spans, torch.float32, rep.spans.numel()),
     ))
     P = _build.ptr
-    rc = lib.dtpu_place_shard_run(
+    rc = _build.launch(g.device, lib.dtpu_place_shard_run,
         *(P(g.tiles[n]) for n, _ in TASK_FIELDS), P(g.shard_ids), P(g.tiles["waves"]),
         P(rep.assign), P(rep.choices), P(rep.load), P(rep.spans), P(fl.inv_t), P(fl.running),
         P(fl.ovt0), P(g.tl), P(g.tgt), P(g.wt), P(g.spread), P(g.sorted), P(g.cnt), P(g.start),
         P(g.tot), W, S, K, Fl, fl.w_run, int(fl.uniform), g.bx, fl.ovt_c, fl.inv_c,
-        _build.stream_handle(g.device),
     )
     _build.check(rc, "dtpu_place_shard_run")
     place_shard_run_cuda.launches += 1

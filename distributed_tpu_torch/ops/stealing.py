@@ -167,12 +167,12 @@ def steal_rounds_cuda(task_victim, task_key, task_cost, task_compute,
         idle_w = idle.to(torch.uint8)  # the kernel retires thieves in it
         taken = torch.empty(T, dtype=torch.uint8, device=dev)
         P = _build.ptr
-        _build.check(lib.dtpu_steal(
+        _build.check(_build.launch(dev, lib.dtpu_steal,
             P(task_victim.contiguous()), P(task_key.contiguous()), P(task_cost.contiguous()),
             P(task_compute.contiguous()), P(nthreads.contiguous()),
             P(running.contiguous()), P(occ_out), P(idle_w), P(thief_of), P(taken),
             None if in_smem else P(scratch), None if stamps is None else P(stamps),
-            T, W, int(rounds), _build.stream_handle(dev),
+            T, W, int(rounds),
         ), "dtpu_steal")
         steal_rounds_cuda.launches += 1
     return thief_of, occ_out

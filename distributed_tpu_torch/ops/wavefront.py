@@ -11,9 +11,13 @@ reference's ``fori_loop`` chunks.  O(T + E + W) a wave, no ``[T, W]``
 matrix.  Torch ops, no hand kernel: the product scheduler runs the leveled
 engine (``ops/leveled.py``), not this one.
 
-Sums: the wave's loads are ``index_add_`` over the ready tasks, in task
-order on the CPU (XLA's CPU order), in the atomics' order on CUDA; the
-indegree release is an int32 sum, exact anywhere.  ``jnp.argsort`` is
+Sums: the wave's loads add the ready tasks' work on each worker in task
+order (XLA's CPU order) on every device, through
+``placement.segment_sum_in_order`` (a round a task rank on a worker, one
+launch a round), so the card places as the CPU does, bit for bit; CUDA's
+``index_add_`` adds in its atomics' order, which changed the end-to-end
+result from run to run.  The indegree release is an int32 sum, exact
+anywhere.  ``jnp.argsort`` is
 stable, so the load order is ``torch.argsort(stable=True)``.
 """
 
@@ -25,6 +29,7 @@ import numpy as np
 import torch
 
 from distributed_tpu_torch._device import resolve_device
+from distributed_tpu_torch.ops.placement import segment_sum_in_order
 
 INT32_MAX = np.int32(2**31 - 1)
 
@@ -145,7 +150,7 @@ def _place_chunk(graph: GraphArrays, nthreads, occupancy0, running, c: _Carry,
         tent = torch.where(choose_pref, p, spread)
         tent_work = torch.where(ready, graph.duration + torch.where(choose_pref, xfer_pref, xfer_all),
                                 0.0)
-        tent_load = torch.zeros(W, dtype=f32, device=dev).index_add_(0, tent, tent_work)
+        tent_load = segment_sum_in_order(tent_work, tent, W)
         load_pref_others = tent_load[p] - torch.where(tent == p, tent_work, 0.0)
         load_spread_others = tent_load[spread] - torch.where(tent == spread, tent_work, 0.0)
         cost_pref2 = (occupancy0[p] + load_pref_others) / threads_f[p] + xfer_pref
@@ -157,7 +162,7 @@ def _place_chunk(graph: GraphArrays, nthreads, occupancy0, running, c: _Carry,
         aw = assign_wave.clamp(min=0).long()
         xfer = torch.where(choose_pref, xfer_pref, xfer_all)
         work = torch.where(newly, graph.duration + xfer, 0.0)
-        wave_load = torch.zeros(W, dtype=f32, device=dev).index_add_(0, aw, work)
+        wave_load = segment_sum_in_order(work, aw, W)
         load = c.load + wave_load
         est_start = torch.where(newly, c.clock, 0.0)
         wave_span = torch.where(running, wave_load / threads_f, 0.0).amax()

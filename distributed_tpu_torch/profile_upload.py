@@ -30,6 +30,11 @@ import sys
 import time
 from pathlib import Path
 
+if __name__ == "__main__":
+    # run as a script, this directory leads sys.path, and the package's
+    # ``http`` would hide the standard library's, which torch imports
+    sys.path[0] = str(Path(__file__).resolve().parents[1])
+
 import numpy as np
 import torch
 

@@ -14,6 +14,7 @@ machine does not have, so they run on the CPU (``test_torch_placement.py``).
 from __future__ import annotations
 
 import functools
+import threading
 
 import numpy as np
 import pytest
@@ -125,6 +126,47 @@ def test_flash_attention_entry_runs_kernel(cuda):
     want, lse = flash.flash_forward_reference(qt, qt, qt, True, 0.125)
     assert o_close(out.transpose(0, 1), want, torch.bfloat16,
                    _pv_term(qt, qt, qt, True, 0.125, lse))
+
+
+def _on_a_fresh_thread(fn):
+    """``fn()`` on a new thread, on which torch has set no device (as on a
+    worker's task thread); its exception is raised here."""
+    out = {}
+
+    def run():
+        try:
+            out["value"] = fn()
+        except BaseException as exc:  # handed to the caller's thread below
+            out["error"] = exc
+
+    t = threading.Thread(target=run)
+    t.start()
+    t.join(timeout=120)
+    assert not t.is_alive()
+    if "error" in out:
+        raise out["error"]
+    return out["value"]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+def test_kernels_launch_from_a_thread_with_no_device_set(cuda, dtype):
+    """The library launches in its own CUDA runtime's current context:
+    every wrapper makes the tensors' device current first.  Without that,
+    K2 failed on such a thread with cudaErrorInvalidValue."""
+    g = torch.Generator(device=cuda).manual_seed(3)
+    q, k, v = (torch.randn(4, 512, 64, generator=g, device=cuda).to(dtype) for _ in range(3))
+    want, _ = flash.flash_forward_cuda(q, k, v, True, 0.125)
+    got, _ = _on_a_fresh_thread(lambda: flash.flash_forward_cuda(q, k, v, True, 0.125))
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+def test_the_wave_kernel_launches_from_a_thread_with_no_device_set(cuda):
+    packed = leveled.pack_graph(*graphs.random_dag(2000, seed=1))
+    fleet = (np.full(16, 2, np.int32), np.zeros(16, np.float32), np.ones(16, bool))
+    want = leveled.place_graph_leveled(packed, *fleet, device=cuda)
+    got = _on_a_fresh_thread(lambda: leveled.place_graph_leveled(packed, *fleet, device=cuda))
+    assert np.array_equal(got.assignment, want.assignment)
 
 
 # ------------------------------------------------------------------ K3
@@ -1062,6 +1104,27 @@ def test_ulysses_backward_on_the_card(cuda, n_local, causal):
     for i, gr in enumerate(grads):
         back = torch.cat(ulysses.heads_to_seq(local, [x[i].transpose(0, 1) for x in k3], 8))
         assert torch.equal(back, gr)
+
+
+@pytest.mark.parametrize("fleet", ["uniform", "nonuniform"])
+def test_the_wavefront_on_the_card_equals_the_cpu_bit_for_bit(cuda, fleet):
+    """The wave's loads add each worker's tasks in task order on the card
+    too (``segment_sum_in_order``), so the whole placement, start times
+    and loads are the CPU run's bit for bit."""
+    from distributed_tpu_torch.ops import wavefront
+
+    dur, ob, src, dst = graphs.random_dag(50_000, seed=2)
+    occ = (np.zeros(64, np.float32) if fleet == "uniform"
+           else np.random.default_rng(1).uniform(0, 5, 64).astype(np.float32))
+    running = np.ones(64, bool)
+    running[:2] = fleet == "uniform"
+    workers = (np.full(64, 2, np.int32), occ, running)
+    gd = wavefront.GraphArrays.from_arrays(dur, ob, src.astype(np.int64), dst.astype(np.int64),
+                                           device=cuda)
+    got = wavefront.place_graph(gd, *workers)
+    want = wavefront.place_graph(wavefront.GraphArrays(*(x.cpu() for x in gd)), *workers)
+    for a, b in zip(got, want):
+        assert torch.equal(a.cpu(), b)
 
 
 def test_round1_placers_on_the_card_equal_the_cpu(cuda):

@@ -9,6 +9,7 @@ import os
 import shutil
 import subprocess
 import sys
+import types
 from pathlib import Path
 
 import numpy as np
@@ -17,7 +18,10 @@ import torch
 import test_torch_periodic_cases as cases
 
 import distributed_tpu_torch
+from distributed_tpu_torch import entry as entry_twin
 from distributed_tpu_torch import graphs, native
+from distributed_tpu_torch.diagnostics import device_profile
+from distributed_tpu_torch.http import build_info
 from distributed_tpu_torch.ops import (
     _build,
     amm,
@@ -38,7 +42,10 @@ from distributed_tpu_torch.scheduler import plan
 from distributed_tpu_torch.scheduler.mirror import TorchMirror
 from distributed_tpu_torch.scheduler.periodic import install_periodic
 from distributed_tpu_torch.scheduler.torch_placement import TorchPlacement
+from distributed_tpu_torch.protocol import serialize as wire
 from distributed_tpu_torch.shuffle import device as device_shuffle
+from distributed_tpu_torch.utils import sizeof as tensor_size  # noqa: F401
+from distributed_tpu_torch.worker import join, setup  # noqa: F401
 
 # the suite runs as 6 pytest-xdist workers on 8 cores: torch on 2 threads a worker
 # keeps the JAX package's timing tests on time (one whole-suite run: without the cap
@@ -171,6 +178,16 @@ def _entry_calls():
         "make_mesh": lambda: parallel_mesh.make_mesh(),
         "sharded_decide_workers": lambda: parallel_mesh.sharded_decide_workers(
             parallel_mesh.make_mesh(), workers, batch, 1e8),
+        "entry": lambda: entry_twin.entry(),
+        "dryrun_multichip": lambda: entry_twin.dryrun_multichip(2),
+        "device_profile.start": lambda: device_profile.start(),
+        "install_device_profile": lambda: device_profile.install_device_profile(
+            types.ModuleType("device_profile")),
+        "build_info_lines": lambda: build_info.build_info_lines("worker", mesh="False/auto"),
+        "install_build_info": lambda: build_info.install_build_info(
+            types.SimpleNamespace(_BUILD_INFO_CACHE={}), {}.get),
+        "torch_loads(cuda)": lambda: wire.torch_loads(
+            {"dtype": "<f4", "shape": [1], "device": "cuda"}, [bytes(4)]),
     }
 
 
@@ -250,6 +267,34 @@ def test_wrappers_raise_off_cpu_without_cuda():
         ici.shuffle_bucket(keys, [torch.zeros(64, 4, device="meta")], None, 8, 16)
 
 
+@pytest.mark.parametrize("fails", [False, True], ids=["returns", "raises"])
+def test_launch_puts_the_threads_device_back(monkeypatch, fails):
+    """A launch on card 0 from a thread whose current card is 1 runs with
+    card 0 current and leaves card 1 current after it, also when the entry
+    point raises (stand-ins for torch's device calls: this box has no card)."""
+    current = {"index": 1}
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: current["index"])
+    monkeypatch.setattr(torch.cuda, "set_device",
+                        lambda d: current.update(index=torch.device(d).index if not isinstance(d, int) else d))
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda d: types.SimpleNamespace(cuda_stream=1000 + torch.device(d).index))
+    seen = []
+
+    def entry(a, b, stream):
+        seen.append((a, b, current["index"], stream.value))
+        if fails:
+            raise RuntimeError("refused")
+        return 0
+
+    if fails:
+        with pytest.raises(RuntimeError, match="refused"):
+            _build.launch(torch.device("cuda", 0), entry, 7, 8)
+    else:
+        assert _build.launch(torch.device("cuda", 0), entry, 7, 8) == 0
+    assert seen == [(7, 8, 0, 1000)]
+    assert current["index"] == 1
+
+
 def test_library_path_keys_on_sources():
     path = _build.library_path()
     assert path.parent == _build.BUILD_DIR
@@ -289,3 +334,13 @@ def test_host_library_is_the_ports_own():
         text = path.read_text()
         for name in ("distributed_tpu/native", "distributed_tpu.native"):
             assert name not in text, f"{path.name} names {name}"
+
+
+@pytest.mark.parametrize("script", sorted(p.name for p in PKG.glob("profile_*.py")))
+def test_profile_scripts_start_as_scripts(script):
+    """Each profile script runs as ``python3 distributed_tpu_torch/<script>``,
+    where its own directory leads ``sys.path``: the package's ``http`` must
+    not hide the standard library's from torch."""
+    out = subprocess.run([sys.executable, str(PKG / script), "--help"], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr[-2000:]
