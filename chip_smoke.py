@@ -167,7 +167,25 @@ and prints no result):
    bit and ``dryrun_multichip(8)`` with every assertion (K1, K10, K12, K2
    launches counted); ``join_process_group`` on stand-in workers over NCCL
    at a world of one (a second join creates nothing, a mismatched world
-   raises, the group destroyed); the build-info line.
+   raises, the group destroyed); the build-info line;
+12. the sans-io control plane, the port's own scheduler engine, worker
+   state machines and simulator (no JAX package, no ``msgpack``,
+   ``cloudpickle`` or ``yaml``): (a) one ``update_graph_core`` of
+   ``graphs.random_dag(131_072, seed=0)`` into ``SchedulerState(device=cuda)``
+   with 512 workers x 2 threads and ``TorchPlacement(sync=True)``, which
+   the router sends to the leveled engine (K1): the plan equal to a direct
+   ``_plan_from_arrays`` on the same batch, and the plan, the hints left and
+   every task's state and worker equal to the same call on the CPU; the
+   wall, the plan's share (``state.wall``'s ``kernel.dispatch``), the
+   hints' time and K1's; (b) ``ClusterSim(512, nthreads=2,
+   use_device_kernels=True)`` on ``SyntheticDag(20 layers x 1000, fanin 2,
+   2 layers a chunk)`` with ``TorchPlacement`` and the port's own
+   ``WorkStealing`` and ``ReduceReplicas`` (an AMM round every 0.1 virtual
+   s; the configured 2 s outlasts the run): no key lost, the census clean,
+   a plan a chunk through K4, K6, K7 and K8 launched, no failure, and the
+   digest, makespan, transition counts and device cycles equal to the CPU
+   run; wall, transitions/s, makespan, and each kernel's launches and event
+   time.  The CPU runs go in two child processes beside the card's.
 
 The last three lines are the card's ``nvidia-smi`` name and power limit,
 one JSON object listing the kernels (``flash_fwd``, ``flash_bwd``,
@@ -176,7 +194,8 @@ one JSON object listing the kernels (``flash_fwd``, ``flash_bwd``,
 sharded view's numbers, ``rebalance``, ``ring_attention``, ``ulysses``,
 ``ring_attention_bwd``, ``ulysses_bwd``, ``decide_workers``,
 ``wavefront`` and ``sharded_decide_workers``) with their launches, errors
-and times, and
+and times (phase 12's launches added, and kept apart as
+``launches_control_plane``), and
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -184,6 +203,8 @@ from __future__ import annotations
 
 import concurrent.futures
 import contextlib
+import functools
+import hashlib
 import inspect
 import json
 import math
@@ -2508,6 +2529,10 @@ def phase_long_context():
 
 
 LT_REPS = 5                  # CUDA-event repetitions of each phase 9 and 10 time
+# of phase 9's plain backwards (autograd through the plain ring, the plain
+# local backward; ~1 s each): cut from LT_REPS to keep the script near 300 s
+# once phase 12 came
+LT_PLAIN_REPS = 2
 LT_PLAIN_HEADS = 2           # heads a pass of the plain ring's autograd (its saved scores)
 ULY_RAGGED = 1_000           # rows a shard of Ulysses' ragged case: a sequence of 8,000
 K3_NAMES = ("bwd_delta_kernel", "bwd_dkdv_", "bwd_dq_")
@@ -2656,7 +2681,8 @@ def phase_long_context_training():
         k3_ms = sum(ms for name, (ms, _) in kt_.items() if any(x in name for x in K3_NAMES))
         dev_ms = sum(ms for ms, _ in kt_.values())
         plain_ms = cuda_ms(lambda: ring_attention.ring_backward_reference(
-            mesh, q, k, v, do, causal=causal, heads_at_once=LT_PLAIN_HEADS), reps=LT_REPS, warmup=1)
+            mesh, q, k, v, do, causal=causal, heads_at_once=LT_PLAIN_HEADS), reps=LT_PLAIN_REPS,
+            warmup=1)
         del out, leaves, again, again2, plain
         uleaves = _leaves(q, k, v)
         uout = uly(mesh, *uleaves, causal=causal)
@@ -2666,7 +2692,7 @@ def phase_long_context_training():
         ukt = kernel_times(torch, lambda: torch.autograd.grad(uout, uleaves, dos, retain_graph=True))
         uk3_ms = sum(ms for name, (ms, _) in ukt.items() if any(x in name for x in K3_NAMES))
         uplain_ms = cuda_ms(lambda: [flash.flash_backward_reference(*r, causal, scale)
-                                     for r in plain_res], reps=LT_REPS, warmup=1)
+                                     for r in plain_res], reps=LT_PLAIN_REPS, warmup=1)
         del uout, uleaves, plain_res
         qt, kt, vt, dot = (x.transpose(0, 1).contiguous() for x in (q, k, v, do))
         qs, ks, vs = (x[None].requires_grad_() for x in (qt, kt, vt))
@@ -3359,6 +3385,354 @@ def phase_periphery():
                           k2_traced_ms=k2_traced_ms, phase_s=phase_s)
 
 
+# ------------------------------------------------------------ phase 12
+
+
+# 12a: one update_graph_core of the port's 1M-task DAG's first 131,072
+# tasks (2.6x BASELINE config 2's ~50k-task graph) onto 512 workers x 2
+# threads; _bucket(131,072) x 1,024 lanes > DENSE_LIMIT: the leveled engine
+CP_TASKS = 131_072
+CP_WORKERS, CP_THREADS = N_WORKERS, THREADS
+# 12b: the simulator at BASELINE config 5's fleet width, every device path on
+SIM_WORKERS, SIM_THREADS = 512, 2
+SIM_LAYERS, SIM_WIDTH, SIM_FANIN, SIM_CHUNK = 20, 1000, 2, 2
+# virtual seconds between AMM rounds: the configured 2 s outlasts the run
+SIM_AMM_INTERVAL = 0.1
+# each CPU twin's torch threads (the card's run keeps the other cores) and
+# its time limit
+CP_CPU_THREADS = 4
+CP_TWIN_TIMEOUT_S = 600
+
+
+def _cp_task():
+    """Phase 12's run spec: the scheduler never runs it."""
+
+
+def _cp_graph(graphs, TaskSpec):
+    """12a's batch: ``graphs.random_dag(CP_TASKS, seed=0)`` as run specs
+    and their dependency sets."""
+    _, _, src, dst = graphs.random_dag(CP_TASKS, seed=0)
+    deps = {f"t-{i}": set() for i in range(CP_TASKS)}
+    for a, b in zip(src.tolist(), dst.tolist()):
+        deps[f"t-{b}"].add(f"t-{a}")
+    return {k: TaskSpec(_cp_task) for k in deps}, deps
+
+
+class _Timed:
+    """A function (or method) bracketed by CUDA events.  Its attributes are
+    the wrapped function's, so a wrapper that counts its own launches
+    (``fn.launches += 1`` through its module's name) keeps counting them."""
+
+    def __init__(self, fn, pairs):
+        object.__setattr__(self, "_fn", fn)
+        object.__setattr__(self, "_pairs", pairs)
+
+    def __call__(self, *args, **kwargs):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        try:
+            return self._fn(*args, **kwargs)
+        finally:
+            end.record()
+            self._pairs.append((start, end))
+
+    def __get__(self, obj, owner=None):
+        return self if obj is None else functools.partial(self, obj)
+
+    def __getattr__(self, name):
+        return getattr(self._fn, name)
+
+    def __setattr__(self, name, value):
+        setattr(self._fn, name, value)
+
+
+class _EventTimer:
+    """Puts :class:`_Timed` in place of ``module.name`` for the block;
+    :meth:`ms` sums the bracketed calls' event times after a synchronize."""
+
+    def __init__(self, module, name):
+        self.module, self.name = module, name
+        self.fn = getattr(module, name)
+        self.pairs = []
+
+    def __enter__(self):
+        setattr(self.module, self.name, _Timed(self.fn, self.pairs))
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.name, self.fn)
+
+    def ms(self):
+        torch.cuda.synchronize()
+        return sum(a.elapsed_time(b) for a, b in self.pairs)
+
+
+def _cp_update_graph(device, tasks, deps):
+    """One ``update_graph_core`` of 12a's batch into a fresh
+    ``SchedulerState`` on ``device`` with ``TorchPlacement(sync=True)``.
+    Returns the state, the placement, the batch arrays the placement
+    planned on, the wall, and the streamed driver's timings and the
+    hints' time."""
+    from distributed_tpu_torch.scheduler import plan as planning
+    from distributed_tpu_torch.scheduler.state import SchedulerState
+    from distributed_tpu_torch.scheduler.torch_placement import TorchPlacement
+
+    placement = TorchPlacement(sync=True, device=device)
+    state = SchedulerState(placement=placement, device=device)
+    for i in range(CP_WORKERS):
+        state.add_worker_state(f"tcp://10.3.{i // 256}.{i % 256}:8788", nthreads=CP_THREADS,
+                               memory_limit=2**34, name=f"w{i}")
+    captured, timings, hints_s = [], {}, []
+    plan_from_arrays, hints_from_placement = planning.plan_from_arrays, planning.hints_from_placement
+    engine = placement._plan_from_arrays
+
+    def spy(*args, **kwargs):
+        out = engine(*args, **kwargs)
+        captured.append((args, dict(out)))
+        return out
+
+    def with_timings(*args, **kwargs):
+        return plan_from_arrays(*args, timings=timings, **kwargs)
+
+    def timed_hints(*args):
+        t0 = time.perf_counter()
+        out = hints_from_placement(*args)
+        hints_s.append(time.perf_counter() - t0)
+        return out
+
+    placement._plan_from_arrays = spy
+    planning.plan_from_arrays, planning.hints_from_placement = with_timings, timed_hints
+    try:
+        t0 = time.perf_counter()
+        state.update_graph_core(dict(tasks), {k: set(v) for k, v in deps.items()}, list(tasks),
+                                client="cp", stimulus_id="cp-graph")
+        if state.device.type == "cuda":
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        planning.plan_from_arrays, planning.hints_from_placement = plan_from_arrays, hints_from_placement
+        del placement._plan_from_arrays
+    return state, placement, captured, wall, timings, sum(hints_s)
+
+
+def _task_rows(state):
+    return {k: (ts.state, ts.processing_on.address if ts.processing_on else None)
+            for k, ts in state.tasks.items()}
+
+
+def _cp_sim(device):
+    """12b's simulation on ``device``: ``ClusterSim`` with the mirror and
+    the steal and AMM paths on, ``TorchPlacement(sync=True)`` attached
+    through ``state.placement``, run to its end.  Returns the sim and its
+    report, wall and digest (taken before the census check, which
+    releases the wanted keys)."""
+    from distributed_tpu_torch.scheduler.torch_placement import TorchPlacement
+    from distributed_tpu_torch.sim import ClusterSim, SyntheticDag
+    from distributed_tpu_torch.sim.validate import check_census_clean, check_no_lost_keys
+
+    sim = ClusterSim(SIM_WORKERS, nthreads=SIM_THREADS, seed=0, use_device_kernels=True,
+                     native=False, device=device, amm_interval=SIM_AMM_INTERVAL)
+    sim.state.placement = TorchPlacement(sync=True, device=device)
+    sim.install_digest()
+    SyntheticDag(n_layers=SIM_LAYERS, layer_width=SIM_WIDTH, fanin=SIM_FANIN, seed=0,
+                 layers_per_chunk=SIM_CHUNK).start(sim)
+    t0 = time.perf_counter()
+    rep = sim.run()
+    if sim.state.device.type == "cuda":
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    check_no_lost_keys(sim)
+    digest = sim.digest()
+    census = check_census_clean(sim)
+    return sim, rep, wall, digest, census
+
+
+def _blake(obj) -> str:
+    return hashlib.blake2b(repr(obj).encode(), digest_size=16).hexdigest()
+
+
+def _cp_sim_report(sim, rep, wall, digest):
+    """What 12b holds the card's run and the CPU run to, and prints."""
+    (policy,) = sim.amm.policies
+    return dict(digest=digest, wall_s=wall, steal_launches=sim.stealing.device_path().launches,
+                amm_launches=policy.device_path().launches,
+                plans=sim.state.placement.plans_computed, plan_hits=sim.state.placement.plan_hits,
+                **{k: rep[k] for k in ("virtual_makespan_s", "scheduler_transitions",
+                                       "worker_transitions", "keys_done", "keys_wanted", "steals")})
+
+
+def control_plane_cpu(part):
+    """One of phase 12's runs with every path on ``device="cpu"`` (the
+    plain versions of the kernels), in a child process phase 12 starts
+    beside its card runs: ``"a"``, 12a's plan, the hints it left and every
+    task's state and worker as digests; ``"b"``, 12b's report."""
+    torch.set_num_threads(CP_CPU_THREADS)
+    if part == "b":
+        sim, rep, s_wall, digest, census = _cp_sim("cpu")
+        return dict(_cp_sim_report(sim, rep, s_wall, digest), census=census["census_clean"])
+    from distributed_tpu_torch import graphs
+    from distributed_tpu_torch.graph.spec import TaskSpec
+
+    tasks, deps = _cp_graph(graphs, TaskSpec)
+    state, placement, captured, wall, _, _ = _cp_update_graph("cpu", tasks, deps)
+    ((_, plan),) = captured
+    return dict(wall_s=wall, plan=_blake(sorted(plan.items())), n_plan=len(plan),
+                left=_blake(sorted(placement.plan.items())), hits=placement.plan_hits,
+                rows=_blake(sorted(_task_rows(state).items())), enabled=placement.enabled)
+
+
+def _twin_report(twin, label):
+    out, err = twin.communicate(timeout=CP_TWIN_TIMEOUT_S)
+    check(twin.returncode == 0, f"phase 12's CPU run {label} failed ({twin.returncode}):\n{err[-3000:]}")
+    return json.loads(out.strip().splitlines()[-1])
+
+
+def phase_control_plane(dev=None):
+    """Phase 12, the sans-io control plane on the card: (a) one
+    ``update_graph_core`` of a 131,072-task DAG into the port's
+    ``SchedulerState`` with ``TorchPlacement`` (K1 through the leveled
+    engine), its plan equal to a direct ``_plan_from_arrays`` call on the
+    same batch and to the CPU run, and every task's state and worker equal
+    to the CPU run; (b) the port's ``ClusterSim`` at 512 workers with every
+    device path on (K4 a chunk through the placement, K6, K7, K8), no key
+    lost, the census clean, no failure, and the digest, makespan and
+    transition counts equal to the CPU run.  The CPU runs
+    (:func:`control_plane_cpu`) go in two child processes started first,
+    beside the card's.  Returns each kernel's launches on the two main
+    paths and the phase's numbers."""
+    card = smi_line()
+    dev = torch.device("cuda", torch.cuda.current_device()) if dev is None else dev
+    t_phase = time.perf_counter()
+    twins = {part: subprocess.Popen(
+        [sys.executable, "-c",
+         f"import json, chip_smoke as c; print(json.dumps(c.control_plane_cpu({part!r})))"],
+        cwd=Path(__file__).resolve().parent, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for part in ("a", "b")}
+    try:
+        launches, numbers = _control_plane_card(card, dev, twins)
+    finally:
+        for twin in twins.values():
+            if twin.poll() is None:
+                twin.kill()
+                twin.communicate()
+    numbers["phase_s"] = time.perf_counter() - t_phase
+    print(f"[{card}] phase 12 control plane s {numbers['phase_s']:.1f}")
+    return launches, numbers
+
+
+def _control_plane_card(card, dev, twins):
+    """Phase 12's card runs, each held to its CPU twin's report."""
+    from distributed_tpu_torch import graphs
+    from distributed_tpu_torch.graph.spec import TaskSpec
+    from distributed_tpu_torch.ops import amm, leveled, partition, stealing
+    from distributed_tpu_torch.scheduler.mirror import TorchMirror
+
+    counters = {"place_wave": leveled.place_waves_cuda, "partition": partition.partition_cuda,
+                "steal": stealing.steal_rounds_cuda, "amm_drop": amm.drop_rounds_cuda}
+
+    def zero():
+        for fn in counters.values():
+            fn.launches = 0
+        TorchMirror.launches = 0
+
+    def read():
+        out = {name: fn.launches for name, fn in counters.items()}
+        out["mirror_view"] = TorchMirror.launches
+        return out
+
+    # 12a: the north-star path through update_graph_core
+    tasks, deps = _cp_graph(graphs, TaskSpec)
+    zero()
+    with _EventTimer(leveled, "place_waves_cuda") as t_k1:
+        state, placement, captured, wall, timings, hints_s = _cp_update_graph(dev, tasks, deps)
+        launches_a = read()
+    k1_ms = t_k1.ms()
+    check(placement.enabled and placement.plans_computed == 1 and len(captured) == 1,
+          f"12a: the placement planned {placement.plans_computed} times, enabled {placement.enabled}")
+    check(launches_a["place_wave"] >= 1 and launches_a["partition"] == 0,
+          f"12a: launches {launches_a}: the batch must go through K1, not K4")
+    # below the streamed driver's min_stream the one-shot driver: one launch
+    want_k1 = 1 if timings.get("fallback") else timings.get("launches")
+    check(launches_a["place_wave"] == want_k1,
+          f"12a: K1 launches {launches_a['place_wave']}, the driver's {want_k1} ({timings})")
+    ((args, plan),) = captured  # the hints as planned (decide_worker consumes them)
+    check(len(plan) > CP_TASKS // 2, f"12a: {len(plan)} hints for {CP_TASKS} tasks")
+    dispatch_s = state.wall.snapshot().get("kernel.dispatch", 0.0)
+    rows = _task_rows(state)
+    # from here on the launches compare; they are not counted
+    direct = placement._plan_from_arrays(*args)
+    check(direct == plan, "12a: the plan differs from a direct _plan_from_arrays on its batch")
+    n_proc = sum(s == "processing" for s, _ in rows.values())
+    card_a = dict(plan=_blake(sorted(plan.items())), n_plan=len(plan),
+                  left=_blake(sorted(placement.plan.items())), hits=placement.plan_hits,
+                  rows=_blake(sorted(rows.items())), enabled=True)
+    print(f"[{card}] 12a update_graph_core {CP_TASKS} tasks onto {CP_WORKERS} x {CP_THREADS}: wall s "
+          f"{wall:.3f}, plan (kernel.dispatch) s {dispatch_s:.3f} ({100 * dispatch_s / wall:.1f} %), "
+          f"hints s {hints_s:.3f}, K1 event ms {k1_ms:.3f} in {launches_a['place_wave']} launches "
+          f"(pack s {timings['topo_s']:.3f}, fmt {timings['fmt']}); {len(plan)} hints == direct call, "
+          f"{placement.plan_hits} hit, {n_proc} processing; launches {launches_a}")
+    del state, placement, tasks, deps, captured, args, direct, rows
+
+    # 12b: the simulator with every device path on
+    zero()
+    with _EventTimer(partition, "partition_cuda") as t_k4, \
+            _EventTimer(stealing, "steal_rounds_cuda") as t_k7, \
+            _EventTimer(amm, "drop_rounds_cuda") as t_k8, \
+            _EventTimer(TorchMirror, "device_view") as t_k6:
+        sim, rep, s_wall, digest, census = _cp_sim(dev)
+        launches_b = read()
+    ms_b = {"partition": t_k4.ms(), "steal": t_k7.ms(), "amm_drop": t_k8.ms(), "mirror_view": t_k6.ms()}
+    steal_path = sim.stealing.device_path()
+    (policy,) = sim.amm.policies
+    amm_path = policy.device_path()
+    sp = sim.state.placement
+    n_chunks = -(-SIM_LAYERS // SIM_CHUNK)
+    check(rep["keys_done"] >= rep["keys_wanted"] > 0, f"12b: {rep['keys_done']} of {rep['keys_wanted']}")
+    check(census["census_clean"], f"12b: census {census}")
+    check(sp.enabled and sp.plans_computed >= n_chunks,
+          f"12b: {sp.plans_computed} plans for {n_chunks} chunks, enabled {sp.enabled}")
+    check(launches_b["partition"] == sp.plans_computed * K4_LAUNCHES_PER_PLAN,
+          f"12b: K4 launches {launches_b['partition']} for {sp.plans_computed} plans")
+    check(launches_b["steal"] >= 1 and launches_b["amm_drop"] >= 1 and launches_b["mirror_view"] >= 1,
+          f"12b: launches {launches_b}: K6, K7 and K8 must each launch")
+    check(launches_b["steal"] == steal_path.launches and launches_b["amm_drop"] == amm_path.launches,
+          f"12b: paths {steal_path.counters()} {amm_path.counters()} against launches {launches_b}")
+    for label, p in (("stealing", steal_path), ("amm", amm_path)):
+        check(p.failures == 0, f"12b: {label} path failures {p.failures}: {p.errors}")
+    card_b = _cp_sim_report(sim, rep, s_wall, digest)
+    n_tr = rep["scheduler_transitions"] + rep["worker_transitions"]
+    print(f"[{card}] 12b ClusterSim {SIM_WORKERS} x {SIM_THREADS}, SyntheticDag {SIM_LAYERS} x "
+          f"{SIM_WIDTH} (fanin {SIM_FANIN}, {SIM_CHUNK} layers a chunk): wall s {s_wall:.3f}, "
+          f"{rep['scheduler_transitions']} scheduler + {rep['worker_transitions']} worker transitions "
+          f"({n_tr / s_wall:.0f} / s), virtual makespan s {rep['virtual_makespan_s']}, steals "
+          f"{rep['steals']}, {sp.plans_computed} plans ({sp.plan_hits} hits); no key lost, census clean, "
+          f"digest {digest}; launches {launches_b}, event ms "
+          + ", ".join(f"{k} {v:.3f}" for k, v in ms_b.items()))
+    del sim
+
+    # the CPU twins: the same two runs with every path on the CPU
+    cpu_a, cpu_b = _twin_report(twins["a"], "12a"), _twin_report(twins["b"], "12b")
+    check(cpu_a.pop("wall_s") > 0 and cpu_a == card_a,
+          f"12a: the card's plan, hints or tasks differ from the CPU run's: {card_a} / {cpu_a}")
+    c_wall = cpu_b.pop("wall_s")
+    card_b.pop("wall_s")
+    check(cpu_b.pop("census") and cpu_b == card_b,
+          f"12b: the card's run differs from the CPU run: {card_b} / {cpu_b}")
+    print(f"[{card}] 12a plan, hints left and every task's state and worker == CPU run; 12b digest, "
+          f"makespan, transitions, steals and device cycles == CPU run (CPU run s {c_wall:.3f}, in child "
+          f"processes beside the card's)")
+    launches = {k: launches_a[k] + launches_b[k] for k in launches_a}
+    numbers = dict(
+        update_graph_wall_s=wall, update_graph_dispatch_s=dispatch_s, update_graph_hints_s=hints_s,
+        update_graph_hints=len(plan), update_graph_hits=card_a["hits"], update_graph_k1_ms=k1_ms,
+        update_graph_pack_s=timings["topo_s"], sim_wall_s=s_wall, sim_cpu_wall_s=c_wall,
+        sim_transitions_per_s=n_tr / s_wall, sim_makespan_s=rep["virtual_makespan_s"],
+        sim_scheduler_transitions=rep["scheduler_transitions"],
+        sim_worker_transitions=rep["worker_transitions"], sim_plans=sp.plans_computed,
+        sim_event_ms=ms_b)
+    return launches, numbers
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3395,6 +3769,15 @@ def main() -> int:
         e["launches"] += periphery[e["name"]]
         e["launches_periphery"] = periphery[e["name"]]
     flash_entry["periphery_ms"] = periphery_ms
+    control, control_numbers = phase_control_plane()
+    for e in (wave_entry, partition_entry, *periodic_entries):
+        if e["name"] in control:
+            e["launches"] += control[e["name"]]
+            e["launches_control_plane"] = control[e["name"]]
+            if e["name"] in control_numbers["sim_event_ms"]:
+                e["control_plane_ms"] = control_numbers["sim_event_ms"][e["name"]]
+    wave_entry["control_plane_ms"] = control_numbers["update_graph_k1_ms"]
+    print(json.dumps({"control_plane": control_numbers}))
     kernels = [flash_entry, bwd_entry, wave_entry, partition_entry, *periodic_entries, shard_entry,
                shuffle_entry, *long_context, *training, *round1]
     print(f"total_s {time.perf_counter() - t0:.1f}")

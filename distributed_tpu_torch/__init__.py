@@ -1,4 +1,6 @@
-"""PyTorch + CUDA port of ``distributed_tpu``'s device paths for NVIDIA Hopper.
+"""PyTorch + CUDA port of ``distributed_tpu`` for NVIDIA Hopper: its device
+paths, and the sans-io control plane that drives them (the scheduler
+engine, the worker state machine and the simulator).
 
 The JAX package stays the reference; this package sits beside it, keeps
 the reference's module names (``ops/leveled.py``, ``ops/flash.py``) and

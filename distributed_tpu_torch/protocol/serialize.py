@@ -24,9 +24,20 @@ family keeps the reference's wire and adds the device:
 through the reference's ``register_serialization_family``, passed in; the
 reference already sends every dense tensor to that family
 (``_family_for``, ``:371-375``).
+
+Beside the family stand the reference's protocol wrappers (``Serialize``,
+``Serialized``, ``ToPickle``, ``Pickled``) and the helpers the control
+plane calls, copied line for line: ``wrap_opaque`` (``:106``),
+``compact_frames`` (``:118``) and ``unwrap`` (``:155``).  The wire's
+``deserialize`` (the family registry, pickle) is not in the port yet, so
+unwrapping a ``Serialized`` or ``Pickled`` payload raises
+``NotImplementedError``; a ``Serialize`` or ``ToPickle`` wrapper, which is
+what an in-process hop carries, unwraps as in the reference.
 """
 
 from __future__ import annotations
+
+from typing import Any
 
 import numpy as np
 import torch
@@ -107,3 +118,124 @@ def install_serialization(register_serialization_family, families: dict) -> Inst
         return undo
 
     return install("serialization", families, (), apply)
+
+
+# --------------------------------------------------------------- wrappers
+
+
+class Serialize:
+    """Mark ``data`` for serialization when the message is dumped."""
+
+    __slots__ = ("data",)
+
+    def __init__(self, data: Any):
+        self.data = data
+
+    def __repr__(self) -> str:
+        return f"<Serialize: {self.data!r}>"
+
+    def __eq__(self, other):
+        return isinstance(other, Serialize) and other.data == self.data
+
+    def __hash__(self):
+        return hash(("Serialize", id(self.data)))
+
+
+to_serialize = Serialize
+
+
+class Serialized:
+    """Already-serialized payload: forwarded without deserializing."""
+
+    __slots__ = ("header", "frames")
+
+    def __init__(self, header: dict, frames: list):
+        self.header = header
+        self.frames = frames
+
+    def deserialize(self) -> Any:
+        return deserialize(self.header, self.frames)
+
+    def __eq__(self, other):
+        return (
+            isinstance(other, Serialized)
+            and other.header == self.header
+            and other.frames == self.frames
+        )
+
+
+class ToPickle:
+    """Force pickle serialization through the msgpack channel."""
+
+    __slots__ = ("data",)
+
+    def __init__(self, data: Any):
+        self.data = data
+
+    def __repr__(self) -> str:
+        return f"<ToPickle: {self.data!r}>"
+
+
+class Pickled:
+    """Already-pickled payload."""
+
+    __slots__ = ("header", "frames")
+
+    def __init__(self, header: dict, frames: list):
+        self.header = header
+        self.frames = frames
+
+
+OPAQUE_TYPES = (Serialize, Serialized, ToPickle, Pickled)
+
+
+def wrap_opaque(obj: Any) -> Any:
+    """Prepare a possibly-already-wrapped payload for forwarding.
+
+    Opaque wrappers (how payloads look on a deserialize=False server)
+    pass through untouched — re-wrapping would deliver the wrapper
+    object itself to the peer.  Raw values are wrapped so they cross
+    tcp pickled.  None stays None."""
+    if obj is None or isinstance(obj, OPAQUE_TYPES):
+        return obj
+    return ToPickle(obj)
+
+
+def compact_frames(obj: Any) -> Any:
+    """Copy view-backed frames of a LONG-LIVED opaque wrapper into owned
+    bytes (docs/wire.md ownership rule: holders that outlive the message
+    must copy).  A ``Serialized`` run_spec on a deserialize=False server
+    is a small slice of the message's whole pooled receive buffer; kept
+    as a view for the task's lifetime it would pin that entire buffer —
+    a ~100-byte spec holding megabytes.  One exact-size copy at store
+    time restores the pre-zero-copy memory profile for stores while the
+    forwarding path stays copy-free.  Pass-through for non-wrappers."""
+    if isinstance(obj, (Serialized, Pickled)):
+        obj.frames = [
+            # graft-lint: allow[wire-no-copy] long-lived store: the copy releases the pinned receive buffer
+            bytes(f) if isinstance(f, memoryview) else f
+            for f in obj.frames
+        ]
+    return obj
+
+
+def unwrap(obj: Any) -> Any:
+    """Undo protocol wrappers that survive an in-process hop.
+
+    Over tcp the comm layer serializes ``Serialize``/``ToPickle`` leaves and
+    the reader gets plain values; over inproc the wrapper object itself
+    arrives.  Consumption points call this to accept both.
+    """
+    if isinstance(obj, (Serialize, ToPickle)):
+        return obj.data
+    if isinstance(obj, (Serialized, Pickled)):
+        return deserialize(obj.header, obj.frames)
+    return obj
+
+
+def deserialize(header: dict, frames: list) -> Any:
+    """The wire's decode, which the port does not have yet."""
+    raise NotImplementedError(
+        "deserializing a wire payload needs the port's comm and wire "
+        "(ROADMAP queue 1: the asyncio Scheduler and Worker servers)"
+    )

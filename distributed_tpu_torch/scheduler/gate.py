@@ -7,6 +7,11 @@ explicit parameters, whose defaults are the reference's configuration
 defaults (``config.py:63-74``: ``scheduler.jax.enabled`` True,
 ``min-workers`` 8, ``periodic-min-workers`` 48).  A cycle the gate
 routes to the host is the reference's routing, not a fallback.
+
+:func:`config_gate` reads those parameters from the port's configuration
+(``distributed_tpu_torch/config.py``, the reference's key names): the
+port's own ``WorkStealing`` and ``ReduceReplicas`` gate on it, as the
+reference's read theirs.
 """
 
 from __future__ import annotations
@@ -14,6 +19,18 @@ from __future__ import annotations
 ENABLED = True
 MIN_WORKERS = 8
 PERIODIC_MIN_WORKERS = 48
+
+
+def config_gate() -> dict:
+    """The gate's parameters as the port's configuration holds them now
+    (``scheduler.jax.enabled``, ``min-workers``, ``periodic-min-workers``)."""
+    from distributed_tpu_torch import config
+
+    return {
+        "enabled": bool(config.get("scheduler.jax.enabled")),
+        "min_workers": int(config.get("scheduler.jax.min-workers")),
+        "periodic_min_workers": int(config.get("scheduler.jax.periodic-min-workers")),
+    }
 
 
 def device_dispatch_worthwhile(n_workers: int, n_items: int, min_items: int,

@@ -1,1 +1,2 @@
-"""The worker's side of the port: its process-group join and setup."""
+"""The worker's side of the port: the sans-io state machine, and the
+process-group join and setup."""
