@@ -12,8 +12,9 @@ and prints no result):
 0. environment: torch/CUDA versions, the card, its power limit, nvcc,
    whether triton imports;
 1. build: the eight hand-written kernel sources from
-   ``distributed_tpu_torch/ops/csrc`` (nvcc, one process a source) and the
-   host pack ``distributed_tpu_torch/native/graphpack.cpp`` (g++), at once;
+   ``distributed_tpu_torch/ops/csrc`` (nvcc, one process a source), the
+   host pack ``distributed_tpu_torch/native/graphpack.cpp`` and the native
+   transition engine ``native/engine.cpp`` (g++), at once;
    K3's tensor-core kernels' registers and spills from ptxas (into the
    ``flash_bwd`` entry of the kernels line), failing if they spill or if
    ptxas serialised their wgmma (warning C7512), and those of every
@@ -172,20 +173,40 @@ and prints no result):
    state machines and simulator (no JAX package, no ``msgpack``,
    ``cloudpickle`` or ``yaml``): (a) one ``update_graph_core`` of
    ``graphs.random_dag(131_072, seed=0)`` into ``SchedulerState(device=cuda)``
-   with 512 workers x 2 threads and ``TorchPlacement(sync=True)``, which
+   on the Python engine with 512 workers x 2 threads and
+   ``TorchPlacement(sync=True)``, which
    the router sends to the leveled engine (K1): the plan equal to a direct
    ``_plan_from_arrays`` on the same batch, and the plan, the hints left and
    every task's state and worker equal to the same call on the CPU; the
    wall, the plan's share (``state.wall``'s ``kernel.dispatch``), the
    hints' time and K1's; (b) ``ClusterSim(512, nthreads=2,
    use_device_kernels=True)`` on ``SyntheticDag(20 layers x 1000, fanin 2,
-   2 layers a chunk)`` with ``TorchPlacement`` and the port's own
+   2 layers a chunk)`` with ``TorchPlacement``, the port's own
    ``WorkStealing`` and ``ReduceReplicas`` (an AMM round every 0.1 virtual
-   s; the configured 2 s outlasts the run): no key lost, the census clean,
-   a plan a chunk through K4, K6, K7 and K8 launched, no failure, and the
-   digest, makespan, transition counts and device cycles equal to the CPU
-   run; wall, transitions/s, makespan, and each kernel's launches and event
-   time.  The CPU runs go in two child processes beside the card's.
+   s; the configured 2 s outlasts the run) and the native transition
+   engine (``native=True``: the C++ engine, attached and active, must run
+   transitions; a Python oracle in its place would give the same digest):
+   no key lost, the census clean, a plan a chunk through K4, K6, K7 and K8
+   launched, no failure, and the digest, makespan, transition counts and
+   device cycles equal to the CPU run, which runs the Python oracle; wall,
+   transitions/s, makespan, the engine's transitions and escapes by
+   reason, and each kernel's launches and event time.  The CPU runs go in
+   two child processes beside the card's;
+13. recovery at 12b's fleet (512 workers x 2) with the mirror, K7 and K8
+   on the card and the native engine attached, on ``SyntheticDag(6 layers
+   x 1000, fanin 2, 2 layers a chunk)``: (a) ``scenario_scheduler_bounce``'s
+   shape, durability on and the scheduler bounced mid-graph (snapshot,
+   restore, journal-tail replay): the bounce's own checks (the restored
+   state's digest and transition counter equal the dead state's), no key
+   lost, the census clean, the digest equal to an unbounced same-seed
+   twin's, the dead state and its mirror released with the device memory
+   it held, a full upload by the new state's mirror and K6, K7 and K8
+   launching after the bounce; snapshot, load, restore and tail-replay
+   times and the tail's records; (b) the twin's stimulus journal replayed
+   (``JournalTrace.replay``) into a fresh sim on the card to the recording
+   state's ``state_digest``; (c) the twin's critical path, which must pass
+   ``critical_path.check``; (a)-(c) equal to the same runs on the CPU with
+   the Python oracle, in a child process started with phase 12's.
 
 The last three lines are the card's ``nvidia-smi`` name and power limit,
 one JSON object listing the kernels (``flash_fwd``, ``flash_bwd``,
@@ -195,7 +216,7 @@ sharded view's numbers, ``rebalance``, ``ring_attention``, ``ulysses``,
 ``ring_attention_bwd``, ``ulysses_bwd``, ``decide_workers``,
 ``wavefront`` and ``sharded_decide_workers``) with their launches, errors
 and times (phase 12's launches added, and kept apart as
-``launches_control_plane``), and
+``launches_control_plane``, and phase 13's as ``launches_recovery``), and
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -204,6 +225,7 @@ from __future__ import annotations
 import concurrent.futures
 import contextlib
 import functools
+import gc
 import hashlib
 import inspect
 import json
@@ -215,6 +237,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import weakref
 from pathlib import Path
 
 import numpy as np
@@ -398,13 +421,15 @@ def phase_build():
     from distributed_tpu_torch.ops import _build
 
     t0 = time.perf_counter()
-    # g++ builds the host pack while nvcc builds the kernels
+    # g++ builds the host pack and the transition engine while nvcc builds
+    # the kernels
     with concurrent.futures.ThreadPoolExecutor(1) as pool:
-        host = pool.submit(native.load)
+        host = pool.submit(lambda: (native.load(), native.load_engine()))
         _build.load()
         host.result()
     print(f"build_s {time.perf_counter() - t0:.2f} ({_build.build_info['path']}, "
-          f"{native.library_path()})")
+          f"{native.library_path()}, "
+          f"{native.library_path(native.ENGINE_SOURCE, 'libdtpu_engine')})")
     log = _build.build_info["log"]
     for ln in log.splitlines():
         if "registers" in ln or "spill" in ln or ln.startswith("==") or "C7512" in ln:
@@ -3469,16 +3494,21 @@ class _EventTimer:
 
 def _cp_update_graph(device, tasks, deps):
     """One ``update_graph_core`` of 12a's batch into a fresh
-    ``SchedulerState`` on ``device`` with ``TorchPlacement(sync=True)``.
-    Returns the state, the placement, the batch arrays the placement
-    planned on, the wall, and the streamed driver's timings and the
-    hints' time."""
+    ``SchedulerState`` on ``device`` with ``TorchPlacement(sync=True)``, on
+    the Python engine.  (With the placement attached every
+    ``waiting→processing`` escapes the native engine, which ran 1 of
+    174,918 transitions of this call on the card and cost its wall 5 s in
+    hooks: PERF.md §6.)  Returns the state, the placement, the batch
+    arrays the placement planned on, the wall, and the streamed driver's
+    timings and the hints' time."""
+    from distributed_tpu_torch import config
     from distributed_tpu_torch.scheduler import plan as planning
     from distributed_tpu_torch.scheduler.state import SchedulerState
     from distributed_tpu_torch.scheduler.torch_placement import TorchPlacement
 
     placement = TorchPlacement(sync=True, device=device)
-    state = SchedulerState(placement=placement, device=device)
+    with config.set({"scheduler.native-engine.enabled": False}):
+        state = SchedulerState(placement=placement, device=device)
     for i in range(CP_WORKERS):
         state.add_worker_state(f"tcp://10.3.{i // 256}.{i % 256}:8788", nthreads=CP_THREADS,
                                memory_limit=2**34, name=f"w{i}")
@@ -3520,18 +3550,20 @@ def _task_rows(state):
             for k, ts in state.tasks.items()}
 
 
-def _cp_sim(device):
+def _cp_sim(device, native):
     """12b's simulation on ``device``: ``ClusterSim`` with the mirror and
     the steal and AMM paths on, ``TorchPlacement(sync=True)`` attached
-    through ``state.placement``, run to its end.  Returns the sim and its
-    report, wall and digest (taken before the census check, which
-    releases the wanted keys)."""
+    through ``state.placement``, the native transition engine attached
+    (``native=True``, built at first use) or the Python oracle
+    (``native=False``), run to its end.  Returns the sim and its report,
+    wall and digest (taken before the census check, which releases the
+    wanted keys)."""
     from distributed_tpu_torch.scheduler.torch_placement import TorchPlacement
     from distributed_tpu_torch.sim import ClusterSim, SyntheticDag
     from distributed_tpu_torch.sim.validate import check_census_clean, check_no_lost_keys
 
     sim = ClusterSim(SIM_WORKERS, nthreads=SIM_THREADS, seed=0, use_device_kernels=True,
-                     native=False, device=device, amm_interval=SIM_AMM_INTERVAL)
+                     native=native, device=device, amm_interval=SIM_AMM_INTERVAL)
     sim.state.placement = TorchPlacement(sync=True, device=device)
     sim.install_digest()
     SyntheticDag(n_layers=SIM_LAYERS, layer_width=SIM_WIDTH, fanin=SIM_FANIN, seed=0,
@@ -3565,10 +3597,11 @@ def control_plane_cpu(part):
     """One of phase 12's runs with every path on ``device="cpu"`` (the
     plain versions of the kernels), in a child process phase 12 starts
     beside its card runs: ``"a"``, 12a's plan, the hints it left and every
-    task's state and worker as digests; ``"b"``, 12b's report."""
+    task's state and worker as digests; ``"b"``, 12b's report, on the
+    Python oracle (the card's run is native)."""
     torch.set_num_threads(CP_CPU_THREADS)
     if part == "b":
-        sim, rep, s_wall, digest, census = _cp_sim("cpu")
+        sim, rep, s_wall, digest, census = _cp_sim("cpu", native=False)
         return dict(_cp_sim_report(sim, rep, s_wall, digest), census=census["census_clean"])
     from distributed_tpu_torch import graphs
     from distributed_tpu_torch.graph.spec import TaskSpec
@@ -3670,7 +3703,8 @@ def _control_plane_card(card, dev, twins):
           f"{wall:.3f}, plan (kernel.dispatch) s {dispatch_s:.3f} ({100 * dispatch_s / wall:.1f} %), "
           f"hints s {hints_s:.3f}, K1 event ms {k1_ms:.3f} in {launches_a['place_wave']} launches "
           f"(pack s {timings['topo_s']:.3f}, fmt {timings['fmt']}); {len(plan)} hints == direct call, "
-          f"{placement.plan_hits} hit, {n_proc} processing; launches {launches_a}")
+          f"{placement.plan_hits} hit, {n_proc} processing; launches {launches_a}; engine: "
+          + (_native_line(state.native.counters()) if state.native is not None else "the Python oracle"))
     del state, placement, tasks, deps, captured, args, direct, rows
 
     # 12b: the simulator with every device path on
@@ -3679,7 +3713,7 @@ def _control_plane_card(card, dev, twins):
             _EventTimer(stealing, "steal_rounds_cuda") as t_k7, \
             _EventTimer(amm, "drop_rounds_cuda") as t_k8, \
             _EventTimer(TorchMirror, "device_view") as t_k6:
-        sim, rep, s_wall, digest, census = _cp_sim(dev)
+        sim, rep, s_wall, digest, census = _cp_sim(dev, native=True)
         launches_b = read()
     ms_b = {"partition": t_k4.ms(), "steal": t_k7.ms(), "amm_drop": t_k8.ms(), "mirror_view": t_k6.ms()}
     steal_path = sim.stealing.device_path()
@@ -3699,6 +3733,9 @@ def _control_plane_card(card, dev, twins):
           f"12b: paths {steal_path.counters()} {amm_path.counters()} against launches {launches_b}")
     for label, p in (("stealing", steal_path), ("amm", amm_path)):
         check(p.failures == 0, f"12b: {label} path failures {p.failures}: {p.errors}")
+    # a Python oracle in the native engine's place gives the same digest,
+    # so the engine must be attached, active and have run transitions
+    engine = native_counters(sim.state, "12b")
     card_b = _cp_sim_report(sim, rep, s_wall, digest)
     n_tr = rep["scheduler_transitions"] + rep["worker_transitions"]
     print(f"[{card}] 12b ClusterSim {SIM_WORKERS} x {SIM_THREADS}, SyntheticDag {SIM_LAYERS} x "
@@ -3708,6 +3745,8 @@ def _control_plane_card(card, dev, twins):
           f"{rep['steals']}, {sp.plans_computed} plans ({sp.plan_hits} hits); no key lost, census clean, "
           f"digest {digest}; launches {launches_b}, event ms "
           + ", ".join(f"{k} {v:.3f}" for k, v in ms_b.items()))
+    print(f"[{card}] 12b native engine: {_native_line(engine)}; the Python oracle's wall on this card "
+          f"(PERF.md §5): 59.0 s, 19,680 transitions / s")
     del sim
 
     # the CPU twins: the same two runs with every path on the CPU
@@ -3729,7 +3768,295 @@ def _control_plane_card(card, dev, twins):
         sim_transitions_per_s=n_tr / s_wall, sim_makespan_s=rep["virtual_makespan_s"],
         sim_scheduler_transitions=rep["scheduler_transitions"],
         sim_worker_transitions=rep["worker_transitions"], sim_plans=sp.plans_computed,
-        sim_event_ms=ms_b)
+        sim_event_ms=ms_b, sim_native=engine)
+    return launches, numbers
+
+
+def native_counters(state, label):
+    """The native engine's counters on ``state``, failing unless it is
+    attached and active and ran transitions: outputs are bit-identical to
+    the Python oracle's by contract, so only the counters show it ran."""
+    eng = state.native
+    check(eng is not None and eng.active(), f"{label}: the native engine is not attached and active")
+    counters = eng.counters()
+    check(counters["transitions"] > 0, f"{label}: the native engine ran no transition: {counters}")
+    return counters
+
+
+def _native_line(c):
+    escapes = {k[len("escape_"):]: v for k, v in c.items() if k.startswith("escape_")}
+    return (f"{c['transitions']} transitions in C++, {c['oracle_transitions']} by the oracle, "
+            f"{c['escapes']} escapes {escapes}, {c['floods']} floods")
+
+
+# ------------------------------------------------------------ phase 13
+
+
+# recovery at 12b's fleet (BASELINE config 5's 512 workers x 2) with the
+# mirror, K7 and K8 on the card and the native engine attached; no
+# placement, since the reference attaches none to a restored state
+REC_LAYERS, REC_WIDTH, REC_CHUNK = 6, 1000, 2
+REC_SNAPSHOT_S = 0.05      # virtual seconds between snapshots (the sim's default)
+REC_BOUNCE_AT = 0.12       # virtual seconds: mid-graph (the unbounced run ends at 0.232)
+
+
+def _rec_sim(device, native, *, workload=True, journal=False):
+    """Phase 13's sim: ``scenario_scheduler_bounce``'s shape (the digest and
+    the transition recorder installed, ``validate=False``) at 12b's fleet
+    on ``device``, the stimulus journal on from before the workload if
+    ``journal``, and ``SyntheticDag(REC_LAYERS x REC_WIDTH)`` started
+    unless ``workload`` is False (a journal's replay target)."""
+    from distributed_tpu_torch.sim import ClusterSim, SyntheticDag
+    from distributed_tpu_torch.sim.validate import install_recorder
+
+    sim = ClusterSim(SIM_WORKERS, nthreads=SIM_THREADS, seed=0, validate=False, native=native,
+                     use_device_kernels=True, device=device, amm_interval=SIM_AMM_INTERVAL)
+    sim.install_digest()
+    install_recorder(sim)
+    if journal:
+        sim.journal_start()
+    if workload:
+        SyntheticDag(n_layers=REC_LAYERS, layer_width=REC_WIDTH, fanin=SIM_FANIN, seed=0,
+                     layers_per_chunk=REC_CHUNK).start(sim)
+    return sim
+
+
+@contextlib.contextmanager
+def _host_timer(owner, name):
+    """Puts a host-clock timer around ``owner.name`` (a module function, a
+    method or a static method) for the block; yields ``{"s", "n"}``."""
+    raw = owner.__dict__[name] if isinstance(owner, type) else getattr(owner, name)
+    fn = getattr(owner, name)
+    acc = {"s": 0.0, "n": 0}
+
+    def timed(*args, **kwargs):
+        t0 = time.perf_counter()
+        try:
+            return fn(*args, **kwargs)
+        finally:
+            acc["s"] += time.perf_counter() - t0
+            acc["n"] += 1
+
+    setattr(owner, name, staticmethod(timed) if isinstance(raw, staticmethod) else timed)
+    try:
+        yield acc
+    finally:
+        setattr(owner, name, raw)
+
+
+def _memory_allocated(device):
+    if torch.device(device).type != "cuda":
+        return 0
+    torch.cuda.synchronize()
+    return torch.cuda.memory_allocated(device)
+
+
+def _bounce_probe(sim, read_launches, info):
+    """Wraps the sim's scheduled bounce: the dead state's engine counters,
+    the launches, the device memory and the dead mirror's device bytes
+    just before it, weak references to the dead state and its mirror, and
+    the new state's mirror.  (The dead state lives on until the sim's
+    pending events that hold it have run: the caller reads the weak
+    references and the memory at the run's end.)"""
+    bounce = sim._do_bounce
+
+    def probe():
+        old = sim.state
+        info["pre_native"] = old.native.counters() if old.native is not None else None
+        info["launches"] = read_launches()
+        info["refs"] = (weakref.ref(old), weakref.ref(old.mirror))
+        info["mirror_bytes"] = sum(t.numel() * t.element_size() for t in old.mirror._dev.values())
+        del old
+        gc.collect()
+        info["memory_before"] = _memory_allocated(sim.device)
+        t0 = time.perf_counter()
+        bounce()
+        info["bounce_s"] = time.perf_counter() - t0
+        info["mirror"] = sim.state.mirror
+
+    sim._do_bounce = probe
+
+
+def recovery_run(device, native, read_launches=lambda: {}):
+    """Phase 13's three runs on ``device``: (a) the bounced run (durability
+    every ``REC_SNAPSHOT_S``, the scheduler bounced at ``REC_BOUNCE_AT``),
+    (b) its unbounced same-seed twin with the stimulus journal on, and the
+    twin's critical path; with ``native`` the journal is also replayed into
+    a fresh sim set up as the twin was.  Returns what the card and the CPU
+    run are held to (``"same"``), and the rest."""
+    from distributed_tpu_torch.diagnostics import critical_path as cpath
+    from distributed_tpu_torch.diagnostics import flight_recorder
+    from distributed_tpu_torch.scheduler import durability
+    from distributed_tpu_torch.sim import JournalTrace
+    from distributed_tpu_torch.sim.validate import check_census_clean, check_no_lost_keys
+
+    out, bounce = {}, {}
+    # (a) the bounce
+    sim = _rec_sim(device, native)
+    _bounce_probe(sim, read_launches, bounce)
+    sim.enable_durability(snapshot_interval=REC_SNAPSHOT_S)
+    sim.bounce_scheduler(at=REC_BOUNCE_AT)
+    with _host_timer(durability.DurabilityManager, "snapshot") as t_snap, \
+            _host_timer(durability, "snapshot_rows") as t_rows, \
+            _host_timer(durability, "state_digest") as t_digest, \
+            _host_timer(durability, "encode_snapshot") as t_encode, \
+            _host_timer(durability.DurabilityManager, "load") as t_load, \
+            _host_timer(durability, "restore_state") as t_restore, \
+            _host_timer(flight_recorder, "replay_stimulus_trace") as t_tail:
+        t0 = time.perf_counter()
+        rep = sim.run()
+        out["bounce_wall_s"] = time.perf_counter() - t0
+    check(sim.counters["scheduler_bounces"] == 1, f"13a: the bounce fired {sim.counters['scheduler_bounces']} times")
+    gc.collect()
+    bounce["released"] = all(r() is None for r in bounce.pop("refs"))
+    bounce["memory_end"] = _memory_allocated(sim.device)
+    check_no_lost_keys(sim)
+    digest = sim.digest()
+    out["post_native"] = native_counters(sim.state, "13a after the bounce") if native else None
+    out["launches_end"] = read_launches()
+    census = check_census_clean(sim)
+    check(census["census_clean"], f"13a: census {census}")
+    out.update(bounce=bounce, snapshot=t_snap, rows=t_rows, digest=t_digest, encode=t_encode,
+               load=t_load, restore=t_restore, tail=t_tail)
+    same = dict(digest=digest, tail_records=sim.counters["bounce_tail_records"],
+                snapshots=sim.counters["durability_snapshots"],
+                **{k: rep[k] for k in ("virtual_makespan_s", "scheduler_transitions",
+                                       "worker_transitions", "keys_done", "steals")})
+    del sim
+
+    # (b) the unbounced twin, journaled, and (c) its critical path
+    twin = _rec_sim(device, native, journal=True)
+    t0 = time.perf_counter()
+    twin_rep = twin.run()
+    out["twin_wall_s"] = time.perf_counter() - t0
+    check_no_lost_keys(twin)
+    twin_digest = twin.digest()
+    check(twin_digest == digest, f"13a: the bounced run's digest {digest} != the unbounced twin's {twin_digest}")
+    out["twin_native"] = native_counters(twin.state, "13b's twin") if native else None
+    cp = twin.critical_path()
+    check(cp is not None, "13c: no critical path")
+    cpath.check(cp)
+    records = twin.journal()
+    flight_recorder.verify_journal(records)
+    recorded = durability.state_digest(twin.state)
+    same.update(twin_digest=twin_digest, twin_makespan=twin_rep["virtual_makespan_s"],
+                critical_path=_blake(cp), cp_makespan=cp["makespan"], cp_tasks=cp["n_tasks"],
+                journal=_blake(records), journal_records=len(records), state_digest=recorded)
+    out["cp"] = cp
+    census = check_census_clean(twin)
+    check(census["census_clean"], f"13b: census {census}")
+    del twin
+    if native:
+        fresh = _rec_sim(device, native, workload=False)
+        t0 = time.perf_counter()
+        JournalTrace(records).replay(fresh)
+        out["replay_s"] = time.perf_counter() - t0
+        replayed = durability.state_digest(fresh.state)
+        check(replayed == recorded, f"13b: the replayed state's digest {replayed} != the recording's {recorded}")
+        out["replay_native"] = native_counters(fresh.state, "13b's replay")
+        del fresh
+    out["same"] = same
+    return out
+
+
+def recovery_cpu():
+    """Phase 13's runs on the CPU with the Python oracle and the kernels'
+    plain versions, in a child process beside the card's."""
+    torch.set_num_threads(CP_CPU_THREADS)
+    out = recovery_run("cpu", native=False)
+    return dict(out["same"], bounce_wall_s=out["bounce_wall_s"], twin_wall_s=out["twin_wall_s"])
+
+
+def start_recovery_twin():
+    """Starts :func:`recovery_cpu` in a child process."""
+    return subprocess.Popen(
+        [sys.executable, "-c", "import json, chip_smoke as c; print(json.dumps(c.recovery_cpu()))"],
+        cwd=Path(__file__).resolve().parent, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+
+
+def phase_recovery(twin, dev=None):
+    """Phase 13, recovery on the card: (a) a scheduler bounce mid-graph
+    (snapshot, restore, journal-tail replay) with the native engine and
+    K6, K7 and K8 live; the bounce's own checks (the restored digest and
+    transition counter equal the dead state's), no key lost, the census
+    clean, the digest equal to the unbounced twin's and to the CPU run's,
+    the dead state's device memory released, a full upload by the new
+    state's mirror and K7 and K8 launching after the bounce; (b) the twin's
+    journal replayed into a fresh state on the card to the recording
+    state's digest; (c) the twin's critical path, checked and equal to the
+    CPU run's.  ``twin`` is the child process of :func:`recovery_cpu`.
+    Returns each kernel's launches on the phase's main path and its
+    numbers."""
+    from distributed_tpu_torch.ops import amm, stealing
+    from distributed_tpu_torch.scheduler.mirror import TorchMirror
+
+    card = smi_line()
+    dev = torch.device("cuda", torch.cuda.current_device()) if dev is None else dev
+    t_phase = time.perf_counter()
+    counters = {"steal": stealing.steal_rounds_cuda, "amm_drop": amm.drop_rounds_cuda}
+
+    def read():
+        out = {name: fn.launches for name, fn in counters.items()}
+        out["mirror_view"] = TorchMirror.launches
+        return out
+
+    for fn in counters.values():
+        fn.launches = 0
+    TorchMirror.launches = 0
+    out = recovery_run(dev, native=True, read_launches=read)
+    launches = read()
+    b = out["bounce"]
+    ms = {k: 1e3 * out[k]["s"] for k in ("snapshot", "rows", "digest", "encode", "load", "restore",
+                                         "tail")}
+    check(b.get("pre_native") and b["pre_native"]["transitions"] > 0,
+          f"13a: the native engine ran no transition before the bounce: {b.get('pre_native')}")
+    check(b["released"], "13a: the dead state or its mirror is still referenced at the run's end")
+    # the new state's mirror holds what the dead one held: more memory at
+    # the end than before the bounce means the dead state kept its tensors
+    check(b["mirror_bytes"] > 0 and b["memory_end"] <= b["memory_before"],
+          f"13a: device memory {b['memory_before']} B before the bounce (the dead mirror's "
+          f"{b['mirror_bytes']} B), {b['memory_end']} B at the run's end")
+    mirror = b["mirror"]
+    after = {k: out["launches_end"][k] - b["launches"][k] for k in b["launches"]}
+    check(mirror.full_uploads >= 1 and after["mirror_view"] >= 1 and after["steal"] >= 1
+          and after["amm_drop"] >= 1,
+          f"13a: after the bounce {after} launches, the new mirror's full uploads {mirror.full_uploads}")
+    same, cp = out["same"], out["cp"]
+    walls = (out["bounce_wall_s"], out["twin_wall_s"], out["replay_s"])
+    n_snap = out["snapshot"]["n"]
+    print(f"[{card}] 13a bounce at {REC_BOUNCE_AT} virtual s of SyntheticDag {REC_LAYERS} x {REC_WIDTH} on "
+          f"{SIM_WORKERS} x {SIM_THREADS}: wall s {walls[0]:.3f}; snapshots "
+          f"{n_snap} ({ms['snapshot']:.1f} ms in all: rows {ms['rows']:.1f}, encode "
+          f"{ms['encode']:.1f}; state digests {ms['digest']:.1f} ms in {out['digest']['n']} calls), load "
+          f"{ms['load']:.1f} ms, restore "
+          f"{ms['restore']:.1f} ms, tail replay {ms['tail']:.1f} ms of {same['tail_records']} records, "
+          f"the bounce {1e3 * b['bounce_s']:.1f} ms; digest {same['digest']} == the unbounced twin's; "
+          f"device memory {b['memory_before']} B before the bounce (the dead mirror's {b['mirror_bytes']} B), "
+          f"{b['memory_end']} B at the run's end, the dead state released; "
+          f"after the bounce launches {after}, the new mirror's full uploads {mirror.full_uploads}; "
+          f"native before: {_native_line(b['pre_native'])}; after: {_native_line(out['post_native'])}")
+    print(f"[{card}] 13b journal of the twin: {same['journal_records']} records, replayed in "
+          f"{walls[2]:.3f} s into a fresh sim == the recording state's digest "
+          f"{same['state_digest'][:16]}; replay native: {_native_line(out['replay_native'])}; twin wall s "
+          f"{walls[1]:.3f}")
+    print(f"[{card}] 13c critical path: makespan {cp['makespan']}, {cp['n_tasks']} tasks, attribution "
+          f"{ {k: round(v, 6) for k, v in cp['attribution'].items()} }")
+    del out, mirror
+    cpu = _twin_report(twin, "13")
+    c_walls = (cpu.pop("bounce_wall_s"), cpu.pop("twin_wall_s"))
+    check(cpu == same, f"13: the card's runs differ from the CPU run's: {same} / {cpu}")
+    phase_s = time.perf_counter() - t_phase
+    print(f"[{card}] 13 bounce, twin, journal and critical path == CPU run (oracle; walls s "
+          f"{c_walls[0]:.3f} / {c_walls[1]:.3f}); phase 13 recovery s {phase_s:.1f}; launches {launches}")
+    numbers = dict(phase_s=phase_s, bounce_wall_s=walls[0], twin_wall_s=walls[1],
+                   replay_s=walls[2], cpu_walls_s=c_walls, bounce_ms=1e3 * b["bounce_s"],
+                   snapshots=n_snap, snapshot_ms=ms["snapshot"], snapshot_rows_ms=ms["rows"],
+                   snapshot_encode_ms=ms["encode"], state_digest_ms=ms["digest"], load_ms=ms["load"],
+                   restore_ms=ms["restore"], tail_replay_ms=ms["tail"],
+                   tail_records=same["tail_records"], journal_records=same["journal_records"],
+                   memory_before=b["memory_before"], memory_end=b["memory_end"],
+                   dead_mirror_bytes=b["mirror_bytes"],
+                   launches_after_bounce=after)
     return launches, numbers
 
 
@@ -3769,7 +4096,15 @@ def main() -> int:
         e["launches"] += periphery[e["name"]]
         e["launches_periphery"] = periphery[e["name"]]
     flash_entry["periphery_ms"] = periphery_ms
-    control, control_numbers = phase_control_plane()
+    # phase 13's CPU run starts now, beside phase 12's card runs and its own
+    recovery_twin = start_recovery_twin()
+    try:
+        control, control_numbers = phase_control_plane()
+        recovery, recovery_numbers = phase_recovery(recovery_twin)
+    finally:
+        if recovery_twin.poll() is None:
+            recovery_twin.kill()
+            recovery_twin.communicate()
     for e in (wave_entry, partition_entry, *periodic_entries):
         if e["name"] in control:
             e["launches"] += control[e["name"]]
@@ -3777,7 +4112,12 @@ def main() -> int:
             if e["name"] in control_numbers["sim_event_ms"]:
                 e["control_plane_ms"] = control_numbers["sim_event_ms"][e["name"]]
     wave_entry["control_plane_ms"] = control_numbers["update_graph_k1_ms"]
+    for e in periodic_entries:
+        if e["name"] in recovery:
+            e["launches"] += recovery[e["name"]]
+            e["launches_recovery"] = recovery[e["name"]]
     print(json.dumps({"control_plane": control_numbers}))
+    print(json.dumps({"recovery": recovery_numbers}))
     kernels = [flash_entry, bwd_entry, wave_entry, partition_entry, *periodic_entries, shard_entry,
                shuffle_entry, *long_context, *training, *round1]
     print(f"total_s {time.perf_counter() - t0:.1f}")

@@ -9,9 +9,9 @@ co-processor on the card.  What differs:
   ``DTPU_CONFIG`` directory) are read with PyYAML where it is installed,
   and a file that cannot be read raises (the reference skips it quietly;
   the card's machine has no PyYAML, so there such a file always raises);
-- ``scheduler.native-engine.enabled`` defaults to False: the native
-  transition engine is not in the port yet
-  (``SchedulerState.attach_native`` raises).
+- ``DTPU_NATIVE_DISABLE`` is not read: ``attach_native(build=True)``
+  raises when the native engine cannot be built, and a state without a
+  built library attaches none (``scheduler/native_engine.py``).
 
 Equivalent of the reference's ``dask.config`` + ``distributed/distributed.yaml``
 (the reference's ``config.py`` and ``distributed.yaml``): packaged
@@ -210,11 +210,10 @@ defaults: dict[str, Any] = {
         },
         # native (C++) transition engine for the four dominant scheduler
         # arms (scheduler/native_engine.py; docs/native_engine.md).
-        # Degrades to the pure-python oracle when the toolchain is
-        # missing or DTPU_NATIVE_DISABLE is set; DTPU_NATIVE_CHECK runs
-        # the per-flood SoA<->python parity audit.
+        # A state attaches it when its library is already built;
+        # DTPU_NATIVE_CHECK runs the per-flood SoA<->python parity audit.
         "native-engine": {
-            "enabled": False,
+            "enabled": True,
             # floods below this many events run the pure-python oracle.
             # Default 0 (native whenever attached): the SoA maintenance
             # hooks are paid regardless, so routing small floods to the

@@ -1,10 +1,15 @@
-"""The port's host libraries: ``graphpack.cpp`` and ``tdigest.cpp``, each
-built with ``g++`` and loaded with ``ctypes``.
+"""The port's host libraries: ``graphpack.cpp``, ``tdigest.cpp`` and
+``engine.cpp``, each built with ``g++`` and loaded with ``ctypes``.
 
 ``tdigest.cpp`` is the port's copy of the reference package's ``native/tdigest.cpp``
 (the streaming quantile sketch behind ``utils/counter.Digest``); it
 builds into a library of its own (:func:`load_tdigest`), so the pack's
-library and its entry points stay as they were.
+library and its entry points stay as they were.  ``engine.cpp`` is a byte
+copy of the reference's native transition core (the C++ half of
+``scheduler/native_engine.py``); it builds into its own library too
+(:func:`load_engine`), with the same flags: ``-O3`` and never
+``-ffast-math``, since the engine's occupancy floats must round as
+CPython's do.
 
 The library is built at first use into ``build/torch_host/`` at the
 repository root, under a name keyed on the source and the flags, so an
@@ -29,6 +34,7 @@ from pathlib import Path
 
 SOURCE = Path(__file__).resolve().parent / "graphpack.cpp"
 TDIGEST_SOURCE = Path(__file__).resolve().parent / "tdigest.cpp"
+ENGINE_SOURCE = Path(__file__).resolve().parent / "engine.cpp"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_host"
 CXX = "g++"
 FLAGS = ("-O3", "-shared", "-fPIC", "-std=c++17", "-pthread")
@@ -82,9 +88,56 @@ TDIGEST_SIGNATURES = {
     "tdigest_merge_serialized": (None, (_vp, _f64p, _i64)),
 }
 
+_i32 = ctypes.c_int32
+_i64p = ctypes.POINTER(ctypes.c_int64)
+_u8p = ctypes.POINTER(ctypes.c_uint8)
+#: the transition engine's entry points (``engine.cpp``'s ``extern "C"``
+#: block), as the reference's ``native/__init__.py`` binds them
+ENGINE_SIGNATURES = {
+    "eng_new": (_vp, ()),
+    "eng_free": (None, (_vp,)),
+    "eng_params": (None, (_vp, _f64, _f64, _f64, _f64, _f64, _i64, _i32, _i32, _i32)),
+    "eng_worker_upsert": (None, (_vp, _i32, _i32, _i32, _i64, _f64, _i32, _i32, _i32, _i32,
+                                 ctypes.c_char_p)),
+    "eng_worker_close": (None, (_vp, _i32)),
+    "eng_prefix_set": (None, (_vp, _i32, _f64)),
+    "eng_prefix_get": (_f64, (_vp, _i32)),
+    "eng_group_upsert": (None, (_vp, _i32, _i64, _i32, _i32p)),
+    "eng_task_sync_bulk": (None, (
+        _vp, _i64, _i32p, _u8p, _u8p, _i32p, _i32p,
+        _i64p, _i32p, _i32p, _f64p,
+        _i64p, _i32p, _u8p,
+        _i64p, _i32p,
+        _i64p, _i32p,
+        _i64p, _i32p,
+    )),
+    "eng_task_forget": (None, (_vp, _i32)),
+    "eng_set_tape": (None, (_vp, _i32p, _i32p, _i32p, _i32p, _f64p, _f64p, _i64)),
+    "eng_drain_finished": (_i32, (_vp, _i64, _i32p, _i32p, _i64p, _f64p, _u8p, _i64p)),
+    "eng_drain_recs": (_i32, (_vp, _i64, _i32p, _i32p)),
+    "eng_tape_len": (_i64, (_vp,)),
+    "eng_escape_row": (_i32, (_vp,)),
+    "eng_escape_target": (_i32, (_vp,)),
+    "eng_escape_why": (_i32, (_vp,)),
+    "eng_pending_recs": (_i64, (_vp, _i32p, _i32p, _i64)),
+    "eng_touched": (_i64, (_vp, _i32p, _f64p, _i64)),
+    "eng_total_occupancy": (_f64, (_vp,)),
+    "eng_transitions": (_i64, (_vp,)),
+    "eng_escapes": (_i64, (_vp,)),
+    "eng_escape_count": (_i64, (_vp, _i32)),
+    "eng_counts": (None, (_vp, _i64p)),
+    "eng_replica_add": (None, (_vp, _i32, _i32)),
+    "eng_replica_remove": (None, (_vp, _i32, _i32)),
+    "eng_task_nbytes": (None, (_vp, _i32, _i64)),
+    "eng_task_who_wants": (None, (_vp, _i32, _i32)),
+    "eng_task_read": (None, (_vp, _i32, _i64p)),
+    "eng_worker_read": (None, (_vp, _i32, _f64p, _i64p)),
+}
+
 _lock = threading.Lock()
 _lib: ctypes.CDLL | None = None
 _tdigest_lib: ctypes.CDLL | None = None
+_engine_lib: ctypes.CDLL | None = None
 
 
 def library_path(source: Path | None = None, stem: str = "libdtpu_host") -> Path:
@@ -148,6 +201,24 @@ def load_tdigest() -> ctypes.CDLL:
             _compile(out, TDIGEST_SOURCE)
         _tdigest_lib = _bind(ctypes.CDLL(str(out)), TDIGEST_SIGNATURES)
         return _tdigest_lib
+
+
+def load_engine(build: bool = True) -> ctypes.CDLL | None:
+    """The transition engine's library.  ``build=True`` builds it at first
+    use and raises ``RuntimeError`` when it cannot be built;
+    ``build=False`` never compiles: it loads the library if a build for
+    the current source and flags exists, and returns ``None`` otherwise."""
+    global _engine_lib
+    with _lock:
+        if _engine_lib is not None:
+            return _engine_lib
+        out = library_path(ENGINE_SOURCE, "libdtpu_engine")
+        if not out.exists():
+            if not build:
+                return None
+            _compile(out, ENGINE_SOURCE)
+        _engine_lib = _bind(ctypes.CDLL(str(out)), ENGINE_SIGNATURES)
+        return _engine_lib
 
 
 _CTYPES = {"int32": ctypes.c_int32, "float32": ctypes.c_float, "int8": ctypes.c_int8}

@@ -39,11 +39,10 @@ but for these seams:
 - ``placement`` takes the port's ``TorchPlacement``; its hooks are the
   reference's (``wants``/``resolve``, ``decide_worker``, ``plan_stim``,
   ``on_add_worker``/``on_remove_worker``, ``plan_graph``);
-- the native transition engine is not in the port yet: ``attach_native``
-  raises ``NotImplementedError`` (the port's configuration leaves
-  ``scheduler.native-engine.enabled`` False), and so does a journaled
-  ``update_graph_core`` (:func:`encode_run_spec`: the durability module
-  is not in the port yet either).
+- ``attach_native`` attaches the port's native engine
+  (``scheduler/native_engine.py`` over its own build of
+  ``native/engine.cpp``); with ``build=True`` it raises when the library
+  cannot be built instead of leaving the Python oracle in place.
 """
 
 from __future__ import annotations
@@ -683,16 +682,6 @@ class WorkerState:
         self._occupancy = value
 
 
-def encode_run_spec(run_spec: Any) -> Any:
-    """``scheduler/durability.py``'s run-spec encoder for the journal,
-    which the port does not have yet."""
-    raise NotImplementedError(
-        "a journaled update_graph needs scheduler/durability.py's "
-        "encode_run_spec, which is not in the port yet (ROADMAP queue 1: "
-        "durability)"
-    )
-
-
 class SchedulerState:
     """The whole mutable scheduler core (reference scheduler.py:1554)."""
 
@@ -920,10 +909,10 @@ class SchedulerState:
         the event loop).  Idempotent; returns True when attached."""
         if self.native is not None:
             return True
-        raise NotImplementedError(
-            "the native transition engine is not in the port yet (ROADMAP "
-            "queue 1: scheduler/native_engine.py and native/engine.cpp)"
-        )
+        from distributed_tpu_torch.scheduler.native_engine import NativeEngine
+
+        self.native = NativeEngine.attach(self, build=build)
+        return self.native is not None
 
     @property
     def memory_total(self) -> int:
@@ -3738,6 +3727,7 @@ class SchedulerState:
             # scheduler can still dispatch the tasks.  The engine round
             # at the end of this method is re-derived on replay and
             # must not write a nested "transitions" record.
+            from distributed_tpu_torch.scheduler.durability import encode_run_spec
 
             self.trace.record(
                 "update-graph",

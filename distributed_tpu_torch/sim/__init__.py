@@ -4,12 +4,13 @@ Thousands of real ``WorkerState`` machines + one real scheduler engine
 driven off a virtual clock and an event heap — no sockets, no event
 loop, no wall clock.  See docs/simulator.md.
 
-The port's copy of ``distributed_tpu/sim``: the clock, the event heap,
-the links, the traces, the core (``ClusterSim``) and the validators.  The
-A/B driver (``sim/ab.py``), the chaos scenarios (``sim/chaos.py``) and
-the profile run are not in the port yet (ROADMAP queue 1).
+Covered by graft-lint's sans-io, monotonic-time, and blocking-in-async
+rules: this package must never import IO machinery or read the wall
+clock — determinism is the product.
 """
 
+from distributed_tpu_torch.sim.ab import run_ab, run_policy
+from distributed_tpu_torch.sim.chaos import SCENARIOS
 from distributed_tpu_torch.sim.clock import VirtualClock
 from distributed_tpu_torch.sim.core import ClusterSim, SimWorker, TransitionDigest
 from distributed_tpu_torch.sim.events import EventHeap
@@ -21,8 +22,11 @@ __all__ = [
     "EventHeap",
     "JournalTrace",
     "LinkProfile",
+    "SCENARIOS",
     "SimWorker",
     "SyntheticDag",
     "TransitionDigest",
     "VirtualClock",
+    "run_ab",
+    "run_policy",
 ]

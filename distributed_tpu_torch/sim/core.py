@@ -34,12 +34,10 @@ these seams:
   (K7, K8) run on that device (``None`` means CUDA and raises without a
   card; ``"cpu"`` runs their plain versions).  A placement is attached as
   in the reference, through ``sim.state.placement``;
-- what reaches a module the port does not have yet raises
-  ``NotImplementedError`` naming its ROADMAP entry: ``enable_durability``
-  and ``bounce_scheduler`` (``scheduler/durability.py``), the stimulus
-  journal (``journal_start``; its replay is
-  ``diagnostics/flight_recorder.py``) and ``critical_path``
-  (``diagnostics/critical_path.py``).
+- a scheduler bounce rebuilds its state on the same device
+  (``SchedulerState(..., device=self.device)``), so the restored state's
+  mirror makes its own full upload and the dead state's tensors are
+  released with it.
 """
 
 from __future__ import annotations
@@ -89,12 +87,6 @@ DEFAULT_NBYTES = 1024
 
 #: the live worker server's busy-peer retry delay (worker/server.py)
 RETRY_BUSY_DELAY = 0.15
-
-
-def _not_in_port(what: str, entry: str) -> None:
-    raise NotImplementedError(
-        f"{what} is not in the port yet (ROADMAP queue 1: {entry})"
-    )
 
 
 class _SimRunSpec:
@@ -353,6 +345,9 @@ class ClusterSim:
         self.nthreads = int(nthreads)
         self.validate = bool(validate)
         self.use_device_kernels = bool(use_device_kernels)
+        # where the state's mirror and the periodic device paths run (a
+        # bounce rebuilds its state there too)
+        self.device = device
 
         self._overrides: dict[str, Any] = {
             # no per-worker 16k-slot rings: 10k workers would preallocate
@@ -962,7 +957,7 @@ class ClusterSim:
         (tracing.FlightRecorder.journal_start): the journal a sim run
         records replays through the LIVE batched engine bit-identically
         (tests/test_sim.py), and a live-recorded journal replays here."""
-        _not_in_port("the stimulus journal", "the flight-recorder journal and its replay")
+        self.state.trace.journal_start()
 
     def journal(self) -> list[dict]:
         return list(self.state.trace.journal)
@@ -976,7 +971,27 @@ class ClusterSim:
         snapshots every ``snapshot_interval`` virtual seconds, with the
         stimulus journal segment-captured in between.  The substrate of
         :func:`sim.chaos.scenario_scheduler_bounce`."""
-        _not_in_port("scheduler durability", "durability")
+        from distributed_tpu_torch.scheduler.durability import (
+            DurabilityManager,
+            MemorySink,
+        )
+
+        mgr = DurabilityManager(
+            self.state, MemorySink(), full_every=full_every,
+            state_digests=True,
+        )
+        self.durability = mgr
+        mgr.attach()
+
+        def tick() -> None:
+            if self.workload_done() or self.durability is not mgr:
+                return
+            mgr.snapshot()
+            self.counters["durability_snapshots"] += 1
+            self.heap.at(self.clock() + snapshot_interval, tick)
+
+        self.heap.at(self.clock() + snapshot_interval, tick)
+        return mgr
 
     def bounce_scheduler(self, at: float) -> None:
         """Chaos hook: crash the scheduler PROCESS at virtual time
@@ -990,7 +1005,98 @@ class ClusterSim:
         deliver to the restarted scheduler — the sim models a lossless
         control-plane handover, while the messier lost-in-flight /
         re-registration path is proven on the live restart bench."""
-        _not_in_port("scheduler durability", "durability")
+        self.heap.at(at, self._do_bounce)
+
+    def _do_bounce(self) -> None:
+        from distributed_tpu_torch.diagnostics.flight_recorder import (
+            replay_stimulus_trace,
+        )
+        from distributed_tpu_torch.scheduler.amm import (
+            ActiveMemoryManagerExtension,
+            ReduceReplicas,
+        )
+        from distributed_tpu_torch.scheduler.durability import (
+            DurabilityManager,
+            restore_state,
+            restore_stealing,
+            state_digest,
+        )
+        from distributed_tpu_torch.scheduler.stealing import WorkStealing
+
+        mgr = self.durability
+        assert mgr is not None, "bounce requires enable_durability()"
+        old_state = self.state
+        pre_digest = state_digest(old_state)
+        pre_counter = old_state.transition_counter
+        # the crash boundary: whatever reached the sink IS the durable
+        # truth.  The MemorySink flushes synchronously, so flushing the
+        # pending buffer here models the fsync-per-flush journal mode;
+        # the unflushed-suffix loss mode is covered by the torn-write
+        # and live-restart tests.
+        mgr.flush_journal()
+        self.counters["scheduler_bounces"] += 1
+        self.durability = None
+
+        with config.set(self._overrides):
+            state2 = SchedulerState(
+                validate=self.validate,
+                mirror=None if self.use_device_kernels else False,
+                clock=self.clock,
+                device=self.device,
+            )
+            state2.ledger.digest_enabled = True
+            folded, tail, info = DurabilityManager.load(mgr.sink)
+            restore_state(state2, folded)
+            want = info.get("state_digest")
+            got = state_digest(state2)
+            if want and got != want:
+                raise AssertionError(
+                    f"restored state digest {got} != snapshot's {want}"
+                )
+            # swap the control plane: the host indirection is what the
+            # bus delivers through, so in-flight payloads land on the
+            # rebuilt scheduler exactly like re-sent live traffic
+            self.state = state2
+            self.host.state = state2
+            state2.extensions = self.host.extensions
+            steal2 = WorkStealing(self.host)
+            steal2.clock = self.clock
+            steal2.seq = self.seq
+            self.host.extensions["stealing"] = steal2
+            restore_stealing(steal2, (folded.get("ext") or None))
+            self.stealing = steal2
+            amm2 = ActiveMemoryManagerExtension(
+                self.host, policies=[ReduceReplicas()],
+                register=False, start=False,
+            )
+            amm2.seq = self.seq
+            self.host.extensions["amm"] = amm2
+            self.amm = amm2
+            # journal tail replay through the real batched engine:
+            # emissions are discarded (they were on the bus pre-crash);
+            # integrity was already verified segment-by-segment in load
+            replay_stimulus_trace(state2, tail, verify_digests=False)
+            # carry the digest/validation plugins over AFTER the replay:
+            # the tail's rows were already folded into the running
+            # digest before the crash — folding their replay too would
+            # double-count them and break whole-run digest identity
+            # with an unbounced same-seed twin
+            for name, plug in old_state.plugins.items():
+                if name in ("sim-digest", "sim-recorder"):
+                    state2.plugins[name] = plug
+        post_digest = state_digest(state2)
+        if post_digest != pre_digest:
+            raise AssertionError(
+                "snapshot + journal-tail replay did not reconstruct the "
+                f"pre-crash scheduler state: {post_digest} != {pre_digest} "
+                f"(tail {len(tail)} records from epoch {info['epoch']})"
+            )
+        if state2.transition_counter != pre_counter:
+            raise AssertionError(
+                f"replayed transition counter {state2.transition_counter} "
+                f"!= pre-crash {pre_counter}"
+            )
+        self.counters["bounce_tail_records"] += len(tail)
 
     # ------------------------------------------------------------ running
 
@@ -1049,9 +1155,17 @@ class ClusterSim:
         still resident.  The terminal is pinned to the workload's done
         keys: a stolen duplicate finishing after the sink was computed
         elsewhere must not extend the path past the makespan."""
-        _not_in_port(
-            "critical-path attribution",
-            "the flight-recorder journal and its replay, critical_path",
+        from distributed_tpu_torch.diagnostics.critical_path import (
+            critical_path,
+        )
+
+        deps = {
+            key: [d.key for d in ts.dependencies]
+            for key, ts in self.state.tasks.items()
+        }
+        return critical_path(
+            self.state.ledger.tail(), deps, t0=t0,
+            terminal_keys=self.keys_done or None,
         )
 
     def report(self) -> dict:

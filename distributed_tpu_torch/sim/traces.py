@@ -200,7 +200,10 @@ class JournalTrace:
         return cls(load_journal(path), verify=verify)
 
     def replay(self, sim: "ClusterSim") -> tuple[dict, dict]:
-        raise NotImplementedError(
-            "replaying a stimulus journal is not in the port yet (ROADMAP "
-            "queue 1: the flight-recorder journal and its replay)"
+        from distributed_tpu_torch.diagnostics.flight_recorder import (
+            replay_stimulus_trace,
+        )
+
+        return replay_stimulus_trace(
+            sim.state, self.records, verify_digests=self.verify
         )

@@ -25,6 +25,12 @@ every injected fault.
 This module never opens files (the sim package is sans-io-linted):
 callers load the model JSON — ``analysis.model`` artifacts under
 ``docs/state_machine/`` — and pass the edge sets in.
+
+The port's copy of ``distributed_tpu/sim/validate.py``, line for line but
+for one seam: :class:`TransitionRecorder` is marked ``tape_safe``, so a
+sim with the recorder installed (each chaos scenario's) runs its floods
+in the native engine, where the reference's falls back to the Python
+oracle without a word.  The outputs are equal either way.
 """
 
 from __future__ import annotations
@@ -76,6 +82,10 @@ def legal_closure(edges: set[Pair], extra: Iterable[Pair] = ()) -> set[Pair]:
 class TransitionRecorder:
     """Scheduler plugin collecting every observed (start, finish) pair
     (the transition_log is bounded; this is not)."""
+
+    # consumes only (start, finish), which the native engine's tape
+    # carries, so the native engine stays active while it is installed
+    tape_safe = True
 
     def __init__(self):
         self.pairs: set[Pair] = set()

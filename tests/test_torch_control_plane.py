@@ -9,11 +9,12 @@ and the modules it reads) against the reference's, on the CPU.
 - The copies of the host modules (configuration, collections, key
   helpers, graph order, histograms, the t-digest, the periodic callback)
   give what the reference's give on the same inputs, exactly.
+- ``attach_native`` attaches the port's native engine (the configuration
+  default is the reference's, True), and a journaled ``update_graph``
+  records its run specs encoded as the reference's does.
 - The documented divergences: a configuration file that cannot be read
-  raises, ``scheduler.native-engine.enabled`` defaults to False and
-  ``attach_native`` raises, a journaled ``update_graph`` raises, and a
-  state with its mirror on raises without a card unless it is given the
-  CPU.
+  raises, and a state with its mirror on raises without a card unless it
+  is given the CPU.
 """
 
 from __future__ import annotations
@@ -111,12 +112,18 @@ def test_state_with_torch_placement_equals_the_reference(route, monkeypatch):
     lanes = N_WORKERS * THREADS
     assert (part._bucket(n) * lanes > part.DENSE_LIMIT) == (route == "leveled")
     deps = _graph(n, seed)
+    # the Python oracle in both (a state attaches the native engine where
+    # its library is built, which depends on the tests run before)
+    oracle = {"scheduler.native-engine.enabled": False}
     placement = TorchPlacement(sync=True, device="cpu", min_batch=64)
-    state = _update(SchedulerState(placement=placement, device="cpu"), TaskSpec, deps)
+    with config.set(oracle):
+        state = _update(SchedulerState(placement=placement, device="cpu"), TaskSpec, deps)
     ref_placement = JaxPlacement(sync=True, min_batch=64)
     ref_placement.mesh_enabled = False
     ref_placement._mesh = None  # the single-device engine, as the port's
-    ref_state = _update(RefState(placement=ref_placement), RefTaskSpec, deps)
+    with ref_config.set(oracle):
+        ref_state = _update(RefState(placement=ref_placement), RefTaskSpec, deps)
+    assert state.native is None and ref_state.native is None
     assert isinstance(state.mirror, TorchMirror) and state.device == torch.device("cpu")
     assert placement.enabled and placement.plans_computed == ref_placement.plans_computed == 1
     assert len(placement.plan) > 0 and placement.plan == ref_placement.plan
@@ -149,35 +156,70 @@ def test_state_with_the_mirror_on_needs_a_card():
         SchedulerState()
 
 
-def test_native_engine_is_off_and_attach_raises():
-    """Documented divergence: the native engine is not in the port, so its
-    configuration default is False and ``attach_native`` raises, naming
-    the ROADMAP entry, instead of returning False as if the library were
-    merely missing."""
-    assert config.get("scheduler.native-engine.enabled") is False
-    assert ref_config.get("scheduler.native-engine.enabled") is True
-    state = SchedulerState(mirror=False)
-    assert state.native is None
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1"):
-        state.attach_native(build=True)
-    with config.set({"scheduler.native-engine.enabled": True}), \
-            pytest.raises(NotImplementedError, match="native transition engine"):
-        SchedulerState(mirror=False)
+def test_attach_native_attaches():
+    """The configuration default is the reference's: a state attaches the
+    native engine when its library is built (``attach_native(build=True)``
+    builds it), the engine is active and runs the graph's round in C++,
+    and the state's tasks end as the oracle's."""
+    from distributed_tpu_torch.scheduler.native_engine import NativeEngine
+
+    assert config.get("scheduler.native-engine.enabled") is ref_config.get(
+        "scheduler.native-engine.enabled") is True
+    deps = _graph(300, 2)
+    states = []
+    for native_on in (True, False):
+        with config.set({"scheduler.native-engine.enabled": False}):
+            state = SchedulerState(mirror=False)
+            assert state.native is None
+            if native_on:
+                assert state.attach_native(build=True) is True
+                assert state.attach_native() is True  # idempotent
+            states.append(_update(state, TaskSpec, deps))
+    native_state, oracle = states
+    assert isinstance(native_state.native, NativeEngine) and native_state.native.active()
+    assert native_state.native.counters()["transitions"] > 0
+    assert _task_rows(native_state) == _task_rows(oracle)
+    # with the library built, a default state attaches it
+    attached = SchedulerState(mirror=False)
+    assert isinstance(attached.native, NativeEngine)
+    for s in (native_state, attached):
+        s.native.detach()
 
 
-def test_journaled_update_graph_raises():
-    """A journaled ``update_graph`` needs the durability module's run-spec
-    encoder, which the port does not have: it raises."""
-    state = SchedulerState(mirror=False)
-    state.trace.journal_start()
-    with pytest.raises(NotImplementedError, match="durability"):
-        _update(state, TaskSpec, {"a-0": set(), "b-0": {"a-0"}})
+def test_journaled_update_graph_encodes_its_run_specs():
+    """A journaled ``update_graph`` records its run specs through the
+    durability module's encoder: the record equals the reference's with
+    the run specs decoded (their pickles name their module) and decodes
+    back to the port's ``TaskSpec``."""
+    from distributed_tpu.scheduler.durability import decode_run_spec as ref_decode
+    from distributed_tpu_torch.scheduler.durability import decode_run_spec
+
+    deps = {"a-0": set(), "b-0": {"a-0"}}
+    records = []
+    for state_cls, spec_cls, cfg in ((SchedulerState, TaskSpec, config),
+                                     (RefState, RefTaskSpec, ref_config)):
+        with cfg.set({"scheduler.native-engine.enabled": False}):
+            state = state_cls(mirror=False)
+        state.trace.journal_start()
+        _update(state, spec_cls, deps)
+        (rec,) = [r for r in state.trace.journal if r["op"] == "update-graph"]
+        records.append(rec)
+    port, ref = records
+    specs = {k: decode_run_spec(v) for k, v in port["payload"]["tasks"].items()}
+    assert all(isinstance(v, TaskSpec) for v in specs.values())
+    assert {k: repr(v) for k, v in specs.items()} == {
+        k: repr(ref_decode(v)) for k, v in ref["payload"]["tasks"].items()}
+    strip = ("digest", "ts")
+    assert {k: v for k, v in port.items() if k not in strip and k != "payload"} == \
+        {k: v for k, v in ref.items() if k not in strip and k != "payload"}
+    assert {k: v for k, v in port["payload"].items() if k != "tasks"} == \
+        {k: v for k, v in ref["payload"].items() if k != "tasks"}
 
 
 def _defaults(cfg) -> dict:
     """The packaged defaults with the one key the port sets apart."""
     out = {k: v for k, v in cfg.defaults.items()}
-    out["scheduler"] = dict(out["scheduler"], **{"native-engine": None})
+    out["scheduler"] = dict(out["scheduler"])
     out["scheduler"]["active-memory-manager"] = dict(
         out["scheduler"]["active-memory-manager"], policies=None)
     return out
@@ -185,7 +227,7 @@ def _defaults(cfg) -> dict:
 
 def test_config_defaults_equal_the_reference():
     """Every key name and default of the reference, ``scheduler.jax.*``
-    included, but the native engine's and the AMM policy's class path
+    and the native engine's included, but the AMM policy's class path
     (the port's own ``ReduceReplicas``)."""
     assert _defaults(config) == _defaults(ref_config)
     assert config.get("scheduler.native-engine.min-flood") == 0

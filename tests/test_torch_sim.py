@@ -12,11 +12,12 @@ reference's (``distributed_tpu/sim``), on the CPU.
   version of its kernel), two same-seed runs are equal bit for bit and
   lose no key, and the run equals the reference's with its JAX programs
   on JAX's CPU bit for bit.
+- The sim's durability, bounce, journal, replay and critical-path methods
+  run and give the reference's results.
 - The slice runs where the card runs: with ``jax``, ``msgpack``,
-  ``cloudpickle`` and ``yaml`` blocked, ``distributed_tpu_torch.sim``
-  imports and an 8-worker simulation runs to its end.
-- The documented divergences raise: the sim's methods that reach a module
-  the port does not have yet.
+  ``cloudpickle``, ``yaml`` and the reference package blocked,
+  ``distributed_tpu_torch.sim`` imports, an 8-worker simulation runs to
+  its end, and so does a native one with a scheduler bounce.
 """
 
 from __future__ import annotations
@@ -224,21 +225,54 @@ def test_an_amm_plan_that_fails_is_counted_and_raised(monkeypatch):
     assert all("planted drop failure" in str(e) for e in path.errors)
 
 
+def _method_run(sim_cls, dag_cls, journal_cls, method):
+    """One of the sim's durability, journal and critical-path methods on a
+    small run (8 workers, ``SyntheticDag(4 x 16)``); what it gives."""
+    def build(workload=True):
+        sim = sim_cls(8, seed=0, native=False)
+        sim.install_digest()
+        if workload:
+            dag_cls(n_layers=4, layer_width=16, fanin=2, seed=0).start(sim)
+        return sim
+
+    sim = build()
+    if method == "enable_durability":
+        mgr = sim.enable_durability(snapshot_interval=0.02)
+        sim.run()
+        return (type(mgr).__name__, sim.counters["durability_snapshots"], mgr.sink.snapshot_epochs(),
+                mgr.stats.journal_records, sim.digest())
+    if method == "bounce_scheduler":
+        sim.enable_durability(snapshot_interval=0.02)
+        sim.bounce_scheduler(at=0.03)
+        sim.run()
+        return (sim.counters["scheduler_bounces"], sim.counters["bounce_tail_records"], sim.digest())
+    if method == "critical_path":
+        sim.run()
+        result = sim.critical_path()
+        return (result["makespan"], result["n_tasks"], result["attribution"])
+    sim.journal_start()
+    sim.run()
+    records = sim.journal()
+    if method == "journal_start":
+        return [(r["op"], r["seq"], r["stim"]) for r in records]
+    fresh = build(workload=False)
+    journal_cls(records).replay(fresh)
+    return (fresh.state.transition_counter, sorted(
+        (k, ts.state) for k, ts in fresh.state.tasks.items()))
+
+
 @pytest.mark.parametrize("method", ["enable_durability", "bounce_scheduler", "journal_start",
                                     "critical_path", "journal_replay"])
-def test_sim_methods_not_in_the_port_raise(method):
-    """Documented divergence: what reaches a module the port does not have
-    yet raises NotImplementedError naming its ROADMAP entry."""
-    sim = ClusterSim(4, seed=0)
-    calls = {
-        "enable_durability": lambda: sim.enable_durability(),
-        "bounce_scheduler": lambda: sim.bounce_scheduler(0.1),
-        "journal_start": sim.journal_start,
-        "critical_path": sim.critical_path,
-        "journal_replay": lambda: JournalTrace([]).replay(sim),
-    }
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1"):
-        calls[method]()
+def test_sim_methods_run_as_the_reference(method):
+    """Each method the port's sim once raised for runs, and gives what the
+    reference's gives on the same run: snapshots and journal records, a
+    bounce and its tail, the journal's records, the critical path, a
+    replay's transitions and task states."""
+    from distributed_tpu.sim import JournalTrace as RefJournalTrace
+
+    got = _method_run(ClusterSim, SyntheticDag, JournalTrace, method)
+    assert got == _method_run(RefSim, RefDag, RefJournalTrace, method)
+    assert got and all(x not in (0, None, [], ()) for x in got[:2])
 
 
 _BLOCKED_RUN = """
@@ -254,18 +288,29 @@ rep = sim.run()
 check_no_lost_keys(sim)
 digest = sim.digest()
 check_census_clean(sim)
+# the native engine and a scheduler bounce (durability, the journal tail)
+bounced = ClusterSim(8, seed=0, native=True)
+bounced.install_digest()
+SyntheticDag(n_layers=6, layer_width=16, fanin=2, seed=0).start(bounced)
+bounced.enable_durability(snapshot_interval=0.02)
+bounced.bounce_scheduler(at=0.03)
+bounced.run()
+check_no_lost_keys(bounced)
 loaded = sorted(m for m in sys.modules if m.split(".")[0] in
                 ("jax", "jaxlib", "msgpack", "cloudpickle", "yaml", "distributed_tpu")
                 and sys.modules[m] is not None)
 print(json.dumps({"digest": digest, "done": rep["keys_done"],
-                  "wanted": rep["keys_wanted"], "loaded": loaded}))
+                  "wanted": rep["keys_wanted"], "loaded": loaded,
+                  "bounced": bounced.digest(), "bounces": bounced.counters["scheduler_bounces"],
+                  "native": bounced.state.native.counters()["transitions"]}))
 """
 
 
 def test_the_sim_runs_without_jax_msgpack_cloudpickle_and_yaml():
     """The card's machine has none of the four: the port's sim imports and
     runs an 8-worker simulation to its end with each of them blocked, and
-    its digest is the one this process gets from the reference."""
+    its digest is the one this process gets from the reference; so does a
+    native run with a scheduler bounce, which ran transitions in C++."""
     env = dict(os.environ, PYTHONPATH=str(ROOT), PYTHONHASHSEED="0")
     out = subprocess.run([sys.executable, "-c", _BLOCKED_RUN], capture_output=True, text=True,
                          env=env, cwd=ROOT, timeout=300)
@@ -275,3 +320,9 @@ def test_the_sim_runs_without_jax_msgpack_cloudpickle_and_yaml():
     assert got["done"] >= got["wanted"] > 0
     ref, _ = _run(RefSim, RefDag, SIZES["small-seed0"])
     assert got["digest"] == ref.digest()
+    twin = RefSim(8, seed=0, native=False)
+    twin.install_digest()
+    RefDag(n_layers=6, layer_width=16, fanin=2, seed=0).start(twin)
+    twin.run()
+    assert got["bounces"] == 1 and got["native"] > 0
+    assert got["bounced"] == twin.digest()
