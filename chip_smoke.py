@@ -206,7 +206,23 @@ and prints no result):
    (``JournalTrace.replay``) into a fresh sim on the card to the recording
    state's ``state_digest``; (c) the twin's critical path, which must pass
    ``critical_path.check``; (a)-(c) equal to the same runs on the CPU with
-   the Python oracle, in a child process started with phase 12's.
+   the Python oracle, in a child process started with phase 12's;
+14. the port's asyncio servers and client (``scheduler/server.py``,
+   ``worker/server.py``, ``client/client.py``; the comm and the wire
+   without msgpack): (a) BASELINE config 2 at full width, a
+   ``Scheduler(device=cuda)`` with ``TorchPlacement``, 16 one-thread
+   ``Worker``s over ``inproc://`` and a ``Client`` under ``bench.py``'s
+   overrides with the periodic gate at 16 workers; a warm-up
+   ``tensordot_graph(16)``, then the timed ``tensordot_graph(32)`` (45,056
+   tasks) of 4 x 4 CUDA blocks of seeded small integers: K4 (or K1) and K7
+   launched from inside the ``Scheduler``, no device path failing, the
+   results equal bit for bit to the same graph on a ``device="cpu"``
+   cluster in a child process; the wall, tasks/s, the plan's counters, the
+   launches, the native engine's transitions and escapes, the peak device
+   memory; (b) ``tensordot_graph(8)`` of 1,024 x 1,024 f32 CUDA blocks on 4
+   workers over ``tcp://127.0.0.1``: the ``"torch"`` family's calls and
+   bytes > 0 (CUDA tensors cross the wire), the results equal to the CPU
+   run bit for bit; bytes moved, transfers and their median time.
 
 The last three lines are the card's ``nvidia-smi`` name and power limit,
 one JSON object listing the kernels (``flash_fwd``, ``flash_bwd``,
@@ -216,12 +232,14 @@ sharded view's numbers, ``rebalance``, ``ring_attention``, ``ulysses``,
 ``ring_attention_bwd``, ``ulysses_bwd``, ``decide_workers``,
 ``wavefront`` and ``sharded_decide_workers``) with their launches, errors
 and times (phase 12's launches added, and kept apart as
-``launches_control_plane``, and phase 13's as ``launches_recovery``), and
+``launches_control_plane``, phase 13's as ``launches_recovery`` and phase
+14's as ``launches_servers``), and
 ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
 
+import asyncio
 import concurrent.futures
 import contextlib
 import functools
@@ -2553,7 +2571,9 @@ def phase_long_context():
 # ------------------------------------------------------------ phase 9
 
 
-LT_REPS = 5                  # CUDA-event repetitions of each phase 9 and 10 time
+# CUDA-event repetitions of each phase 9 and 10 time: 5 until phase 14 came
+# and the script passed 400 s
+LT_REPS = 3
 # of phase 9's plain backwards (autograd through the plain ring, the plain
 # local backward; ~1 s each): cut from LT_REPS to keep the script near 300 s
 # once phase 12 came
@@ -4060,6 +4080,260 @@ def phase_recovery(twin, dev=None):
     return launches, numbers
 
 
+# ------------------------------------------------------------ phase 14
+
+
+# BASELINE config 2 through the port's asyncio servers: rechunk + tensordot
+# (bench.py's _tensordot_graph) on 16 one-thread workers, bench.py's
+# overrides plus the periodic gate opened at 16 workers so K6, K7 and K8 run
+SRV_WORKERS, SRV_G, SRV_WARM_G, SRV_BLOCK = 16, 32, 16, 4
+SRV_CONFIG = {"scheduler.jax.enabled": True, "scheduler.jax.min-workers": 0,
+              "scheduler.jax.min-transfer-ratio": 0, "scheduler.jax.periodic-min-workers": 16}
+# 14b: the wire on the card, CUDA tensors between workers over tcp
+WIRE_WORKERS, WIRE_G, WIRE_BLOCK = 4, 8, 1024
+SRV_TIMEOUT_S = 600
+
+
+def _result_digest(results) -> str:
+    """blake2b of the results' dtypes, shapes and bytes, in order."""
+    h = hashlib.blake2b(digest_size=16)
+    for r in results:
+        t = r.detach().contiguous().cpu()
+        h.update(f"{t.dtype}{tuple(t.shape)}".encode())
+        h.update(t.numpy().tobytes())
+    return h.hexdigest()
+
+
+def _placement_stats(p) -> dict:
+    return dict(plans=p.plans_computed, hits=p.plan_hits, parks=p.plan_parks,
+                misses=p.plan_misses, miss_reasons=dict(p.miss_reasons),
+                hint_drops=dict(p.hint_drops), enabled=p.enabled)
+
+
+def _reset_placement(p) -> None:
+    """Zero the plan counters, as ``bench.py``'s ``_run_tensordot`` does
+    after its warm-up graph."""
+    p.plan_hits = p.plan_misses = p.plan_parks = p.plans_computed = 0
+    for d in (p.miss_reasons, p.hint_drops):
+        for k in d:
+            d[k] = 0
+
+
+async def _servers_graph(device, addr, n_workers, G, n, warm_G=None, probe=None):
+    """The port's ``Scheduler(device=device)`` on ``addr``, ``n_workers``
+    one-thread ``Worker``s joined one after another and a ``Client``,
+    under :data:`SRV_CONFIG`: a warm-up ``tensordot_graph(warm_G)`` (when
+    given), then the timed ``tensordot_graph(G)`` of ``n x n`` blocks on
+    ``device`` (CUDA for ``None``).  ``probe(scheduler, workers)`` runs
+    after the timed graph, before the cluster closes.  Returns the results'
+    digest, the wall, the task count and the placement's counters."""
+    from distributed_tpu_torch import config, graphs
+    from distributed_tpu_torch.client.client import Client
+    from distributed_tpu_torch.scheduler.server import Scheduler
+    from distributed_tpu_torch.worker.server import Worker
+
+    blocks = "cuda" if device is None else str(device)
+    out: dict = {}
+    with config.set(SRV_CONFIG):
+        async with Scheduler(listen_addr=addr, device=device) as s:
+            workers = []
+            try:
+                for _ in range(n_workers):
+                    workers.append(await Worker(s.address, nthreads=1).start())
+                async with Client(s.address) as c:
+                    if warm_G:
+                        wg, wouts = graphs.tensordot_graph(warm_G, tag="w", n=n, device=blocks)
+                        futs = c.compute_graph(wg, wouts)
+                        await c.gather([futs[k] for k in wouts])
+                        del futs
+                    p = s.state.placement
+                    if p is not None:
+                        _reset_placement(p)
+                    g, outs = graphs.tensordot_graph(G, n=n, device=blocks)
+                    t0 = time.perf_counter()
+                    futs = c.compute_graph(g, outs)
+                    res = await c.gather([futs[k] for k in outs])
+                    if device is None:
+                        torch.cuda.synchronize()
+                    wall = time.perf_counter() - t0
+                    out = dict(digest=_result_digest(res), wall_s=wall, n_tasks=len(g.tasks),
+                               placement=_placement_stats(p) if p is not None else None)
+                    del futs, res
+                    if probe is not None:
+                        out.update(probe(s, workers))
+            finally:
+                for w in workers:
+                    await w.close()
+    return out
+
+
+class _TransferTimes:
+    """Times each worker's ``_gather_dep`` (one fetch of a batch of keys
+    from one peer, over the comm) and sums the bytes it brought."""
+
+    def __init__(self):
+        from distributed_tpu_torch.worker.server import Worker
+
+        self.cls, self.fn = Worker, Worker._gather_dep
+        self.seconds: list[float] = []
+        self.nbytes = 0
+
+    def __enter__(self):
+        fn, times = self.fn, self
+
+        async def timed(worker, *args, **kwargs):
+            t0 = time.perf_counter()
+            ev = await fn(worker, *args, **kwargs)
+            times.seconds.append(time.perf_counter() - t0)
+            times.nbytes += getattr(ev, "total_nbytes", 0)
+            return ev
+
+        self.cls._gather_dep = timed
+        return self
+
+    def __exit__(self, *exc):
+        self.cls._gather_dep = self.fn
+
+
+def _wire_run(device):
+    """14b on ``device``: the tensordot graph of ``WIRE_BLOCK``-square
+    blocks on ``WIRE_WORKERS`` workers over tcp, with the ``"torch"``
+    family's counts and the transfers' times."""
+    from distributed_tpu_torch.protocol.buffers import WIRE
+    from distributed_tpu_torch.protocol.serialize import family_counts, reset_family_counts
+
+    reset_family_counts()
+    sent0, recv0 = WIRE.bytes_sent, WIRE.bytes_recv
+    with _TransferTimes() as tt:
+        out = asyncio.run(asyncio.wait_for(_servers_graph(
+            device, "tcp://127.0.0.1:0", WIRE_WORKERS, WIRE_G, WIRE_BLOCK), SRV_TIMEOUT_S))
+    out.update(torch_family=family_counts().get("torch", {}), transfers=len(tt.seconds),
+               transfer_bytes=tt.nbytes, wire_bytes_sent=WIRE.bytes_sent - sent0,
+               wire_bytes_recv=WIRE.bytes_recv - recv0,
+               transfer_median_ms=1e3 * statistics.median(tt.seconds) if tt.seconds else None)
+    return out
+
+
+def servers_cpu():
+    """Phase 14's two runs with ``device="cpu"`` (blocks, mirror, placement
+    and periodic paths on the CPU), in a child process phase 14 starts
+    beside its card runs: 14a's graph without the warm-up (the results do
+    not depend on it) and 14b's."""
+    torch.set_num_threads(CP_CPU_THREADS)
+    a = asyncio.run(asyncio.wait_for(_servers_graph(
+        "cpu", "inproc://", SRV_WORKERS, SRV_G, SRV_BLOCK), SRV_TIMEOUT_S))
+    b = _wire_run("cpu")
+    return {"a": a, "b": b}
+
+
+def phase_servers(dev=None):
+    """Phase 14, the port's asyncio servers and client on the card."""
+    card = smi_line()
+    t_phase = time.perf_counter()
+    twin = subprocess.Popen(
+        [sys.executable, "-c", "import json, chip_smoke as c; print(json.dumps(c.servers_cpu()))"],
+        cwd=Path(__file__).resolve().parent, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    try:
+        launches, numbers = _servers_card(card, dev, twin)
+    finally:
+        if twin.poll() is None:
+            twin.kill()
+            twin.communicate()
+    numbers["phase_s"] = time.perf_counter() - t_phase
+    print(f"[{card}] phase 14 servers s {numbers['phase_s']:.1f}")
+    return launches, numbers
+
+
+def _servers_card(card, dev, twin):
+    """Phase 14's card runs, each held to the CPU twin's results."""
+    from distributed_tpu_torch.ops import amm, leveled, partition, stealing
+    from distributed_tpu_torch.scheduler.mirror import TorchMirror
+
+    counters = {"place_wave": leveled.place_waves_cuda, "partition": partition.partition_cuda,
+                "steal": stealing.steal_rounds_cuda, "amm_drop": amm.drop_rounds_cuda}
+
+    def zero():
+        for fn in counters.values():
+            fn.launches = 0
+        TorchMirror.launches = 0
+
+    def read():
+        out = {name: fn.launches for name, fn in counters.items()}
+        out["mirror_view"] = TorchMirror.launches
+        return out
+
+    def probe(s, workers):
+        """The scheduler's device paths and engine, read before it closes."""
+        steal = s.extensions["stealing"]._device_path
+        paths = {"steal": steal.counters() if steal is not None else None}
+        for i, policy in enumerate(s.extensions["amm"].policies):
+            path = getattr(policy, "_device_path", None)
+            paths[f"amm{i}"] = path.counters() if path is not None else None
+        for name, c in paths.items():
+            check(c is None or c["failures"] == 0, f"14a: the {name} device path failed: {c}")
+        eng = s.state.native
+        engine = eng.counters() if eng is not None and eng.active() else None
+        return dict(paths=paths, engine=engine, state_device=str(s.state.device),
+                    placement_device=str(s.state.placement.device))
+
+    # 14a: config 2 at full width on 16 inproc workers
+    torch.cuda.reset_peak_memory_stats()
+    mem0 = torch.cuda.memory_allocated()
+    zero()
+    a = asyncio.run(asyncio.wait_for(_servers_graph(
+        dev, "inproc://", SRV_WORKERS, SRV_G, SRV_BLOCK, warm_G=SRV_WARM_G, probe=probe),
+        SRV_TIMEOUT_S))
+    launches = read()
+    peak = torch.cuda.max_memory_allocated() - mem0
+    pl = a["placement"]
+    check(a["state_device"].startswith("cuda") and a["placement_device"].startswith("cuda"),
+          f"14a: the state on {a['state_device']}, the placement on {a['placement_device']}")
+    check(pl["enabled"] and pl["plans"] >= 1, f"14a: the placement planned {pl['plans']} times, "
+          f"enabled {pl['enabled']}")
+    check(launches["partition"] + launches["place_wave"] > 0 and launches["steal"] > 0,
+          f"14a: launches {launches}: K4 or K1, and K7, must launch from inside the Scheduler")
+    engine = ("the native engine: " + _native_line(a["engine"]) if a["engine"] is not None
+              else "the Python oracle (no native engine attached)")
+    n = a["n_tasks"]
+    print(f"[{card}] 14a config 2: tensordot_graph({SRV_G}) of {SRV_BLOCK} x {SRV_BLOCK} CUDA blocks, "
+          f"{n} tasks on {SRV_WORKERS} inproc workers x 1 thread after a warm-up graph (G={SRV_WARM_G}): "
+          f"wall s {a['wall_s']:.3f}, {n / a['wall_s']:.0f} tasks / s; plan {pl}; launches {launches} "
+          f"(K4 partition, K1 place_wave, K6 mirror_view, K7 steal, K8 amm_drop, warm-up included); "
+          f"device paths {a['paths']}; {engine}; peak device memory {peak} B")
+
+    # 14b: the wire on the card
+    b = _wire_run(None)
+    fam = b["torch_family"]
+    check(fam.get("dumps", 0) > 0 and fam.get("loads", 0) > 0 and fam.get("dumps_bytes", 0) > 0,
+          f"14b: the torch family carried nothing over tcp: {fam}")
+    check(b["transfers"] > 0, "14b: no worker fetched a dependency from another")
+    print(f"[{card}] 14b tensordot_graph({WIRE_G}) of {WIRE_BLOCK} x {WIRE_BLOCK} f32 CUDA blocks, "
+          f"{b['n_tasks']} tasks on {WIRE_WORKERS} workers over tcp://127.0.0.1: wall s "
+          f"{b['wall_s']:.3f}; torch family {fam}; {b['transfers']} transfers of "
+          f"{b['transfer_bytes']} B, median {b['transfer_median_ms']:.3f} ms; wire bytes sent "
+          f"{b['wire_bytes_sent']}, received {b['wire_bytes_recv']}")
+
+    out, err = twin.communicate(timeout=CP_TWIN_TIMEOUT_S)
+    check(twin.returncode == 0, f"phase 14's CPU run failed ({twin.returncode}):\n{err[-3000:]}")
+    cpu = json.loads(out.strip().splitlines()[-1])
+    check(cpu["a"]["digest"] == a["digest"] and cpu["a"]["n_tasks"] == n,
+          f"14a: the card's results differ from the CPU run's: {a['digest']} / {cpu['a']['digest']}")
+    check(cpu["b"]["digest"] == b["digest"],
+          f"14b: the card's results differ from the CPU run's: {b['digest']} / {cpu['b']['digest']}")
+    print(f"[{card}] 14a and 14b results == the CPU run bit for bit (digests {a['digest']}, "
+          f"{b['digest']}; CPU walls s {cpu['a']['wall_s']:.3f} / {cpu['b']['wall_s']:.3f}, in a "
+          f"child process beside the card's)")
+    numbers = dict(
+        config2_wall_s=a["wall_s"], config2_tasks=n, config2_tasks_per_s=n / a["wall_s"],
+        config2_plan=pl, config2_paths=a["paths"], config2_engine=a["engine"],
+        config2_peak_bytes=peak, config2_cpu_wall_s=cpu["a"]["wall_s"],
+        wire_wall_s=b["wall_s"], wire_torch_family=fam, wire_transfers=b["transfers"],
+        wire_transfer_bytes=b["transfer_bytes"], wire_transfer_median_ms=b["transfer_median_ms"],
+        wire_bytes_sent=b["wire_bytes_sent"], wire_cpu_wall_s=cpu["b"]["wall_s"],
+        wire_cpu_torch_family=cpu["b"]["torch_family"])
+    return launches, numbers
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -4116,8 +4390,14 @@ def main() -> int:
         if e["name"] in recovery:
             e["launches"] += recovery[e["name"]]
             e["launches_recovery"] = recovery[e["name"]]
+    servers, servers_numbers = phase_servers()
+    for e in (wave_entry, partition_entry, *periodic_entries):
+        if e["name"] in servers:
+            e["launches"] += servers[e["name"]]
+            e["launches_servers"] = servers[e["name"]]
     print(json.dumps({"control_plane": control_numbers}))
     print(json.dumps({"recovery": recovery_numbers}))
+    print(json.dumps({"servers": servers_numbers}))
     kernels = [flash_entry, bwd_entry, wave_entry, partition_entry, *periodic_entries, shard_entry,
                shuffle_entry, *long_context, *training, *round1]
     print(f"total_s {time.perf_counter() - t0:.1f}")

@@ -1,6 +1,8 @@
 """PyTorch + CUDA port of ``distributed_tpu`` for NVIDIA Hopper: its device
-paths, and the sans-io control plane that drives them (the scheduler
-engine, the worker state machine and the simulator).
+paths, the sans-io control plane that drives them (the scheduler
+engine, the worker state machine and the simulator), and the asyncio
+``Scheduler``, ``Worker`` and ``Client`` around it, on a comm and a wire
+that need no msgpack.
 
 The JAX package stays the reference; this package sits beside it, keeps
 the reference's module names (``ops/leveled.py``, ``ops/flash.py``) and

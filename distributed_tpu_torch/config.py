@@ -6,9 +6,9 @@ drives both packages; in the port those keys configure the torch
 co-processor on the card.  What differs:
 
 - the reference's ``~/.config/distributed_tpu/*.yaml`` files (or the
-  ``DTPU_CONFIG`` directory) are read with PyYAML where it is installed,
-  and a file that cannot be read raises (the reference skips it quietly;
-  the card's machine has no PyYAML, so there such a file always raises);
+  ``DTPU_CONFIG`` directory) are not read: the port imports no PyYAML
+  (the card's machine has none), so such a file raises at import, where
+  the reference reads it, or skips it quietly when it cannot;
 - ``DTPU_NATIVE_DISABLE`` is not read: ``attach_native(build=True)``
   raises when the native engine cannot be built, and a state without a
   built library attaches none (``scheduler/native_engine.py``).
@@ -418,20 +418,12 @@ def refresh() -> None:
 
 
 def _read_yaml(path: str) -> dict:
-    """One user configuration file; raises when it cannot be read."""
-    try:
-        import yaml  # type: ignore
-    except ImportError as exc:
-        raise RuntimeError(
-            f"configuration file {path}: PyYAML is not installed, so the port "
-            "cannot read it; set the keys through DTPU_* environment "
-            "variables or config.set instead"
-        ) from exc
-    with open(path) as f:
-        data = yaml.safe_load(f) or {}
-    if not isinstance(data, Mapping):
-        raise RuntimeError(f"configuration file {path}: not a mapping")
-    return data
+    """One user configuration file: the port reads none, so it raises."""
+    raise RuntimeError(
+        f"configuration file {path}: the port reads no YAML files (it does not "
+        "import PyYAML, which the card's machine does not have); set the keys "
+        "through DTPU_* environment variables or config.set instead"
+    )
 
 
 def _set_path(cfg: dict, path: str, value: Any) -> None:

@@ -40,6 +40,12 @@ class FatalCommClosedError(CommClosedError):
     """Unrecoverable comm failure — do not retry."""
 
 
+class ProtocolError(CommClosedError):
+    """A frame the port's wire cannot read: a header without the port's
+    magic, or written by another ``marshal`` format or Python minor
+    version (``protocol/core.py``).  The comm that read it is closed."""
+
+
 class RPCError(Exception):
     """Remote handler raised; carries the remote traceback text."""
 

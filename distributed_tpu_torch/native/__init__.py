@@ -27,10 +27,14 @@ from __future__ import annotations
 
 import ctypes
 import hashlib
+import logging
 import os
 import subprocess
 import threading
+from collections.abc import Callable
 from pathlib import Path
+
+logger = logging.getLogger("distributed_tpu_torch.native")
 
 SOURCE = Path(__file__).resolve().parent / "graphpack.cpp"
 TDIGEST_SOURCE = Path(__file__).resolve().parent / "tdigest.cpp"
@@ -219,6 +223,33 @@ def load_engine(build: bool = True) -> ctypes.CDLL | None:
             _compile(out, ENGINE_SOURCE)
         _engine_lib = _bind(ctypes.CDLL(str(out)), ENGINE_SIGNATURES)
         return _engine_lib
+
+
+def prebuild_async(on_ready: Callable[[], None] | None = None) -> None:
+    """Build the transition engine's library on a daemon thread (the
+    scheduler server calls this at start so the first flood never waits
+    for g++ on the event loop).  ``on_ready`` fires IN THE BUILD THREAD
+    once the library is loaded; callers on an event loop trampoline with
+    ``call_soon_threadsafe``.  A build that fails is logged, and
+    ``on_ready`` is not called: the state then runs the python oracle, and
+    ``state.native`` stays None, which a run reads to say which engine ran.
+
+    The reference's ``prebuild_async`` (``native/__init__.py:98``) builds
+    its one host library; the port's engine has a library of its own."""
+
+    def run() -> None:
+        try:
+            load_engine(build=True)
+        except Exception:
+            logger.exception("native engine build failed")
+            return
+        if on_ready is not None:
+            try:
+                on_ready()
+            except Exception:
+                logger.exception("native prebuild on_ready callback failed")
+
+    threading.Thread(target=run, name="dtpu-native-build", daemon=True).start()
 
 
 _CTYPES = {"int32": ctypes.c_int32, "float32": ctypes.c_float, "int8": ctypes.c_int8}

@@ -4,6 +4,7 @@ silent CPU fallback, no fallback from a kernel that cannot be built."""
 from __future__ import annotations
 
 import ast
+import importlib
 import json
 import os
 import shutil
@@ -42,7 +43,6 @@ from distributed_tpu_torch.scheduler import plan
 from distributed_tpu_torch.scheduler.mirror import TorchMirror
 from distributed_tpu_torch.scheduler.periodic import install_periodic
 from distributed_tpu_torch.scheduler.torch_placement import TorchPlacement
-from distributed_tpu_torch.protocol import serialize as wire
 from distributed_tpu_torch.shuffle import device as device_shuffle
 from distributed_tpu_torch.utils import sizeof as tensor_size  # noqa: F401
 from distributed_tpu_torch.worker import join, setup  # noqa: F401
@@ -52,6 +52,8 @@ from distributed_tpu_torch.worker import join, setup  # noqa: F401
 # test_worker_ttl_evicts_silent_worker_and_recomputes failed, with it it passed)
 torch.set_num_threads(2)
 
+# the protocol package exports the function ``serialize``, which shadows the module
+wire = importlib.import_module("distributed_tpu_torch.protocol.serialize")
 ROOT = Path(__file__).resolve().parents[1]
 PKG = ROOT / "distributed_tpu_torch"
 # chip_smoke.py runs on a machine without JAX, and so does the test helper it imports
@@ -68,7 +70,7 @@ def _module_names():
 _IMPORT_PROBE = """
 import importlib, json, sys
 
-FORBIDDEN = ("jax", "jaxlib", "distributed_tpu")
+FORBIDDEN = ("jax", "jaxlib", "distributed_tpu", "msgpack", "cloudpickle", "yaml")
 tried = []
 
 
@@ -111,7 +113,8 @@ def test_source_imports_no_jax_and_no_reference_package(path):
             continue
         for name in names:
             root = name.split(".")[0]
-            assert root not in ("jax", "jaxlib", "distributed_tpu"), (
+            assert root not in ("jax", "jaxlib", "distributed_tpu", "msgpack", "cloudpickle",
+                                "yaml"), (
                 f"{path.name}:{node.lineno} imports {name}"
             )
 

@@ -15,6 +15,7 @@ from __future__ import annotations
 
 import importlib
 import os
+import random
 import re
 import socket
 import subprocess
@@ -53,15 +54,31 @@ RENDEZVOUS = ("MASTER_ADDR", "MASTER_PORT", "RANK", "WORLD_SIZE", "LOCAL_RANK")
 def readme_preload() -> str:
     """The README's preload source, with the device set to the CPU."""
     blocks = re.findall(r"```python\n(.*?)```", (ROOT / "README.md").read_text(), re.S)
-    (source,) = [b for b in blocks if "async def dtpu_setup" in b]
+    (source,) = [b for b in blocks if "async def dtpu_setup" in b and "setup_worker" in b]
     assert source.count("DEVICE = None") == 1
     return source.replace("DEVICE = None", 'DEVICE = "cpu"')
 
 
 def _free_port() -> int:
-    with socket.socket() as s:
-        s.bind(("localhost", 0))
-        return s.getsockname()[1]
+    """A free port below the kernel's ephemeral range, for the gloo store's
+    bind.  A port the kernel hands out for ``bind(0)`` was free only at the
+    pick: under the suite's parallel run another process's ``bind(0)`` (a
+    listener, an outgoing connection) could take it before the store bound
+    it, and the join failed.  Below the ephemeral range the kernel hands
+    out nothing; the candidates are drawn from this process's own seeded
+    stream, so two xdist workers rarely try the same port, and a port in
+    use is skipped."""
+    low, _ = map(int, Path("/proc/sys/net/ipv4/ip_local_port_range").read_text().split())
+    rng = random.Random(os.getpid())
+    for _ in range(1000):
+        port = rng.randrange(max(1024, low - 8192), low)
+        with socket.socket() as s:
+            try:
+                s.bind(("localhost", port))
+            except OSError:
+                continue
+            return port
+    raise RuntimeError("no free port below the ephemeral range")
 
 
 def _nothing_installed() -> bool:
