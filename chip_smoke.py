@@ -10,7 +10,7 @@ Phases, each of which raises on failure (the script then exits non-zero
 and prints no result):
 
 0. environment: torch/CUDA versions, the card, its power limit, nvcc,
-   whether triton imports;
+   whether triton and psutil import;
 1. build: the eight hand-written kernel sources from
    ``distributed_tpu_torch/ops/csrc`` (nvcc, one process a source), the
    host pack ``distributed_tpu_torch/native/graphpack.cpp`` and the native
@@ -213,7 +213,7 @@ and prints no result):
    ``Scheduler(device=cuda)`` with ``TorchPlacement``, 16 one-thread
    ``Worker``s over ``inproc://`` and a ``Client`` under ``bench.py``'s
    overrides with the periodic gate at 16 workers; a warm-up
-   ``tensordot_graph(16)``, then the timed ``tensordot_graph(32)`` (45,056
+   ``tensordot_graph(8)``, then the timed ``tensordot_graph(32)`` (45,056
    tasks) of 4 x 4 CUDA blocks of seeded small integers: K4 (or K1) and K7
    launched from inside the ``Scheduler``, no device path failing, the
    results equal bit for bit to the same graph on a ``device="cpu"``
@@ -222,7 +222,33 @@ and prints no result):
    memory; (b) ``tensordot_graph(8)`` of 1,024 x 1,024 f32 CUDA blocks on 4
    workers over ``tcp://127.0.0.1``: the ``"torch"`` family's calls and
    bytes > 0 (CUDA tensors cross the wire), the results equal to the CPU
-   run bit for bit; bytes moved, transfers and their median time.
+   run bit for bit; bytes moved, transfers and their median time;
+15. the deploy layer and the client's extras, each part held bit for bit to
+   a ``device="cpu"`` run in a child process: (a) BASELINE config 1 at full
+   width, ``bench.py``'s ``cfg_array_sum`` graph (``graphs.array_sum_graph``:
+   ``ones((10000, 10000), chunks=1000).sum()``, 100 f64 CUDA blocks of 8 MB
+   and a fan-in-8 sum tree) on the port's ``LocalCluster(n_workers=4,
+   threads_per_worker=2)`` at its defaults (the sum exactly 1e8; the wall,
+   the trivial-task probe, the launches and the peak device memory); (b) the
+   same 100 blocks persisted on 4 workers of ``memory_limit`` 100 MB (target
+   60 MB) with the RSS thresholds off: every worker spills into its
+   ``WorkSpace`` directory, every evicted tensor is dead by weak reference
+   and the card holds the fast layers' blocks and less than one block more,
+   every block read back comes on ``cuda:0`` all ones, the sum exact, the
+   directories gone after ``close()``; keys, bytes and MB/s each way, from
+   the workers' spill metrics; (c) BASELINE config 3, ``bench.py``'s ``_run_steal`` (320
+   ``slowinc`` of 0.02 s pinned to one of 64 one-thread workers), stealing
+   on (K6 and K7 from inside the scheduler, the tasks on more than one
+   worker) and off, both walls beside the ideal; (d) two ``Nanny``s on a
+   tcp scheduler, each spawning a worker process that computes CUDA blocks
+   (back through the ``"torch"`` family), the children importing no JAX
+   package and no JAX, one worker SIGKILLed, restarted by its nanny and its
+   keys recomputed to the same results; spawn and restart times and the
+   child's RSS; (e) an actor's CUDA accumulator over 100 ``add`` calls, a
+   task gathering 16 CUDA blocks through ``worker_client()`` and
+   ``client.get_executor().map`` over 32 inputs.  Phase 15's CPU run starts
+   once its card runs are done, so that their host walls measure the port
+   alone.
 
 The last three lines are the card's ``nvidia-smi`` name and power limit,
 one JSON object listing the kernels (``flash_fwd``, ``flash_bwd``,
@@ -232,8 +258,8 @@ sharded view's numbers, ``rebalance``, ``ring_attention``, ``ulysses``,
 ``ring_attention_bwd``, ``ulysses_bwd``, ``decide_workers``,
 ``wavefront`` and ``sharded_decide_workers``) with their launches, errors
 and times (phase 12's launches added, and kept apart as
-``launches_control_plane``, phase 13's as ``launches_recovery`` and phase
-14's as ``launches_servers``), and
+``launches_control_plane``, phase 13's as ``launches_recovery``, phase
+14's as ``launches_servers`` and phase 15's as ``launches_deploy``), and
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -248,6 +274,7 @@ import hashlib
 import inspect
 import json
 import math
+import os
 import re
 import shutil
 import statistics
@@ -335,6 +362,12 @@ def phase_env():
     from distributed_tpu_torch.diagnostics import device_profile
 
     print(f"torch.profiler profile_all_threads: {device_profile.available()}")
+    try:
+        import psutil
+        print(f"psutil {psutil.__version__}")
+    except ImportError:
+        print("psutil absent: the workers read an RSS of 0, so the memory manager's spill and "
+              "pause thresholds and the nanny's terminate threshold never fire")
 
 
 K3_TC_KERNELS = ("bwd_dkdv_tc_kernel", "bwd_dq_tc_kernel")
@@ -4085,8 +4118,10 @@ def phase_recovery(twin, dev=None):
 
 # BASELINE config 2 through the port's asyncio servers: rechunk + tensordot
 # (bench.py's _tensordot_graph) on 16 one-thread workers, bench.py's
-# overrides plus the periodic gate opened at 16 workers so K6, K7 and K8 run
-SRV_WORKERS, SRV_G, SRV_WARM_G, SRV_BLOCK = 16, 32, 16, 4
+# overrides plus the periodic gate opened at 16 workers so K6, K7 and K8 run;
+# the warm-up graph at G=8 (1,024 tasks, a plan of its own; G=16 before phase
+# 15 came) keeps the whole script near 450 s
+SRV_WORKERS, SRV_G, SRV_WARM_G, SRV_BLOCK = 16, 32, 8, 4
 SRV_CONFIG = {"scheduler.jax.enabled": True, "scheduler.jax.min-workers": 0,
               "scheduler.jax.min-transfer-ratio": 0, "scheduler.jax.periodic-min-workers": 16}
 # 14b: the wire on the card, CUDA tensors between workers over tcp
@@ -4334,6 +4369,545 @@ def _servers_card(card, dev, twin):
     return launches, numbers
 
 
+
+# ------------------------------------------------------------ phase 15
+
+
+# 15a: BASELINE config 1 (bench.py's cfg_array_sum): ones((10000, 10000),
+# chunks=1000).sum(), 100 blocks of 1,000 x 1,000 f64 (800 MB) and a fan-in-8
+# sum tree, on LocalCluster(n_workers=4, threads_per_worker=2), then bench's
+# probe of 500 trivial tasks
+DEP_WORKERS, DEP_THREADS, DEP_PROBE = 4, 2, 500
+DEP_GRID, DEP_BLOCK = 10, 1000
+# 15b: the workers' memory_limit: its target (0.6 x) of 60 MB sits under each
+# worker's share of ~200 MB of blocks, so every worker spills
+SPILL_LIMIT = 100_000_000
+# the RSS thresholds off: a process that holds a CUDA context has a large RSS
+# before it holds any data, and in-process workers all read that one RSS
+RSS_OFF = {"worker.memory.spill": False, "worker.memory.pause": False}
+# 15c: BASELINE config 3 (bench.py's _run_steal)
+STEAL_TASKS, STEAL_WORKERS, STEAL_DELAY = 320, 64, 0.02
+# 15d: two nannies of two threads, blocks of seeded small integers
+NANNY_BLOCKS, NANNY_N = 8, 1024
+# 15e: the client's extras on 2 inproc workers of 2 threads
+ACTOR_ADDS, WC_SUBTASKS, EXEC_INPUTS, EXTRA_N = 100, 16, 32, 1024
+DEP_TIMEOUT_S = 600
+
+
+def _blocks(device) -> str:
+    return "cuda" if device is None else str(device)
+
+
+def _paths(s) -> dict:
+    """The scheduler's periodic device paths' counters (None where a path
+    was never made); none may count a failure."""
+    ext = s.extensions.get("stealing")
+    steal = getattr(ext, "_device_path", None)
+    out = {"steal": steal.counters() if steal is not None else None}
+    amm = s.extensions.get("amm")
+    for i, policy in enumerate(getattr(amm, "policies", ())):
+        path = getattr(policy, "_device_path", None)
+        out[f"amm{i}"] = path.counters() if path is not None else None
+    for name, c in out.items():
+        check(c is None or c["failures"] == 0, f"15: the {name} device path failed: {c}")
+    return out
+
+
+async def _config1(device):
+    """15a: config 1's graph on the port's ``LocalCluster(4, 2)``."""
+    from distributed_tpu_torch import graphs
+    from distributed_tpu_torch.client.client import Client
+    from distributed_tpu_torch.deploy.local import LocalCluster
+
+    g, root, _ = graphs.array_sum_graph(grid=DEP_GRID, block=DEP_BLOCK, device=_blocks(device))
+    async with LocalCluster(n_workers=DEP_WORKERS, threads_per_worker=DEP_THREADS,
+                            device=device) as cl:
+        async with Client(cl.scheduler_address) as c:
+            t0 = time.perf_counter()
+            futs = c.compute_graph(g, [root])
+            result = await futs[root].result()
+            wall = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            probe = await c.gather(c.map(graphs.slowinc, range(DEP_PROBE), delay=0.0))
+            probe_s = time.perf_counter() - t0
+            check(probe == list(range(DEP_PROBE)), "15a: the trivial-task probe's results")
+            return dict(result=result, wall_s=wall, n_tasks=len(g.tasks),
+                        overhead_us_per_task=1e6 * probe_s / DEP_PROBE, paths=_paths(cl.scheduler),
+                        state_device=str(cl.scheduler.state.device))
+
+
+def _watch_evictions(buf, refs: list) -> None:
+    """Chain onto ``buf.metrics_cb``: at an eviction's ``serialize``
+    sample the key being spilled is still the fast layer's first, so keep a
+    weak reference to its tensor."""
+    cb = buf.metrics_cb
+
+    def watch(label, value, unit):
+        if label == "serialize" and buf.fast:
+            spilled = buf.fast[next(iter(buf.fast))]
+            if isinstance(spilled, torch.Tensor):
+                refs.append(weakref.ref(spilled))
+            del spilled
+        cb(label, value, unit)
+
+    buf.metrics_cb = watch
+
+
+def _spill_rates(workers) -> dict:
+    """Keys, bytes and MB/s each way, from the workers' spill counts and the
+    fine metrics their ``SpillBuffer``s report: ``serialize`` (the pickle,
+    with its D2H copy) and ``disk-write`` out, ``disk-read`` and
+    ``deserialize`` (the load back onto the key's device) in; the bytes are
+    the files'."""
+    t: dict = {}
+    for w in workers:
+        for (context, _, _, label, unit), v in w.fine_metrics.total.items():
+            if context == "spill":
+                t[label, unit] = t.get((label, unit), 0.0) + v
+    out_s = t.get(("serialize", "seconds"), 0.0) + t.get(("disk-write", "seconds"), 0.0)
+    in_s = t.get(("disk-read", "seconds"), 0.0) + t.get(("deserialize", "seconds"), 0.0)
+    out_b, in_b = t.get(("disk-write", "bytes"), 0.0), t.get(("disk-read", "bytes"), 0.0)
+    return dict(spilled_keys=sum(w.data.spilled_count for w in workers), spilled_bytes=int(out_b),
+                spill_MBps=out_b / 1e6 / out_s if out_s else None,
+                unspilled_keys=sum(w.data.unspilled_count for w in workers),
+                unspilled_bytes=int(in_b), unspill_MBps=in_b / 1e6 / in_s if in_s else None)
+
+
+async def _spill(device):
+    """15b: config 1's 100 blocks persisted on 4 workers whose
+    ``memory_limit`` makes each spill, then summed."""
+    from distributed_tpu_torch import config, graphs
+    from distributed_tpu_torch.client.client import Client
+    from distributed_tpu_torch.deploy.local import LocalCluster
+    from distributed_tpu_torch.utils.diskutils import WorkSpace
+
+    blocks = _blocks(device)
+    on_device = "cuda:0" if device is None else "cpu"
+    nbytes = DEP_BLOCK * DEP_BLOCK * 8
+    evicted: list = []
+    with config.set(RSS_OFF):
+        async with LocalCluster(n_workers=DEP_WORKERS, threads_per_worker=DEP_THREADS,
+                                device=device,
+                                worker_kwargs={"memory_limit": SPILL_LIMIT}) as cl:
+            dirs = [w.data.spill_directory for w in cl.workers]
+            base = WorkSpace().base_dir
+            check(all(os.path.dirname(d) == base for d in dirs),
+                  f"15b: spill directories {dirs} outside the WorkSpace {base}")
+            for w in cl.workers:
+                _watch_evictions(w.data, evicted)
+            async with Client(cl.scheduler_address) as c:
+                mem0 = _memory_allocated(blocks)
+                futs = [c.submit(graphs.ones_block, (DEP_BLOCK, DEP_BLOCK), blocks,
+                                 key=f"ones-{i}-{j}")
+                        for i in range(DEP_GRID) for j in range(DEP_GRID)]
+                while not all(f.done() for f in futs):
+                    await asyncio.sleep(0.01)
+                gc.collect()
+                held = _memory_allocated(blocks) - mem0
+                n_evicted, alive = len(evicted), sum(r() is not None for r in evicted)
+                check(n_evicted and alive == 0,
+                      f"15b: {alive} of the {n_evicted} evicted tensors are still held")
+                per = []
+                for w in cl.workers:
+                    files = os.listdir(w.data.spill_directory)
+                    check(len(files) == len(w.data.slow),
+                          f"15b: {len(files)} files for {len(w.data.slow)} spilled keys")
+                    per.append(dict(spilled=w.data.spilled_count, slow=len(w.data.slow),
+                                    fast=len(w.data.fast), fast_bytes=w.data.fast_bytes))
+                check(all(p["spilled"] > 0 for p in per), f"15b: a worker did not spill: {per}")
+                on_disk = sum(p["slow"] for p in per)
+                persisted = _spill_rates(cl.workers)
+                parts = c.map(graphs.block_sum, futs)
+                total = await c.submit(graphs.sum_list, parts).result()
+                del parts
+                rates = _spill_rates(cl.workers)
+                check(rates["unspilled_keys"] > 0, f"15b: the sum unspilled nothing: {rates}")
+                # every block read back from its worker, the spilled ones
+                # unspilled: on its device, f64, all ones
+                keys = {f.key for f in futs}
+                read = 0
+                for w in cl.workers:
+                    for key in [k for k in (*w.data.slow, *w.data.fast) if k in keys]:
+                        read += 1
+                        v = w.data[key]
+                        check(str(v.device) == on_device and v.dtype == torch.float64
+                              and bool((v == 1).all()),
+                              f"15b: {key} came back as {v.dtype} on {v.device}")
+                        del v
+                check(read == len(keys), f"15b: {read} of the {len(keys)} blocks read back")
+    gone = [not os.path.exists(d) for d in dirs]
+    check(all(gone), f"15b: spill directories left after close: {dirs}")
+    return dict(result=total, per_worker=per, on_disk_keys=on_disk, on_disk_bytes=on_disk * nbytes,
+                device_bytes_held=held, device_bytes_written=DEP_GRID ** 2 * nbytes,
+                fast_bytes=sum(p["fast_bytes"] for p in per), block_bytes=nbytes,
+                evicted=n_evicted, persist=persisted, **rates)
+
+
+async def _steal(device, steal):
+    """15c: config 3's 320 slowinc tasks pinned to one of 64 one-thread
+    workers (``allow_other_workers``), with work stealing on or off."""
+    from distributed_tpu_torch import config, graphs
+    from distributed_tpu_torch.client.client import Client
+    from distributed_tpu_torch.deploy.local import LocalCluster
+
+    with config.set({"scheduler.work-stealing": steal}):
+        async with LocalCluster(n_workers=STEAL_WORKERS, threads_per_worker=1,
+                                device=device) as cl:
+            async with Client(cl.scheduler_address) as c:
+                w0 = cl.workers[0].address
+                await c.submit(graphs.slowinc, -1, delay=STEAL_DELAY).result()
+                t0 = time.perf_counter()
+                futs = c.map(graphs.slowinc, range(STEAL_TASKS), delay=STEAL_DELAY,
+                             workers=[w0], allow_other_workers=True)
+                res = await c.gather(futs)
+                wall = time.perf_counter() - t0
+                ran_on = {w for ws in (await c.who_has(futs)).values() for w in ws}
+                return dict(results=res, wall_s=wall, ran_on=len(ran_on),
+                            paths=_paths(cl.scheduler))
+
+
+def child_modules():
+    """The worker process's imports of the JAX package, JAX and the
+    libraries the port does without."""
+    import sys
+
+    return sorted(m for m in sys.modules if m.split(".")[0] in (
+        "jax", "jaxlib", "distributed_tpu", "msgpack", "cloudpickle", "yaml"))
+
+
+def process_rss():
+    """This process's RSS (None where psutil is absent)."""
+    try:
+        import psutil
+    except ImportError:
+        return None
+    return psutil.Process().memory_info().rss
+
+
+def child_rss(device):
+    """The worker process's RSS once it holds a context on ``device``."""
+    torch.zeros(1, device=device)
+    return process_rss()
+
+
+async def _nannies(device):
+    """15d: two ``Nanny``s on a tcp scheduler, each spawning a worker
+    process that computes blocks on ``device``; one worker SIGKILLed,
+    restarted by its nanny, its keys recomputed."""
+    import signal
+
+    from distributed_tpu_torch import graphs
+    from distributed_tpu_torch.client.client import Client
+    from distributed_tpu_torch.protocol.serialize import family_counts, reset_family_counts
+    from distributed_tpu_torch.scheduler.server import Scheduler
+    from distributed_tpu_torch.worker.nanny import Nanny
+
+    blocks = _blocks(device)
+
+    async def started(n):
+        t0 = time.perf_counter()
+        await n.start()
+        return time.perf_counter() - t0
+
+    reset_family_counts()
+    async with Scheduler(listen_addr="tcp://127.0.0.1:0", device=device) as s:
+        nannies = [Nanny(s.address, nthreads=2, memory_limit=0) for _ in range(2)]
+        try:
+            spawn_s = await asyncio.gather(*(started(n) for n in nannies))
+            check(all(n.worker_address in s.state.workers for n in nannies),
+                  "15d: a nanny's worker did not register")
+            async with Client(s.address) as c:
+                addrs = [n.worker_address for n in nannies]
+                futs = [c.submit(graphs.tensordot_block, "N", i, 0, NANNY_N, 0, blocks,
+                                 workers=[addrs[i % 2]], allow_other_workers=True,
+                                 key=f"nanny-block-{i}") for i in range(NANNY_BLOCKS)]
+                before = await c.gather(futs)
+                check(all(str(b.device) == ("cuda:0" if device is None else "cpu") for b in before),
+                      f"15d: results on {sorted({str(b.device) for b in before})}")
+                digest = _result_digest(before)
+                del before
+                mods = await c.run(child_modules)
+                check(all(m == [] for m in mods.values()), f"15d: the worker processes import {mods}")
+                rss = await c.run(child_rss, blocks)
+                victim = nannies[0]
+                old, old_pid = victim.worker_address, victim.process.pid
+                t0 = time.perf_counter()
+                os.kill(old_pid, signal.SIGKILL)
+                while not (victim.worker_address != old and victim.worker_address in s.state.workers
+                           and old not in s.state.workers):
+                    check(time.perf_counter() - t0 < 120, "15d: the killed worker did not come back")
+                    await asyncio.sleep(0.02)
+                restart_s = time.perf_counter() - t0
+                after = await c.gather(futs)
+                recompute_s = time.perf_counter() - t0
+                again = _result_digest(after)
+                del after
+                check(again == digest, f"15d: results after the restart {again} != before {digest}")
+                mods = await c.run(child_modules)
+                check(all(m == [] for m in mods.values()), f"15d: the restarted process imports {mods}")
+                return dict(digest=digest, spawn_s=list(spawn_s), restart_s=restart_s,
+                            recompute_s=recompute_s, child_rss=sorted(rss.values(), key=str),
+                            new_pid=victim.process.pid != old_pid,
+                            torch_family=family_counts().get("torch", {}))
+        finally:
+            for n in nannies:
+                await n.close()
+
+
+class Accumulator:
+    """15e's actor: a running sum of seeded blocks on ``device``."""
+
+    def __init__(self, n, device):
+        self.n, self.device = n, device
+        self.total = torch.zeros(n, n, dtype=torch.float32, device=device)
+
+    def add(self, seed):
+        from distributed_tpu_torch import graphs
+
+        self.total += graphs.tensordot_block("E", seed, 0, self.n, 0, self.device)
+        return seed
+
+    def value(self):
+        return self.total
+
+
+def wc_parent(n, size, device):
+    """15e's task: submits ``n`` block sub-tasks through ``worker_client``,
+    gathers them and stacks them."""
+    from distributed_tpu_torch import graphs
+    from distributed_tpu_torch.client.worker_client import worker_client
+
+    with worker_client() as wc:
+        futs = [wc.submit(graphs.tensordot_block, "W", i, 0, size, 0, device, pure=False)
+                for i in range(n)]
+        return torch.stack(wc.gather_sync(futs))
+
+
+def block_total(seed, size, device):
+    from distributed_tpu_torch import graphs
+
+    return float(graphs.tensordot_block("X", seed, 0, size, 0, device).sum())
+
+
+async def _extras(device):
+    """15e: an actor, ``worker_client`` and the executor on ``device``."""
+    from distributed_tpu_torch.client.client import Client
+    from distributed_tpu_torch.deploy.local import LocalCluster
+
+    blocks = _blocks(device)
+    async with LocalCluster(n_workers=2, threads_per_worker=2, device=device) as cl:
+        async with Client(cl.scheduler_address) as c:
+            t0 = time.perf_counter()
+            fut = c.submit(Accumulator, EXTRA_N, blocks, actor=True)
+            acc = await fut.result()
+            for seed in range(ACTOR_ADDS):
+                check(await acc.add(seed) == seed, "15e: an actor call's result")
+            value = await acc.value()
+            actor_s = time.perf_counter() - t0
+            check(str(value.device) == ("cuda:0" if device is None else "cpu"),
+                  f"15e: the accumulator on {value.device}")
+            t0 = time.perf_counter()
+            stacked = await c.submit(wc_parent, WC_SUBTASKS, EXTRA_N, blocks).result()
+            wc_s = time.perf_counter() - t0
+            ex = c.get_executor()
+            t0 = time.perf_counter()
+            gen = ex.map(block_total, range(EXEC_INPUTS), [EXTRA_N] * EXEC_INPUTS,
+                         [blocks] * EXEC_INPUTS)
+            mapped = await asyncio.get_running_loop().run_in_executor(None, list, gen)
+            ex_s = time.perf_counter() - t0
+            ex.shutdown(wait=False)
+            return dict(actor=_result_digest([value]), actor_s=actor_s,
+                        worker_client=_result_digest([stacked]), worker_client_s=wc_s,
+                        executor=mapped, executor_s=ex_s, paths=_paths(cl.scheduler))
+
+
+def deploy_cpu():
+    """Phase 15's parts with ``device="cpu"``, in a child process phase 15
+    starts once its card runs are done."""
+    torch.set_num_threads(CP_CPU_THREADS)
+
+    def run(coro):
+        return asyncio.run(asyncio.wait_for(coro, DEP_TIMEOUT_S))
+
+    return {"a": run(_config1("cpu")), "b": run(_spill("cpu")),
+            "c_on": run(_steal("cpu", True)), "c_off": run(_steal("cpu", False)),
+            "d": run(_nannies("cpu")), "e": run(_extras("cpu"))}
+
+
+def phase_deploy(dev=None):
+    """Phase 15, the deploy layer and the client's extras on the card, then
+    its CPU run in a child process, alone, so that no host wall of the card
+    runs is taken beside it."""
+    card = smi_line()
+    t_phase = time.perf_counter()
+    launches, numbers, parts = _deploy_card(card, dev)
+    numbers["card_s"] = time.perf_counter() - t_phase
+    t0 = time.perf_counter()
+    twin = subprocess.run(
+        [sys.executable, "-c", "import json, chip_smoke as c; print(json.dumps(c.deploy_cpu()))"],
+        cwd=Path(__file__).resolve().parent, capture_output=True, text=True,
+        timeout=CP_TWIN_TIMEOUT_S)
+    numbers["cpu_run_s"] = time.perf_counter() - t0
+    check(twin.returncode == 0,
+          f"phase 15's CPU run failed ({twin.returncode}):\n{twin.stderr[-3000:]}")
+    numbers.update(_deploy_compare(card, parts, json.loads(twin.stdout.strip().splitlines()[-1])))
+    numbers["phase_s"] = time.perf_counter() - t_phase
+    print(f"[{card}] phase 15 deploy s {numbers['phase_s']:.1f} (card runs s "
+          f"{numbers['card_s']:.1f}, then the CPU run s {numbers['cpu_run_s']:.1f})")
+    return launches, numbers
+
+
+def _deploy_card(card, dev):
+    """Phase 15's card runs; returns the launches, the numbers and each
+    part's results for :func:`_deploy_compare`."""
+    from distributed_tpu_torch.ops import amm, leveled, partition, stealing
+    from distributed_tpu_torch.scheduler.mirror import TorchMirror
+
+    counters = {"place_wave": leveled.place_waves_cuda, "partition": partition.partition_cuda,
+                "steal": stealing.steal_rounds_cuda, "amm_drop": amm.drop_rounds_cuda}
+
+    def zero():
+        for fn in counters.values():
+            fn.launches = 0
+        TorchMirror.launches = 0
+
+    def read():
+        out = {name: fn.launches for name, fn in counters.items()}
+        out["mirror_view"] = TorchMirror.launches
+        return out
+
+    def part(coro):
+        before = read()
+        out = asyncio.run(asyncio.wait_for(coro, DEP_TIMEOUT_S))
+        out["launches"] = {k: v - before[k] for k, v in read().items()}
+        return out
+
+    rss0 = process_rss()
+    print(f"[{card}] 15: psutil {'absent' if rss0 is None else 'present'}; this process's RSS "
+          f"{rss0} B before the phase (its CUDA context and phases 1-14 included: the RSS "
+          f"thresholds worker.memory.spill and pause are off in 15b, the managed-bytes target spills)")
+    check(rss0 is None or rss0 > 0, "15: psutil is present but read an RSS of 0")
+    zero()
+    torch.cuda.reset_peak_memory_stats()
+    mem0 = torch.cuda.memory_allocated()
+    a = part(_config1(dev))
+    peak = torch.cuda.max_memory_allocated() - mem0
+    check(a["result"] == float((DEP_GRID * DEP_BLOCK) ** 2), f"15a: the sum is {a['result']}")
+    check(a["state_device"].startswith("cuda"), f"15a: the scheduler's state on {a['state_device']}")
+    print(f"[{card}] 15a config 1: ones(({DEP_GRID * DEP_BLOCK}, {DEP_GRID * DEP_BLOCK}), "
+          f"chunks={DEP_BLOCK}).sum() as f64 CUDA blocks, {a['n_tasks']} tasks on LocalCluster("
+          f"n_workers={DEP_WORKERS}, threads_per_worker={DEP_THREADS}, device=cuda): sum "
+          f"{a['result']!r}, wall s {a['wall_s']:.3f}, {a['n_tasks'] / a['wall_s']:.0f} tasks / s; "
+          f"{DEP_PROBE} trivial tasks {a['overhead_us_per_task']:.0f} us a task; launches from "
+          f"inside the scheduler {a['launches']}; device paths {a['paths']}; peak device memory "
+          f"{peak} B")
+
+    b = part(_spill(dev))
+    check(b["result"] == float((DEP_GRID * DEP_BLOCK) ** 2), f"15b: the sum is {b['result']}")
+    freed = b["device_bytes_written"] - b["device_bytes_held"]
+    # every block is block_bytes: the card holds the fast layers' blocks and no
+    # spilled one when what it holds beyond them is less than a block (the rest
+    # is allocations outside the blocks, printed)
+    other = b["device_bytes_held"] - b["fast_bytes"]
+    check(0 <= other < b["block_bytes"],
+          f"15b: device memory held {b['device_bytes_held']} B after persisting "
+          f"{b['device_bytes_written']} B, the fast layers {b['fast_bytes']} B, with "
+          f"{b['on_disk_bytes']} B on disk: a spilled block is still on the card")
+    print(f"[{card}] 15b spill: the {DEP_GRID ** 2} blocks persisted on {DEP_WORKERS} workers of "
+          f"memory_limit {SPILL_LIMIT} B (target {0.6 * SPILL_LIMIT:.0f} B), RSS thresholds off: per "
+          f"worker {b['per_worker']}; after persisting {b['on_disk_keys']} keys ({b['on_disk_bytes']} "
+          f"B) on disk and {b['device_bytes_held']} B held on the card of {b['device_bytes_written']} "
+          f"B made (freed {freed} B; held: the fast layers' {b['fast_bytes']} B and {other} B outside "
+          f"the blocks; the {b['evicted']} tensors the persist evicted all collected); the persist spilled "
+          f"{b['persist']['spilled_keys']} keys, {b['persist']['spilled_bytes']} B of files at "
+          f"{b['persist']['spill_MBps']:.1f} MB/s; by the sum's end {b['spilled_keys']} keys "
+          f"({b['spilled_bytes']} B) spilled at {b['spill_MBps']:.1f} MB/s and "
+          f"{b['unspilled_keys']} ({b['unspilled_bytes']} B) unspilled at {b['unspill_MBps']:.1f} "
+          f"MB/s (the workers' spill metrics: serialize + disk-write, disk-read + deserialize); "
+          f"every block read back on cuda:0 and all ones; sum {b['result']!r}; the spill "
+          f"directories gone after close; launches {b['launches']}")
+
+    c_on = part(_steal(dev, True))
+    c_off = part(_steal(dev, False))
+    ideal = STEAL_TASKS * STEAL_DELAY / STEAL_WORKERS
+    check(c_on["launches"]["steal"] > 0, f"15c: K7 did not launch with stealing on: {c_on['launches']}")
+    check(c_on["ran_on"] > 1, f"15c: with stealing on the tasks ran on {c_on['ran_on']} worker(s)")
+    check(c_on["results"] == c_off["results"] == [i for i in range(STEAL_TASKS)],
+          "15c: the results")
+    print(f"[{card}] 15c config 3: {STEAL_TASKS} slowinc({STEAL_DELAY} s) pinned to one of "
+          f"{STEAL_WORKERS} one-thread workers: stealing on wall s {c_on['wall_s']:.3f} on "
+          f"{c_on['ran_on']} workers, launches {c_on['launches']}, paths {c_on['paths']}; stealing "
+          f"off wall s {c_off['wall_s']:.3f} on {c_off['ran_on']} workers, launches "
+          f"{c_off['launches']}; ideal {ideal:.3f} s")
+
+    d = part(_nannies(dev))
+    fam = d["torch_family"]
+    check(fam.get("loads", 0) > 0, f"15d: the torch family carried nothing back: {fam}")
+    check(d["new_pid"], "15d: the nanny's worker has the killed process's pid")
+    check(rss0 is None or all(r and r > 0 for r in d["child_rss"]),
+          f"15d: the worker processes' RSS {d['child_rss']}")
+    print(f"[{card}] 15d nannies: 2 Nanny x 2 threads on tcp://127.0.0.1, spawn to registration s "
+          f"{[round(x, 3) for x in d['spawn_s']]}; {NANNY_BLOCKS} blocks of {NANNY_N} x {NANNY_N} f32 "
+          f"on cuda in the worker processes, back through the torch family {fam}; children import "
+          f"no JAX package, no jax; child RSS after its CUDA context {d['child_rss']} B; SIGKILL to "
+          f"the new worker registered s {d['restart_s']:.3f}, results recomputed and equal s "
+          f"{d['recompute_s']:.3f}; launches {d['launches']}")
+
+    e = part(_extras(dev))
+    print(f"[{card}] 15e extras: an actor's CUDA accumulator took {ACTOR_ADDS} add calls in s "
+          f"{e['actor_s']:.3f} (digest {e['actor']}); worker_client gathered {WC_SUBTASKS} CUDA "
+          f"blocks in s {e['worker_client_s']:.3f}; get_executor().map over {EXEC_INPUTS} inputs s "
+          f"{e['executor_s']:.3f}; launches {e['launches']}")
+    launches = read()
+    check(launches["steal"] > 0 and launches["mirror_view"] > 0,
+          f"15: launches {launches}: K6 and K7 must launch from inside the port's cluster")
+
+    numbers = dict(
+        base_rss=rss0, config1_wall_s=a["wall_s"], config1_tasks=a["n_tasks"],
+        config1_overhead_us_per_task=a["overhead_us_per_task"], config1_peak_bytes=peak,
+        config1_launches=a["launches"],
+        spill_per_worker=b["per_worker"], spill_on_disk_bytes=b["on_disk_bytes"],
+        spill_device_bytes_held=b["device_bytes_held"], spill_freed_bytes=freed,
+        spill_other_bytes=other,
+        spill_keys=b["spilled_keys"], spill_bytes=b["spilled_bytes"], spill_MBps=b["spill_MBps"],
+        unspill_keys=b["unspilled_keys"], unspill_bytes=b["unspilled_bytes"],
+        unspill_MBps=b["unspill_MBps"],
+        steal_on_wall_s=c_on["wall_s"], steal_off_wall_s=c_off["wall_s"], steal_ideal_s=ideal,
+        steal_on_workers=c_on["ran_on"], steal_off_workers=c_off["ran_on"],
+        steal_on_launches=c_on["launches"], steal_paths=c_on["paths"],
+        nanny_spawn_s=d["spawn_s"], nanny_restart_s=d["restart_s"],
+        nanny_recompute_s=d["recompute_s"], nanny_child_rss=d["child_rss"],
+        nanny_torch_family=fam,
+        actor_s=e["actor_s"], worker_client_s=e["worker_client_s"], executor_s=e["executor_s"])
+    parts = {"a": a, "b": b, "c_on": c_on, "c_off": c_off, "d": d, "e": e}
+    return launches, numbers, parts
+
+
+def _deploy_compare(card, card_parts, cpu) -> dict:
+    """Hold each of phase 15's card results to the CPU run's, bit for bit;
+    returns the CPU run's walls and rates."""
+    a, b, c_on, c_off, d, e = (card_parts[k] for k in ("a", "b", "c_on", "c_off", "d", "e"))
+    check(cpu["a"]["result"] == a["result"] and cpu["b"]["result"] == b["result"],
+          f"15a/b: the card's sums {a['result']} / {b['result']} != the CPU run's")
+    check(cpu["c_on"]["results"] == c_on["results"] and cpu["c_off"]["results"] == c_off["results"],
+          "15c: the card's results differ from the CPU run's")
+    check(cpu["d"]["digest"] == d["digest"],
+          f"15d: the card's results {d['digest']} != the CPU run's {cpu['d']['digest']}")
+    for k in ("actor", "worker_client", "executor"):
+        check(cpu["e"][k] == e[k], f"15e: the card's {k} result differs from the CPU run's")
+    print(f"[{card}] 15a-e results == the CPU run bit for bit (CPU walls: 15a s "
+          f"{cpu['a']['wall_s']:.3f}, 15c on/off s {cpu['c_on']['wall_s']:.3f} / "
+          f"{cpu['c_off']['wall_s']:.3f} on {cpu['c_on']['ran_on']} / {cpu['c_off']['ran_on']} "
+          f"workers; 15d spawn s {[round(x, 3) for x in cpu['d']['spawn_s']]}, restart s "
+          f"{cpu['d']['restart_s']:.3f}; 15b CPU spill {cpu['b']['spill_MBps']:.1f} / unspill "
+          f"{cpu['b']['unspill_MBps']:.1f} MB/s; in a child process after the card's runs)")
+    return dict(config1_cpu_wall_s=cpu["a"]["wall_s"], spill_cpu_MBps=cpu["b"]["spill_MBps"],
+                unspill_cpu_MBps=cpu["b"]["unspill_MBps"],
+                steal_cpu_on_wall_s=cpu["c_on"]["wall_s"],
+                steal_cpu_off_wall_s=cpu["c_off"]["wall_s"], nanny_cpu_spawn_s=cpu["d"]["spawn_s"],
+                nanny_cpu_restart_s=cpu["d"]["restart_s"])
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -4395,9 +4969,15 @@ def main() -> int:
         if e["name"] in servers:
             e["launches"] += servers[e["name"]]
             e["launches_servers"] = servers[e["name"]]
+    deploy, deploy_numbers = phase_deploy()
+    for e in (wave_entry, partition_entry, *periodic_entries):
+        if e["name"] in deploy:
+            e["launches"] += deploy[e["name"]]
+            e["launches_deploy"] = deploy[e["name"]]
     print(json.dumps({"control_plane": control_numbers}))
     print(json.dumps({"recovery": recovery_numbers}))
     print(json.dumps({"servers": servers_numbers}))
+    print(json.dumps({"deploy": deploy_numbers}))
     kernels = [flash_entry, bwd_entry, wave_entry, partition_entry, *periodic_entries, shard_entry,
                shuffle_entry, *long_context, *training, *round1]
     print(f"total_s {time.perf_counter() - t0:.1f}")

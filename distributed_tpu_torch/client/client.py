@@ -10,15 +10,7 @@ Async-first: every API is a coroutine on the running event loop; the
 sync facade (``Client(..., asynchronous=False)``) drives a dedicated
 loop thread via ``LoopRunner`` like the reference's ``SyncMethodMixin``.
 
-The port's copy of ``distributed_tpu/client/client.py``, line for line
-but for these seams, each waiting for a module of ROADMAP queue 1:
-
-- actors (``client/actor.py``): a result is never an actor placeholder,
-  so ``_maybe_actor`` returns it as it is; a task submitted with
-  ``actor=True`` errs on the worker with ``NotImplementedError``;
-- ``get_executor`` (``client/cfexecutor.py``) raises
-  ``NotImplementedError``.
-
+The port's copy of ``distributed_tpu/client/client.py``, line for line.
 Task functions travel by the standard library's pickle (the port has no
 cloudpickle): they must be importable module-level functions.
 """
@@ -687,8 +679,10 @@ class Client:
         return self._maybe_actor(data[future.key])
 
     def _maybe_actor(self, value: Any) -> Any:
-        # actors are not ported yet (client/actor.py): no worker sends a
-        # placeholder, so every value is the task's own
+        from distributed_tpu_torch.client.actor import Actor, ActorPlaceholder
+
+        if isinstance(value, ActorPlaceholder):
+            return Actor.from_placeholder(value, io=self._worker_rpc(value.worker))
         return value
 
     def _worker_rpc(self, address: str):
@@ -1200,10 +1194,9 @@ class Client:
     def get_executor(self, **kwargs: Any):
         """concurrent.futures.Executor facade (reference client.py
         get_executor)."""
-        raise NotImplementedError(
-            "the port has no concurrent.futures facade yet (ROADMAP queue 1: "
-            "client/cfexecutor.py)"
-        )
+        from distributed_tpu_torch.client.cfexecutor import ClientExecutor
+
+        return ClientExecutor(self, **kwargs)
 
     def __repr__(self) -> str:
         return f"<Client {self.id!r} {self.status} scheduler={self.address!r}>"

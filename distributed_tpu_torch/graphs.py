@@ -162,3 +162,67 @@ def tensordot_expected(G: int, *, n: int = 4, seed: int = 0) -> np.ndarray:
          for i in range(G)]
     return np.stack([np.stack([sum(A[i][k] @ B[k][j] for k in range(G)) for j in range(G)])
                      for i in range(G)])
+
+
+# ------------------------------------------------ config 1 as a task graph
+
+
+def ones_block(shape, device: str | None = "cpu"):
+    """A block of float64 ones on ``device`` (CUDA for None)."""
+    import torch
+
+    return torch.ones(shape, dtype=torch.float64, device="cuda" if device is None else device)
+
+
+def block_sum(a) -> float:
+    return float(a.sum())
+
+
+def sum_list(xs):
+    return sum(xs)
+
+
+def array_sum_graph(*, grid: int = 10, block: int = 1000, fanin: int = 8,
+                    device: str | None = "cpu", classes=None):
+    """BASELINE config 1's graph, ``bench.py``'s ``cfg_array_sum``: the
+    same keys, dependencies and task order (``ones((10000, 10000),
+    chunks=1000).sum()``: ``grid²`` blocks of ``block x block`` ones, a sum
+    of each, then a fan-in-``fanin`` tree of sums).  The blocks are torch
+    tensors on ``device`` where the bench's are numpy arrays; every sum is
+    exact in float64, so the root is ``(grid · block)²`` on any device.
+    ``classes`` is ``(Graph, TaskRef, TaskSpec)``, the port's by default.
+    Returns ``(graph, root_key, block_keys)``."""
+    if classes is None:
+        from distributed_tpu_torch.graph.spec import Graph, TaskRef, TaskSpec
+    else:
+        Graph, TaskRef, TaskSpec = classes
+    g = Graph()
+    partials, blocks = [], []
+    for i in range(grid):
+        for j in range(grid):
+            ck = f"ones-{i}-{j}"
+            g.tasks[ck] = TaskSpec(ones_block, ((block, block), device))
+            sk = f"sum-{i}-{j}"
+            g.tasks[sk] = TaskSpec(block_sum, (TaskRef(ck),))
+            partials.append(sk)
+            blocks.append(ck)
+    level, r = partials, 0
+    while len(level) > 1:
+        nxt = []
+        for b in range(0, len(level), fanin):
+            k = f"agg-{r}-{b}"
+            g.tasks[k] = TaskSpec(sum_list, ([TaskRef(x) for x in level[b : b + fanin]],))
+            nxt.append(k)
+        level, r = nxt, r + 1
+    return g, level[0], blocks
+
+
+# ------------------------------------------------ config 3's task
+
+
+def slowinc(i, x=0, delay=0.02):
+    """``bench.py``'s ``_slowinc``: sleeps ``delay`` s, returns ``i + x``."""
+    import time
+
+    time.sleep(delay)
+    return i + x

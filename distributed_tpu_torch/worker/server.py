@@ -15,14 +15,8 @@ but for these seams:
 - ``http_port`` defaults to None, and an integer raises
   ``NotImplementedError`` (the http item of ROADMAP queue 1; the
   reference starts its http server at ``:348``).
-- ``memory_limit`` other than 0 raises ``NotImplementedError``, and
-  ``local_directory`` raises too: the memory manager, spill and the work
-  directories (``worker/memory.py``, ``spill.py``, ``utils/diskutils.py``)
-  come with the deploy slice.  The reference's default is 0 (``:80``).
 - ``self.shuffle`` is None in place of ``ShuffleWorkerExtension``
   (``:261-263``): shuffle comes with queue 1's shuffle item.
-- An actor task raises ``NotImplementedError`` until ``client/actor.py``
-  is ported (the reference imports it at ``:1500``).
 - The reference's ``jax_coordinator`` join (``:312-337``) is gone: the
   port joins ``torch.distributed``'s process group from a config preload
   (``worker/join.py``, ``worker/setup.py``), which runs before the worker
@@ -116,11 +110,6 @@ class Worker(Server):
                 "the port has no http server yet (ROADMAP queue 1, the http item): "
                 "pass http_port=None"
             )
-        if memory_limit:
-            raise NotImplementedError(
-                "the port's worker has no memory manager or spill yet (ROADMAP "
-                "queue 1, the deploy item): pass memory_limit=0"
-            )
         self.nanny_addr = nanny_addr
         # multi-host device plane: a config preload's process-group join
         # (worker/join.py) sets the global mesh indices this process owns,
@@ -146,6 +135,19 @@ class Worker(Server):
         )
         self._lifetime_task: Any | None = None
         data = None
+        if memory_limit:
+            from distributed_tpu_torch.utils.diskutils import WorkSpace
+            from distributed_tpu_torch.worker.spill import SpillBuffer
+
+            mem_cfg = config.get("worker.memory")
+            self._work_dir = WorkSpace().new_work_dir(prefix="spill")
+            data = SpillBuffer(
+                self._work_dir.path,
+                target=int(mem_cfg["target"] * memory_limit),
+                metrics_cb=lambda label, value, unit: self._fine_metric(
+                    "spill", None, "", label, unit, value
+                ),
+            )
         self.state = WorkerState(
             nthreads=self.nthreads,
             # config fallback mirrors the reference's worker.resources
@@ -306,6 +308,10 @@ class Worker(Server):
         self.cp_profiler: Any | None = None
         self.watchdog: Any | None = None
         self.memory_manager = None
+        if memory_limit:
+            from distributed_tpu_torch.worker.memory import WorkerMemoryManager
+
+            self.memory_manager = WorkerMemoryManager(self, memory_limit)
 
     # ------------------------------------------------------------ lifecycle
 
@@ -846,10 +852,13 @@ class Worker(Server):
         plugins (UploadDirectory) and user tasks never collide in the
         process CWD — many workers on one host each get their own dir
         with stale-dir purge on restart."""
-        raise NotImplementedError(
-            "the port's worker has no managed work directories yet (ROADMAP "
-            "queue 1, the deploy item: utils/diskutils.py)"
-        )
+        if self._local_directory is None:
+            from distributed_tpu_torch.utils.diskutils import WorkSpace
+
+            self._local_directory = WorkSpace().new_work_dir(
+                prefix="worker"
+            )
+        return self._local_directory.path
 
     async def memory_trace_handler(self, action: str = "report",
                                    top_n: int = 10) -> dict:
@@ -1415,9 +1424,10 @@ class Worker(Server):
                 if ts.actor:
                     # keep the instance resident; the task's value is a
                     # placeholder resolved to an Actor proxy client-side
-                    raise NotImplementedError(
-                        "actors are not ported yet (ROADMAP queue 1: client/actor.py)"
-                    )
+                    from distributed_tpu_torch.client.actor import ActorPlaceholder
+
+                    self.state.actors[key] = value
+                    value = ActorPlaceholder(type(value), key, self.address)
             else:
                 value = unwrap(run_spec)  # literal data baked into the graph
             stop = time()

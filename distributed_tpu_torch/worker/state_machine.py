@@ -23,6 +23,15 @@ Scheduling-within-worker mirrors the reference:
   batches fetches <= ``transfer.message-bytes-limit`` per peer and
   <= ``connections.incoming`` concurrent peers, skipping busy/in-flight
   peers (wsm.py:1600).
+
+The port's copy of ``distributed_tpu/worker/state_machine.py``, line for
+line but for one seam: ``stimulus_log`` keeps each event without the
+values it carries (:func:`_loggable`: an ``ExecuteSuccessEvent``'s
+``value``, the ``data`` of a ``GatherDepSuccessEvent`` or an
+``UpdateDataEvent`` with its keys kept), as the upstream project's
+``to_loggable`` does.  The reference logs the events whole, so its last
+10,000 results stay alive after a key is spilled or released; on the card
+that would keep a spilled CUDA tensor's device memory.
 """
 
 from __future__ import annotations
@@ -31,7 +40,7 @@ import functools
 import logging
 import random
 from collections import defaultdict, deque
-from dataclasses import dataclass, field
+from dataclasses import dataclass, field, replace
 from typing import Any, Callable
 
 from distributed_tpu_torch import config
@@ -296,6 +305,17 @@ class RetryBusyWorkerEvent(StateMachineEvent):
 @dataclass(frozen=True)
 class FindMissingEvent(StateMachineEvent):
     pass
+
+
+def _loggable(event: StateMachineEvent) -> StateMachineEvent:
+    """``event`` as the stimulus log keeps it: without the values it
+    carries, so the log holds no result alive."""
+    kind = type(event)
+    if kind is ExecuteSuccessEvent and event.value is not None:
+        return replace(event, value=None)
+    if (kind is GatherDepSuccessEvent or kind is UpdateDataEvent) and event.data:
+        return replace(event, data=dict.fromkeys(event.data))
+    return event
 
 
 @dataclass(frozen=True)
@@ -615,7 +635,7 @@ class WorkerState:
         wall = self.wall
         try:
             for event in events:
-                self.stimulus_log.append(event)
+                self.stimulus_log.append(_loggable(event))
                 # task-level trace hop (sampled): the payload-boundary batch
                 # arrives as one handle_stimulus call, so each event's
                 # stimulus id joins the scheduler envelope that carried it

@@ -1163,3 +1163,32 @@ def test_round1_placers_on_the_card_equal_the_cpu(cuda):
     least, load_err, _, waves = chip_smoke.wave_lockstep(wavefront, gd, fleet)
     assert waves == int(want.n_waves)
     assert least >= chip_smoke.K1_MIN_AGREEMENT and load_err <= chip_smoke.K1_LOAD_RTOL
+
+
+def test_a_spilled_cuda_tensor_comes_back_on_its_device_and_frees_its_memory(cuda, tmp_path):
+    """``SpillBuffer`` pickles with the standard library: torch writes a
+    CUDA tensor's storage with its device and loads it back there.  Once
+    evicted, nothing holds the tensor, so the card's allocated bytes fall
+    by its size; reading it back brings them up again."""
+    from distributed_tpu_torch.worker.spill import SpillBuffer
+
+    buf = SpillBuffer(str(tmp_path / "spill"))
+    g = torch.Generator(device=cuda).manual_seed(0)
+    values = {"f64": torch.randn(1000, 1000, generator=g, device=cuda, dtype=torch.float64),
+              "bf16": torch.randn(4096, 8, generator=g, device=cuda).to(torch.bfloat16)}
+    want = {k: v.cpu() for k, v in values.items()}
+    nbytes = {k: v.nelement() * v.element_size() for k, v in values.items()}
+    for k, v in values.items():
+        buf[k] = v
+    del values, v
+    for k in ("f64", "bf16"):
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated(cuda)
+        assert buf.evict() == nbytes[k]
+        torch.cuda.synchronize()
+        assert before - torch.cuda.memory_allocated(cuda) >= nbytes[k]
+    for k in ("bf16", "f64"):
+        back = buf[k]
+        assert back.device == cuda and back.dtype == want[k].dtype
+        assert torch.equal(back.cpu(), want[k])
+    buf.close()

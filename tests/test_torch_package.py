@@ -4,6 +4,7 @@ silent CPU fallback, no fallback from a kernel that cannot be built."""
 from __future__ import annotations
 
 import ast
+import asyncio
 import importlib
 import json
 import os
@@ -21,6 +22,7 @@ import test_torch_periodic_cases as cases
 import distributed_tpu_torch
 from distributed_tpu_torch import entry as entry_twin
 from distributed_tpu_torch import graphs, native
+from distributed_tpu_torch.deploy import LocalCluster, SpecCluster
 from distributed_tpu_torch.diagnostics import device_profile
 from distributed_tpu_torch.http import build_info
 from distributed_tpu_torch.ops import (
@@ -189,6 +191,8 @@ def _entry_calls():
         "build_info_lines": lambda: build_info.build_info_lines("worker", mesh="False/auto"),
         "install_build_info": lambda: build_info.install_build_info(
             types.SimpleNamespace(_BUILD_INFO_CACHE={}), {}.get),
+        "LocalCluster": lambda: LocalCluster(n_workers=0),
+        "SpecCluster": lambda: asyncio.run(SpecCluster(workers={})._start()),
         "torch_loads(cuda)": lambda: wire.torch_loads(
             {"dtype": "<f4", "shape": [1], "device": "cuda"}, [bytes(4)]),
     }

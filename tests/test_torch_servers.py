@@ -11,8 +11,8 @@ tensordot graph (``graphs.tensordot_graph``, ``bench.py``'s
 placement plan a 16-worker inproc port cluster makes for that graph
 (``TorchPlacement._plan_from_arrays``) equals the plan ``JaxPlacement``
 makes for the same graph and join order, with JAX on the CPU.  Then the
-port's divergences (http, ``memory_limit``, ``ws://``, actors, the
-shuffle and coordination ops) and the process-group join from a config
+port's divergences (http, ``ws://``, the shuffle and coordination
+ops) and the process-group join from a config
 preload on the port's own worker.
 
 Task functions live in this module (or ``operator``): the port has no
@@ -252,17 +252,6 @@ async def test_http_is_not_ported():
         assert s.http_server is None and s._http_port is None
 
 
-@gen_test(timeout=60)
-async def test_memory_limit_and_work_directories_are_not_ported():
-    async with Scheduler(listen_addr="inproc://", device="cpu") as s:
-        with pytest.raises(NotImplementedError, match="memory manager"):
-            Worker(s.address, memory_limit=2**30)
-        async with Worker(s.address) as w:
-            assert w.memory_limit == 0 and w.memory_manager is None
-            with pytest.raises(NotImplementedError, match="diskutils"):
-                w.local_directory
-
-
 def test_ws_is_not_ported():
     assert ref_get_backend("ws") is not None
     with pytest.raises(ValueError, match="unknown address scheme 'ws'"):
@@ -274,21 +263,6 @@ def test_ws_is_not_ported():
 
     with pytest.raises(ValueError, match="unknown address scheme 'ws'"):
         asyncio.run(start())
-
-
-class Counter:
-    def __init__(self):
-        self.n = 0
-
-
-@gen_test(timeout=60)
-async def test_actors_are_not_ported():
-    async with cluster(PORT, "inproc://") as (s, ws, c):
-        fut = c.submit(Counter, actor=True)
-        with pytest.raises(NotImplementedError, match="actor"):
-            await fut.result()
-        with pytest.raises(NotImplementedError, match="cfexecutor"):
-            c.get_executor()
 
 
 @gen_test(timeout=60)
