@@ -212,9 +212,8 @@ and prints no result):
    without msgpack): (a) BASELINE config 2 at full width, a
    ``Scheduler(device=cuda)`` with ``TorchPlacement``, 16 one-thread
    ``Worker``s over ``inproc://`` and a ``Client`` under ``bench.py``'s
-   overrides with the periodic gate at 16 workers; a warm-up
-   ``tensordot_graph(8)``, then the timed ``tensordot_graph(32)`` (45,056
-   tasks) of 4 x 4 CUDA blocks of seeded small integers: K4 (or K1) and K7
+   overrides with the periodic gate at 16 workers; the timed
+   ``tensordot_graph(32)`` (45,056 tasks, with no warm-up graph before it) of 4 x 4 CUDA blocks of seeded small integers: K4 (or K1) and K7
    launched from inside the ``Scheduler``, no device path failing, the
    results equal bit for bit to the same graph on a ``device="cpu"``
    cluster in a child process; the wall, tasks/s, the plan's counters, the
@@ -247,10 +246,29 @@ and prints no result):
    child's RSS; (e) an actor's CUDA accumulator over 100 ``add`` calls, a
    task gathering 16 CUDA blocks through ``worker_client()`` and
    ``client.get_executor().map`` over 32 inputs.  Phase 15's CPU run starts
-   once its card runs are done, so that their host walls measure the port
-   alone.
+   before phase 14, beside phase 14's card runs and its twin, and is read
+   once phase 15's card runs are done, so that their host walls measure
+   the port alone;
+16. the port's shuffle and coordination extensions: (a) BASELINE config 4
+   at full width, ``bench.py``'s ``cfg_shuffle``: 10,000,000 rows (an int64
+   key in [0, 2^30), an f64 value) in 128 partitions made by a mapped task,
+   ``p2p_shuffle_arrays(on="key")`` into 128 outputs on the port's
+   ``LocalCluster(n_workers=128, threads_per_worker=1)`` on the card, then a
+   mapped ``len``: every row comes out once, in output ``splitmix64(key) %
+   128``, each output holding its shards in input-partition order (checked
+   against the rows computed again without the cluster); the wall from the
+   shuffle call to the gathered sizes, rows/s and the launches of K1, K4,
+   K6, K7 and K8 during it; (b) the device shuffle through the cluster at
+   phase 8's size: 8 inputs of 8,388,608 rows made on the card,
+   ``p2p_shuffle_device`` on ``LocalCluster(n_workers=8)`` with the store's
+   mesh on 8 virtual shards of the card, K12 launched 4 times from the
+   barrier task, the outputs on the card and equal bit for bit to a direct
+   ``shuffle_on_mesh``; (c) an Event, a Lock, a Semaphore, a Queue, a
+   Variable and a published dataset carrying a future of a 1,024 x 1,024
+   CUDA block from one client to another, each value equal bit for bit.
 
-The last three lines are the card's ``nvidia-smi`` name and power limit,
+Each phase's wall is printed as it ends, and all of them again in one JSON
+line.  The last three lines are the card's ``nvidia-smi`` name and power limit,
 one JSON object listing the kernels (``flash_fwd``, ``flash_bwd``,
 ``place_wave``, ``partition``, ``steal``, ``amm_drop``, ``place_shard``,
 ``shuffle_bucket``, and the torch routes ``mirror_view``, with the
@@ -259,8 +277,9 @@ sharded view's numbers, ``rebalance``, ``ring_attention``, ``ulysses``,
 ``wavefront`` and ``sharded_decide_workers``) with their launches, errors
 and times (phase 12's launches added, and kept apart as
 ``launches_control_plane``, phase 13's as ``launches_recovery``, phase
-14's as ``launches_servers`` and phase 15's as ``launches_deploy``), and
-``{"ok": true, "device": {...}}``.
+14's as ``launches_servers``, phase 15's as ``launches_deploy``, phase
+16a-c's as ``launches_shuffle`` and K12's of 16b as
+``launches_shuffle_ext``), and ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -316,7 +335,7 @@ def check(cond, msg):
         raise RuntimeError(msg)
 
 
-def cuda_ms(fn, reps=10, warmup=2):
+def cuda_ms(fn, reps=3, warmup=1):
     """Median milliseconds of ``fn`` over ``reps`` runs, CUDA events."""
     for _ in range(warmup):
         fn()
@@ -1829,7 +1848,7 @@ def phase_periodic(ptxas=None):
     *_, mem_card = rebalance.rebalance_rounds(*card_args, R)
     err = float((mem_card.cpu() - mem_cpu).abs().max())
     check(err == 0.0, f"rebalance: the card's projected memory differs from the CPU run by {err}")
-    ms = cuda_ms(lambda: rebalance.rebalance_rounds(*card_args, R), reps=10, warmup=1)
+    ms = cuda_ms(lambda: rebalance.rebalance_rounds(*card_args, R), warmup=1)
     bound_ms, bound_by = _rebalance_bound_ms(len(card_args[0]), REBALANCE_WORKERS, R)
     # the whole plan as the scheduler calls it (pack, rounds, moves back), and
     # the host plan its gate takes below 512 candidates, on the same keys
@@ -4119,9 +4138,9 @@ def phase_recovery(twin, dev=None):
 # BASELINE config 2 through the port's asyncio servers: rechunk + tensordot
 # (bench.py's _tensordot_graph) on 16 one-thread workers, bench.py's
 # overrides plus the periodic gate opened at 16 workers so K6, K7 and K8 run;
-# the warm-up graph at G=8 (1,024 tasks, a plan of its own; G=16 before phase
-# 15 came) keeps the whole script near 450 s
-SRV_WORKERS, SRV_G, SRV_WARM_G, SRV_BLOCK = 16, 32, 8, 4
+# no warm-up graph (its plan and its wall were cut when phase 16 came, to keep
+# the whole script under 525 s): the timed graph's first plan is the run's
+SRV_WORKERS, SRV_G, SRV_BLOCK = 16, 32, 4
 SRV_CONFIG = {"scheduler.jax.enabled": True, "scheduler.jax.min-workers": 0,
               "scheduler.jax.min-transfer-ratio": 0, "scheduler.jax.periodic-min-workers": 16}
 # 14b: the wire on the card, CUDA tensors between workers over tcp
@@ -4145,20 +4164,10 @@ def _placement_stats(p) -> dict:
                 hint_drops=dict(p.hint_drops), enabled=p.enabled)
 
 
-def _reset_placement(p) -> None:
-    """Zero the plan counters, as ``bench.py``'s ``_run_tensordot`` does
-    after its warm-up graph."""
-    p.plan_hits = p.plan_misses = p.plan_parks = p.plans_computed = 0
-    for d in (p.miss_reasons, p.hint_drops):
-        for k in d:
-            d[k] = 0
-
-
-async def _servers_graph(device, addr, n_workers, G, n, warm_G=None, probe=None):
+async def _servers_graph(device, addr, n_workers, G, n, probe=None):
     """The port's ``Scheduler(device=device)`` on ``addr``, ``n_workers``
     one-thread ``Worker``s joined one after another and a ``Client``,
-    under :data:`SRV_CONFIG`: a warm-up ``tensordot_graph(warm_G)`` (when
-    given), then the timed ``tensordot_graph(G)`` of ``n x n`` blocks on
+    under :data:`SRV_CONFIG`: the timed ``tensordot_graph(G)`` of ``n x n`` blocks on
     ``device`` (CUDA for ``None``).  ``probe(scheduler, workers)`` runs
     after the timed graph, before the cluster closes.  Returns the results'
     digest, the wall, the task count and the placement's counters."""
@@ -4176,14 +4185,7 @@ async def _servers_graph(device, addr, n_workers, G, n, warm_G=None, probe=None)
                 for _ in range(n_workers):
                     workers.append(await Worker(s.address, nthreads=1).start())
                 async with Client(s.address) as c:
-                    if warm_G:
-                        wg, wouts = graphs.tensordot_graph(warm_G, tag="w", n=n, device=blocks)
-                        futs = c.compute_graph(wg, wouts)
-                        await c.gather([futs[k] for k in wouts])
-                        del futs
                     p = s.state.placement
-                    if p is not None:
-                        _reset_placement(p)
                     g, outs = graphs.tensordot_graph(G, n=n, device=blocks)
                     t0 = time.perf_counter()
                     futs = c.compute_graph(g, outs)
@@ -4252,8 +4254,7 @@ def _wire_run(device):
 def servers_cpu():
     """Phase 14's two runs with ``device="cpu"`` (blocks, mirror, placement
     and periodic paths on the CPU), in a child process phase 14 starts
-    beside its card runs: 14a's graph without the warm-up (the results do
-    not depend on it) and 14b's."""
+    beside its card runs: 14a's graph and 14b's."""
     torch.set_num_threads(CP_CPU_THREADS)
     a = asyncio.run(asyncio.wait_for(_servers_graph(
         "cpu", "inproc://", SRV_WORKERS, SRV_G, SRV_BLOCK), SRV_TIMEOUT_S))
@@ -4316,7 +4317,7 @@ def _servers_card(card, dev, twin):
     mem0 = torch.cuda.memory_allocated()
     zero()
     a = asyncio.run(asyncio.wait_for(_servers_graph(
-        dev, "inproc://", SRV_WORKERS, SRV_G, SRV_BLOCK, warm_G=SRV_WARM_G, probe=probe),
+        dev, "inproc://", SRV_WORKERS, SRV_G, SRV_BLOCK, probe=probe),
         SRV_TIMEOUT_S))
     launches = read()
     peak = torch.cuda.max_memory_allocated() - mem0
@@ -4331,9 +4332,9 @@ def _servers_card(card, dev, twin):
               else "the Python oracle (no native engine attached)")
     n = a["n_tasks"]
     print(f"[{card}] 14a config 2: tensordot_graph({SRV_G}) of {SRV_BLOCK} x {SRV_BLOCK} CUDA blocks, "
-          f"{n} tasks on {SRV_WORKERS} inproc workers x 1 thread after a warm-up graph (G={SRV_WARM_G}): "
+          f"{n} tasks on {SRV_WORKERS} inproc workers x 1 thread, no warm-up graph: "
           f"wall s {a['wall_s']:.3f}, {n / a['wall_s']:.0f} tasks / s; plan {pl}; launches {launches} "
-          f"(K4 partition, K1 place_wave, K6 mirror_view, K7 steal, K8 amm_drop, warm-up included); "
+          f"(K4 partition, K1 place_wave, K6 mirror_view, K7 steal, K8 amm_drop); "
           f"device paths {a['paths']}; {engine}; peak device memory {peak} B")
 
     # 14b: the wire on the card
@@ -4398,7 +4399,7 @@ def _blocks(device) -> str:
     return "cuda" if device is None else str(device)
 
 
-def _paths(s) -> dict:
+def _paths(s, phase="15") -> dict:
     """The scheduler's periodic device paths' counters (None where a path
     was never made); none may count a failure."""
     ext = s.extensions.get("stealing")
@@ -4409,7 +4410,7 @@ def _paths(s) -> dict:
         path = getattr(policy, "_device_path", None)
         out[f"amm{i}"] = path.counters() if path is not None else None
     for name, c in out.items():
-        check(c is None or c["failures"] == 0, f"15: the {name} device path failed: {c}")
+        check(c is None or c["failures"] == 0, f"{phase}: the {name} device path failed: {c}")
     return out
 
 
@@ -4722,8 +4723,8 @@ async def _extras(device):
 
 
 def deploy_cpu():
-    """Phase 15's parts with ``device="cpu"``, in a child process phase 15
-    starts once its card runs are done."""
+    """Phase 15's parts with ``device="cpu"``, in the child process of
+    :func:`start_deploy_twin`."""
     torch.set_num_threads(CP_CPU_THREADS)
 
     def run(coro):
@@ -4734,26 +4735,38 @@ def deploy_cpu():
             "d": run(_nannies("cpu")), "e": run(_extras("cpu"))}
 
 
-def phase_deploy(dev=None):
+def start_deploy_twin():
+    """Phase 15's CPU run in a child process, started before phase 14's card
+    runs (beside phase 14's own twin) and read after phase 15's card runs,
+    so that no host wall of phase 15's card runs is taken beside it.  Its
+    output goes to files: a pipe left unread would stall it."""
+    out, err = tempfile.TemporaryFile(mode="w+"), tempfile.TemporaryFile(mode="w+")
+    proc = subprocess.Popen(
+        [sys.executable, "-c", "import json, chip_smoke as c; print(json.dumps(c.deploy_cpu()))"],
+        cwd=Path(__file__).resolve().parent, stdout=out, stderr=err, text=True)
+    proc.files = (out, err)
+    proc.started = time.perf_counter()
+    return proc
+
+
+def phase_deploy(twin, dev=None):
     """Phase 15, the deploy layer and the client's extras on the card, then
-    its CPU run in a child process, alone, so that no host wall of the card
-    runs is taken beside it."""
+    the CPU run ``twin`` (:func:`start_deploy_twin`) read and compared."""
     card = smi_line()
     t_phase = time.perf_counter()
     launches, numbers, parts = _deploy_card(card, dev)
     numbers["card_s"] = time.perf_counter() - t_phase
     t0 = time.perf_counter()
-    twin = subprocess.run(
-        [sys.executable, "-c", "import json, chip_smoke as c; print(json.dumps(c.deploy_cpu()))"],
-        cwd=Path(__file__).resolve().parent, capture_output=True, text=True,
-        timeout=CP_TWIN_TIMEOUT_S)
-    numbers["cpu_run_s"] = time.perf_counter() - t0
-    check(twin.returncode == 0,
-          f"phase 15's CPU run failed ({twin.returncode}):\n{twin.stderr[-3000:]}")
-    numbers.update(_deploy_compare(card, parts, json.loads(twin.stdout.strip().splitlines()[-1])))
+    rc = twin.wait(timeout=CP_TWIN_TIMEOUT_S)
+    numbers["cpu_wait_s"] = time.perf_counter() - t0
+    numbers["cpu_run_s"] = time.perf_counter() - twin.started
+    out, err = (f.seek(0) or f.read() for f in twin.files)
+    check(rc == 0, f"phase 15's CPU run failed ({rc}):\n{err[-3000:]}")
+    numbers.update(_deploy_compare(card, parts, json.loads(out.strip().splitlines()[-1])))
     numbers["phase_s"] = time.perf_counter() - t_phase
     print(f"[{card}] phase 15 deploy s {numbers['phase_s']:.1f} (card runs s "
-          f"{numbers['card_s']:.1f}, then the CPU run s {numbers['cpu_run_s']:.1f})")
+          f"{numbers['card_s']:.1f}, then s {numbers['cpu_wait_s']:.1f} waiting for the CPU run, "
+          f"which started before phase 14 and took s {numbers['cpu_run_s']:.1f})")
     return launches, numbers
 
 
@@ -4900,12 +4913,338 @@ def _deploy_compare(card, card_parts, cpu) -> dict:
           f"{cpu['c_off']['wall_s']:.3f} on {cpu['c_on']['ran_on']} / {cpu['c_off']['ran_on']} "
           f"workers; 15d spawn s {[round(x, 3) for x in cpu['d']['spawn_s']]}, restart s "
           f"{cpu['d']['restart_s']:.3f}; 15b CPU spill {cpu['b']['spill_MBps']:.1f} / unspill "
-          f"{cpu['b']['unspill_MBps']:.1f} MB/s; in a child process after the card's runs)")
+          f"{cpu['b']['unspill_MBps']:.1f} MB/s; in a child process started before phase 14)")
     return dict(config1_cpu_wall_s=cpu["a"]["wall_s"], spill_cpu_MBps=cpu["b"]["spill_MBps"],
                 unspill_cpu_MBps=cpu["b"]["unspill_MBps"],
                 steal_cpu_on_wall_s=cpu["c_on"]["wall_s"],
                 steal_cpu_off_wall_s=cpu["c_off"]["wall_s"], nanny_cpu_spawn_s=cpu["d"]["spawn_s"],
                 nanny_cpu_restart_s=cpu["d"]["restart_s"])
+
+
+
+# ------------------------------------------------------------ phase 16
+
+
+# 16a: BASELINE config 4 (bench.py's cfg_shuffle): 10,000,000 rows of an int64
+# key in [0, 2^30) and an f64 value, in 128 partitions of 78,125 made by a
+# mapped task, hash-shuffled on "key" into 128 outputs by p2p_shuffle_arrays on
+# LocalCluster(n_workers=128, threads_per_worker=1) at its defaults
+C4_WORKERS, C4_PARTS, C4_ROWS = 128, 128, 10_000_000
+# 16b: the device shuffle through the cluster at phase 8's size: 8 shards of
+# SHUF_ROWS rows (int32 keys in [0, 2^30), [SHUF_WIDTH] f32 values) made on
+# the card, the store's mesh on 8 virtual shards of the one card
+DS_ROWS = SHUF_ROWS
+# 16c: the coordination objects carry a future of a 1,024 x 1,024 f32 block
+COORD_N = 1024
+SHUFFLE_TIMEOUT_S = 600
+
+
+def config4_part(i, n):
+    """16a's input partition ``i``: bench.py's ``cfg_shuffle`` ``make_part``."""
+    rng = np.random.default_rng(i)
+    return {"key": rng.integers(0, 1 << 30, n).astype(np.int64), "value": rng.random(n)}
+
+
+def part_rows(p):
+    return len(p["key"])
+
+
+def _splitmix64(x):
+    """The shuffle's row hash, written out again here: splitmix64's
+    finalizer on the key's bits."""
+    z = x.astype(np.uint64) + np.uint64(0x9E3779B97F4A7C15)
+    z = (z ^ (z >> np.uint64(30))) * np.uint64(0xBF58476D1CE4E5B9)
+    z = (z ^ (z >> np.uint64(27))) * np.uint64(0x94D049BB133111EB)
+    return z ^ (z >> np.uint64(31))
+
+
+def _stages(stream, sid) -> dict:
+    """16a by part from the scheduler's task stream: for the transfers, the
+    barrier, the unpacks and the ``len`` tasks, the seconds from the first
+    transfer's start to the part's first start and last stop, and the part's
+    compute seconds summed (the workers' one clock)."""
+    parts = {"transfer": f"{sid}-transfer-", "barrier": f"{sid}-barrier",
+             "unpack": f"{sid}-unpack-", "len": "part_rows"}
+    spans: dict = {}
+    for rec in stream:
+        for ss in rec["startstops"]:
+            if ss.get("action") != "compute":
+                continue
+            for name, prefix in parts.items():
+                if str(rec["key"]).startswith(prefix):
+                    spans.setdefault(name, []).append((ss["start"], ss["stop"]))
+    if "transfer" not in spans:
+        return {}
+    t0 = min(a for a, _ in spans["transfer"])
+    return {name: {"first_start_s": min(a for a, _ in v) - t0, "last_stop_s": max(b for _, b in v) - t0,
+                   "compute_s": sum(b - a for a, b in v), "tasks": len(v)}
+            for name, v in spans.items()}
+
+
+def config4_expected(n_parts, rows_per):
+    """16a's outputs computed without the cluster: output ``j`` holds every
+    row whose key hashes to ``j`` (``splitmix64(key) % n_parts``), once,
+    partition by partition in input order and in input order inside each."""
+    parts = [config4_part(i, rows_per) for i in range(n_parts)]
+    cols = {c: np.concatenate([p[c] for p in parts]) for c in ("key", "value")}
+    dest = (_splitmix64(cols["key"]) % np.uint64(n_parts)).astype(np.int64)
+    # rows by destination, then by position (input partition, row): a stable sort
+    order = np.argsort(dest, kind="stable")
+    bounds = np.searchsorted(dest[order], np.arange(n_parts + 1))
+    return [{c: v[order[bounds[j]:bounds[j + 1]]] for c, v in cols.items()}
+            for j in range(n_parts)]
+
+
+async def _config4(device):
+    """16a: config 4 on the port's ``LocalCluster``; returns the outputs,
+    the wall from the shuffle call to the gathered sizes and the epoch."""
+    from distributed_tpu_torch.client.client import Client
+    from distributed_tpu_torch.deploy.local import LocalCluster
+    from distributed_tpu_torch.shuffle import p2p_shuffle_arrays
+
+    t0 = time.perf_counter()
+    async with LocalCluster(n_workers=C4_WORKERS, threads_per_worker=1, device=device) as cl:
+        start_s = time.perf_counter() - t0
+        async with Client(cl.scheduler_address) as c:
+            parts = c.map(config4_part, range(C4_PARTS), n=C4_ROWS // C4_PARTS)
+            await c.gather(parts)
+            t0 = time.perf_counter()
+            outs = await p2p_shuffle_arrays(c, parts, npartitions_out=C4_PARTS, on="key")
+            sizes = await c.gather(c.map(part_rows, outs))
+            wall = time.perf_counter() - t0
+            got = await c.gather(outs)
+            ext = cl.scheduler.extensions["shuffle"]
+            sid = outs[0].key.rsplit("-unpack-", 1)[0]
+            run_id = ext.active[sid].run_id if sid in ext.active else None
+            owners = {w for ws in (await c.who_has(outs)).values() for w in ws}
+            stages = _stages(await c.get_task_stream(count=4 * C4_PARTS + 8), sid)
+            out = dict(got=got, sizes=sizes, wall_s=wall, start_s=start_s, run_id=run_id,
+                       stages=stages,
+                       owners=len(owners), state_device=str(cl.scheduler.state.device),
+                       paths=_paths(cl.scheduler, "16a"))
+            t0 = time.perf_counter()
+    out["close_s"] = time.perf_counter() - t0
+    return out
+
+
+def device_shuffle_part(i, n, width, device):
+    """16b's input ``i`` made on ``device``: int32 keys in [0, 2^30) and
+    ``[n, width]`` f32 values from a generator seeded with ``i``."""
+    g = torch.Generator(device=device).manual_seed(1000 + i)
+    keys = torch.randint(0, 1 << 30, (n,), generator=g, device=device, dtype=torch.int32)
+    return keys, torch.rand((n, width), generator=g, device=device)
+
+
+async def _device_shuffle(device):
+    """16b: ``p2p_shuffle_device`` on the port's ``LocalCluster(n_dev)``,
+    the store's mesh ``[device] * n_dev``; returns the inputs, the
+    outputs, the wall, K12's launches during the shuffle and the epoch."""
+    from distributed_tpu_torch.client.client import Client
+    from distributed_tpu_torch.deploy.local import LocalCluster
+    from distributed_tpu_torch.ops import ici
+    from distributed_tpu_torch.shuffle.device import device_store, p2p_shuffle_device
+
+    n_dev, n_rows = SHUF_SHARDS, DS_ROWS
+    store = device_store()
+    old = store.devices
+    store.devices = [device] * n_dev
+    try:
+        async with LocalCluster(n_workers=n_dev, threads_per_worker=1, device=device) as cl:
+            async with Client(cl.scheduler_address) as c:
+                inputs = c.map(device_shuffle_part, range(n_dev), n=n_rows, width=SHUF_WIDTH,
+                               device=str(device))
+                parts = await c.gather(inputs)
+                k0 = ici.shuffle_bucket_cuda.launches
+                t0 = time.perf_counter()
+                outs = await p2p_shuffle_device(c, inputs)
+                got = await c.gather(outs)
+                if torch.device(device).type == "cuda":
+                    torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+                launches = ici.shuffle_bucket_cuda.launches - k0
+                sid = outs[0].key.rsplit("-unpack-", 1)[0]
+                st = cl.scheduler.extensions["shuffle"].active.get(sid)
+                served = store.was_served(sid, st.run_id) if st is not None else False
+                return dict(parts=parts, got=got, wall_s=wall, launches=launches,
+                            run_id=st.run_id if st is not None else None, served=served)
+    finally:
+        store.devices = old
+
+
+def coord_block(seed, n, device):
+    g = torch.Generator(device=device).manual_seed(seed)
+    return torch.rand((n, n), generator=g, device=device)
+
+
+async def _coordination(device):
+    """16c: a future of a ``COORD_N``-square block on ``device`` handed from one
+    client to another through a Queue, a Variable, an Event, a Lock, a
+    Semaphore and a published dataset; returns each handed-over value."""
+    from distributed_tpu_torch.client.client import Client
+    from distributed_tpu_torch.coordination import Event, Lock, Queue, Semaphore, Variable
+    from distributed_tpu_torch.deploy.local import LocalCluster
+
+    t0 = time.perf_counter()
+    async with LocalCluster(n_workers=2, threads_per_worker=1, device=device) as cl:
+        addr = cl.scheduler_address
+        async with Client(addr) as c1, Client(addr) as c2:
+            start_s = time.perf_counter() - t0
+            fut = c1.submit(coord_block, 16, COORD_N, str(device), key="coord-block")
+            want = await fut.result()
+            got = {}
+            t0 = time.perf_counter()
+
+            async def take(name, record):
+                got[name] = await record.result()
+
+            await Queue("q16", client=c1).put(fut)
+            await take("queue", await Queue("q16", client=c2).get(timeout=30))
+            await Variable("v16", client=c1).set(fut)
+            await take("variable", await Variable("v16", client=c2).get(timeout=30))
+            # the Event: c2 waits, c1 leaves the future in a Variable and sets it
+            waiter = asyncio.ensure_future(Event("e16", client=c2).wait(timeout=30))
+            await Variable("ve16", client=c1).set(fut)
+            await Event("e16", client=c1).set()
+            check(await waiter, "16c: the Event never reached the second client")
+            await take("event", await Variable("ve16", client=c2).get(timeout=30))
+            # the Lock and the Semaphore: c1 holds it while it leaves the
+            # future, c2 is refused until c1 lets go
+            for name, a, b in (("lock", Lock("l16", client=c1), Lock("l16", client=c2)),
+                               ("semaphore", Semaphore(1, "s16", client=c1),
+                                Semaphore(1, "s16", client=c2))):
+                check(await a.acquire(timeout=30), f"16c: the first client's {name}")
+                check(not await b.acquire(timeout=0.05), f"16c: the {name} let two holders in")
+                await Variable(f"v{name}16", client=c1).set(fut)
+                await a.release()
+                check(await b.acquire(timeout=30), f"16c: the second client's {name}")
+                await take(name, await Variable(f"v{name}16", client=c2).get(timeout=30))
+                await b.release()
+            await c1.publish_dataset("ds16", fut)
+            await take("dataset", await c2.get_dataset("ds16"))
+            await c2.unpublish_dataset("ds16")
+            walls = {"start_s": start_s, "handoffs_s": time.perf_counter() - t0}
+            t0 = time.perf_counter()
+    walls["close_s"] = time.perf_counter() - t0
+    return want, got, walls
+
+
+def phase_shuffle(dev=None):
+    """Phase 16, the port's shuffle and coordination extensions on the card."""
+    from distributed_tpu_torch.ops import amm, ici, leveled, partition, stealing
+    from distributed_tpu_torch.scheduler.mirror import TorchMirror
+
+    card = smi_line()
+    t_phase = time.perf_counter()
+    counters = {"place_wave": leveled.place_waves_cuda, "partition": partition.partition_cuda,
+                "steal": stealing.steal_rounds_cuda, "amm_drop": amm.drop_rounds_cuda,
+                "shuffle_bucket": ici.shuffle_bucket_cuda}
+
+    def zero():
+        for fn in counters.values():
+            fn.launches = 0
+        TorchMirror.launches = 0
+
+    def read():
+        out = {name: fn.launches for name, fn in counters.items()}
+        out["mirror_view"] = TorchMirror.launches
+        return out
+
+    def run(coro):
+        return asyncio.run(asyncio.wait_for(coro, SHUFFLE_TIMEOUT_S))
+
+    # 16a: config 4 at full width
+    zero()
+    a = run(_config4(dev))
+    launches_a = read()
+    t0 = time.perf_counter()
+    want = config4_expected(C4_PARTS, C4_ROWS // C4_PARTS)
+    got = a.pop("got")
+    check(sum(a["sizes"]) == C4_ROWS and sum(len(p["key"]) for p in got) == C4_ROWS,
+          f"16a: {sum(a['sizes'])} rows came out of {C4_ROWS}")
+    for j, (g, w) in enumerate(zip(got, want)):
+        check(bool(((_splitmix64(g["key"]) % np.uint64(C4_PARTS)) == j).all()),
+              f"16a: output {j} holds a row of another partition")
+        check(np.array_equal(g["key"], w["key"])
+              and np.array_equal(g["value"].view(np.uint64), w["value"].view(np.uint64)),
+              f"16a: output {j} differs from its rows in input-partition order")
+    check_s = time.perf_counter() - t0
+    del got, want
+    check(a["state_device"].startswith("cuda") or dev is not None,
+          f"16a: the scheduler's state on {a['state_device']}")
+    print(f"[{card}] 16a config 4: p2p_shuffle_arrays of {C4_ROWS} rows (int64 key, f64 value) in "
+          f"{C4_PARTS} partitions into {C4_PARTS} on LocalCluster(n_workers={C4_WORKERS}, "
+          f"threads_per_worker=1) (started in s {a['start_s']:.3f}, closed in s {a['close_s']:.3f}): "
+          f"wall s {a['wall_s']:.3f} from "
+          f"the shuffle call to the gathered sizes, {C4_ROWS / a['wall_s']:.0f} rows / s; epoch "
+          f"{a['run_id']}; outputs on {a['owners']} workers; every row once, in its hash partition, "
+          f"in input-partition order (checked in s {check_s:.3f}); by part from the task stream "
+          f"(s from the first transfer's start: first start, last stop, compute summed) "
+          f"{json.dumps(a['stages'])}; launches {launches_a} (K1 "
+          f"place_wave, K4 partition, K6 mirror_view, K7 steal, K8 amm_drop); device paths "
+          f"{a['paths']}")
+
+    # 16b: the device shuffle through the cluster
+    torch.cuda.empty_cache()
+    zero()
+    b = run(_device_shuffle(dev if dev is not None else "cuda:0"))
+    launches_b = read()
+    check(b["run_id"] == 1 and b["served"], f"16b: epoch {b['run_id']}, served {b['served']}")
+    check(b["launches"] == 4 and launches_b["shuffle_bucket"] == 4,
+          f"16b: K12 launched {b['launches']} times in the shuffle (4 an exchange)")
+    parts = b.pop("parts")
+    mesh = ici.make_mesh_1d(SHUF_SHARDS, devices=[parts[0][0].device] * SHUF_SHARDS)
+    ko, vo, counts, _ = ici.shuffle_on_mesh(mesh, [k for k, _ in parts], [v for _, v in parts],
+                                            capacity=DS_ROWS)
+    direct = ici.compact_shuffle_output(ko, vo, counts, SHUF_SHARDS)
+    del ko, vo
+    for d, ((gk, gv), (wk, wv)) in enumerate(zip(b["got"], direct)):
+        check(gk.device == wk.device and gk.device.type == ("cuda" if dev is None else gk.device.type),
+              f"16b: output {d} on {gk.device}")
+        check(_same_bytes(gk, wk) and _same_bytes(gv, wv),
+              f"16b: output {d} differs from shuffle_on_mesh's")
+    rows_out = sum(int(k.shape[0]) for k, _ in b["got"])
+    check(rows_out == SHUF_SHARDS * DS_ROWS, f"16b: {rows_out} rows came out")
+    del parts, direct
+    b.pop("got")
+    torch.cuda.empty_cache()
+    print(f"[{card}] 16b device shuffle: p2p_shuffle_device of {SHUF_SHARDS} x {DS_ROWS} rows "
+          f"(int32 keys, [{SHUF_WIDTH}] f32 values) made on the card, on LocalCluster(n_workers="
+          f"{SHUF_SHARDS}) with the store's mesh on {SHUF_SHARDS} shards of the card: wall s "
+          f"{b['wall_s']:.3f}, {SHUF_SHARDS * DS_ROWS / b['wall_s']:.0f} rows / s; K12 launched "
+          f"{b['launches']} times from the barrier task; outputs on the card, == a direct "
+          f"shuffle_on_mesh bit for bit; launches {launches_b}")
+
+    # 16c: coordination with a CUDA block
+    zero()
+    t0 = time.perf_counter()
+    want_c, got_c, walls_c = run(_coordination(dev if dev is not None else "cuda"))
+    coord_s = time.perf_counter() - t0
+    launches_c = read()
+    for name, t in got_c.items():
+        check(t.device == want_c.device and _same_bytes(t, want_c),
+              f"16c: the {name} handed over {t.device} / a value that differs")
+    check(want_c.device.type == ("cuda" if dev is None else want_c.device.type),
+          f"16c: the block on {want_c.device}")
+    print(f"[{card}] 16c coordination: a future of a {COORD_N} x {COORD_N} f32 block on "
+          f"{want_c.device} handed from one client to another through {sorted(got_c)}, each equal "
+          f"bit for bit; s {coord_s:.3f} (cluster and clients up s {walls_c['start_s']:.3f}, the "
+          f"handoffs s {walls_c['handoffs_s']:.3f}, closing s {walls_c['close_s']:.3f}); launches "
+          f"{launches_c}")
+    launches = {k: launches_a.get(k, 0) + launches_b.get(k, 0) + launches_c.get(k, 0)
+                for k in launches_a}
+    numbers = dict(config4_wall_s=a["wall_s"], config4_rows_per_s=C4_ROWS / a["wall_s"],
+                   config4_start_s=a["start_s"], config4_close_s=a["close_s"],
+                   config4_run_id=a["run_id"],
+                   config4_owners=a["owners"], config4_stages=a["stages"],
+                   config4_launches=launches_a,
+                   config4_paths=a["paths"], config4_check_s=check_s,
+                   device_shuffle_wall_s=b["wall_s"], device_shuffle_k12=b["launches"],
+                   device_shuffle_launches=launches_b, coordination_s=coord_s,
+                   coordination_walls=walls_c,
+                   coordination_launches=launches_c)
+    numbers["phase_s"] = time.perf_counter() - t_phase
+    print(f"[{card}] phase 16 shuffle s {numbers['phase_s']:.1f}")
+    return launches, numbers
 
 
 def main() -> int:
@@ -4921,25 +5260,36 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     t0 = time.perf_counter()
-    phase_env()
-    k3_ptxas, periodic_ptxas_info = phase_build()
-    flash_entry = phase_flash()
-    bwd_entry = phase_flash_bwd(flash_entry, k3_ptxas)
-    wave_entry, oneshot = phase_placement()
-    hints_1m = phase_streamed(wave_entry, oneshot)
-    partition_entry = phase_partition(wave_entry, hints_1m)
-    periodic_entries = phase_periodic(periodic_ptxas_info)
-    shard_entry, mirror_sharded = phase_sharded(oneshot, periodic_ptxas_info.get("place_shard.cu"))
+    walls: dict[str, float] = {}
+
+    def phase(label, fn, *args):
+        """Run one phase and print its wall."""
+        t = time.perf_counter()
+        out = fn(*args)
+        walls[label] = round(time.perf_counter() - t, 1)
+        print(f"phase {label} wall s {walls[label]}")
+        return out
+
+    phase("0", phase_env)
+    k3_ptxas, periodic_ptxas_info = phase("1", phase_build)
+    flash_entry = phase("2", phase_flash)
+    bwd_entry = phase("2b", phase_flash_bwd, flash_entry, k3_ptxas)
+    wave_entry, oneshot = phase("3", phase_placement)
+    hints_1m = phase("4", phase_streamed, wave_entry, oneshot)
+    partition_entry = phase("5", phase_partition, wave_entry, hints_1m)
+    periodic_entries = phase("6", phase_periodic, periodic_ptxas_info)
+    shard_entry, mirror_sharded = phase("7", phase_sharded, oneshot,
+                                        periodic_ptxas_info.get("place_shard.cu"))
     for e in periodic_entries:
         if e["name"] == "mirror_view":
             e.update(mirror_sharded)
-    shuffle_entry = phase_data_plane(periodic_ptxas_info.get("shuffle_bucket.cu"))
-    long_context = phase_long_context()
-    training, k2_training, k3_training = phase_long_context_training()
+    shuffle_entry = phase("8", phase_data_plane, periodic_ptxas_info.get("shuffle_bucket.cu"))
+    long_context = phase("8 long context", phase_long_context)
+    training, k2_training, k3_training = phase("9", phase_long_context_training)
     flash_entry["launches_long_context_training"] = k2_training
     bwd_entry["launches_long_context_training"] = k3_training
-    round1 = phase_round1()
-    periphery, periphery_ms = phase_periphery()
+    round1 = phase("10", phase_round1)
+    periphery, periphery_ms = phase("11", phase_periphery)
     for e in (flash_entry, wave_entry, shard_entry, shuffle_entry):
         e["launches"] += periphery[e["name"]]
         e["launches_periphery"] = periphery[e["name"]]
@@ -4947,8 +5297,8 @@ def main() -> int:
     # phase 13's CPU run starts now, beside phase 12's card runs and its own
     recovery_twin = start_recovery_twin()
     try:
-        control, control_numbers = phase_control_plane()
-        recovery, recovery_numbers = phase_recovery(recovery_twin)
+        control, control_numbers = phase("12", phase_control_plane)
+        recovery, recovery_numbers = phase("13", phase_recovery, recovery_twin)
     finally:
         if recovery_twin.poll() is None:
             recovery_twin.kill()
@@ -4964,20 +5314,36 @@ def main() -> int:
         if e["name"] in recovery:
             e["launches"] += recovery[e["name"]]
             e["launches_recovery"] = recovery[e["name"]]
-    servers, servers_numbers = phase_servers()
+    # phase 15's CPU run starts now, beside phase 14's card runs and its twin
+    deploy_twin = start_deploy_twin()
+    try:
+        servers, servers_numbers = phase("14", phase_servers)
+        deploy, deploy_numbers = phase("15", phase_deploy, deploy_twin)
+    finally:
+        if deploy_twin.poll() is None:
+            deploy_twin.kill()
+            deploy_twin.wait()
     for e in (wave_entry, partition_entry, *periodic_entries):
         if e["name"] in servers:
             e["launches"] += servers[e["name"]]
             e["launches_servers"] = servers[e["name"]]
-    deploy, deploy_numbers = phase_deploy()
     for e in (wave_entry, partition_entry, *periodic_entries):
         if e["name"] in deploy:
             e["launches"] += deploy[e["name"]]
             e["launches_deploy"] = deploy[e["name"]]
+    shuffle, shuffle_numbers = phase("16", phase_shuffle)
+    for e in (wave_entry, partition_entry, *periodic_entries):
+        if e["name"] in shuffle:
+            e["launches"] += shuffle[e["name"]]
+            e["launches_shuffle"] = shuffle[e["name"]]
+    shuffle_entry["launches"] += shuffle["shuffle_bucket"]
+    shuffle_entry["launches_shuffle_ext"] = shuffle["shuffle_bucket"]
     print(json.dumps({"control_plane": control_numbers}))
     print(json.dumps({"recovery": recovery_numbers}))
     print(json.dumps({"servers": servers_numbers}))
     print(json.dumps({"deploy": deploy_numbers}))
+    print(json.dumps({"shuffle": shuffle_numbers}))
+    print(json.dumps({"phase_s": walls}))
     kernels = [flash_entry, bwd_entry, wave_entry, partition_entry, *periodic_entries, shard_entry,
                shuffle_entry, *long_context, *training, *round1]
     print(f"total_s {time.perf_counter() - t0:.1f}")

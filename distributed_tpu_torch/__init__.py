@@ -13,10 +13,10 @@ means the CUDA device and raises when none is present; only an explicit
 Hand-written kernels live under ``ops/csrc`` and are built with ``nvcc``
 at first use (``ops/_build.py``).
 
-The servers, the client, the clusters and the plugin classes are lazy
-exports, as in the reference (``distributed_tpu/__init__.py``), without
-the coordination primitives, ``SSHCluster`` and ``SubprocessCluster``,
-which are not ported yet.
+The servers, the client, the clusters, the coordination primitives and
+the plugin classes are lazy exports, as in the reference
+(``distributed_tpu/__init__.py``), without ``SSHCluster`` and
+``SubprocessCluster``, which are not ported yet.
 """
 
 from distributed_tpu_torch._device import resolve_device
@@ -52,6 +52,10 @@ def __getattr__(name: str):
         from distributed_tpu_torch.deploy import spec as _spec
 
         return getattr(_spec, name)
+    if name in ("Semaphore", "Lock", "MultiLock", "Event", "Queue", "Variable", "Pub", "Sub"):
+        from distributed_tpu_torch import coordination as _coord
+
+        return getattr(_coord, name)
     if name == "Actor":
         from distributed_tpu_torch.client.actor import Actor
 
@@ -70,7 +74,8 @@ def __getattr__(name: str):
 _LAZY = (
     "Client", "Future", "as_completed", "wait", "fire_and_forget",
     "Scheduler", "Worker", "Nanny", "LocalCluster", "SpecCluster",
-    "Adaptive", "Cluster", "Actor", "SchedulerPlugin",
+    "Adaptive", "Cluster", "Semaphore", "Lock", "MultiLock", "Event",
+    "Queue", "Variable", "Pub", "Sub", "Actor", "SchedulerPlugin",
     "WorkerPlugin", "NannyPlugin", "progress", "progress_sync",
 )
 

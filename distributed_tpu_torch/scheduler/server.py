@@ -16,9 +16,9 @@ but for these seams:
 - Where the reference builds ``JaxPlacement()`` when
   ``scheduler.jax.enabled`` is set (``:148-151``), the port builds
   ``TorchPlacement(device=...)``.
-- :func:`default_extensions` lists the port's ``WorkStealing`` and
-  ``ActiveMemoryManagerExtension``; shuffle and coordination are not
-  ported yet (ROADMAP queue 1), so their extensions and ops are absent.
+- :func:`default_extensions` lists the port's own extensions under the
+  reference's keys: ``WorkStealing``, ``ActiveMemoryManagerExtension``,
+  ``ShuffleSchedulerExtension`` and the coordination extensions.
 - ``http_port`` defaults to None, and an integer raises
   ``NotImplementedError``: the http server comes with ROADMAP's http item
   (the reference starts it at ``:366``).
@@ -62,14 +62,17 @@ logger = logging.getLogger("distributed_tpu_torch.scheduler")
 
 
 def default_extensions() -> dict[str, Any]:
-    """The DEFAULT_EXTENSIONS table (reference scheduler.py:178-193), without
-    shuffle and coordination, which are not ported yet."""
+    """The DEFAULT_EXTENSIONS table (reference scheduler.py:178-193)."""
+    from distributed_tpu_torch.coordination.extensions import coordination_extensions
     from distributed_tpu_torch.scheduler.amm import ActiveMemoryManagerExtension
     from distributed_tpu_torch.scheduler.stealing import WorkStealing
+    from distributed_tpu_torch.shuffle.scheduler_ext import ShuffleSchedulerExtension
 
     return {
         "stealing": WorkStealing,
         "amm": ActiveMemoryManagerExtension,
+        "shuffle": ShuffleSchedulerExtension,
+        **coordination_extensions(),
     }
 
 

@@ -15,31 +15,19 @@ run specs, epoch fencing, the barrier and the counts.
   ``_max_run``, ``was_served_once``, ``forget(only_idle_for=)``,
   ``mark_served`` dropping the inputs).
 - The task bodies (transfer, barrier, unpack), the precheck and exchange
-  RPC handlers and the graph function :func:`p2p_shuffle_device`.
-
-The port imports nothing of the reference's control plane, so it takes
-the reference's objects as arguments.  :func:`install_device_shuffle`
-puts a worker in this module's registry and replaces its two device
-shuffle handlers (the ones the reference's shuffle extension registers);
-the caller passes the worker's ``Reschedule`` class, which the worker
-catches by class::
-
-    from distributed_tpu.exceptions import Reschedule
-    for w in cluster.workers:
-        install_device_shuffle(w, reschedule=Reschedule, devices=["cpu"] * 8)
-    outs = await p2p_shuffle_device(client, inputs)
+  RPC handlers (which the worker's ``ShuffleWorkerExtension`` registers)
+  and the graph function :func:`p2p_shuffle_device`.  As in the reference,
+  a body finds its worker through ``get_worker()`` and the current epoch
+  through ``worker.shuffle.get_or_create_remote``; a stale epoch raises
+  the port's ``Reschedule``.
 
 Where the port differs from the reference (each has a test in
-``tests/test_torch_shuffle_device.py``):
-
-- a task body finds its worker in this registry, not in the worker's
-  context: transfers and the barrier are restricted to the installed
-  workers and run through the first running one of their process (one
-  process, one store); unpack ``j`` is restricted to its output owner, as
-  in the reference;
-- the reference's per-worker run-TTL cleanup collects the reference's
-  store only; this store is collected by ``mark_served`` and by
-  :meth:`DeviceShuffleStore.forget`.
+``tests/test_torch_shuffle_device.py``): the store's ``devices`` is the one
+place that sets the mesh's devices.  ``None`` (the default) is the
+visible CUDA devices, one a shard, and raises without a card; a single
+card runs the 8 shards of a mesh as ``device_store().devices = ["cuda:0"]
+* 8``, and the CPU as ``["cpu"] * 8``.  The reference's mesh is
+``jax.devices()``.
 """
 
 from __future__ import annotations
@@ -54,6 +42,7 @@ from typing import Any
 
 import torch
 
+from distributed_tpu_torch.exceptions import Reschedule
 from distributed_tpu_torch.ops.comm import LocalShards, ProcessGroupShards
 from distributed_tpu_torch.ops.ici import make_mesh_1d, shuffle_on_mesh
 from distributed_tpu_torch.parallel.multihost import is_multihost, local_device_indices
@@ -278,69 +267,15 @@ def device_store() -> DeviceShuffleStore:
     return _store
 
 
-# ------------------------------------------------------------ installation
-
-_installed: dict[str, Any] = {}  # worker address -> worker
-_reschedule: list[type] = []     # the workers' Reschedule class
-
-
-def install_device_shuffle(worker: Any, reschedule: type, devices=None) -> None:
-    """Route ``worker``'s device shuffle through the port: register it for
-    the task bodies and replace its ``device_shuffle_exchange`` /
-    ``device_shuffle_precheck`` handlers.  ``reschedule`` is the exception
-    class the worker catches to reschedule a task; ``devices`` sets the
-    process store's mesh devices (e.g. ``["cpu"] * 8``)."""
-    _installed[worker.address] = worker
-    _reschedule[:] = [reschedule]
-    if devices is not None:
-        device_store().devices = list(devices)
-
-    async def exchange(id: str = "", run_id: int = 0, max_n: int = 0) -> dict:
-        return await device_shuffle_exchange_handler(worker, id=id, run_id=run_id, max_n=max_n)
-
-    async def precheck(id: str = "", run_id: int = 0) -> dict:
-        return await device_shuffle_precheck_handler(worker, id=id, run_id=run_id)
-
-    worker.handlers["device_shuffle_exchange"] = exchange
-    worker.handlers["device_shuffle_precheck"] = precheck
-
-
-def uninstall_device_shuffle(worker: Any) -> None:
-    _installed.pop(worker.address, None)
-
-
-def _process_worker() -> Any:
-    """The first running installed worker of this process."""
-    for w in _installed.values():
-        if getattr(getattr(w, "status", None), "name", None) == "running":
-            return w
-    raise RuntimeError("no running worker of this process has the device shuffle installed "
-                       "(install_device_shuffle)")
-
-
-def _reschedule_class() -> type:
-    if not _reschedule:
-        raise RuntimeError("install_device_shuffle was not called")
-    return _reschedule[0]
-
-
 # ------------------------------------------------------------ task bodies
 
 
 async def _spec_for(shuffle_id: str):
-    worker = _process_worker()
+    from distributed_tpu_torch.worker.context import get_worker
+
+    worker = get_worker()
     run = await worker.shuffle.get_or_create_remote(shuffle_id)
     return worker, run
-
-
-async def _restart_and_reschedule(worker: Any, shuffle_id: str, run_id: int) -> None:
-    """This epoch is unusable: ask the scheduler to bump it, then
-    reschedule the task."""
-    try:
-        await worker.rpc(worker.scheduler_addr).shuffle_restart(id=shuffle_id, run_id=run_id)
-    except OSError:
-        pass
-    raise _reschedule_class()(f"shuffle {shuffle_id} run {run_id} closed")
 
 
 async def device_shuffle_transfer(data: Any, shuffle_id: str,
@@ -441,7 +376,11 @@ async def device_shuffle_unpack(shuffle_id: str, partition_id: int, barrier_resu
         if device_store().was_served_once(shuffle_id, run.run_id, partition_id):
             # a duplicate of a finished epoch: its outputs are in worker
             # memory, a reschedule is enough (once; a second miss restarts)
-            raise _reschedule_class()(f"shuffle {shuffle_id} run {run.run_id} already served")
+            raise Reschedule(f"shuffle {shuffle_id} run {run.run_id} already served")
+        # the epoch raced past us (a restart, or the run was collected):
+        # ask for a fresh epoch and reschedule, as the host bodies do
+        from distributed_tpu_torch.shuffle.api import _restart_and_reschedule
+
         await _restart_and_reschedule(worker, shuffle_id, run.run_id)
     out = store_run.outputs[int(partition_id)]
     device_store().mark_served(store_run, partition_id)
@@ -455,30 +394,33 @@ async def p2p_shuffle_device(client: Any, inputs: list) -> list:
     """Hash-shuffle device-resident ``(keys i32 [N_i], values [N_i, ...])``
     partitions, one future a mesh shard; returns the futures of the
     outputs, output ``d`` holding every row with ``mix32(key) % n == d`` on
-    shard ``d``'s device.  Every worker the shuffle places an output on
-    must have :func:`install_device_shuffle`."""
+    shard ``d``'s device."""
+    from distributed_tpu_torch.graph.spec import Graph, TaskRef, TaskSpec
+    from distributed_tpu_torch.shuffle.api import _create_shuffle
+
     n = len(inputs)
     shuffle_id = f"devshuffle-{uuid.uuid4().hex[:12]}"
-    resp = await client.scheduler.shuffle_get_or_create(
-        id=shuffle_id, npartitions_out=n, n_inputs=n, device=True)
-    if resp.get("status") != "OK":
-        raise RuntimeError(f"shuffle registration failed: {resp!r}")
-    worker_for = {int(k): v for k, v in resp["spec"]["worker_for"].items()}
-    missing = sorted(set(worker_for.values()) - set(_installed))
-    if missing:
-        raise RuntimeError(f"install_device_shuffle on {missing} first")
-    installed = sorted(_installed)
-    # the task keys are the reference's: the scheduler's shuffle extension
-    # finds the pipeline by them to restart an epoch
-    transfers = [
-        client.submit(device_shuffle_transfer, fut, shuffle_id, i,
-                      key=f"{shuffle_id}-transfer-{i}", workers=installed, pure=False)
-        for i, fut in enumerate(inputs)
-    ]
-    barrier = client.submit(device_shuffle_barrier, shuffle_id, *transfers,
-                            key=f"{shuffle_id}-barrier", workers=installed, pure=False)
-    return [
-        client.submit(device_shuffle_unpack, shuffle_id, j, barrier,
-                      key=f"{shuffle_id}-unpack-{j}", workers=[worker_for[j]], pure=False)
-        for j in range(n)
-    ]
+    worker_for, device_owned = await _create_shuffle(client, shuffle_id, n, n, device=True)
+
+    g = Graph()
+    transfer_keys = []
+    annotations: dict = {}
+    for i, fut in enumerate(inputs):
+        k = f"{shuffle_id}-transfer-{i}"
+        g.tasks[k] = TaskSpec(device_shuffle_transfer, (TaskRef(fut.key), shuffle_id, i))
+        if device_owned:
+            # one process a shard: partition i registers in the process that
+            # owns shard i, so no shard leaves its device
+            annotations[k] = {"workers": [worker_for[i]]}
+        transfer_keys.append(k)
+    barrier_key = f"{shuffle_id}-barrier"
+    g.tasks[barrier_key] = TaskSpec(
+        device_shuffle_barrier, (shuffle_id, *[TaskRef(k) for k in transfer_keys]))
+    unpack_keys = []
+    for j in range(n):
+        k = f"{shuffle_id}-unpack-{j}"
+        g.tasks[k] = TaskSpec(device_shuffle_unpack, (shuffle_id, j, TaskRef(barrier_key)))
+        unpack_keys.append(k)
+        annotations[k] = {"workers": [worker_for[j]]}
+    futs = client._graph_to_futures(dict(g.tasks), unpack_keys, annotations_by_key=annotations)
+    return [futs[k] for k in unpack_keys]

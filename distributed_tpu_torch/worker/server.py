@@ -15,8 +15,6 @@ but for these seams:
 - ``http_port`` defaults to None, and an integer raises
   ``NotImplementedError`` (the http item of ROADMAP queue 1; the
   reference starts its http server at ``:348``).
-- ``self.shuffle`` is None in place of ``ShuffleWorkerExtension``
-  (``:261-263``): shuffle comes with queue 1's shuffle item.
 - The reference's ``jax_coordinator`` join (``:312-337``) is gone: the
   port joins ``torch.distributed``'s process group from a config preload
   (``worker/join.py``, ``worker/setup.py``), which runs before the worker
@@ -271,7 +269,9 @@ class Worker(Server):
         # serve the sans-io engine's stimulus events)
         self.trace = self.state.trace
         self.name = name if name is not None else self.id
-        self.shuffle = None  # shuffle is not ported yet (ROADMAP queue 1)
+        from distributed_tpu_torch.shuffle.core import ShuffleWorkerExtension
+
+        self.shuffle = ShuffleWorkerExtension(self)
         self.profiler = None
         if config.get("worker.profile.enabled"):
             from distributed_tpu_torch.diagnostics.profile import Profiler

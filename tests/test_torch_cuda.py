@@ -949,6 +949,55 @@ def test_shuffle_on_mesh_on_the_card(cuda):
             assert torch.equal(x.cpu().view(torch.uint8), y.view(torch.uint8))
 
 
+def _card_part(i, n, device):
+    """Shard ``i``'s (int32 keys in [0, 2^30), [n, 4] f32 values) made on
+    the card from a generator seeded with ``i``."""
+    g = torch.Generator(device=device).manual_seed(100 + i)
+    keys = torch.randint(0, 1 << 30, (n,), generator=g, device=device, dtype=torch.int32)
+    return keys, torch.rand((n, 4), generator=g, device=device)
+
+
+def test_p2p_shuffle_device_through_the_ports_cluster(cuda):
+    """The device shuffle through the port's ``LocalCluster(8)`` on the card,
+    the store's mesh on 8 virtual shards of the card: K12 launched 4 times
+    from the barrier task, the outputs on the card and equal to a direct
+    ``shuffle_on_mesh`` on the same tensors bit for bit."""
+    import asyncio
+
+    from distributed_tpu_torch.client.client import Client
+    from distributed_tpu_torch.deploy.local import LocalCluster
+    from distributed_tpu_torch.shuffle.device import device_store, p2p_shuffle_device
+
+    n = 65_536
+
+    async def run():
+        async with LocalCluster(n_workers=8) as cl:
+            async with Client(cl.scheduler_address) as c:
+                inputs = c.map(_card_part, range(8), n=n, device=str(cuda))
+                parts = await c.gather(inputs)
+                before = ici.shuffle_bucket_cuda.launches
+                outs = await p2p_shuffle_device(c, inputs)
+                got = await c.gather(outs)
+                return parts, got, ici.shuffle_bucket_cuda.launches - before
+
+    store = device_store()
+    old = store.devices
+    store.devices = [str(cuda)] * 8
+    try:
+        parts, got, launches = asyncio.run(asyncio.wait_for(run(), 300))
+    finally:
+        store.devices = old
+    assert launches == 4
+    mesh = ici.make_mesh_1d(8, devices=[cuda] * 8)
+    ko, vo, counts, _ = ici.shuffle_on_mesh(mesh, [k for k, _ in parts], [v for _, v in parts],
+                                            capacity=n)
+    want = ici.compact_shuffle_output(ko, vo, counts, 8)
+    for (gk, gv), (wk, wv) in zip(got, want):
+        assert gk.device.type == gv.device.type == "cuda"
+        assert torch.equal(gk, wk) and torch.equal(gv.view(torch.int32), wv.view(torch.int32))
+    assert sum(len(k) for k, _ in got) == 8 * n
+
+
 def test_shuffle_bucket_refuses_bad_shapes(cuda):
     keys, vals, _ = _bucket_inputs(cuda, 1, 100, ROWS["4B"], False, 0)
     with pytest.raises(ValueError, match="destinations"):

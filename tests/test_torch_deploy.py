@@ -220,7 +220,12 @@ def test_the_lazy_exports():
     assert distributed_tpu_torch.progress is progressbar.progress
     for name in ("Nanny", "Actor", "Client", "Scheduler", "Worker", "WorkerPlugin"):
         assert name in dir(distributed_tpu_torch) and getattr(distributed_tpu_torch, name)
-    for name in ("SSHCluster", "SubprocessCluster", "Lock", "Queue"):
+    from distributed_tpu_torch import coordination
+
+    for name in ("Semaphore", "Lock", "MultiLock", "Event", "Queue", "Variable", "Pub", "Sub"):
+        assert name in dir(distributed_tpu_torch)
+        assert getattr(distributed_tpu_torch, name) is getattr(coordination, name)
+    for name in ("SSHCluster", "SubprocessCluster"):
         with pytest.raises(AttributeError):
             getattr(distributed_tpu_torch, name)
 

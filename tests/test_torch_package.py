@@ -103,6 +103,27 @@ def test_import_pulls_in_no_jax_and_no_reference_package():
     assert json.loads(out.stdout.strip().splitlines()[-1]) == {"tried": [], "new": []}
 
 
+SHUFFLE_AND_COORDINATION = [
+    "distributed_tpu_torch.coordination", "distributed_tpu_torch.coordination.extensions",
+    "distributed_tpu_torch.coordination.objects", "distributed_tpu_torch.shuffle",
+    "distributed_tpu_torch.shuffle.api", "distributed_tpu_torch.shuffle.buffers",
+    "distributed_tpu_torch.shuffle.columnar", "distributed_tpu_torch.shuffle.core",
+    "distributed_tpu_torch.shuffle.device", "distributed_tpu_torch.shuffle.scheduler_ext",
+]
+
+
+@pytest.mark.parametrize("module", SHUFFLE_AND_COORDINATION)
+def test_the_shuffle_and_coordination_modules_are_checked(module):
+    """The shuffle and coordination modules are among those the import
+    probe loads and the source check reads, and each is the port's own:
+    none of its imports names JAX or the reference package."""
+    assert module in _module_names()
+    path = ROOT / Path(*module.split("."))
+    path = path / "__init__.py" if path.is_dir() else path.with_suffix(".py")
+    assert path in PORT_FILES
+    test_source_imports_no_jax_and_no_reference_package(path)
+
+
 @pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: p.name)
 def test_source_imports_no_jax_and_no_reference_package(path):
     tree = ast.parse(path.read_text(), filename=str(path))

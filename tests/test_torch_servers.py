@@ -11,9 +11,9 @@ tensordot graph (``graphs.tensordot_graph``, ``bench.py``'s
 placement plan a 16-worker inproc port cluster makes for that graph
 (``TorchPlacement._plan_from_arrays``) equals the plan ``JaxPlacement``
 makes for the same graph and join order, with JAX on the CPU.  Then the
-port's divergences (http, ``ws://``, the shuffle and coordination
-ops) and the process-group join from a config
-preload on the port's own worker.
+port's divergences (http, ``ws://``), the shuffle and coordination
+extensions under the reference's keys, and the process-group join from a
+config preload on the port's own worker.
 
 Task functions live in this module (or ``operator``): the port has no
 cloudpickle, so the standard library's pickle carries them by name.
@@ -266,16 +266,36 @@ def test_ws_is_not_ported():
 
 
 @gen_test(timeout=60)
-async def test_shuffle_and_coordination_are_not_ported():
-    assert set(default_extensions()) == {"stealing", "amm"}
-    assert {"shuffle", "events", "locks"} <= set(ref_default_extensions())
-    async with cluster(PORT, "tcp://127.0.0.1:0") as (s, (a, b), c):
-        assert a.shuffle is None
-        for op in ("shuffle_get_or_create", "shuffle_barrier", "event_set"):
-            assert op not in s.handlers
-        assert "shuffle_receive" not in a.handlers
-        with pytest.raises(ValueError, match="unknown operation 'shuffle_barrier'"):
-            await c.scheduler.shuffle_barrier(id="x", run_id=0)
+async def test_shuffle_and_coordination_are_the_references():
+    """The port's scheduler has the reference's extension keys, its worker
+    the port's own ``ShuffleWorkerExtension``, and both serve the
+    reference's shuffle and coordination handlers, over tcp as the
+    reference's do."""
+    from distributed_tpu_torch.shuffle.core import ShuffleWorkerExtension
+
+    assert set(default_extensions()) == set(ref_default_extensions())
+    assert {"shuffle", "events", "locks", "publish", "pubsub"} <= set(default_extensions())
+    out = {}
+    for pkg in (REF, PORT):
+        async with cluster(pkg, "tcp://127.0.0.1:0") as (s, (a, b), c):
+            ops = ("shuffle_get_or_create", "shuffle_get_run", "shuffle_restart", "shuffle_barrier",
+                   "event_set", "lock_acquire", "multi_lock_acquire", "semaphore_acquire",
+                   "queue_put", "variable_set", "publish_put", "publish_list")
+            worker_ops = ("shuffle_receive", "shuffle_receive_flush", "shuffle_wait_pushes",
+                          "shuffle_inputs_done", "shuffle_fetch_output",
+                          "device_shuffle_exchange", "device_shuffle_precheck")
+            out[pkg.name] = (
+                [op in s.handlers for op in ops],
+                [op in s.stream_handlers for op in ("pubsub-msg", "pubsub-add-subscriber")],
+                [op in a.handlers for op in worker_ops],
+                type(a.shuffle).__name__,
+                await c.scheduler.shuffle_barrier(id="x", run_id=0),
+                await c.scheduler.publish_list())
+            if pkg is PORT:
+                assert isinstance(a.shuffle, ShuffleWorkerExtension) and a.shuffle.worker is a
+    assert out["port"] == out["reference"]
+    assert all(out["port"][0]) and all(out["port"][1]) and all(out["port"][2])
+    assert out["port"][4] == {"status": "unknown-shuffle", "id": "x"}
 
 
 def readme_port_preload() -> str:

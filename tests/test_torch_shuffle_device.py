@@ -5,17 +5,18 @@ virtual XLA CPU devices.
 
 Tolerance: none.  ``DeviceRun`` outputs on ragged partitions equal the
 reference's bit for bit; each rule of ``DeviceShuffleStore`` gives the
-same answers to the same calls on both stores; and a ``LocalCluster`` run
-of the port's ``p2p_shuffle_device`` (through ``install_device_shuffle``)
-routes every row to ``mix32(key) % 8``, values riding along.
+same answers to the same calls on both stores; ``p2p_shuffle_device`` on
+the port's own ``LocalCluster(device="cpu")`` gives the outputs the
+reference's gives on its cluster, bit for bit, every row on ``mix32(key)
+% 8``; its task bodies find their worker through ``get_worker()`` as the
+reference's do (a body outside a worker raises the same error), and a
+stale-epoch unpack reschedules once, then restarts the epoch, as in the
+reference.
 
-The divergences the port needs to plug into the reference's cluster, each
-shown here: transfers and the barrier are restricted to the installed
-workers (``test_transfers_and_barrier_are_restricted_to_installed_workers``),
-an output owner that is not installed is refused before anything runs
-(``test_p2p_shuffle_device_refuses_an_output_owner_not_installed``), and a body with
-no running installed worker in its process raises
-(``test_body_without_an_installed_worker_raises``).
+The divergence: the store's ``devices`` is the one place that sets the
+mesh's devices (``["cpu"] * 8`` here, ``["cuda:0"] * 8`` on one card),
+and its default, the visible CUDA devices, raises without a card
+(``test_the_stores_devices_set_the_mesh``).
 """
 
 from __future__ import annotations
@@ -26,14 +27,16 @@ import numpy as np
 import pytest
 import torch
 
-from distributed_tpu.client.client import Client, wait as wait_futures
-from distributed_tpu.deploy.local import LocalCluster
-from distributed_tpu.exceptions import Reschedule
+from distributed_tpu.exceptions import Reschedule as RefReschedule
 from distributed_tpu.shuffle import device as ref_device
+from distributed_tpu.worker import context as ref_context
+from distributed_tpu_torch.exceptions import Reschedule
 from distributed_tpu_torch.ops import ici
 from distributed_tpu_torch.shuffle import device
+from distributed_tpu_torch.worker import context
 
 from conftest import gen_test
+from torch_shuffle_cases import PORT, REF, cluster_and_client
 
 # the suite runs as 6 pytest-xdist workers on 8 cores: torch on 2 threads a worker
 # keeps the JAX package's timing tests on time (one whole-suite run: without the cap
@@ -198,83 +201,166 @@ def make_part(i, n):
     return torch.from_numpy(keys), torch.from_numpy(values)
 
 
-async def _cluster(install=N_DEV):
-    cluster = LocalCluster(n_workers=N_DEV, scheduler_kwargs={"validate": True},
-                           worker_kwargs={"validate": True})
-    await cluster._start()
-    for w in cluster.workers[:install]:
-        device.install_device_shuffle(w, reschedule=Reschedule, devices=CPU8)
-    return cluster
+def make_ref_part(i, n):
+    """The same partition as jax arrays on the reference's mesh device i."""
+    import jax
+    import jax.numpy as jnp
+
+    keys, values = make_part(i, n)
+    dev = jax.devices()[i]
+    return jax.device_put(jnp.asarray(keys.numpy()), dev), jax.device_put(jnp.asarray(values.numpy()), dev)
 
 
-def _uninstall(cluster):
-    for w in cluster.workers:
-        device.uninstall_device_shuffle(w)
+@pytest.fixture
+def cpu_store():
+    """The process store's mesh on 8 CPU shards, put back afterwards (the
+    store is process-wide and tier-1 runs many files a process)."""
+    store = device.device_store()
+    old = store.devices
+    store.devices = CPU8
+    yield store
+    store.devices = old
+
+
+async def _device_shuffle(pkg, n_rows, tag):
+    """A device shuffle of 8 seeded partitions on ``pkg``'s cluster of 8
+    workers; returns the outputs as numpy, the store's epoch record and
+    the task keys the scheduler holds."""
+    mod, maker = (device, make_part) if pkg is PORT else (ref_device, make_ref_part)
+    async with cluster_and_client(pkg, N_DEV) as (cluster, c):
+        inputs = [c.submit(maker, i, n_rows, key=f"{tag}-{i}") for i in range(N_DEV)]
+        await c.gather(inputs)
+        outs = await mod.p2p_shuffle_device(c, inputs)
+        results = await asyncio.wait_for(c.gather(outs), 90)
+        sid = outs[0].key.rsplit("-unpack-", 1)[0]
+        st = cluster.scheduler.extensions["shuffle"].active[sid]
+        served = (not any(k[0] == sid for k in mod.device_store().runs),
+                  mod.device_store().was_served(sid, st.run_id))
+        restrictions = [sorted(cluster.scheduler.state.tasks[o.key].worker_restrictions)
+                        == [st.worker_for[j]] for j, o in enumerate(outs)]
+        return [(np.asarray(k), np.asarray(v)) for k, v in results], served, restrictions, results
 
 
 @gen_test(timeout=150)
-async def test_p2p_shuffle_device_on_a_local_cluster():
-    cluster = await _cluster()
-    try:
-        async with Client(cluster.scheduler_address) as c:
-            n_rows = 300
-            inputs = [c.submit(make_part, i, n_rows, key=f"tpart-{i}") for i in range(N_DEV)]
-            await c.gather(inputs)
-            outs = await device.p2p_shuffle_device(c, inputs)
-            await asyncio.wait_for(wait_futures(outs), 90)
-            results = await c.gather(outs)
-            sid = outs[0].key.rsplit("-unpack-", 1)[0]
-            # the store released the run once every output was served
-            assert not any(k[0] == sid for k in device.device_store().runs)
-            assert device.device_store().was_served(sid, 1)
-    finally:
-        _uninstall(cluster)
-        await cluster.close()
+async def test_p2p_shuffle_device_on_a_local_cluster(cpu_store):
+    """The port's ``p2p_shuffle_device`` on its own ``LocalCluster``: every
+    row on ``mix32(key) % 8``, values riding along, the run collected once
+    every output was served."""
+    n_rows = 300
+    got, served, restricted, _ = await _device_shuffle(PORT, n_rows, "lpart")
+    assert served == (True, True) and all(restricted)
     all_keys = torch.cat([make_part(i, n_rows)[0] for i in range(N_DEV)])
     dest = ici._mix32(all_keys) % N_DEV
-    total = 0
-    for d, (ko, vo) in enumerate(results):
+    for d, (ko, vo) in enumerate(got):
         assert sorted(ko.tolist()) == sorted(all_keys[dest == d].tolist()), f"device {d}"
-        np.testing.assert_array_equal(vo[:, 0].numpy(), ko.numpy().astype(np.float32))
-        total += len(ko)
-    assert total == N_DEV * n_rows
+        np.testing.assert_array_equal(vo[:, 0], ko.astype(np.float32))
+    assert sum(len(k) for k, _ in got) == N_DEV * n_rows
 
 
 @gen_test(timeout=150)
-async def test_transfers_and_barrier_are_restricted_to_installed_workers():
-    cluster = await _cluster()
+async def test_p2p_shuffle_device_on_the_ports_cluster_equals_reference(cpu_store):
+    """``p2p_shuffle_device`` on the port's own ``LocalCluster(device="cpu")``
+    gives the reference cluster's outputs bit for bit: output ``d`` holds
+    every row with ``mix32(key) % 8 == d``, sources in order, values riding
+    along; the store collects the served epoch; unpack ``d`` is restricted
+    to its owner."""
+    n_rows = 300
+    want, want_served, want_restricted, _ = await _device_shuffle(REF, n_rows, "rpart")
+    got, served, restricted, tensors = await _device_shuffle(PORT, n_rows, "tpart")
+    assert served == want_served == (True, True)
+    assert restricted == want_restricted and all(restricted)
+    all_keys = torch.cat([make_part(i, n_rows)[0] for i in range(N_DEV)])
+    dest = ici._mix32(all_keys) % N_DEV
+    for d in range(N_DEV):
+        (gk, gv), (wk, wv) = got[d], want[d]
+        assert tensors[d][0].dtype == torch.int32 and tensors[d][0].device.type == "cpu"
+        np.testing.assert_array_equal(gk, wk)
+        np.testing.assert_array_equal(gv.view(np.uint8), wv.view(np.uint8))
+        assert sorted(gk.tolist()) == sorted(all_keys[dest == d].tolist()), f"device {d}"
+        np.testing.assert_array_equal(gv[:, 0], gk.astype(np.float32))
+    assert sum(len(k) for k, _ in got) == N_DEV * n_rows
+
+
+def test_the_stores_devices_set_the_mesh(cpu_store):
+    """The store's ``devices`` builds every new run's mesh; its default
+    (None: the visible CUDA devices) raises where there is no card, and
+    nothing drops to the CPU."""
+    parts = _parts([3] * N_DEV, seed=2)
+    run = cpu_store.get_or_create("mesh-devices", 1, N_DEV, N_DEV)
+    assert run.devices == CPU8
+    for i, (k, v) in enumerate(parts):
+        run.register(i, torch.from_numpy(k), torch.from_numpy(v))
+    run.exchange()
+    assert all(run.outputs[d][0].device.type == "cpu" for d in range(N_DEV))
+    cpu_store.forget("mesh-devices")
+    bare = device.DeviceRun("mesh-devices", 2, N_DEV, N_DEV)
+    for i, (k, v) in enumerate(parts):
+        bare.register(i, torch.from_numpy(k), torch.from_numpy(v))
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            bare.exchange()
+        assert bare.outputs is None
+
+
+def _in_no_worker(mod, call):
     try:
-        async with Client(cluster.scheduler_address) as c:
-            inputs = [c.submit(make_part, i, 20, key=f"rpart-{i}") for i in range(N_DEV)]
-            outs = await device.p2p_shuffle_device(c, inputs)
-            await asyncio.wait_for(wait_futures(outs), 90)
-            sid = outs[0].key.rsplit("-unpack-", 1)[0]
-            tasks = cluster.scheduler.state.tasks
-            installed = {w.address for w in cluster.workers}
-            for key in [f"{sid}-transfer-{i}" for i in range(N_DEV)] + [f"{sid}-barrier"]:
-                if key in tasks:  # released once its dependents finished
-                    assert tasks[key].worker_restrictions == installed, key
-            owners = {tasks[o.key].worker_restrictions.pop() for o in outs}
-            assert owners <= installed
-    finally:
-        _uninstall(cluster)
-        await cluster.close()
+        asyncio.run(call(mod))
+    except Exception as exc:  # noqa: BLE001 - the two packages' errors are compared
+        return type(exc).__name__, str(exc)
+    return None
+
+
+def test_a_body_outside_a_worker_raises_as_the_reference():
+    """A task body run outside a worker raises ``get_worker()``'s error,
+    the same type and text as the reference's."""
+    calls = [
+        lambda m: m.device_shuffle_transfer((np.zeros(1, np.int32), np.zeros((1, 1))), "s", 0),
+        lambda m: m.device_shuffle_barrier("s", (0, 1)),
+        lambda m: m.device_shuffle_unpack("s", 0, 1),
+    ]
+    for call in calls:
+        got, want = _in_no_worker(device, call), _in_no_worker(ref_device, call)
+        assert got == want == ("ValueError", "no worker found in this thread/task context")
+
+
+async def _stale_unpack(pkg, tag):
+    """Finish a device shuffle, then run unpack 0's body twice more inside
+    a worker's context under the served epoch: what each raises and the
+    epoch after it."""
+    mod, ctx, resched = ((device, context, Reschedule) if pkg is PORT
+                         else (ref_device, ref_context, RefReschedule))
+    maker = make_part if pkg is PORT else make_ref_part
+    async with cluster_and_client(pkg, N_DEV) as (cluster, c):
+        inputs = [c.submit(maker, i, 40, key=f"{tag}-{i}") for i in range(N_DEV)]
+        outs = await mod.p2p_shuffle_device(c, inputs)
+        await asyncio.wait_for(c.gather(outs), 90)
+        ext = cluster.scheduler.extensions["shuffle"]
+        sid = outs[0].key.rsplit("-unpack-", 1)[0]
+        st = ext.active[sid]
+        run_id = st.run_id
+        worker = cluster.workers[0]
+        seen = []
+        for _ in range(2):
+            token = ctx.set_async_worker(worker, key=outs[0].key)
+            try:
+                await mod.device_shuffle_unpack(sid, 0, run_id)
+                seen.append("returned")
+            except resched as exc:
+                seen.append(str(exc).replace(sid, "<id>"))
+            finally:
+                ctx.reset_async_worker(token)
+            await asyncio.sleep(ext.restart_debounce * 4 + 0.05)
+            seen.append(st.run_id - run_id)
+        return seen
 
 
 @gen_test(timeout=150)
-async def test_p2p_shuffle_device_refuses_an_output_owner_not_installed():
-    cluster = await _cluster(install=N_DEV - 1)
-    try:
-        async with Client(cluster.scheduler_address) as c:
-            inputs = [c.submit(make_part, i, 8, key=f"npart-{i}") for i in range(N_DEV)]
-            with pytest.raises(RuntimeError, match="install_device_shuffle"):
-                await device.p2p_shuffle_device(c, inputs)
-    finally:
-        _uninstall(cluster)
-        await cluster.close()
-
-
-def test_body_without_an_installed_worker_raises(monkeypatch):
-    monkeypatch.setattr(device, "_installed", {})
-    with pytest.raises(RuntimeError, match="install_device_shuffle"):
-        asyncio.run(device.device_shuffle_transfer((torch.zeros(1), torch.zeros(1, 1)), "s", 0))
+async def test_a_stale_epoch_unpack_reschedules_once_then_restarts(cpu_store):
+    """An unpack of an epoch already served and collected reschedules once
+    without a restart; a second miss of the same partition restarts the
+    epoch -- the reference's answers, in order."""
+    want = await _stale_unpack(REF, "rstale")
+    got = await _stale_unpack(PORT, "tstale")
+    assert got == want
+    assert got[0] == "shuffle <id> run 1 already served" and got[1] == 0
+    assert got[2] == "shuffle <id> run 1 closed" and got[3] == 1
