@@ -265,7 +265,25 @@ and prints no result):
    barrier task, the outputs on the card and equal bit for bit to a direct
    ``shuffle_on_mesh``; (c) an Event, a Lock, a Semaphore, a Queue, a
    Variable and a published dataset carrying a future of a 1,024 x 1,024
-   CUDA block from one client to another, each value equal bit for bit.
+   CUDA block from one client to another, each value equal bit for bit;
+17. the port's command line, http and ``ws://``: (a) ``SubprocessCluster(
+   n_workers=4, nthreads=2)``, every node a process started with ``python
+   -m distributed_tpu_torch.cli.*`` at once, the scheduler on the card (the
+   CLI's default) and the last worker under ``--nanny``: BASELINE config 1
+   at full width with its blocks on the card in the worker processes (the
+   sum == 10^8, as numpy's), a random DAG of 2,048 tasks (the placement
+   plans it: K1 or K4 launch in the scheduler's process, read through
+   ``run_on_scheduler``; its results == the same DAG on the host) and a
+   task that runs ``flash_attention`` (K2) in a worker process at seq 8192,
+   16 heads, dim 128, bf16, causal, held there to the plain version by
+   ``flash.o_excess``; (b) the same cluster read over http: the
+   scheduler's ``/``, ``/metrics``, ``/api/v1/workers``, ``/api/v1/tasks``,
+   ``/dashboard`` and ``/workers/<name>/metrics``, and each worker's own
+   ``/metrics``, every ``dtpu_build_info`` naming ``backend="cuda"`` and the
+   card, and the median of a scrape of the scheduler's ``/metrics``; (c) a
+   scheduler and two workers on ``ws://127.0.0.1:0`` in this process: 1,024
+   x 1,024 f32 CUDA blocks cross between the workers over ``ws://``, each
+   equal bit for bit, with the fetch's median beside phase 14b's over tcp.
 
 Each phase's wall is printed as it ends, and all of them again in one JSON
 line.  The last three lines are the card's ``nvidia-smi`` name and power limit,
@@ -279,7 +297,8 @@ and times (phase 12's launches added, and kept apart as
 ``launches_control_plane``, phase 13's as ``launches_recovery``, phase
 14's as ``launches_servers``, phase 15's as ``launches_deploy``, phase
 16a-c's as ``launches_shuffle`` and K12's of 16b as
-``launches_shuffle_ext``), and ``{"ok": true, "device": {...}}``.
+``launches_shuffle_ext``, phase 17's as ``launches_cli``), and
+``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -5247,6 +5266,315 @@ def phase_shuffle(dev=None):
     return launches, numbers
 
 
+# ------------------------------------------------------------ phase 17
+
+
+# 17a: a cluster of processes from the port's command line, config 1's shape
+CLI_WORKERS, CLI_THREADS = 4, 2
+# a batch past the placement's min-batch (512, config.py): it plans in the scheduler
+CLI_DAG = 2_048
+CLI_DAG_MOD = 1_000_003
+# K2 in a worker process: seq, heads, head dim (bf16, causal), phase 2's headline
+CLI_FLASH = (8192, 16, 128)
+# 17b: timed scrapes of the scheduler's /metrics
+CLI_SCRAPES = 20
+# 17c: blocks fetched between two workers over ws://
+WS_BLOCK, WS_FETCHES = 1024, 8
+CLI_TIMEOUT_S = 600
+
+
+def cli_launches(zero=False, dtpu_scheduler=None):
+    """On the CLI-started scheduler (``Client.run_on_scheduler``): K1's and
+    K4's launches in its process, first set to 0 when ``zero``, its state's
+    device and its placement's counters.  ``zero`` also opens the
+    placement's gates for a fleet of 4 (``min_workers`` 8 and the
+    transfer-ratio skip, which phase 14's 16 workers pass)."""
+    from distributed_tpu_torch.ops import leveled, partition
+
+    p = dtpu_scheduler.state.placement
+    if zero:
+        leveled.place_waves_cuda.launches = 0
+        partition.partition_cuda.launches = 0
+        p.min_workers, p.min_transfer_ratio = 0, 0
+    return dict(place_wave=leveled.place_waves_cuda.launches,
+                partition=partition.partition_cuda.launches,
+                state_device=str(dtpu_scheduler.state.device),
+                placement=_placement_stats(p) if p is not None else None)
+
+
+def cli_http_port(dtpu_worker=None):
+    """A worker's own http port (``Client.run`` on every worker)."""
+    return dtpu_worker.http_server.port
+
+
+def cli_dag_task(i, *deps):
+    return (i + sum(deps)) % CLI_DAG_MOD
+
+
+def cli_dag(TaskSpec, TaskRef, Graph):
+    """``graphs.random_dag(CLI_DAG)`` as tasks ``dag-i`` of
+    :func:`cli_dag_task`, and its results computed on the host."""
+    from distributed_tpu_torch import graphs
+
+    _, _, src, dst = graphs.random_dag(CLI_DAG, seed=0)
+    deps = [[] for _ in range(CLI_DAG)]
+    for a, b in zip(src.tolist(), dst.tolist()):
+        deps[b].append(a)
+    g = Graph()
+    want = []
+    for i in range(CLI_DAG):
+        g.tasks[f"dag-{i}"] = TaskSpec(cli_dag_task, (i, *[TaskRef(f"dag-{j}") for j in deps[i]]))
+        want.append(cli_dag_task(i, *[want[j] for j in deps[i]]))
+    return g, [f"dag-{i}" for i in range(CLI_DAG)], want
+
+
+def cli_flash_task(seq, heads, dim, seed, device="cuda"):
+    """In a worker process: ``flash_attention`` (K2, its launch counted from
+    0 here) on seeded bf16 inputs made on the worker's card, causal, held
+    to the plain version by ``flash.o_excess``."""
+    from distributed_tpu_torch.ops import flash
+
+    g = torch.Generator(device=device).manual_seed(seed)
+    q, k, v = (torch.randn((seq, heads, dim), generator=g, device=device).to(torch.bfloat16)
+               for _ in range(3))
+    flash.flash_forward_cuda.launches = 0
+    out = flash.flash_attention(q, k, v, causal=True, device=q.device)
+    if out.is_cuda:
+        torch.cuda.synchronize()
+    launches = flash.flash_forward_cuda.launches
+    qt, kt, vt = (x.transpose(0, 1).contiguous() for x in (q, k, v))
+    scale = 1.0 / dim ** 0.5
+    o_p, lse_p = flash.flash_forward_reference(qt, kt, vt, True, scale)
+    pv_term = flash.P_ROUNDOFF[torch.bfloat16] * flash.pv_rounding_term(
+        qt, kt, vt, True, scale, lse_p)
+    o = out.transpose(0, 1)
+    return dict(launches=launches, o_excess=flash.o_excess(o, o_p, pv_term),
+                max_abs_err=(o.float() - o_p.float()).abs().max().item(),
+                shape=list(out.shape), dtype=str(out.dtype), device=str(out.device),
+                finite=bool(torch.isfinite(out.float()).all()), pid=os.getpid())
+
+
+def cli_ws_block(seed, device="cuda"):
+    g = torch.Generator(device=device).manual_seed(seed)
+    return torch.randn((WS_BLOCK, WS_BLOCK), generator=g, device=device)
+
+
+def cli_touch(x):
+    """The fetched block itself: its bytes come back to be compared."""
+    return x
+
+
+async def http_get(url: str, path: str) -> tuple[int, str, bytes, float]:
+    """One GET of ``path`` at ``http://host:port``: status, content type,
+    body and the wall in ms (connect to last byte)."""
+    host, port = url.removeprefix("http://").rsplit(":", 1)
+    t0 = time.perf_counter()
+    reader, writer = await asyncio.open_connection(host, int(port))
+    writer.write(f"GET {path} HTTP/1.0\r\n\r\n".encode())
+    await writer.drain()
+    data = await reader.read()
+    ms = 1e3 * (time.perf_counter() - t0)
+    writer.close()
+    head, _, body = data.partition(b"\r\n\r\n")
+    lines = head.decode("latin1").split("\r\n")
+    ctype = [ln.split(":", 1)[1].strip() for ln in lines[1:] if ln.lower().startswith("content-type")]
+    return int(lines[0].split()[1]), ctype[0] if ctype else "", body, ms
+
+
+def build_info_labels(body: bytes) -> dict:
+    (line,) = [ln for ln in body.decode().splitlines() if ln.startswith("dtpu_build_info{")]
+    return dict((k, v.strip('"')) for k, v in (kv.split("=", 1) for kv in
+                                                line[len("dtpu_build_info{"):line.rindex("}")].split(",")))
+
+
+async def _cli_cluster(cs, dev):
+    """17a and 17b on one ``SubprocessCluster``."""
+    from distributed_tpu_torch import graphs
+    from distributed_tpu_torch.client.client import Client
+    from distributed_tpu_torch.deploy.subprocess import SubprocessCluster
+    from distributed_tpu_torch.graph.spec import Graph, TaskRef, TaskSpec
+
+    cl = SubprocessCluster(n_workers=CLI_WORKERS, nthreads=CLI_THREADS, device=dev)
+    cl.worker_spec[f"worker-{CLI_WORKERS - 1}"]["options"]["nanny"] = True
+    out: dict = {}
+    t0 = time.perf_counter()
+    async with cl:
+        out["start_s"] = time.perf_counter() - t0
+        async with Client(cl.scheduler_address) as c:
+            await c.wait_for_workers(CLI_WORKERS, timeout=CLI_TIMEOUT_S)
+            out["up_s"] = time.perf_counter() - t0
+            info = await c.scheduler_info()
+            out["scheduler"] = cl.scheduler_address
+            out["pids"] = [cl.scheduler.process.pid] + [w.process.pid for w in cl.workers.values()]
+            # config 1 at full width, its blocks on the card in the worker processes
+            g, root, _ = graphs.array_sum_graph(grid=DEP_GRID, block=DEP_BLOCK,
+                                                device=_blocks(dev))
+            t1 = time.perf_counter()
+            futs = c.compute_graph(g, [root])
+            out["config1"] = await futs[root].result()
+            out["config1_s"] = time.perf_counter() - t1
+            out["config1_tasks"] = len(g.tasks)
+            del futs
+            # a batch past min-batch: the placement plans it in the scheduler's process
+            g, keys, want = cs.cli_dag(TaskSpec, TaskRef, Graph)
+            await c.run_on_scheduler(cs.cli_launches, True)
+            t1 = time.perf_counter()
+            futs = c.compute_graph(g, keys)
+            got = await c.gather([futs[k] for k in keys])
+            out["dag_s"] = time.perf_counter() - t1
+            out["dag_launches"] = await c.run_on_scheduler(cs.cli_launches)
+            out["dag_equal"] = got == want
+            del futs, got
+            # K2 in a worker process
+            t1 = time.perf_counter()
+            out["flash"] = await c.submit(cs.cli_flash_task, *CLI_FLASH, 0, _blocks(dev),
+                                          pure=False).result()
+            out["flash_s"] = time.perf_counter() - t1
+            # 17b: the cluster over http
+            t1 = time.perf_counter()
+            dash = info["dashboard"]
+            check(dash and dash.startswith("http://"), f"17b: the scheduler's dashboard is {dash}")
+            reads = {}
+            wname = str(next(iter(info["workers"].values()))["name"])
+            for path in ("/", "/metrics", "/api/v1/workers", "/api/v1/tasks", "/dashboard",
+                         f"/workers/{wname}/metrics"):
+                status, ctype, body, ms = await http_get(dash, path)
+                check(status == 200, f"17b: GET {path} answered {status}: {body[:300]!r}")
+                reads[path] = (ctype, body, ms)
+            index = json.loads(reads["/"][1])
+            check(index["role"] == "scheduler" and {"/metrics", "/ledger", "/dashboard"}
+                  <= set(index["routes"]), f"17b: the route index {index}")
+            api_workers = json.loads(reads["/api/v1/workers"][1])
+            check(len(api_workers) == CLI_WORKERS, f"17b: /api/v1/workers lists {len(api_workers)}")
+            tasks = json.loads(reads["/api/v1/tasks"][1])
+            check(reads["/dashboard"][0].startswith("text/html") and b"<svg" in reads["/dashboard"][1],
+                  "17b: /dashboard is not the page")
+            proxied = json.loads(reads[f"/workers/{wname}/metrics"][1])
+            check(proxied["status"] == "running", f"17b: the proxy's worker page {proxied}")
+            labels = {"scheduler": build_info_labels(reads["/metrics"][1])}
+            ports = await c.run(cs.cli_http_port)
+            check(len(ports) == CLI_WORKERS, f"17b: {len(ports)} workers told their http port")
+            for addr, port in sorted(ports.items()):
+                host = addr.split("://", 1)[1].rsplit(":", 1)[0]
+                status, ctype, body, ms = await http_get(f"http://{host}:{port}", "/metrics")
+                check(status == 200 and b"dtpu_worker_tasks_stored" in body,
+                      f"17b: worker {addr}'s /metrics answered {status}")
+                labels[addr] = build_info_labels(body)
+            scrapes = []
+            for _ in range(CLI_SCRAPES):
+                status, _, body, ms = await http_get(dash, "/metrics")
+                check(status == 200, f"17b: a scrape answered {status}")
+                scrapes.append(ms)
+            out["http"] = dict(
+                routes=len(index["routes"]), api_workers=len(api_workers),
+                tasks_by_state=tasks["by_state"], labels=labels,
+                read_ms={p: r[2] for p, r in reads.items()},
+                metrics_bytes=len(reads["/metrics"][1]),
+                scrape_median_ms=statistics.median(scrapes), scrape_max_ms=max(scrapes),
+                http_s=time.perf_counter() - t1)
+        t1 = time.perf_counter()
+    out["close_s"] = time.perf_counter() - t1
+    return out
+
+
+async def _ws_fetches(cs, dev):
+    """17c: a scheduler and two workers on ``ws://`` in this process; blocks
+    made on one worker are fetched by the other, one at a time."""
+    from distributed_tpu_torch.client.client import Client
+    from distributed_tpu_torch.scheduler.server import Scheduler
+    from distributed_tpu_torch.worker.server import Worker
+
+    device = _blocks(dev)
+    async with Scheduler(listen_addr="ws://127.0.0.1:0", device=dev) as s:
+        async with Worker(s.address, nthreads=1, listen_addr="ws://127.0.0.1:0") as a, \
+                Worker(s.address, nthreads=1, listen_addr="ws://127.0.0.1:0") as b:
+            async with Client(s.address) as c:
+                made = [c.submit(cs.cli_ws_block, i, device, workers=[a.address])
+                        for i in range(WS_FETCHES)]
+                await c.gather(made)
+                got = []
+                with _TransferTimes() as tt:
+                    for m in made:  # one block a fetch
+                        got.append(await c.submit(cs.cli_touch, m, workers=[b.address]).result())
+                addrs = (s.address, a.address, b.address)
+    return dict(got=got, seconds=tt.seconds, nbytes=tt.nbytes, addrs=addrs)
+
+
+def phase_cli(tcp_fetch_ms=None, dev=None):
+    """Phase 17, the port's command line, http and ``ws://`` on the card."""
+    import chip_smoke as cs  # task functions pickle by name: the nodes import this module
+
+    card = smi_line()
+    t_phase = time.perf_counter()
+    name = torch.cuda.get_device_name(0) if dev is None else "cpu"
+    backend = "cuda" if dev is None else "cpu"
+
+    # 17a and 17b
+    a = asyncio.run(asyncio.wait_for(_cli_cluster(cs, dev), CLI_TIMEOUT_S))
+    want1 = float((DEP_GRID * DEP_BLOCK) ** 2)
+    check(a["config1"] == want1, f"17a: config 1's sum {a['config1']} != {want1}")
+    check(a["dag_equal"], "17a: the DAG's results differ from the host's")
+    dl = a["dag_launches"]
+    check(dl["state_device"].startswith(backend), f"17a: the scheduler's state on {dl['state_device']}")
+    check(dl["placement"] is not None and dl["placement"]["enabled"] and dl["placement"]["plans"] >= 1,
+          f"17a: the placement planned nothing: {dl['placement']}")
+    k14 = dl["place_wave"] + dl["partition"]
+    check(k14 >= 1 or dev is not None, f"17a: K1 and K4 launched {k14} times in the scheduler")
+    f = a["flash"]
+    check(f["shape"] == [CLI_FLASH[0], CLI_FLASH[1], CLI_FLASH[2]] and f["finite"]
+          and f["dtype"] == "torch.bfloat16", f"17a: flash output {f}")
+    check(f["device"].startswith(backend) and f["pid"] not in (os.getpid(), a["pids"][0]),
+          f"17a: flash ran on {f['device']} in process {f['pid']}")
+    check(f["launches"] == 1 or dev is not None, f"17a: K2 launched {f['launches']} times")
+    check(f["o_excess"] <= 0.0, f"17a: K2's O off by {f['o_excess']} beyond its tolerance")
+    h = a["http"]
+    for who, labels in h["labels"].items():
+        check(labels["backend"] == backend and labels["device"] == name,
+              f"17b: {who}'s dtpu_build_info {labels}")
+    print(f"[{card}] 17a SubprocessCluster(n_workers={CLI_WORKERS}, nthreads={CLI_THREADS}) "
+          f"from python -m distributed_tpu_torch.cli.* (scheduler on {dl['state_device']}, "
+          f"{a['scheduler']}, the last worker under --nanny; started s {a['start_s']:.3f}, all "
+          f"workers up s {a['up_s']:.3f}, closed s {a['close_s']:.3f}): config 1 "
+          f"({a['config1_tasks']} tasks, blocks on the card in the workers) sum {a['config1']:.0f} "
+          f"in s {a['config1_s']:.3f}; random_dag({CLI_DAG}) == the host's in s {a['dag_s']:.3f}, "
+          f"plan {dl['placement']}, K1 place_wave {dl['place_wave']} + K4 partition "
+          f"{dl['partition']} launches in the scheduler's process; flash_attention in worker "
+          f"process {f['pid']} at {CLI_FLASH} bf16 causal: K2 launches {f['launches']}, max abs "
+          f"err {f['max_abs_err']:.3g}, o_excess {f['o_excess']:.3g}, task s {a['flash_s']:.3f}")
+    print(f"[{card}] 17b http: {h['routes']} routes at /, /metrics {h['metrics_bytes']} B, "
+          f"/api/v1/workers {h['api_workers']}, tasks {h['tasks_by_state']}, read ms "
+          f"{json.dumps({p: round(v, 3) for p, v in h['read_ms'].items()})}; {len(h['labels'])} "
+          f"dtpu_build_info lines with backend={backend} device={name}; scrape of /metrics median "
+          f"ms {h['scrape_median_ms']:.3f} (max {h['scrape_max_ms']:.3f}, {CLI_SCRAPES} scrapes); "
+          f"17b s {h['http_s']:.3f}")
+
+    # 17c
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    c = asyncio.run(asyncio.wait_for(_ws_fetches(cs, dev), CLI_TIMEOUT_S))
+    ws_s = time.perf_counter() - t0
+    check(all(x.startswith("ws://") for x in c["addrs"]), f"17c: addresses {c['addrs']}")
+    for i, got in enumerate(c["got"]):
+        check(got.device.type == backend and _same_bytes(got, cli_ws_block(i, _blocks(dev))),
+              f"17c: block {i} came back on {got.device} or differs")
+    check(len(c["seconds"]) >= 1, "17c: no worker fetched a block from the other")
+    ws_ms = 1e3 * statistics.median(c["seconds"])
+    print(f"[{card}] 17c ws://: {WS_FETCHES} blocks of {WS_BLOCK} x {WS_BLOCK} f32 on the card "
+          f"fetched between two workers over ws:// ({len(c['seconds'])} fetches of {c['nbytes']} "
+          f"B), each equal bit for bit; fetch median ms {ws_ms:.3f}, beside phase 14b's over tcp "
+          f"{tcp_fetch_ms if tcp_fetch_ms is None else round(tcp_fetch_ms, 3)}; 17c s {ws_s:.3f}")
+    launches = {"place_wave": dl["place_wave"], "partition": dl["partition"],
+                "flash_fwd": f["launches"]}
+    numbers = dict(start_s=a["start_s"], up_s=a["up_s"], close_s=a["close_s"],
+                   config1_s=a["config1_s"], config1_sum=a["config1"], dag_s=a["dag_s"],
+                   dag_plan=dl["placement"], flash=f, flash_task_s=a["flash_s"],
+                   http=h, ws_fetch_median_ms=ws_ms, ws_fetches=len(c["seconds"]),
+                   ws_s=ws_s, tcp_fetch_median_ms=tcp_fetch_ms, launches=launches)
+    numbers["phase_s"] = time.perf_counter() - t_phase
+    print(f"[{card}] phase 17 cli s {numbers['phase_s']:.1f}")
+    return launches, numbers
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -5338,11 +5666,16 @@ def main() -> int:
             e["launches_shuffle"] = shuffle[e["name"]]
     shuffle_entry["launches"] += shuffle["shuffle_bucket"]
     shuffle_entry["launches_shuffle_ext"] = shuffle["shuffle_bucket"]
+    cli, cli_numbers = phase("17", phase_cli, servers_numbers["wire_transfer_median_ms"])
+    for e in (flash_entry, wave_entry, partition_entry):
+        e["launches"] += cli[e["name"]]
+        e["launches_cli"] = cli[e["name"]]
     print(json.dumps({"control_plane": control_numbers}))
     print(json.dumps({"recovery": recovery_numbers}))
     print(json.dumps({"servers": servers_numbers}))
     print(json.dumps({"deploy": deploy_numbers}))
     print(json.dumps({"shuffle": shuffle_numbers}))
+    print(json.dumps({"cli": cli_numbers}, default=str))
     print(json.dumps({"phase_s": walls}))
     kernels = [flash_entry, bwd_entry, wave_entry, partition_entry, *periodic_entries, shard_entry,
                shuffle_entry, *long_context, *training, *round1]

@@ -13,10 +13,11 @@ means the CUDA device and raises when none is present; only an explicit
 Hand-written kernels live under ``ops/csrc`` and are built with ``nvcc``
 at first use (``ops/_build.py``).
 
-The servers, the client, the clusters, the coordination primitives and
+The servers, the client, the clusters (with ``SubprocessCluster`` and
+``SSHCluster``, which start their nodes through the port's command line,
+``python -m distributed_tpu_torch.cli.*``), the coordination primitives and
 the plugin classes are lazy exports, as in the reference
-(``distributed_tpu/__init__.py``), without ``SSHCluster`` and
-``SubprocessCluster``, which are not ported yet.
+(``distributed_tpu/__init__.py``).
 """
 
 from distributed_tpu_torch._device import resolve_device
@@ -64,6 +65,10 @@ def __getattr__(name: str):
         from distributed_tpu_torch.diagnostics import plugin as _p
 
         return getattr(_p, name)
+    if name in ("SSHCluster", "SubprocessCluster"):
+        from distributed_tpu_torch import deploy as _d
+
+        return getattr(_d, name)
     if name in ("progress", "progress_sync"):
         from distributed_tpu_torch.diagnostics import progressbar as _pb
 
@@ -76,7 +81,8 @@ _LAZY = (
     "Scheduler", "Worker", "Nanny", "LocalCluster", "SpecCluster",
     "Adaptive", "Cluster", "Semaphore", "Lock", "MultiLock", "Event",
     "Queue", "Variable", "Pub", "Sub", "Actor", "SchedulerPlugin",
-    "WorkerPlugin", "NannyPlugin", "progress", "progress_sync",
+    "WorkerPlugin", "NannyPlugin", "SSHCluster", "SubprocessCluster",
+    "progress", "progress_sync",
 )
 
 

@@ -214,8 +214,7 @@ def _ensure_default_backends() -> None:
     _defaults_loaded = True
     import distributed_tpu_torch.comm.inproc  # noqa: F401 registers inproc
     import distributed_tpu_torch.comm.tcp  # noqa: F401 registers tcp/tls
-    # ws:// comes with the http slice (ROADMAP queue 1): until then its
-    # scheme raises get_backend's unknown-scheme error
+    import distributed_tpu_torch.comm.ws  # noqa: F401 registers ws
 
 
 from contextlib import contextmanager

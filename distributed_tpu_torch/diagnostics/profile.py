@@ -5,10 +5,20 @@ A daemon thread samples the stack of every worker-executor thread every
 aggregates frames into a call-tree dict; trees merge across cycles and
 across workers (``merge``, reference profile.py:219).  Exposed via
 ``Worker.get_profile`` / ``Scheduler.get_profile`` RPCs.
+
+The port's copy of ``distributed_tpu/diagnostics/profile.py``, line for
+line but for one repair: the shared sampling thread is stopped and joined
+at interpreter exit (:meth:`_SharedWatcher.shutdown`, an ``atexit``
+hook).  It lingers 0.5 s after its last profiler leaves, so a program that
+closes its workers and exits at once left it alive into finalization, and
+a daemon thread that wakes into a finalizing interpreter with torch loaded
+aborted the process ("terminate called without an active exception",
+exit code 134) after its work was done.
 """
 
 from __future__ import annotations
 
+import atexit
 import logging
 import sys
 import threading
@@ -96,11 +106,24 @@ class _SharedWatcher:
         self._lock = threading.Lock()
         self._thread: threading.Thread | None = None
         self._wake = threading.Event()
+        self._closing = False
+        atexit.register(self.shutdown)
+
+    def shutdown(self) -> None:
+        """Stop the sampling thread and wait for it to return."""
+        with self._lock:
+            self._closing = True
+            thread = self._thread
+        self._wake.set()
+        if thread is not None and thread is not threading.current_thread():
+            thread.join(timeout=5.0)  # it wakes at once: a tick's work at most
 
     def register(self, prof: "Profiler") -> None:
         with self._lock:
             self._profilers.add(prof)
             self._wake.set()
+            if self._closing:
+                return
             if self._thread is None or not self._thread.is_alive():
                 self._thread = threading.Thread(
                     target=self._run, name="dtpu-profiler", daemon=True
@@ -114,6 +137,9 @@ class _SharedWatcher:
     def _run(self) -> None:
         while True:
             with self._lock:
+                if self._closing:
+                    self._thread = None
+                    return
                 profs = list(self._profilers)
             if not profs:
                 # linger briefly for a new registration, then exit

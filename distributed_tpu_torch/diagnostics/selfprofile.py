@@ -41,6 +41,11 @@ engine flood (tests/test_bench_smoke.py).
 Covered by graft-lint's monotonic-time rule (diagnostics/**): every
 clock read here is the monotonic ``utils.misc.time``, and the watchdog
 thread waits on an ``Event``, never ``time.sleep``.
+
+The port's copy of ``distributed_tpu/diagnostics/selfprofile.py``, line for
+line but for :meth:`LoopWatchdog.stop`, which joins the watchdog thread:
+a daemon thread left alive into the interpreter's finalization can abort
+the process (``diagnostics/profile.py`` says how).
 """
 
 from __future__ import annotations
@@ -347,7 +352,11 @@ class LoopWatchdog:
 
     def stop(self) -> None:
         self._stop.set()
-        self._thread = None
+        thread, self._thread = self._thread, None
+        if thread is not None:
+            # it wakes on the event at once; joined, it cannot outlive a
+            # program that closes its servers and exits (profile.py's repair)
+            thread.join(timeout=1.0)
 
     def _run(self) -> None:
         # check twice per threshold: a stall is noticed within ~1.5x the

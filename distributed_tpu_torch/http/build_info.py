@@ -8,10 +8,12 @@ labels: ``role``, ``version`` (the port's ``__version__``), ``torch``,
 back to ``""`` when jax does not import; torch always imports in the port,
 so no label here has a fallback.
 
-:func:`install_build_info` rebinds the reference's module-level
-``build_info_lines`` (its ``/metrics`` routes call it by name,
-``:722,982``), computing ``mesh`` through the reference's ``config.get``,
-passed in, as the reference does (``:379-382``).
+The port's own ``/metrics`` routes reach :func:`build_info_lines`
+through ``http/server.py``'s.  :func:`install_build_info` rebinds the
+reference's module-level ``build_info_lines`` (its ``/metrics`` routes
+call it by name, ``:722,982``), computing ``mesh`` through the
+reference's ``config.get``, passed in, as the reference does
+(``:379-382``).
 """
 
 from __future__ import annotations
@@ -21,25 +23,10 @@ import torch
 from distributed_tpu_torch import __version__
 from distributed_tpu_torch._device import resolve_device
 from distributed_tpu_torch._install import Installed, install
+from distributed_tpu_torch.http.server import prom_line
 
 HELP = ("Build/runtime identity (always 1; labels carry the port's version, torch, CUDA, "
         "backend, device and engine-mesh layout)")
-
-
-def prom_line(name: str, value: float, labels: dict | None = None,
-              help_: str | None = None, type_: str = "gauge") -> str:
-    """One Prometheus sample, with its HELP and TYPE lines when ``help_``
-    is given: the port's copy of ``http/server.py:135``."""
-    out = []
-    if help_:
-        out.append(f"# HELP {name} {help_}")
-        out.append(f"# TYPE {name} {type_}")
-    if labels:
-        lab = ",".join(f'{k}="{v}"' for k, v in labels.items())
-        out.append(f"{name}{{{lab}}} {value}")
-    else:
-        out.append(f"{name} {value}")
-    return "\n".join(out)
 
 
 def build_info_lines(role: str, *, mesh: str, device=None) -> list[str]:

@@ -19,9 +19,6 @@ but for these seams:
 - :func:`default_extensions` lists the port's own extensions under the
   reference's keys: ``WorkStealing``, ``ActiveMemoryManagerExtension``,
   ``ShuffleSchedulerExtension`` and the coordination extensions.
-- ``http_port`` defaults to None, and an integer raises
-  ``NotImplementedError``: the http server comes with ROADMAP's http item
-  (the reference starts it at ``:366``).
 - The native transition engine is built off the loop by the port's
   ``native.prebuild_async`` (``load_engine(build=True)`` in a thread) and
   attached when it lands, as the reference attaches its own.
@@ -156,16 +153,11 @@ class Scheduler(Server):
         extensions: dict[str, Any] | None = None,
         worker_ttl: float | None = None,
         idle_timeout: float | None = None,
-        http_port: int | None = None,
+        http_port: int | None = 0,
         security: Any | None = None,
         device: Any = None,
         **server_kwargs: Any,
     ):
-        if http_port is not None:
-            raise NotImplementedError(
-                "the port has no http server yet (ROADMAP queue 1, the http item): "
-                "pass http_port=None"
-            )
         self._http_port = http_port
         self.http_server = None
         self.monitor = None
@@ -395,6 +387,7 @@ class Scheduler(Server):
         await self.listen(addr, **listen_args)
         # observability: SystemMonitor sampling + HTTP routes
         from distributed_tpu_torch.diagnostics.system_monitor import SystemMonitor
+        from distributed_tpu_torch.http.server import HTTPServer, scheduler_metrics
 
         self.monitor = SystemMonitor(
             maxlen=int(config.get("admin.system-monitor.log-length"))
@@ -480,6 +473,68 @@ class Scheduler(Server):
                     config.get("scheduler.census.interval")
                 ),
             )
+        if self._http_port is not None:
+            from distributed_tpu_torch.diagnostics.selfprofile import profile_jsonl
+            from distributed_tpu_torch.http.dashboard import json_api_routes
+
+            from distributed_tpu_torch.tracing import to_jsonl
+
+            routes: dict = {
+                    "/health": lambda: "ok",
+                    "/info": self.identity,
+                    "/metrics": lambda: scheduler_metrics(self),
+                    "/json/counts.json": self._counts_json,
+                    "/sysmon": lambda: self.monitor.range_query(),
+                    # flight-recorder tail as JSON Lines
+                    # (docs/observability.md; schema-versioned records)
+                    "/trace": lambda: (
+                        to_jsonl(self.trace.tail()),
+                        "application/x-ndjson",
+                    ),
+                    # fleet telemetry snapshot: per-link EWMAs +
+                    # t-digest quantiles, prefix priors, heartbeat
+                    # RTTs, divergence summary (telemetry.py)
+                    "/telemetry": lambda: (
+                        to_jsonl(self.state.telemetry.snapshot()),
+                        "application/x-ndjson",
+                    ),
+                    # control-plane self-profile: wall budget + sampled
+                    # loop/planner trees + recent stalls as JSONL
+                    # (docs/observability.md "Self-profiling")
+                    "/profile": lambda: (
+                        profile_jsonl(
+                            "scheduler", self.cp_profiler,
+                            self.state.wall, self.watchdog,
+                        ),
+                        "application/x-ndjson",
+                    ),
+                    # decision–outcome ledger: summary head + resident
+                    # row tail as JSONL (ledger.py;
+                    # docs/observability.md "Decision ledger")
+                    "/ledger": lambda: (
+                        to_jsonl(self.state.ledger.snapshot()),
+                        "application/x-ndjson",
+                    ),
+                    # state census: per-family resident counts + recent
+                    # findings as JSONL (cheap families; the get_census
+                    # RPC adds the O(n) walk families on demand —
+                    # diagnostics/census.py, docs/observability.md)
+                    "/census": lambda: (
+                        to_jsonl(self.state.census.snapshot()),
+                        "application/x-ndjson",
+                    ),
+                    **json_api_routes(self),
+            }
+            # route index at "/": observability discoverability — one
+            # GET lists every route this role serves (/metrics, /trace,
+            # /telemetry, /profile, /ledger, ...)
+            routes["/"] = lambda: {
+                "role": "scheduler",
+                "id": self.id,
+                "routes": sorted(r for r in routes if r != "/"),
+            }
+            self.http_server = HTTPServer(routes, port=self._http_port)
+            await self.http_server.start()
         if self.worker_ttl:
             self.periodic_callbacks["worker-ttl"] = PeriodicCallback(
                 self.check_worker_ttl, max(self.worker_ttl / 4, 0.25)

@@ -12,9 +12,6 @@ and IO.
 The port's copy of ``distributed_tpu/worker/server.py``, line for line
 but for these seams:
 
-- ``http_port`` defaults to None, and an integer raises
-  ``NotImplementedError`` (the http item of ROADMAP queue 1; the
-  reference starts its http server at ``:348``).
 - The reference's ``jax_coordinator`` join (``:312-337``) is gone: the
   port joins ``torch.distributed``'s process group from a config preload
   (``worker/join.py``, ``worker/setup.py``), which runs before the worker
@@ -96,18 +93,13 @@ class Worker(Server):
         validate: bool | None = None,
         heartbeat_interval: float | None = None,
         listen_addr: str | None = None,
-        http_port: int | None = None,
+        http_port: int | None = 0,
         security: Any | None = None,
         lifetime: float | None = None,
         lifetime_stagger: float | None = None,
         nanny_addr: str | None = None,
         **server_kwargs: Any,
     ):
-        if http_port is not None:
-            raise NotImplementedError(
-                "the port has no http server yet (ROADMAP queue 1, the http item): "
-                "pass http_port=None"
-            )
         self.nanny_addr = nanny_addr
         # multi-host device plane: a config preload's process-group join
         # (worker/join.py) sets the global mesh indices this process owns,
@@ -327,6 +319,7 @@ class Worker(Server):
         await self.listen(addr, **listen_args)
         self.state.address = self.address
         from distributed_tpu_torch.diagnostics.system_monitor import SystemMonitor
+        from distributed_tpu_torch.http.server import HTTPServer, worker_metrics
 
         self.monitor = SystemMonitor(
             maxlen=int(config.get("admin.system-monitor.log-length"))
@@ -387,6 +380,60 @@ class Worker(Server):
                     config.get("scheduler.census.interval")
                 ),
             )
+        if self._http_port is not None:
+            from distributed_tpu_torch.diagnostics.selfprofile import profile_jsonl
+            from distributed_tpu_torch.tracing import to_jsonl
+
+            routes: dict = {
+                    "/health": lambda: "ok",
+                    "/info": self.identity,
+                    "/metrics": lambda: worker_metrics(self),
+                    "/sysmon": lambda: self.monitor.range_query(),
+                    # flight-recorder tail (docs/observability.md)
+                    "/trace": lambda: (
+                        to_jsonl(self.trace.tail()),
+                        "application/x-ndjson",
+                    ),
+                    # measured-truth telemetry snapshot: this node's
+                    # per-link EWMAs + t-digest quantiles as JSONL
+                    # (telemetry.py; docs/observability.md)
+                    "/telemetry": lambda: (
+                        to_jsonl(self.telemetry.snapshot()),
+                        "application/x-ndjson",
+                    ),
+                    # state census: this worker's per-family resident
+                    # counts + findings (diagnostics/census.py;
+                    # docs/observability.md "State census & retention")
+                    "/census": lambda: (
+                        to_jsonl(self.state.census.snapshot()),
+                        "application/x-ndjson",
+                    ),
+                    # control-plane self-profile (loop tree + wall
+                    # budget + stalls) plus the executor profile tree
+                    # (docs/observability.md "Self-profiling")
+                    "/profile": lambda: (
+                        profile_jsonl(
+                            "worker", self.cp_profiler, self.state.wall,
+                            self.watchdog,
+                            extra_trees=(
+                                {"exec": self.profiler.get_profile()}
+                                if self.profiler is not None else None
+                            ),
+                        ),
+                        "application/x-ndjson",
+                    ),
+            }
+            # route index at "/": same discoverability contract as the
+            # scheduler role — one GET lists every route this node
+            # serves (the scheduler's index additionally lists /ledger;
+            # decisions are scheduler-side, so workers have no ledger)
+            routes["/"] = lambda: {
+                "role": "worker",
+                "id": self.id,
+                "routes": sorted(r for r in routes if r != "/"),
+            }
+            self.http_server = HTTPServer(routes, port=self._http_port)
+            await self.http_server.start()
         # config preloads run BEFORE registration (reference worker
         # ordering): the scheduler may assign tasks the moment the
         # worker registers, and dtpu_setup must have prepared the

@@ -225,9 +225,11 @@ def test_the_lazy_exports():
     for name in ("Semaphore", "Lock", "MultiLock", "Event", "Queue", "Variable", "Pub", "Sub"):
         assert name in dir(distributed_tpu_torch)
         assert getattr(distributed_tpu_torch, name) is getattr(coordination, name)
+    from distributed_tpu_torch import deploy
+
     for name in ("SSHCluster", "SubprocessCluster"):
-        with pytest.raises(AttributeError):
-            getattr(distributed_tpu_torch, name)
+        assert name in dir(distributed_tpu_torch)
+        assert getattr(distributed_tpu_torch, name) is getattr(deploy, name)
 
 
 # ------------------------------------------------------------ host memory limits

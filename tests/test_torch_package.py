@@ -22,9 +22,11 @@ import test_torch_periodic_cases as cases
 import distributed_tpu_torch
 from distributed_tpu_torch import entry as entry_twin
 from distributed_tpu_torch import graphs, native
+from distributed_tpu_torch.cli import scheduler as cli_scheduler
 from distributed_tpu_torch.deploy import LocalCluster, SpecCluster
 from distributed_tpu_torch.diagnostics import device_profile
 from distributed_tpu_torch.http import build_info
+from distributed_tpu_torch.http import server as http_server
 from distributed_tpu_torch.ops import (
     _build,
     amm,
@@ -124,6 +126,34 @@ def test_the_shuffle_and_coordination_modules_are_checked(module):
     test_source_imports_no_jax_and_no_reference_package(path)
 
 
+CLI_HTTP_AND_PROCESS_CLUSTERS = [
+    "distributed_tpu_torch.cli", "distributed_tpu_torch.cli.scheduler",
+    "distributed_tpu_torch.cli.spec", "distributed_tpu_torch.cli.ssh",
+    "distributed_tpu_torch.cli.worker", "distributed_tpu_torch.comm.ws",
+    "distributed_tpu_torch.deploy.ssh", "distributed_tpu_torch.deploy.subprocess",
+    "distributed_tpu_torch.http.dashboard", "distributed_tpu_torch.http.server",
+]
+
+
+@pytest.mark.parametrize("module", CLI_HTTP_AND_PROCESS_CLUSTERS)
+def test_the_cli_http_ws_and_process_cluster_modules_are_checked(module):
+    """The command line, the http server and dashboard, ``ws://`` and the
+    process clusters are among the modules the import probe loads and the
+    source check reads, and none of their imports names JAX or the
+    reference package."""
+    test_the_shuffle_and_coordination_modules_are_checked(module)
+
+
+def test_the_process_clusters_are_exported_as_the_references():
+    import distributed_tpu_torch.deploy as deploy
+
+    assert {"SSHCluster", "SubprocessCluster"} <= set(distributed_tpu_torch._LAZY)
+    assert distributed_tpu_torch.SubprocessCluster is deploy.SubprocessCluster
+    assert distributed_tpu_torch.SSHCluster is deploy.SSHCluster
+    assert {"SSHCluster", "SubprocessCluster", "SubprocessScheduler",
+            "SubprocessWorker"} <= set(deploy.__all__)
+
+
 @pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: p.name)
 def test_source_imports_no_jax_and_no_reference_package(path):
     tree = ast.parse(path.read_text(), filename=str(path))
@@ -213,6 +243,9 @@ def _entry_calls():
         "install_build_info": lambda: build_info.install_build_info(
             types.SimpleNamespace(_BUILD_INFO_CACHE={}), {}.get),
         "LocalCluster": lambda: LocalCluster(n_workers=0),
+        "cli.scheduler": lambda: asyncio.run(cli_scheduler.run(
+            cli_scheduler.make_parser().parse_args(["--port", "0"]))),
+        "http build_info_lines": lambda: http_server.build_info_lines("scheduler", None),
         "SpecCluster": lambda: asyncio.run(SpecCluster(workers={})._start()),
         "torch_loads(cuda)": lambda: wire.torch_loads(
             {"dtype": "<f4", "shape": [1], "device": "cuda"}, [bytes(4)]),

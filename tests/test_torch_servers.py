@@ -11,9 +11,10 @@ tensordot graph (``graphs.tensordot_graph``, ``bench.py``'s
 placement plan a 16-worker inproc port cluster makes for that graph
 (``TorchPlacement._plan_from_arrays``) equals the plan ``JaxPlacement``
 makes for the same graph and join order, with JAX on the CPU.  Then the
-port's divergences (http, ``ws://``), the shuffle and coordination
-extensions under the reference's keys, and the process-group join from a
-config preload on the port's own worker.
+shuffle and coordination extensions under the reference's keys, and the
+process-group join from a config preload on the port's own worker.  (The
+http routes and ``ws://`` are held to the reference's in
+``test_torch_http.py`` and ``test_torch_comm_ws.py``.)
 
 Task functions live in this module (or ``operator``): the port has no
 cloudpickle, so the standard library's pickle carries them by name.
@@ -35,7 +36,6 @@ import torch.distributed as dist
 import bench
 from distributed_tpu import config as ref_config
 from distributed_tpu.client.client import Client as RefClient
-from distributed_tpu.comm.core import get_backend as ref_get_backend
 from distributed_tpu.graph.spec import Graph as RefGraph
 from distributed_tpu.graph.spec import TaskRef as RefTaskRef
 from distributed_tpu.graph.spec import TaskSpec as RefTaskSpec
@@ -46,7 +46,6 @@ from distributed_tpu.worker.server import Worker as RefWorker
 from distributed_tpu_torch import config as port_config
 from distributed_tpu_torch import graphs
 from distributed_tpu_torch.client.client import Client
-from distributed_tpu_torch.comm.core import get_backend
 from distributed_tpu_torch.scheduler.server import Scheduler, default_extensions
 from distributed_tpu_torch.scheduler.torch_placement import TorchPlacement
 from distributed_tpu_torch.worker.server import Worker
@@ -239,30 +238,7 @@ async def test_the_16_worker_plan_equals_jax_placements(monkeypatch):
     assert hints == ref_hints
 
 
-# ------------------------------------------------------------ divergences
-
-
-@gen_test(timeout=60)
-async def test_http_is_not_ported():
-    with pytest.raises(NotImplementedError, match="http"):
-        Scheduler(http_port=0, device="cpu")
-    async with Scheduler(listen_addr="inproc://", device="cpu") as s:
-        with pytest.raises(NotImplementedError, match="http"):
-            Worker(s.address, http_port=8787)
-        assert s.http_server is None and s._http_port is None
-
-
-def test_ws_is_not_ported():
-    assert ref_get_backend("ws") is not None
-    with pytest.raises(ValueError, match="unknown address scheme 'ws'"):
-        get_backend("ws")
-
-    async def start():
-        async with Scheduler(listen_addr="ws://127.0.0.1:0", device="cpu"):
-            pass
-
-    with pytest.raises(ValueError, match="unknown address scheme 'ws'"):
-        asyncio.run(start())
+# ------------------------------------------------------------ extensions
 
 
 @gen_test(timeout=60)
