@@ -119,7 +119,9 @@ and prints no result):
    its plain version bit for bit on every case and repeated, K12 / plain /
    bound / ``all_to_all`` / ``shuffle_on_mesh`` times, and
    ``maybe_initialize`` on NCCL with a world of one (``ProcessGroupShards``
-   == ``LocalShards``).  Long context at seq 16,384 (2,048 a shard), 16
+   == ``LocalShards``), and the ring step (``ppermute``) alone on a shard's
+   block of values over that group (a copy, beside its bound in bytes) and
+   over ``LocalShards`` (the tensors handed over, nothing copied).  Long context at seq 16,384 (2,048 a shard), 16
    heads, dim 128, bf16, causal and not: ``ring_attention`` (K2 a visible
    block, an f32 lse merge) within ``ring_attention.ring_excess`` of the
    plain ring, a ring with one step left out rejected; ``ulysses_attention``
@@ -272,8 +274,10 @@ and prints no result):
    CLI's default) and the last worker under ``--nanny``: BASELINE config 1
    at full width with its blocks on the card in the worker processes (the
    sum == 10^8, as numpy's), a random DAG of 2,048 tasks (the placement
-   plans it: K1 or K4 launch in the scheduler's process, read through
-   ``run_on_scheduler``; its results == the same DAG on the host) and a
+   plans it, its gates opened for 4 workers by ``DTPU_*`` overrides in the
+   scheduler's environment as a user of the CLI opens them: K1 or K4
+   launch in the scheduler's process, read through ``run_on_scheduler``;
+   its results == the same DAG on the host) and a
    task that runs ``flash_attention`` (K2) in a worker process at seq 8192,
    16 heads, dim 128, bf16, causal, held there to the plain version by
    ``flash.o_excess``; (b) the same cluster read over http: the
@@ -283,7 +287,12 @@ and prints no result):
    card, and the median of a scrape of the scheduler's ``/metrics``; (c) a
    scheduler and two workers on ``ws://127.0.0.1:0`` in this process: 1,024
    x 1,024 f32 CUDA blocks cross between the workers over ``ws://``, each
-   equal bit for bit, with the fetch's median beside phase 14b's over tcp.
+   equal bit for bit, with the fetch's median beside phase 14b's over tcp;
+18. graft-lint for the port: ``python -m distributed_tpu_torch.analysis
+   --format json`` over the tree as shipped, in a child process started
+   after phase 1 and read here: no
+   finding, no error, no stale baseline entry, exit 0; the rules run, the
+   files parsed, the suppressed count and the wall.
 
 Each phase's wall is printed as it ends, and all of them again in one JSON
 line.  The last three lines are the card's ``nvidia-smi`` name and power limit,
@@ -2432,6 +2441,11 @@ def phase_data_plane(ptxas=None):
         local.all_to_all([c[:, None] for c in sc])
 
     a2a_ms = cuda_ms(exchange)
+    # the ring step (the reference's ``_ring_program.local``, ``lax.ppermute``)
+    # alone on a shard's block of values: LocalShards hands every shard the
+    # tensor its neighbour holds on the same card, moving no bytes
+    ring_bytes = vp[0].numel() * vp[0].element_size()
+    ppermute_local_ms = cuda_ms(lambda: local.ppermute(vp), reps=5)
     mesh_ms = cuda_ms(lambda: ici.shuffle_on_mesh(mesh, keys, vals), reps=5)
     bound_ms, bound_by = _shuffle_bound_ms(S, n, SHUF_WIDTH, n_dev, cap)
     zbound_ms, _ = _shuffle_bound_ms(S, n, SHUF_WIDTH, n_dev, n)
@@ -2459,10 +2473,19 @@ def phase_data_plane(ptxas=None):
               "ProcessGroupShards (NCCL, world 1) differs from LocalShards")
         ring = ici.ring_exchange(mesh1, kp[0], comm=comm.ProcessGroupShards(mesh1))
         check(_same_bytes(ring[0], kp[0]), "ring_exchange over a world of one moved data")
+        # the same ring step on one block over the process group: a world of
+        # one copies the block (read once, written once)
+        pg = comm.ProcessGroupShards(mesh1)
+        ppermute_ms = cuda_ms(lambda: pg.ppermute([vp[0]]), reps=5)
     finally:
         dist.destroy_process_group()
+    ppermute_bound_ms = 2 * ring_bytes / PEAK_BYTES_S * 1e3
     print(f"[{card}] maybe_initialize (NCCL, world 1) + ProcessGroupShards == LocalShards at one "
           f"shard: shuffle_on_mesh, ring_exchange")
+    print(f"[{card}] ppermute alone on a block of {ring_bytes} B ([{n}, {SHUF_WIDTH}] f32), CUDA "
+          f"events, median of 5: ProcessGroupShards (NCCL, world 1, a copy) ms {ppermute_ms:.4f}, "
+          f"bound_ms {ppermute_bound_ms:.4f} (bytes: 2 x the block); LocalShards on {S} shards of "
+          f"the card (the tensors handed over, nothing copied) ms {ppermute_local_ms:.4f}")
     phase_s = time.perf_counter() - t_phase
     print(f"[{card}] phase 8 shuffle s {phase_s:.1f}")
     return {
@@ -2481,6 +2504,10 @@ def phase_data_plane(ptxas=None):
         "zipf_full_capacity_ms": zk12_ms,
         "zipf_full_capacity_bound_ms": zbound_ms,
         "all_to_all_ms": a2a_ms,
+        "ppermute_ms": ppermute_ms,
+        "ppermute_bound_ms": ppermute_bound_ms,
+        "ppermute_block_bytes": ring_bytes,
+        "ppermute_local_ms": ppermute_local_ms,
         "shuffle_on_mesh_ms": mesh_ms,
         "device_run_exchange_ms": run_ms,
         "ptxas": ptxas or {},
@@ -5283,23 +5310,30 @@ WS_BLOCK, WS_FETCHES = 1024, 8
 CLI_TIMEOUT_S = 600
 
 
+# the placement's gates opened for a fleet of 4 (``min-workers`` 8 and the
+# transfer-ratio skip, which phase 14's 16 workers pass) as a user of the
+# CLI opens them: the port's DTPU_* overrides in the scheduler's environment
+CLI_SCHEDULER_ENV = {"DTPU_SCHEDULER__JAX__MIN_WORKERS": "0",
+                     "DTPU_SCHEDULER__JAX__MIN_TRANSFER_RATIO": "0"}
+
+
 def cli_launches(zero=False, dtpu_scheduler=None):
     """On the CLI-started scheduler (``Client.run_on_scheduler``): K1's and
     K4's launches in its process, first set to 0 when ``zero``, its state's
-    device and its placement's counters.  ``zero`` also opens the
-    placement's gates for a fleet of 4 (``min_workers`` 8 and the
-    transfer-ratio skip, which phase 14's 16 workers pass)."""
+    device, its placement's counters and the gates it read from its
+    configuration."""
     from distributed_tpu_torch.ops import leveled, partition
 
     p = dtpu_scheduler.state.placement
     if zero:
         leveled.place_waves_cuda.launches = 0
         partition.partition_cuda.launches = 0
-        p.min_workers, p.min_transfer_ratio = 0, 0
     return dict(place_wave=leveled.place_waves_cuda.launches,
                 partition=partition.partition_cuda.launches,
                 state_device=str(dtpu_scheduler.state.device),
-                placement=_placement_stats(p) if p is not None else None)
+                placement=_placement_stats(p) if p is not None else None,
+                gates=None if p is None else dict(min_workers=p.min_workers,
+                                                  min_transfer_ratio=p.min_transfer_ratio))
 
 
 def cli_http_port(dtpu_worker=None):
@@ -5394,7 +5428,8 @@ async def _cli_cluster(cs, dev):
     from distributed_tpu_torch.deploy.subprocess import SubprocessCluster
     from distributed_tpu_torch.graph.spec import Graph, TaskRef, TaskSpec
 
-    cl = SubprocessCluster(n_workers=CLI_WORKERS, nthreads=CLI_THREADS, device=dev)
+    cl = SubprocessCluster(n_workers=CLI_WORKERS, nthreads=CLI_THREADS, device=dev,
+                           scheduler_options={"extra_env": CLI_SCHEDULER_ENV})
     cl.worker_spec[f"worker-{CLI_WORKERS - 1}"]["options"]["nanny"] = True
     out: dict = {}
     t0 = time.perf_counter()
@@ -5516,6 +5551,8 @@ def phase_cli(tcp_fetch_ms=None, dev=None):
     check(a["dag_equal"], "17a: the DAG's results differ from the host's")
     dl = a["dag_launches"]
     check(dl["state_device"].startswith(backend), f"17a: the scheduler's state on {dl['state_device']}")
+    check(dl["gates"] == {"min_workers": 0, "min_transfer_ratio": 0.0},
+          f"17a: the placement did not read {CLI_SCHEDULER_ENV}: its gates {dl['gates']}")
     check(dl["placement"] is not None and dl["placement"]["enabled"] and dl["placement"]["plans"] >= 1,
           f"17a: the placement planned nothing: {dl['placement']}")
     k14 = dl["place_wave"] + dl["partition"]
@@ -5537,7 +5574,8 @@ def phase_cli(tcp_fetch_ms=None, dev=None):
           f"workers up s {a['up_s']:.3f}, closed s {a['close_s']:.3f}): config 1 "
           f"({a['config1_tasks']} tasks, blocks on the card in the workers) sum {a['config1']:.0f} "
           f"in s {a['config1_s']:.3f}; random_dag({CLI_DAG}) == the host's in s {a['dag_s']:.3f}, "
-          f"plan {dl['placement']}, K1 place_wave {dl['place_wave']} + K4 partition "
+          f"plan {dl['placement']}, gates {dl['gates']} from the scheduler's environment "
+          f"{CLI_SCHEDULER_ENV}, K1 place_wave {dl['place_wave']} + K4 partition "
           f"{dl['partition']} launches in the scheduler's process; flash_attention in worker "
           f"process {f['pid']} at {CLI_FLASH} bf16 causal: K2 launches {f['launches']}, max abs "
           f"err {f['max_abs_err']:.3g}, o_excess {f['o_excess']:.3g}, task s {a['flash_s']:.3f}")
@@ -5575,6 +5613,64 @@ def phase_cli(tcp_fetch_ms=None, dev=None):
     return launches, numbers
 
 
+# ------------------------------------------------------------ phase 18
+
+
+LINT_TIMEOUT_S = 300
+
+
+def start_lint():
+    """Phase 18's lint started now, in a child process beside the card
+    phases (it is host work on one core): a future of the finished
+    process and its wall."""
+    root = Path(__file__).resolve().parent
+
+    def run():
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "distributed_tpu_torch.analysis", "--format", "json",
+             "--verbose", "--root", str(root)],
+            cwd=root, capture_output=True, text=True, timeout=LINT_TIMEOUT_S)
+        return proc, time.perf_counter() - t0
+
+    pool = concurrent.futures.ThreadPoolExecutor(1)
+    future = pool.submit(run)
+    pool.shutdown(wait=False)
+    return future
+
+
+def phase_lint(lint=None):
+    """Phase 18, graft-lint for the port over the tree as shipped:
+    ``python -m distributed_tpu_torch.analysis --format json`` in a child
+    process (``lint``, from :func:`start_lint`, or started here).  A
+    finding, an error, a stale baseline entry or a nonzero exit fails the
+    script."""
+    from distributed_tpu_torch.analysis.config import LintConfig
+    from distributed_tpu_torch.analysis.core import _match_scope
+
+    card = smi_line()
+    root = Path(__file__).resolve().parent
+    proc, wall = (lint or start_lint()).result()
+    check(proc.returncode == 0, f"18: graft-lint exited {proc.returncode}:\n{proc.stdout[-4000:]}"
+          f"\n{proc.stderr[-4000:]}")
+    report = json.loads(proc.stdout)
+    check(report["findings"] == [] and report["errors"] == [] and report["stale_baseline"] == [],
+          f"18: graft-lint findings {report['findings']}, errors {report['errors']}, stale "
+          f"baseline entries {report['stale_baseline']}")
+    rules = [ln.split()[2].rstrip(":") for ln in proc.stderr.splitlines()
+             if ln.startswith("# rule ")]
+    excluded = LintConfig.load(root).exclude_files
+    files = [p for p in root.glob("distributed_tpu_torch/**/*.py")
+             if not _match_scope(p.relative_to(root).as_posix(), excluded)]
+    print(f"[{card}] 18 graft-lint (python -m distributed_tpu_torch.analysis, Python "
+          f"{sys.version.split()[0]}): {len(rules)} rules {rules}; {len(files)} files parsed; "
+          f"{len(report['findings'])} findings, {report['suppressed']} suppressed by pragma or "
+          f"baseline, {len(report['errors'])} errors, {len(report['stale_baseline'])} stale "
+          f"baseline entries; wall s {wall:.3f}")
+    return dict(rules=rules, files=len(files), findings=len(report["findings"]),
+                suppressed=report["suppressed"], wall_s=wall)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -5600,6 +5696,8 @@ def main() -> int:
 
     phase("0", phase_env)
     k3_ptxas, periodic_ptxas_info = phase("1", phase_build)
+    # phase 18's lint runs from now on beside the card phases
+    lint_run = start_lint()
     flash_entry = phase("2", phase_flash)
     bwd_entry = phase("2b", phase_flash_bwd, flash_entry, k3_ptxas)
     wave_entry, oneshot = phase("3", phase_placement)
@@ -5675,7 +5773,9 @@ def main() -> int:
     print(json.dumps({"servers": servers_numbers}))
     print(json.dumps({"deploy": deploy_numbers}))
     print(json.dumps({"shuffle": shuffle_numbers}))
+    lint = phase("18", phase_lint, lint_run)
     print(json.dumps({"cli": cli_numbers}, default=str))
+    print(json.dumps({"lint": lint}))
     print(json.dumps({"phase_s": walls}))
     kernels = [flash_entry, bwd_entry, wave_entry, partition_entry, *periodic_entries, shard_entry,
                shuffle_entry, *long_context, *training, *round1]

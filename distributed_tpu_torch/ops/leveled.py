@@ -978,6 +978,7 @@ def place_waves_cuda(run: LeveledRun, first: int, last: int, stamps=None) -> Non
     ):
         if t.dtype != dtype or t.shape != (n,) or not t.is_contiguous() or t.device != run.device:
             raise ValueError(f"place_waves_cuda: {name} must be a contiguous {dtype}[{n}] on {run.device}")
+    # graft-lint: allow[launch-sync] the packed wire's level offsets are a numpy array on the host; nothing is read from the card
     F = int(np.diff(run.packed.offsets).max(initial=0))
     if sc.tgt.numel() < F or sc.wt.numel() < F or sc.sorted.numel() < F:
         raise ValueError(f"place_waves_cuda: scratch too small for a wave of {F} tasks")

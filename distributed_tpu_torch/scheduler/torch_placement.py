@@ -37,9 +37,10 @@ after a failed device partition nor its single-device engine after a
 failed sharded one or an unsatisfiable mesh: a missing or broken card
 must show, not be absorbed.
 
-The constructor's defaults are the reference's ``scheduler.jax``
-configuration defaults.  A hint is a speculative placement: tasks the
-oracle places before a plan lands simply miss it.
+The constructor reads the port's ``scheduler.jax`` configuration for
+every argument it is not given, as the reference's does.  A hint is a
+speculative placement: tasks the oracle places before a plan lands
+simply miss it.
 """
 
 from __future__ import annotations
@@ -57,6 +58,7 @@ from typing import Any
 import numpy as np
 import torch
 
+from distributed_tpu_torch import config
 from distributed_tpu_torch._device import resolve_device
 from distributed_tpu_torch.ops import partition as part
 from distributed_tpu_torch.scheduler import plan as planning
@@ -71,6 +73,17 @@ _DEFAULT_NBYTES = 10_000.0  # cost-model guess for unobserved outputs
 _EXIT_DRAIN_S = 15.0
 
 _PENDING = ("released", "waiting", "queued", "no-worker")
+
+
+def _cfg(value, key: str):
+    """An explicit argument, else the configuration's ``key``."""
+    return value if value is not None else config.get(key)
+
+
+def _check_partitioner(name: str) -> str:
+    if name not in ("auto", "numpy", "off"):
+        raise ValueError(f"partitioner {name!r}: expected auto, numpy or off")
+    return name
 
 
 class _DaemonExecutor:
@@ -151,36 +164,53 @@ class TorchPlacement:
     an idle worker.  ``device=None`` means CUDA and raises here, at
     construction, when there is none.
 
-    ``mesh_enabled``: ``None`` ("auto": the sharded engine when at least
-    two devices are visible), ``True`` or ``False``; ``mesh_devices``:
-    how many of them (0: all); ``mesh_layout``: ``"auto"`` or ``"TxW"``;
+    ``mesh_enabled``: ``"auto"`` (the sharded engine when at least two
+    devices are visible), ``True`` or ``False``; ``mesh_devices``: how
+    many of them (0: all); ``mesh_layout``: ``"auto"`` or ``"TxW"``;
     ``mesh_shard_devices``: the shards' devices, one entry a shard and
     repeats allowed (several shards on one card), instead of the visible
     devices of ``device``'s type.
+
+    As in the reference (``jax_placement.py:160-201``), every argument
+    but ``max_batch``, ``device`` and ``mesh_shard_devices`` left None
+    is read from ``scheduler.jax.<key>`` (``min-batch``, ``min-workers``,
+    ``sync-plan``, ``min-transfer-ratio``, ``home-depth``,
+    ``drift-yield``, ``mesh.*``) at construction, and ``partitioner``
+    from ``scheduler.jax.partitioner`` at each plan; an explicit
+    argument wins.
     """
 
-    def __init__(self, min_batch: int = 512, max_batch: int | None = None,
-                 min_workers: int = 8, sync: bool = False,
-                 min_transfer_ratio: float = 0.02, partitioner: str = "auto",
-                 home_depth: int | str | None = "inf", drift_yield: bool = True,
-                 device=None, mesh_enabled: bool | None = None, mesh_devices: int = 0,
-                 mesh_layout: str = "auto", mesh_shard_devices=None):
-        if partitioner not in ("auto", "numpy", "off"):
-            raise ValueError(f"partitioner {partitioner!r}: expected auto, numpy or off")
+    def __init__(self, min_batch: int | None = None, max_batch: int | None = None,
+                 min_workers: int | None = None, sync: bool | None = None,
+                 min_transfer_ratio: float | None = None, partitioner: str | None = None,
+                 home_depth: int | str | None = None, drift_yield: bool | None = None,
+                 device=None, mesh_enabled: bool | str | None = None,
+                 mesh_devices: int | None = None, mesh_layout: str | None = None,
+                 mesh_shard_devices=None):
+        if partitioner is not None:
+            _check_partitioner(partitioner)
         self.device = resolve_device(device)
-        self.mesh_enabled = mesh_enabled
-        self.mesh_devices = int(mesh_devices)
-        self.mesh_layout = str(mesh_layout)
+        # "auto" (any non-boolean) is None: the sharded engine when at
+        # least two devices are visible
+        mesh_enabled = _cfg(mesh_enabled, "scheduler.jax.mesh.enabled")
+        self.mesh_enabled: bool | None = (
+            mesh_enabled if isinstance(mesh_enabled, bool) else None
+        )
+        self.mesh_devices = int(_cfg(mesh_devices, "scheduler.jax.mesh.devices"))
+        self.mesh_layout = str(_cfg(mesh_layout, "scheduler.jax.mesh.layout"))
         self.mesh_shard_devices = mesh_shard_devices
         self._mesh = self._get_mesh()
-        self.min_batch = min_batch
+        self.min_batch = _cfg(min_batch, "scheduler.jax.min-batch")
         self.max_batch = max_batch or 1_000_000
-        self.min_workers = min_workers
-        self.sync = bool(sync)
-        self.min_transfer_ratio = min_transfer_ratio
+        self.min_workers = _cfg(min_workers, "scheduler.jax.min-workers")
+        self.sync = bool(_cfg(sync, "scheduler.jax.sync-plan"))
+        self.min_transfer_ratio = float(
+            _cfg(min_transfer_ratio, "scheduler.jax.min-transfer-ratio"))
+        # None: ``scheduler.jax.partitioner``, read at plan time
         self.partitioner = partitioner
-        self.home_depth: int | None = None if home_depth in ("inf", None) else int(home_depth)
-        self.drift_yield = bool(drift_yield)
+        hd = _cfg(home_depth, "scheduler.jax.home-depth")
+        self.home_depth: int | None = None if hd in ("inf", None) else int(hd)
+        self.drift_yield = bool(_cfg(drift_yield, "scheduler.jax.drift-yield"))
         self.plan: dict[Any, tuple] = {}
         # stimulus id of the most recently LANDED plan: the decision
         # ledger stamps it onto every plan-homed placement row
@@ -575,14 +605,17 @@ class TorchPlacement:
             torch.cuda.device(self.device) if self.device.type == "cuda"
             else contextlib.nullcontext()
         )
+        engine = self.partitioner
+        if engine is None:
+            engine = _check_partitioner(config.get("scheduler.jax.partitioner"))
         with on_card:
             if (
-                self.partitioner != "off"
+                engine != "off"
                 and len(run_idx) >= 2
                 and part._bucket(len(keys)) * len(lanes) <= part.DENSE_LIMIT
             ):
                 weights = (out_bytes[src] / bandwidth + transfer_latency).astype(np.float32)
-                if self.partitioner == "numpy":
+                if engine == "numpy":
                     labels = part.partition_numpy(durations, weights, src, dst, len(lanes))
                 else:
                     labels = part.partition_padded(durations, weights, src, dst, len(lanes),

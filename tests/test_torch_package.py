@@ -144,6 +144,44 @@ def test_the_cli_http_ws_and_process_cluster_modules_are_checked(module):
     test_the_shuffle_and_coordination_modules_are_checked(module)
 
 
+ANALYSIS = sorted(m for m in _module_names() if m.startswith("distributed_tpu_torch.analysis"))
+
+
+def test_every_module_of_the_references_linter_has_its_twin():
+    """``distributed_tpu_torch/analysis`` has a counterpart of every file of
+    ``distributed_tpu/analysis``, with ``launch_sync.py`` for ``jit_purity.py``."""
+    ref = ROOT / "distributed_tpu" / "analysis"
+    want = {p.relative_to(ref).as_posix().replace("jit_purity", "launch_sync")
+            for p in ref.rglob("*.py")}
+    got = {p.relative_to(PKG / "analysis").as_posix() for p in (PKG / "analysis").rglob("*.py")}
+    assert got == want and len(ANALYSIS) == len(want)
+
+
+@pytest.mark.parametrize("module", ANALYSIS)
+def test_the_linter_imports_only_the_stdlib(module):
+    """Each module of the port's linter is loaded by the import probe and
+    read by the source check, and imports nothing but the standard
+    library and its own package: no torch, no JAX, no reference.  The one
+    exception is the CLI's ``import distributed_tpu_torch`` for the root."""
+    test_the_shuffle_and_coordination_modules_are_checked(module)
+    path = ROOT / Path(*module.split("."))
+    path = path / "__init__.py" if path.is_dir() else path.with_suffix(".py")
+    for node in ast.walk(ast.parse(path.read_text())):
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom):
+            names = [node.module or ""]
+        else:
+            continue
+        for name in names:
+            # the CLI finds the repo root from the package's own path
+            # (``import distributed_tpu_torch``, whose __init__ loads torch)
+            assert name.split(".")[0] in sys.stdlib_module_names or \
+                name.startswith("distributed_tpu_torch.analysis") or \
+                (module.endswith(".cli") and name == "distributed_tpu_torch"), \
+                f"{module} imports {name}"
+
+
 def test_the_process_clusters_are_exported_as_the_references():
     import distributed_tpu_torch.deploy as deploy
 
