@@ -27,8 +27,18 @@ with the time since the process's first trace (``profile_trace.py``
 measures it).  Kernels running under the tracer refresh the
 mapping within milliseconds; waiting without kernels does not.  So
 :func:`start` prepares the trace, runs small kernels for ``SETTLE_S``, and
-only then opens the capture window; and :func:`stop` reads the trace back
-and gives an ``error`` status if a kernel launch in it lacks its kernel.
+only then opens the capture window.  Even then the mapping errs by a
+varying amount, either way, from one trace to the next: on a trace's
+clock kernels started up to 3.7 ms before their own launches, a small
+kernel launched as a window opened was dropped in 3 of 65 windows, and
+a timing trace that closed right after its last kernel lost that kernel
+(``profile_trace.py``, ``chip_smoke.py`` phase 11); once in 13 logged
+runs of ``chip_smoke.py`` a window lost all of its kernels.  So no kernel
+runs within ``EDGE_S`` of either edge of the window: :func:`start`
+returns only ``EDGE_S`` after opening it, and :func:`stop` waits for the
+trace's card to finish its work and then ``EDGE_S`` before closing it.
+:func:`stop` then reads the trace back and gives an ``error`` status if a
+kernel launch in it lacks its kernel.
 
 Where the reference degrades quietly, this module does not:
 :func:`available` tells whether this torch can trace every thread (it
@@ -66,11 +76,15 @@ KERNEL_LAUNCHES = frozenset({
 # (the module's docstring says why); ``profile_trace.py`` measures a trace's
 # lost kernels with and without it
 SETTLE_S = 0.02
+# seconds between a CUDA capture window's edges and the kernels inside it
+# (the module's docstring says why): 5.5 times the largest error that
+# profile_trace.py measured on an H100, a kernel 3.7 ms before its launch
+EDGE_S = 0.02
 
 _lock = threading.Lock()
 _active_dir: str | None = None
 _profiler = None
-_cuda = False  # the running trace records CUDA activity
+_cuda = None  # the card whose activity the running trace records, or None
 
 
 def all_threads_config():
@@ -136,33 +150,50 @@ def start(logdir: str | None = None, device=None) -> dict:
             prof.start_trace()
         except RuntimeError as exc:  # another profiler holds this process
             return {"status": "error", "error": repr(exc)}
-        _profiler, _active_dir, _cuda = prof, logdir, dev.type == "cuda"
+        _profiler, _active_dir = prof, logdir
+        _cuda = dev if dev.type == "cuda" else None
+        if _cuda is not None:
+            # graft-lint: allow[monotonic-time] start() blocks by design (the settle runs kernels for SETTLE_S on the caller's thread); this wait keeps the caller's first kernel out of the tracer's error at the window's start
+            time.sleep(EDGE_S)
     return {"status": "OK", "logdir": logdir}
+
+
+def launch_pairs(trace: dict) -> list[tuple[float, float | None]]:
+    """For each kernel launch of a loaded ``trace.json``, in time order,
+    (the launch's start, its kernel's start or None where the trace lacks
+    the kernel), on the trace's clock (us): a launch and its kernel share
+    a correlation id."""
+    events = [e for e in trace["traceEvents"] if e.get("ph") == "X"]
+    kernels = {e["args"].get("correlation"): e["ts"] for e in events if e.get("cat") == "kernel"}
+    return sorted((e["ts"], kernels.get(e["args"].get("correlation"))) for e in events
+                  if e.get("cat") in ("cuda_runtime", "cuda_driver")
+                  and e.get("name") in KERNEL_LAUNCHES)
 
 
 def lost_launches(trace: dict) -> tuple[int, int]:
     """(kernel launches whose kernel the trace lacks, kernel launches) of a
-    loaded ``trace.json``: a launch and its kernel share a correlation id."""
-    events = [e for e in trace["traceEvents"] if e.get("ph") == "X"]
-    kernels = {e["args"].get("correlation") for e in events if e.get("cat") == "kernel"}
-    launches = [e["args"].get("correlation") for e in events
-                if e.get("cat") in ("cuda_runtime", "cuda_driver") and e.get("name") in KERNEL_LAUNCHES]
-    return sum(c not in kernels for c in launches), len(launches)
+    loaded ``trace.json``."""
+    pairs = launch_pairs(trace)
+    return sum(kernel is None for _, kernel in pairs), len(pairs)
 
 
 def stop() -> dict:
     """End the trace and write ``<logdir>/trace.json``: ``{"status": "OK",
     "logdir": ..., "files": [...]}``, or an ``error`` status when no trace
-    runs.  A CUDA trace is read back: if it holds a kernel launch without
-    its kernel, the status is ``error`` (with ``logdir`` and ``files``, the
+    runs.  A CUDA trace waits for its card's work and ``EDGE_S`` before
+    it closes, and is read back: if it holds a kernel launch without its
+    kernel, the status is ``error`` (with ``logdir`` and ``files``, the
     file kept), never a trace that quietly lacks kernels."""
     global _active_dir, _profiler, _cuda
     with _lock:
         if _active_dir is None:
             return {"status": "error", "error": "no device trace active"}
         prof, logdir, cuda = _profiler, _active_dir, _cuda
-        _profiler = _active_dir = None
-        _cuda = False
+        _profiler = _active_dir = _cuda = None
+        if cuda is not None:
+            torch.cuda.synchronize(cuda)
+            # graft-lint: allow[monotonic-time] as in start(): this wait keeps the trace's last kernel out of the tracer's error at the window's end
+            time.sleep(EDGE_S)
         prof.stop()
         path = os.path.join(logdir, TRACE_FILE)
         prof.export_chrome_trace(path)
@@ -171,7 +202,7 @@ def stop() -> dict:
         for p in glob.glob(os.path.join(logdir, "**", "*"), recursive=True)
         if os.path.isfile(p)
     )
-    if cuda:
+    if cuda is not None:
         with open(path) as f:
             lost, launched = lost_launches(json.load(f))
         if lost:

@@ -7,13 +7,16 @@ across workers (``merge``, reference profile.py:219).  Exposed via
 ``Worker.get_profile`` / ``Scheduler.get_profile`` RPCs.
 
 The port's copy of ``distributed_tpu/diagnostics/profile.py``, line for
-line but for one repair: the shared sampling thread is stopped and joined
-at interpreter exit (:meth:`_SharedWatcher.shutdown`, an ``atexit``
+line but for two repairs.  The shared sampling thread is stopped and
+joined at interpreter exit (:meth:`_SharedWatcher.shutdown`, an ``atexit``
 hook).  It lingers 0.5 s after its last profiler leaves, so a program that
 closes its workers and exits at once left it alive into finalization, and
 a daemon thread that wakes into a finalizing interpreter with torch loaded
 aborted the process ("terminate called without an active exception",
-exit code 134) after its work was done.
+exit code 134) after its work was done.  And the sampling thread drops
+the frames of a tick once it is done: it held them until its next
+sample, and a sampled frame keeps its locals, a task's result among them,
+alive after its function returns.
 """
 
 from __future__ import annotations
@@ -176,6 +179,10 @@ class _SharedWatcher:
                     continue
                 for p in targets:
                     p._add_sample(frame, now, ident)
+            # a sampled frame keeps its locals alive after its function
+            # returns: held until the next sample, which an idle worker
+            # never asks for, a task's result would outlive its eviction
+            frames = frame = None
 
 
 _shared_watcher = _SharedWatcher()

@@ -29,7 +29,6 @@ ENTRY_TASKS = 64
 ENTRY_F = 512      # the reference's bucket: every wave of the tiny graph fits
 ENTRY_K = 32       # the reference's fused waves
 ENTRY_SPANS = 64   # the reference's spans buffer
-RING_HEAD_DIM = 64  # the smallest head dim K2 takes on the card (the reference's dry run: 8)
 
 
 def _graph(T: int, seed: int):
@@ -186,9 +185,9 @@ def dryrun_multichip(n_devices: int, device=None) -> str:
     _check(got == total, f"the exchange moved {got} rows of {total}")
 
     # ring attention with the sequence over the mesh, against the whole-sequence oracle
-    seq, H = n_devices * 16, 2
+    seq, H, Dh = n_devices * 16, 2, 8
     rq = np.random.default_rng(2)
-    q, k, v = (torch.from_numpy(rq.standard_normal((seq, H, RING_HEAD_DIM)).astype(np.float32))
+    q, k, v = (torch.from_numpy(rq.standard_normal((seq, H, Dh)).astype(np.float32))
                for _ in range(3))
     ring_mesh = make_mesh_1d(n_devices, axis="sp", devices=devices)
     att = torch.cat([x.cpu() for x in ring_attention(ring_mesh, q.to(dev), k.to(dev), v.to(dev),

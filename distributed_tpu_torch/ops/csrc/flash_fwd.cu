@@ -13,6 +13,17 @@
 // k-tile axis becomes a loop inside one block; m, l and the accumulator
 // stay in registers.
 //
+// Head dims: every D from 1 to 256.  Three instances are compiled, DP =
+// 64, 128 and 256, and a D runs on the smallest that holds it: the
+// tensor maps are encoded with the true D, so TMA zero-fills the columns
+// past D in the last 64-column box, zeros add nothing to Q K^T or to
+// P V, and the O columns past D are never stored.  TMA wants a row stride
+// that is a multiple of 16 bytes, D a multiple of 8 in bf16 / f16: for
+// any other D the wrapper (ops/flash.py) hands the kernel one zero-padded
+// copy.  The CUDA-core body loads element by element and takes any D.
+// Past 256 wgmma's N (the head dim in P V) runs out and the accumulators
+// no longer fit: the entry point refuses such a D.
+//
 // Bound on an H100 at the smoke shapes (bf16, seq 8192, 16 heads, head
 // dim 128): operations.  4*N*Nk*D*H = 5.5e11 flop non-causal (about half
 // causal) against ~134 MB of q/k/v/o: ~0.56 ms at the 989 TFLOP/s bf16
@@ -22,7 +33,10 @@
 // - one block per (head, q-tile of 128 rows), two warpgroups of 64 q rows
 //   each; q-tiles are issued longest first so a causal grid ends on
 //   short blocks;
-// - TMA loads Q once and K and V tiles of 128 keys into a 3-stage ring;
+// - TMA loads Q once and K and V tiles of kBK keys into a kStages ring
+//   (FwdTiles: 128 keys and 3 stages up to DP = 128; at DP = 256 64 keys,
+//   so that the S tile and the 128-register O accumulator fit a thread
+//   together, and 2 stages, so that the ring fits shared memory);
 //   a stage's full mbarrier says its tile has landed, and the second
 //   warpgroup done with a stage (a shared counter) refills it with the
 //   tile three on.  The tensor maps are 3-D (D, rows, heads), so a
@@ -33,7 +47,7 @@
 //   and spills; at 256 threads it has 255, issues each product's wgmma
 //   back to back and does not spill;
 // - in each warpgroup: S = Q K^T with
-//   wgmma m64n128k16 from shared memory (f32 accumulate), the scale
+//   wgmma m64n{kBK}k16 from shared memory (f32 accumulate), the scale
 //   applied to S in f32 after the product (q is not rounded pre-scaled),
 //   the online softmax on the accumulator fragment in registers, and
 //   O += P V with P converted in place to the input type as wgmma's
@@ -48,7 +62,7 @@
 //
 // f32 inputs keep the CUDA-core body (tensor cores would run them as
 // TF32, about three decimal digits): 64x64 tiles, 256 threads each
-// holding a 4x4 score block and a 4x(D/16) slice of the accumulator, q
+// holding a 4x4 score block and a 4x(DP/16) slice of the accumulator, q
 // scaled in f32 before the product, Q and the K tile transposed and
 // padded in shared memory so inner-loop reads are broadcasts or
 // conflict-free.
@@ -84,11 +98,12 @@ template <typename T> __host__ __device__ constexpr int k_stride() {
   return sizeof(T) == 4 ? BK + 1 : BK + 2;
 }
 
-template <typename T, int D>
+template <typename T, int DP>
 __host__ __device__ constexpr size_t simt_smem_bytes() {
-  return sizeof(float) * D * (BQ + 1)          // sQ  [D][BQ+1]
-       + sizeof(T) * D * k_stride<T>()         // sK  [D][BK+pad]
-       + sizeof(T) * BK * D                    // sV  [BK][D]
+  // at DP = 256: 65 + 65 + 64 + 16.25 KB, under the 227 KB a block may use
+  return sizeof(float) * DP * (BQ + 1)         // sQ  [DP][BQ+1]
+       + sizeof(T) * DP * k_stride<T>()        // sK  [DP][BK+pad]
+       + sizeof(T) * BK * DP                   // sV  [BK][DP]
        + sizeof(float) * BQ * (BK + 1);        // sP  [BQ][BK+1]
 }
 
@@ -104,18 +119,23 @@ __device__ __forceinline__ float half_warp_sum(float v) {
   return v;
 }
 
-template <typename T, int D, bool CAUSAL>
+// DP: the instance's head dim, D <= DP the inputs' (O's columns past D
+// are never stored).  EXACT: D == DP, taken at compile time, so that the
+// loads' index arithmetic and the Q K^T loop's trip count are constants
+// at the instance's own head dim
+template <typename T, int DP, bool CAUSAL, bool EXACT>
 __global__ void __launch_bounds__(kThreads)
 flash_fwd_simt_kernel(const T* __restrict__ q, const T* __restrict__ k,
                       const T* __restrict__ v, T* __restrict__ o,
-                      float* __restrict__ lse, int N, int Nk, float scale) {
+                      float* __restrict__ lse, int N, int Nk, int d_in, float scale) {
+  const int D = EXACT ? DP : d_in;
   constexpr int KS = k_stride<T>();
-  constexpr int NJD = D / 16;
+  constexpr int NJD = DP / 16;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   float* sQ = reinterpret_cast<float*>(smem_raw);
-  T* sK = reinterpret_cast<T*>(sQ + D * (BQ + 1));
-  T* sV = sK + D * KS;
-  float* sP = reinterpret_cast<float*>(sV + BK * D);
+  T* sK = reinterpret_cast<T*>(sQ + DP * (BQ + 1));
+  T* sV = sK + DP * KS;
+  float* sP = reinterpret_cast<float*>(sV + BK * DP);
 
   const int h = blockIdx.y;
   const int q0 = blockIdx.x * BQ;
@@ -131,6 +151,12 @@ flash_fwd_simt_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const int r = idx / D, d = idx % D;
     sQ[d * (BQ + 1) + r] =
         q0 + r < N ? to_f(qh[static_cast<size_t>(q0 + r) * D + d]) * scale : 0.f;
+  }
+  // V's columns past D are read by the P V loop: zeros there (the Q K^T
+  // loop runs to D; with it running to DP, ptxas spilled the causal body)
+  for (int idx = tid; idx < BK * (DP - D); idx += kThreads) {
+    const int r = idx / (DP - D), d = D + idx % (DP - D);
+    sV[r * DP + d] = from_f<T>(0.f);
   }
 
   float m[4], l[4], acc[4][NJD];
@@ -157,7 +183,7 @@ flash_fwd_simt_kernel(const T* __restrict__ q, const T* __restrict__ k,
       const bool in = k0 + r < Nk;
       const size_t g = static_cast<size_t>(k0 + r) * D + d;
       sK[d * KS + r] = in ? kh[g] : from_f<T>(0.f);
-      sV[r * D + d] = in ? vh[g] : from_f<T>(0.f);
+      sV[r * DP + d] = in ? vh[g] : from_f<T>(0.f);
     }
     __syncthreads();
 
@@ -216,7 +242,7 @@ flash_fwd_simt_kernel(const T* __restrict__ q, const T* __restrict__ k,
       for (int i = 0; i < 4; ++i) pv[i] = sP[(ty + 16 * i) * (BK + 1) + c];
 #pragma unroll
       for (int jd = 0; jd < NJD; ++jd) {
-        const float vv = to_f(sV[c * D + tx + 16 * jd]);
+        const float vv = to_f(sV[c * DP + tx + 16 * jd]);
 #pragma unroll
         for (int i = 0; i < 4; ++i) acc[i][jd] = fmaf(pv[i], vv, acc[i][jd]);
       }
@@ -230,7 +256,9 @@ flash_fwd_simt_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const float lc = fmaxf(l[i], 1e-30f);
     T* orow = o + (static_cast<size_t>(h) * N + r) * D;
 #pragma unroll
-    for (int jd = 0; jd < NJD; ++jd) orow[tx + 16 * jd] = from_f<T>(acc[i][jd] / lc);
+    for (int jd = 0; jd < NJD; ++jd) {
+      if (tx + 16 * jd < D) orow[tx + 16 * jd] = from_f<T>(acc[i][jd] / lc);
+    }
     if (tx == 0) lse[static_cast<size_t>(h) * N + r] = m[i] + logf(lc);
   }
 }
@@ -239,29 +267,59 @@ flash_fwd_simt_kernel(const T* __restrict__ q, const T* __restrict__ k,
 // Tensor-core body (bf16 / f16): TMA ring + wgmma, warp-specialised.
 
 constexpr int kTcBQ = 128;       // q rows per block, 64 per consumer warpgroup
-constexpr int kTcBK = 128;       // keys per K/V tile
-constexpr int kStages = 3;       // K/V ring depth
 constexpr int kTcThreads = 256;  // two warpgroups; their first threads also issue the loads
 constexpr float kLn2 = 0.6931471805599453f;
 
-template <int D>
+// tiles of the instance DP: keys per K/V tile and the ring's depth
+template <int DP> struct FwdTiles;
+template <> struct FwdTiles<64> { static constexpr int kBK = 128, kStages = 3; };
+template <> struct FwdTiles<128> { static constexpr int kBK = 128, kStages = 3; };
+template <> struct FwdTiles<256> { static constexpr int kBK = 64, kStages = 2; };
+
+template <int DP>
 __host__ __device__ constexpr size_t tc_smem_bytes() {
   // Q tile + the K and V ring, 2-byte elements, + slack to align to 1024
-  // (at D = 128: 32 + 3 * 64 KB + 1 KB, under the 227 KB a block may use)
-  return static_cast<size_t>(kTcBQ + 2 * kStages * kTcBK) * D * 2 + 1024;
+  // (at DP = 128: 32 + 3 * 64 KB + 1 KB; at 256: 64 + 2 * 64 KB + 1 KB;
+  // both under the 227 KB a block may use)
+  return static_cast<size_t>(kTcBQ + 2 * FwdTiles<DP>::kStages * FwdTiles<DP>::kBK) * DP * 2 +
+         1024;
+}
+
+// O += P V over the DP columns of the accumulator, P's k-step as the A
+// fragment `a`, V's rows of that step at `v_at` (64-column chunks `chunk`
+// bytes apart): one m64nDP product up to DP = 128, one m64n128 product
+// per 128 columns above.  Registers 64 g ... 64 g + 63 of an m64nDP
+// fragment are the m64n128 fragment of columns 128 g ... 128 g + 127
+// (hopper.cuh's layout).
+template <typename T, int DP>
+__device__ __forceinline__ void pv_columns(float (&acc)[DP / 2], const uint32_t (&a)[4],
+                                           uint32_t v_at, uint32_t chunk) {
+  if constexpr (DP <= 128) {
+    Mma<T>::pv(acc, a, smem_desc(v_at, chunk, 1024));
+  } else {
+#pragma unroll
+    for (int g = 0; g < DP / 128; ++g) {
+      Mma<T>::pv(*reinterpret_cast<float(*)[64]>(&acc[64 * g]), a,
+                 smem_desc(v_at + 2 * g * chunk, chunk, 1024));
+    }
+  }
 }
 
 // One block per (head, q-tile of 128 rows).  Tiles and accumulator
-// fragments are laid out as hopper.cuh describes.
-template <typename T, int D, bool CAUSAL>
+// fragments are laid out as hopper.cuh describes.  DP: the instance's
+// head dim; D <= DP the inputs' (the maps zero-fill the columns past it,
+// and O stores only those below it)
+template <typename T, int DP, bool CAUSAL>
 __global__ void __launch_bounds__(kTcThreads, 1)
 flash_fwd_tc_kernel(const __grid_constant__ CUtensorMap tq,
                     const __grid_constant__ CUtensorMap tk,
                     const __grid_constant__ CUtensorMap tv, T* __restrict__ o,
-                    float* __restrict__ lse, int N, int Nk, float scale_log2) {
-  constexpr int NCH = D / 64;
-  constexpr uint32_t kQBytes = kTcBQ * D * 2;
-  constexpr uint32_t kTileBytes = kTcBK * D * 2;
+                    float* __restrict__ lse, int N, int Nk, int D, float scale_log2) {
+  constexpr int kTcBK = FwdTiles<DP>::kBK;
+  constexpr int kStages = FwdTiles<DP>::kStages;
+  constexpr int NCH = DP / 64;
+  constexpr uint32_t kQBytes = kTcBQ * DP * 2;
+  constexpr uint32_t kTileBytes = kTcBK * DP * 2;
   extern __shared__ uint8_t smem_raw[];
   __shared__ __align__(8) uint64_t bars[1 + kStages];
   __shared__ int released[kStages];  // warpgroups done with the tile in each stage
@@ -312,9 +370,9 @@ flash_fwd_tc_kernel(const __grid_constant__ CUtensorMap tq,
   const int lane = tid % 32;
   const int wq0 = q0 + 64 * wg;               // this warpgroup's first q row
   const int row0 = wq0 + 16 * warp + lane / 4;  // rows row0 and row0 + 8
-  float acc[D / 2];
+  float acc[DP / 2];
 #pragma unroll
-  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+  for (int i = 0; i < DP / 2; ++i) acc[i] = 0.f;
   float m[2] = {kNeg, kNeg};
   float l[2] = {0.f, 0.f};
   const uint32_t q_rows = sQ + 64 * wg * 128;
@@ -322,7 +380,7 @@ flash_fwd_tc_kernel(const __grid_constant__ CUtensorMap tq,
   // S = Q K^T for the tile in stage s, both operands K-major
   auto issue_qk = [&](float (&sc)[NS], int s) {
 #pragma unroll
-    for (int j = 0; j < D / 16; ++j) {
+    for (int j = 0; j < DP / 16; ++j) {
       const uint32_t qoff = (j / 4) * (kTcBQ * 128) + (j % 4) * 32;
       const uint32_t koff = (j / 4) * (kTcBK * 128) + (j % 4) * 32;
       Mma<T>::qk(sc, smem_desc(q_rows + qoff, 16, 1024),
@@ -335,7 +393,7 @@ flash_fwd_tc_kernel(const __grid_constant__ CUtensorMap tq,
 #pragma unroll
     for (int j = 0; j < kTcBK / 16; ++j) {
       const uint32_t a[4] = {pk[4 * j], pk[4 * j + 1], pk[4 * j + 2], pk[4 * j + 3]};
-      Mma<T>::pv(acc, a, smem_desc(sV + s * kTileBytes + j * 16 * 128, kTcBK * 128, 1024));
+      pv_columns<T, DP>(acc, a, sV + s * kTileBytes + j * 16 * 128, kTcBK * 128);
     }
   };
   // scale in f32 after the product (log2 units), mask the diagonal tile
@@ -385,7 +443,7 @@ flash_fwd_tc_kernel(const __grid_constant__ CUtensorMap tq,
   };
   auto rescale = [&](const float (&alpha)[2]) {
 #pragma unroll
-    for (int i = 0; i < D / 2; ++i) acc[i] *= alpha[(i / 2) & 1];
+    for (int i = 0; i < DP / 2; ++i) acc[i] *= alpha[(i / 2) & 1];
   };
   // P rounded once to the input type, all of it before the products
   // are issued, so no register they read is written while in flight
@@ -434,9 +492,10 @@ flash_fwd_tc_kernel(const __grid_constant__ CUtensorMap tq,
     const float lc = fmaxf(l[hh], 1e-30f);
     T* orow = o + (static_cast<size_t>(h) * N + row) * D;
 #pragma unroll
-    for (int i = 0; i < D / 2; i += 2) {
+    for (int i = 0; i < DP / 2; i += 2) {
       if (((i / 2) & 1) != hh) continue;
-      const int col = 8 * (i / 4) + 2 * (lane & 3);
+      const int col = 8 * (i / 4) + 2 * (lane & 3);  // even, and D is a multiple of 8
+      if (col >= D) continue;
       const uint32_t v = Mma<T>::pack(acc[i] / lc, acc[i + 1] / lc);
       *reinterpret_cast<uint32_t*>(orow + col) = v;
     }
@@ -444,93 +503,95 @@ flash_fwd_tc_kernel(const __grid_constant__ CUtensorMap tq,
   }
 }
 
-template <typename T, int D, bool CAUSAL>
+template <typename T, int DP, bool CAUSAL>
 cudaError_t launch_tc(const void* q, const void* k, const void* v, void* o, void* lse,
-                      int H, int N, int Nk, int dtype, float scale, cudaStream_t stream) {
+                      int H, int N, int Nk, int D, int dtype, float scale, cudaStream_t stream) {
   EncodeTiledFn fn = encode_fn();
   if (fn == nullptr) return cudaErrorNotSupported;
   CUtensorMap tq, tk, tv;
   if (!encode_3d(&tq, fn, q, dtype, H, N, D, kTcBQ) ||
-      !encode_3d(&tk, fn, k, dtype, H, Nk, D, kTcBK) ||
-      !encode_3d(&tv, fn, v, dtype, H, Nk, D, kTcBK)) {
+      !encode_3d(&tk, fn, k, dtype, H, Nk, D, FwdTiles<DP>::kBK) ||
+      !encode_3d(&tv, fn, v, dtype, H, Nk, D, FwdTiles<DP>::kBK)) {
     return cudaErrorInvalidValue;
   }
-  auto kernel = flash_fwd_tc_kernel<T, D, CAUSAL>;
-  constexpr size_t smem = tc_smem_bytes<D>();
+  auto kernel = flash_fwd_tc_kernel<T, DP, CAUSAL>;
+  constexpr size_t smem = tc_smem_bytes<DP>();
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
   if (err != cudaSuccess) return err;
   const dim3 grid(H, (N + kTcBQ - 1) / kTcBQ);
   kernel<<<grid, kTcThreads, smem, stream>>>(tq, tk, tv, static_cast<T*>(o),
-                                              static_cast<float*>(lse), N, Nk, scale * kLog2e);
+                                              static_cast<float*>(lse), N, Nk, D, scale * kLog2e);
   return cudaGetLastError();
 }
 
-template <typename T, int D, bool CAUSAL>
+template <typename T, int DP, bool CAUSAL>
 cudaError_t launch_simt(const void* q, const void* k, const void* v, void* o, void* lse,
-                        int H, int N, int Nk, float scale, cudaStream_t stream) {
-  auto kernel = flash_fwd_simt_kernel<T, D, CAUSAL>;
-  constexpr size_t smem = simt_smem_bytes<T, D>();
+                        int H, int N, int Nk, int D, float scale, cudaStream_t stream) {
+  auto kernel = D == DP ? flash_fwd_simt_kernel<T, DP, CAUSAL, true>
+                        : flash_fwd_simt_kernel<T, DP, CAUSAL, false>;
+  constexpr size_t smem = simt_smem_bytes<T, DP>();
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return err;
   const dim3 grid((N + BQ - 1) / BQ, H);
   kernel<<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(o), static_cast<float*>(lse), N, Nk, scale);
+      static_cast<T*>(o), static_cast<float*>(lse), N, Nk, D, scale);
   return cudaGetLastError();
 }
 
-template <int D, bool CAUSAL>
+template <int DP, bool CAUSAL>
 cudaError_t launch_typed(const void* q, const void* k, const void* v, void* o, void* lse,
-                         int H, int N, int Nk, int dtype, float scale, cudaStream_t stream) {
+                         int H, int N, int Nk, int D, int dtype, float scale,
+                         cudaStream_t stream) {
   switch (dtype) {
     case 0:
-      return launch_simt<float, D, CAUSAL>(q, k, v, o, lse, H, N, Nk, scale, stream);
+      return launch_simt<float, DP, CAUSAL>(q, k, v, o, lse, H, N, Nk, D, scale, stream);
     case 1:
-      return launch_tc<__half, D, CAUSAL>(q, k, v, o, lse, H, N, Nk, dtype, scale, stream);
+      return launch_tc<__half, DP, CAUSAL>(q, k, v, o, lse, H, N, Nk, D, dtype, scale, stream);
     case 2:
-      return launch_tc<__nv_bfloat16, D, CAUSAL>(q, k, v, o, lse, H, N, Nk, dtype, scale,
-                                                 stream);
+      return launch_tc<__nv_bfloat16, DP, CAUSAL>(q, k, v, o, lse, H, N, Nk, D, dtype, scale,
+                                                  stream);
     default:
       return cudaErrorInvalidValue;
   }
 }
 
-template <int D>
+template <int DP>
 cudaError_t launch_causal(int causal, const void* q, const void* k, const void* v, void* o,
-                          void* lse, int H, int N, int Nk, int dtype, float scale,
+                          void* lse, int H, int N, int Nk, int D, int dtype, float scale,
                           cudaStream_t stream) {
-  return causal ? launch_typed<D, true>(q, k, v, o, lse, H, N, Nk, dtype, scale, stream)
-                : launch_typed<D, false>(q, k, v, o, lse, H, N, Nk, dtype, scale, stream);
+  return causal ? launch_typed<DP, true>(q, k, v, o, lse, H, N, Nk, D, dtype, scale, stream)
+                : launch_typed<DP, false>(q, k, v, o, lse, H, N, Nk, D, dtype, scale, stream);
 }
 
 }  // namespace
 
 // dtype: 0 float32 (CUDA-core body), 1 float16, 2 bfloat16 (tensor-core
 // body); q/o [H, N, D], k/v [H, Nk, D], lse [H, N] f32, all contiguous
-// and 16-byte aligned; D 64 or 128
+// and 16-byte aligned; D from 1 to 256 (a multiple of 8 in bf16 / f16),
+// run on the instance 64, 128 or 256 that holds it
 extern "C" int dtpu_flash_fwd(const void* q, const void* k, const void* v,
                               void* o, void* lse, int H, int N, int Nk, int D,
                               int dtype, int causal, float scale,
                               void* stream_ptr) {
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
-  if (H <= 0 || N <= 0 || Nk <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (H <= 0 || N <= 0 || Nk <= 0 || D <= 0 || D > 256 || (dtype != 0 && D % 8 != 0)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   for (const void* p : {q, k, v, static_cast<const void*>(o)}) {
     if (reinterpret_cast<uintptr_t>(p) % 16 != 0) {
       return static_cast<int>(cudaErrorMisalignedAddress);
     }
   }
   cudaError_t err;
-  switch (D) {
-    case 64:
-      err = launch_causal<64>(causal, q, k, v, o, lse, H, N, Nk, dtype, scale, stream);
-      break;
-    case 128:
-      err = launch_causal<128>(causal, q, k, v, o, lse, H, N, Nk, dtype, scale, stream);
-      break;
-    default:
-      err = cudaErrorInvalidValue;
+  if (D <= 64) {
+    err = launch_causal<64>(causal, q, k, v, o, lse, H, N, Nk, D, dtype, scale, stream);
+  } else if (D <= 128) {
+    err = launch_causal<128>(causal, q, k, v, o, lse, H, N, Nk, D, dtype, scale, stream);
+  } else {
+    err = launch_causal<256>(causal, q, k, v, o, lse, H, N, Nk, D, dtype, scale, stream);
   }
   return static_cast<int>(err);
 }

@@ -365,7 +365,10 @@ EncodeTiledFn encode_fn() {
 
 // a [heads, rows, D] tensor as a 3-D map with [1, box_rows, 64] boxes: a
 // box past the end of a head's rows is zero-filled on load, never read
-// from the next head
+// from the next head, and so are the columns past D of a box that
+// reaches beyond it (D under 64 included): a kernel compiled for a wider
+// head dim reads zeros there.  The row stride, D * 2 bytes, must be a
+// multiple of 16: D a multiple of 8
 bool encode_3d(CUtensorMap* map, EncodeTiledFn fn, const void* ptr, int dtype, int H,
                int rows, int D, int box_rows) {
   const cuuint64_t dims[3] = {static_cast<cuuint64_t>(D), static_cast<cuuint64_t>(rows),

@@ -16,6 +16,13 @@ which round P (and in the backward dS) once to the input type before a
 product with it; f32 inputs run on the CUDA cores in f32.
 :func:`pv_rounding_term` and :func:`bwd_rounding_terms` give the error
 bounds that this rounding implies.
+
+Both kernels take every head dim from 1 to :data:`HEAD_DIM_MAX` (the
+reference's kernel takes any): each is compiled for the head dims in
+:data:`HEAD_DIM_INSTANCES` and runs a head dim on the smallest that holds
+it, the columns past it zero-filled by the tensor maps.  Past 256 the
+wrappers raise: ``wgmma``'s N, the head dim of P.V, is at most 256, and
+the accumulators no longer fit a thread's registers.
 """
 
 from __future__ import annotations
@@ -29,7 +36,14 @@ _NEG = -1e30  # finite "-inf": fully masked rows stay NaN-free
 
 # kernel dtype codes (csrc/flash_fwd.cu)
 _DTYPES = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2}
-HEAD_DIMS_CUDA = (64, 128)
+HEAD_DIM_MAX = 256
+HEAD_DIMS_CUDA = range(1, HEAD_DIM_MAX + 1)
+# the head dims each kernel is compiled for (csrc/flash_fwd.cu FwdTiles,
+# csrc/flash_bwd.cu BwdTiles); a head dim runs on the smallest that holds it
+HEAD_DIM_INSTANCES = (64, 128, 256)
+# TMA's row stride is a multiple of 16 bytes: in bf16 / f16 the head dim
+# the tensor-core bodies take is a multiple of this many elements
+TMA_DIM_MULTIPLE = 8
 # unit roundoff of the P the tensor-core body rounds to the input type
 P_ROUNDOFF = {torch.bfloat16: 2.0 ** -8, torch.float16: 2.0 ** -11}
 # the kernel's O against the plain version's, per element:
@@ -65,8 +79,9 @@ BWD_TOL = {torch.bfloat16: (2.0 ** -7, 1e-4), torch.float16: (2.0 ** -10, 1e-4),
 # Both bodies' roundings emulated in f32 at seq 1024 give 0.003-0.006
 # (bf16) and 0.0003-0.0009 (f16); f32 only reorders sums.
 E2E_RTOL = {torch.bfloat16: 2.0 ** -5, torch.float16: 2.0 ** -8, torch.float32: 1e-4}
-# rows a block of K3's tensor-core body owns (csrc/flash_bwd.cu kResRows):
-# its lse / delta scratch is padded to a multiple of this per head
+# K3's lse / delta scratch is padded to a multiple of this many rows a
+# head (csrc/flash_bwd.cu kPadRows), a multiple of the rows a block of its
+# tensor-core body owns at every instance (BwdTiles' kResRows)
 BWD_PAD_ROWS = 128
 
 
@@ -116,11 +131,39 @@ def o_excess(o, o_plain, pv_term=0.0) -> float:
     return (d.max() - atol).item()
 
 
+def _check_head_dim(d: int) -> None:
+    if d not in HEAD_DIMS_CUDA:
+        raise ValueError(
+            f"head dim {d} outside 1..{HEAD_DIM_MAX}, the head dims the kernels take: past "
+            f"{HEAD_DIM_MAX} wgmma's N (the head dim of P.V) runs out and the accumulators do "
+            f"not fit")
+
+
+def kernel_head_dim(d: int) -> int:
+    """The instance of :data:`HEAD_DIM_INSTANCES` that runs head dim ``d``."""
+    _check_head_dim(d)
+    return next(dp for dp in HEAD_DIM_INSTANCES if d <= dp)
+
+
+def _tma_head_dim(xs):
+    """``xs`` as the kernel takes them: in bf16 / f16 a head dim that is
+    not a multiple of :data:`TMA_DIM_MULTIPLE` zero-padded up to one, one
+    copy each on their device, counted in the kernel's time (the f32 body
+    loads element by element and takes any).  The zeros add nothing to S,
+    dP, delta or any product, and the caller drops the outputs' padded
+    columns."""
+    d = xs[0].shape[-1]
+    if xs[0].dtype == torch.float32 or d % TMA_DIM_MULTIPLE == 0:
+        return xs
+    dp = -(-d // TMA_DIM_MULTIPLE) * TMA_DIM_MULTIPLE
+    return tuple(torch.nn.functional.pad(x, (0, dp - d)) for x in xs)
+
+
 def flash_forward_cuda(qt, kt, vt, causal: bool, scale: float):
     """The hand-written kernel: ``[H, N, D]`` CUDA inputs of one float
-    dtype -> (O, lse f32 ``[H, N, 1]``)."""
-    if qt.device.type != "cuda":
-        raise RuntimeError(f"flash_forward_cuda needs CUDA tensors, got {qt.device}")
+    dtype, ``D`` from 1 to :data:`HEAD_DIM_MAX` -> (O, lse f32 ``[H, N,
+    1]``).  In bf16 / f16 a ``D`` that is not a multiple of 8 is padded
+    once on the card (:func:`_tma_head_dim`)."""
     if not (qt.dtype == kt.dtype == vt.dtype) or qt.dtype not in _DTYPES:
         raise ValueError(f"q, k, v must share one of {list(_DTYPES)}")
     if qt.dim() != 3 or kt.shape != vt.shape or kt.dim() != 3:
@@ -128,24 +171,29 @@ def flash_forward_cuda(qt, kt, vt, causal: bool, scale: float):
     h, n, d = qt.shape
     if kt.shape[0] != h or kt.shape[2] != d:
         raise ValueError("q, k, v must share heads and head dim")
-    if d not in HEAD_DIMS_CUDA:
-        raise ValueError(f"head dim {d} not in {HEAD_DIMS_CUDA}")
+    _check_head_dim(d)
+    if qt.device.type != "cuda":
+        raise RuntimeError(f"flash_forward_cuda needs CUDA tensors, got {qt.device}")
     if not (qt.is_contiguous() and kt.is_contiguous() and vt.is_contiguous()):
         raise ValueError("q, k, v must be contiguous")
     if not (qt.device == kt.device == vt.device):
         raise ValueError("q, k, v must be on one device")
     if any(x.data_ptr() % 16 for x in (qt, kt, vt)):
         raise ValueError("q, k, v must start on 16-byte boundaries")
+    qt, kt, vt = _tma_head_dim((qt, kt, vt))
+    dt = qt.shape[-1]
     o = torch.empty_like(qt)
     lse = torch.empty((h, n, 1), dtype=torch.float32, device=qt.device)
     lib = _build.load()
     P = _build.ptr
     rc = _build.launch(qt.device, lib.dtpu_flash_fwd,
         P(qt), P(kt), P(vt), P(o), P(lse),
-        h, n, kt.shape[1], d, _DTYPES[qt.dtype], int(bool(causal)), float(scale),
+        h, n, kt.shape[1], dt, _DTYPES[qt.dtype], int(bool(causal)), float(scale),
     )
     _build.check(rc, "dtpu_flash_fwd")
     flash_forward_cuda.launches += 1
+    if dt != d:
+        o = o[..., :d].contiguous()
     return o, lse
 
 
@@ -272,9 +320,8 @@ def flash_backward_cuda(qt, kt, vt, o, lse, do, causal: bool, scale: float):
     lse f32 ``[H, N, 1]`` -> (dQ, dK, dV) in that dtype.  Three launches:
     delta (and a padded copy of lse), then dK/dV by k-tile, then dQ by
     q-tile; no atomics, so two calls on the same inputs give the same
-    bits."""
-    if qt.device.type != "cuda":
-        raise RuntimeError(f"flash_backward_cuda needs CUDA tensors, got {qt.device}")
+    bits.  ``D`` from 1 to :data:`HEAD_DIM_MAX`, padded once on the card
+    as the forward's where bf16 / f16 need it."""
     if not (qt.dtype == kt.dtype == vt.dtype == o.dtype == do.dtype) or qt.dtype not in _DTYPES:
         raise ValueError(f"q, k, v, o, dO must share one of {list(_DTYPES)}")
     if qt.dim() != 3 or kt.dim() != 3 or kt.shape != vt.shape:
@@ -286,8 +333,9 @@ def flash_backward_cuda(qt, kt, vt, o, lse, do, causal: bool, scale: float):
         raise ValueError("o and dO must have q's shape")
     if lse.dtype != torch.float32 or lse.numel() != h * n:
         raise ValueError("lse must be f32 [H, N, 1]")
-    if d not in HEAD_DIMS_CUDA:
-        raise ValueError(f"head dim {d} not in {HEAD_DIMS_CUDA}")
+    _check_head_dim(d)
+    if qt.device.type != "cuda":
+        raise RuntimeError(f"flash_backward_cuda needs CUDA tensors, got {qt.device}")
     do = do.contiguous()  # autograd hands the transposed view of the caller's grad
     tensors = (qt, kt, vt, o, lse, do)
     if not all(x.is_contiguous() for x in tensors):
@@ -296,6 +344,8 @@ def flash_backward_cuda(qt, kt, vt, o, lse, do, causal: bool, scale: float):
         raise ValueError("q, k, v, o, lse, dO must be on one device")
     if any(x.data_ptr() % 16 for x in tensors):
         raise ValueError("q, k, v, o, lse, dO must start on 16-byte boundaries")
+    qt, kt, vt, o, do = _tma_head_dim((qt, kt, vt, o, do))
+    dt = qt.shape[-1]
     dq, dk, dv = torch.empty_like(qt), torch.empty_like(kt), torch.empty_like(vt)
     # delta, then the tensor-core body's lse, each [H, N padded to BWD_PAD_ROWS]
     padded = -(-n // BWD_PAD_ROWS) * BWD_PAD_ROWS
@@ -304,10 +354,12 @@ def flash_backward_cuda(qt, kt, vt, o, lse, do, causal: bool, scale: float):
     P = _build.ptr
     rc = _build.launch(qt.device, lib.dtpu_flash_bwd,
         P(qt), P(kt), P(vt), P(o), P(lse), P(do), P(dq), P(dk), P(dv), P(scratch),
-        h, n, kt.shape[1], d, _DTYPES[qt.dtype], int(bool(causal)), float(scale),
+        h, n, kt.shape[1], dt, _DTYPES[qt.dtype], int(bool(causal)), float(scale),
     )
     _build.check(rc, "dtpu_flash_bwd")
     flash_backward_cuda.launches += 1
+    if dt != d:
+        dq, dk, dv = (g[..., :d].contiguous() for g in (dq, dk, dv))
     return dq, dk, dv
 
 

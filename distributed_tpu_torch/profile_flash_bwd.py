@@ -17,7 +17,8 @@ its f32 cases (seq 1024, head dim 64), it reports:
   the split sums to the call), and the sum of all kernels of one
   backward of ``scaled_dot_product_attention``, the library yardstick;
 - ``k3_ms``: one ``flash_backward_cuda`` call (CUDA events, median of
-  10), as ``chip_smoke.py`` phase 2b times it;
+  10), as ``chip_smoke.py`` phase 2b times it, and ``k2_ms``, one
+  ``flash_forward_cuda`` call on the same inputs, as phase 2 times it;
 - ``step_ms``: one training step of attention, forward then backward
   (CUDA events, median of 10), through ``flash_attention`` (K2 then K3,
   with its layout copies) and through ``scaled_dot_product_attention``
@@ -103,7 +104,8 @@ def main(argv=None) -> int:
             qh, kh, vh = (x.transpose(0, 1)[None] for x in leaves)
             sdpa(qh, kh, vh, is_causal=causal, scale=scale).backward(dot[None])
 
-        row = {"kernels": kernels, "k3_ms": k3_ms,
+        k2_ms = cuda_ms(lambda: flash.flash_forward_cuda(qt, kt, vt, causal, scale), reps=10)
+        row = {"kernels": kernels, "k3_ms": k3_ms, "k2_ms": k2_ms,
                "step_ms": {"flash_attention": cuda_ms(flash_step, reps=10),
                            "sdpa": cuda_ms(sdpa_step, reps=10)}}
         report["cases"][label] = row

@@ -927,7 +927,13 @@ class Worker(Server):
         """XLA device-timeline tracing (the reference's low-level
         profiler role, profile.py:550): action = start | stop.  While a
         trace runs, every executed task is annotated with its key on the
-        device timeline (see diagnostics/device_profile.py)."""
+        device timeline (see diagnostics/device_profile.py).
+
+        Both actions run on the event loop and block it: a CUDA start for
+        the settle and the window's edge (about 40 ms), a CUDA stop until
+        every kernel in flight on the card, of every task, has finished,
+        then the edge and the trace's export.  They stay on the loop's
+        thread so that the profiler starts and stops on one thread."""
         if action == "start":
             return device_profile.start(logdir)
         return device_profile.stop()

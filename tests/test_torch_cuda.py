@@ -234,12 +234,63 @@ def test_flash_bwd_ragged_heads_stay_apart(cuda, dtype, dim, causal):
 
 
 def test_flash_bwd_rejects_other_head_dims(cuda):
-    q = torch.randn(2, 64, 32, device=cuda, dtype=torch.bfloat16)
+    """Past 256 both kernels raise, naming the limit, and launch nothing."""
+    q = torch.randn(2, 64, 264, device=cuda, dtype=torch.bfloat16)
     lse = torch.zeros(2, 64, 1, device=cuda)
-    before = flash.flash_backward_cuda.launches
-    with pytest.raises(ValueError, match="head dim"):
+    before = flash.flash_backward_cuda.launches, flash.flash_forward_cuda.launches
+    with pytest.raises(ValueError, match="head dim 264 outside 1..256"):
         flash.flash_backward(q, q, q, q, lse, q, True, 0.2)
-    assert flash.flash_backward_cuda.launches == before
+    with pytest.raises(ValueError, match="head dim 264 outside 1..256"):
+        flash.flash_forward(q, q, q, True, 0.2)
+    assert (flash.flash_backward_cuda.launches, flash.flash_forward_cuda.launches) == before
+
+
+# every instance (64, 128, 256), below, at and between them; 20 and 36:
+# bf16 / f16 rows that are not 16-byte aligned (the wrapper pads them)
+HEAD_DIMS = [1, 8, 16, 20, 36, 64, 80, 96, 128, 136, 200, 256]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float16, torch.bfloat16],
+                         ids=str)
+@pytest.mark.parametrize("dim", HEAD_DIMS)
+@pytest.mark.parametrize("n,nk", [(100, 203), (256, 256)])
+@pytest.mark.parametrize("causal", [False, True])
+def test_flash_kernels_at_every_head_dim(cuda, dtype, dim, n, nk, causal):
+    """K2 and K3 at head dims other than their instances': K2 within
+    flash.O_TOL (+ u (P|V|)/l) and its lse within 1e-3, K3 within
+    flash.BWD_TOL (+ u terms) on K2's residuals, one launch each a call,
+    the same bits from a second call, and the planted faults of both
+    rejected."""
+    res, scale, plain, terms = _bwd_case(cuda, dtype, dim, n, nk, causal, seed=n + dim)
+    q, k, v, o, lse, do = res
+    before = flash.flash_forward_cuda.launches
+    o2, lse2 = flash.flash_forward(q, k, v, causal, scale)
+    torch.cuda.synchronize()
+    assert flash.flash_forward_cuda.launches == before + 1
+    assert torch.equal(o, o2) and torch.equal(lse, lse2)
+    assert o.shape == q.shape and o.dtype == dtype
+    o_p, lse_p = flash.flash_forward_reference(q, k, v, causal, scale)
+    pv = _pv_term(q, k, v, causal, scale, lse_p)
+    assert o_close(o, o_p, dtype, pv)
+    assert (lse - lse_p).abs().max().item() <= 1e-3
+    lo = nk // 2 // 64 * 64
+    s = (q.float() * scale) @ k[:, lo:lo + 64].float().transpose(1, 2)
+    if causal:
+        s = s.masked_fill(torch.arange(n, device=cuda)[:, None]
+                          < torch.arange(lo, lo + 64, device=cuda)[None, :], float("-inf"))
+    fault = (o_p.float() - torch.exp(s - lse_p) @ v[:, lo:lo + 64].float()).to(dtype)
+    assert flash.o_excess(fault, o_p, pv) > 0.0
+    before = flash.flash_backward_cuda.launches
+    got = flash.flash_backward(*res, causal, scale)
+    torch.cuda.synchronize()
+    assert flash.flash_backward_cuda.launches == before + 1
+    assert [g.shape for g in got] == [x.shape for x in res[:3]]
+    assert [g.dtype for g in got] == [dtype] * 3
+    assert max(flash.bwd_excess(got, plain, terms)) <= 0.0
+    assert all(torch.equal(a, b) for a, b in zip(got, flash.flash_backward_cuda(*res, causal, scale)))
+    fault_a, fault_b = flash.bwd_planted_faults(*res, causal, scale, plain)
+    assert max(flash.bwd_excess(fault_a, plain, terms)[1:]) > 0.0
+    assert flash.bwd_excess(fault_b, plain, terms)[0] > 0.0
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
@@ -1083,10 +1134,67 @@ def test_ulysses_on_the_card_runs_k2_at_a_ragged_length(cuda, causal):
 
 
 def test_ulysses_refuses_a_head_dim_k2_cannot_take(cuda):
-    q = torch.zeros(8 * 128, 8, 32, device=cuda)
+    q = torch.zeros(8 * 128, 8, 264, device=cuda)
     mesh = ici.make_mesh_1d(8, axis="sp", devices=[cuda] * 8)
     with pytest.raises(ValueError, match="head dim"):
         ulysses.ulysses_attention(mesh, q, q, q)
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=str)
+def test_ring_and_ulysses_on_the_card_at_the_references_head_dim(cuda, causal, dtype):
+    """d=16, as the reference's ring tests: the ring runs K2 a visible
+    block and K3 a visible block in its backward, Ulysses K2 and K3 a
+    head group; each against its plain version, and the ring's gradients
+    within ring_bwd_excess of autograd through the plain ring."""
+    g = torch.Generator(device=cuda).manual_seed(16)
+    q, k, v, do = (torch.randn(8 * 64, 8, 16, generator=g, device=cuda).to(dtype)
+                   for _ in range(4))
+    mesh = ici.make_mesh_1d(8, axis="sp", devices=[cuda] * 8)
+    scale = 16 ** -0.5
+    fwd, bwd = flash.flash_forward_cuda.launches, flash.flash_backward_cuda.launches
+    leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+    out = ring_attention.ring_attention(mesh, *leaves, causal=causal)
+    torch.autograd.backward(out, list(do.chunk(8)))
+    torch.cuda.synchronize()
+    visible = 36 if causal else 64
+    assert flash.flash_forward_cuda.launches - fwd == visible
+    assert flash.flash_backward_cuda.launches - bwd == visible
+    plain = ring_attention.ring_attention_reference(mesh, q, k, v, causal=causal)
+    terms = ring_attention.ring_rounding_terms(q, k, v, 8, causal, scale)
+    assert max(ring_attention.ring_excess(out[i].detach(), plain[i], terms[i])
+               for i in range(8)) <= 0.0
+    per_shard = [tuple(x.grad.chunk(8)[i] for x in leaves) for i in range(8)]
+    want = ring_attention.ring_backward_reference(mesh, q, k, v, do, causal=causal)
+    o_cat = torch.cat([x.detach() for x in out])
+    bterms = ring_attention.ring_bwd_rounding_terms(q, k, v, o_cat, do, 8, causal, scale)
+    assert max(max(ring_attention.ring_bwd_excess(per_shard[i], want[i], bterms[i]))
+               for i in range(8)) <= 0.0
+    fwd, bwd = flash.flash_forward_cuda.launches, flash.flash_backward_cuda.launches
+    leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+    out = torch.cat(ulysses.ulysses_attention(mesh, *leaves, causal=causal))
+    out.backward(do)
+    torch.cuda.synchronize()
+    assert flash.flash_forward_cuda.launches - fwd == 8
+    assert flash.flash_backward_cuda.launches - bwd == 8
+    qt, kt, vt = (x.transpose(0, 1).contiguous() for x in (q, k, v))
+    o_p, lse_p = flash.flash_forward_reference(qt, kt, vt, causal, scale)
+    assert o_close(out.detach().transpose(0, 1), o_p, dtype, _pv_term(qt, kt, vt, causal, scale, lse_p))
+    g_p = flash.flash_backward_reference(qt, kt, vt, o_p, lse_p, do.transpose(0, 1), causal, scale)
+    for x, want_g in zip(leaves, g_p):
+        err = (x.grad.transpose(0, 1).float() - want_g.float()).abs().max().item()
+        assert err <= flash.E2E_RTOL[dtype] * want_g.float().abs().max().item()
+
+
+def test_the_dry_run_rings_at_the_references_head_dim_on_the_card(cuda):
+    """dryrun_multichip(8) with every assertion, its ring at d=8 through
+    K2 (36 causal visible blocks)."""
+    from distributed_tpu_torch import entry
+
+    before = flash.flash_forward_cuda.launches
+    line = entry.dryrun_multichip(8)
+    assert "ring attention seq 128 over 8 shards" in line
+    assert flash.flash_forward_cuda.launches - before == 36
 
 
 @pytest.mark.parametrize("causal", [False, True])

@@ -133,8 +133,96 @@ def _rounded_p_forward(qt, kt, vt, causal, scale):
     return o.to(qt.dtype)
 
 
+# the head dims of the reference's tests and dry run (8, 16), a bf16 row
+# that is not a multiple of 16 bytes (20), Phi-2's (80), Phi-3-mini's (96)
+# and Gemma 2's (256): the kernels run them on the instances 64, 128, 256
+HEAD_DIMS = [8, 16, 20, 80, 96, 256]
+
+
 @pytest.mark.parametrize("causal", [False, True])
-@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("n,nk", [(128, 128), (64, 128)])
+@pytest.mark.parametrize("d", HEAD_DIMS)
+def test_plain_forward_matches_flash_call_at_any_head_dim(d, n, nk, causal):
+    """The plain version against the reference's Pallas kernel (interpret
+    mode) at head dims other than 64 and 128: O and lse within TOL."""
+    q, k, v = _qkv(n=n, nk=nk, h=2, d=d, seed=d + n)
+    qt, kt, vt = (np.ascontiguousarray(x.transpose(1, 0, 2)) for x in (q, k, v))
+    scale = d ** -0.5
+    o_want, lse_want = jf._flash_call(jnp.asarray(qt), jnp.asarray(kt), jnp.asarray(vt),
+                                      causal, scale, 64, 64, True)
+    o, lse = tf.flash_forward_reference(*(torch.from_numpy(x) for x in (qt, kt, vt)), causal, scale)
+    np.testing.assert_allclose(o.numpy(), np.asarray(o_want), **TOL)
+    np.testing.assert_allclose(lse.numpy(), np.asarray(lse_want), **TOL)
+
+
+@pytest.mark.parametrize("d", [257, 264, 512])
+def test_the_forward_kernel_refuses_head_dims_past_256(d):
+    """Past 256 the wrapper raises, naming the limit, on any device."""
+    qt = torch.zeros(1, 64, d, dtype=torch.bfloat16)
+    before = tf.flash_forward_cuda.launches
+    with pytest.raises(ValueError, match=f"head dim {d} outside 1..256"):
+        tf.flash_forward_cuda(qt, qt, qt, True, 0.1)
+    assert tf.flash_forward_cuda.launches == before
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+@pytest.mark.parametrize("d", [1, 8, 20, 80, 256])
+def test_the_forward_kernel_refuses_cpu_tensors_at_every_head_dim(d, dtype):
+    qt = torch.zeros(2, 64, d, dtype=dtype)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        tf.flash_forward_cuda(qt, qt, qt, False, 0.1)
+
+
+@pytest.mark.parametrize("d", [1, 8, 20, 80, 93, 256])
+def test_tensor_core_inputs_have_16_byte_rows(d):
+    """TMA wants rows of a multiple of 16 bytes: in bf16 / f16 the kernels'
+    inputs are zero-padded to the next multiple of 8 columns (their own
+    values kept), f32 inputs go in as they are."""
+    rng = np.random.default_rng(d)
+    xs = tuple(torch.from_numpy(rng.standard_normal((2, 64, d)).astype(np.float32))
+               for _ in range(3))
+    assert all(a is b for a, b in zip(tf._tma_head_dim(xs), xs))
+    for dtype in (torch.bfloat16, torch.float16):
+        low = tuple(x.to(dtype) for x in xs)
+        got = tf._tma_head_dim(low)
+        width = -(-d // 8) * 8
+        assert all(g.shape == (2, 64, width) and g.dtype == dtype and g.is_contiguous()
+                   and g.shape[-1] * g.element_size() % 16 == 0 for g in got)
+        assert all(torch.equal(g[..., :d], x) and not g[..., d:].any() for g, x in zip(got, low))
+        if d % 8 == 0:
+            assert all(g is x for g, x in zip(got, low))
+
+
+def test_the_dry_runs_ring_runs_the_references_shapes(monkeypatch):
+    """``dryrun_multichip(8, device="cpu")`` rings the reference's own
+    inputs (``__graft_entry__.py``: seq 8 x 16, 2 heads, head dim 8, from
+    ``default_rng(2)``), and its output holds the reference's assertion
+    against the reference's oracle (rtol = atol = 5e-4)."""
+    from distributed_tpu_torch import entry
+    from distributed_tpu_torch.ops import ring_attention as port_ring
+
+    seen = []
+    ring = port_ring.ring_attention
+
+    def spy(mesh, q, k, v, **kw):
+        out = ring(mesh, q, k, v, **kw)
+        seen.append((q, k, v, out, kw))
+        return out
+
+    monkeypatch.setattr(port_ring, "ring_attention", spy)
+    assert "ring attention seq 128 over 8 shards" in entry.dryrun_multichip(8, device="cpu")
+    ((q, k, v, out, kw),) = seen
+    rq = np.random.default_rng(2)
+    want_qkv = [rq.standard_normal((128, 2, 8)).astype(np.float32) for _ in range(3)]
+    for got, want in zip((q, k, v), want_qkv):
+        assert np.array_equal(got.numpy(), want)
+    assert kw["causal"] is True
+    want = jref(*(jnp.asarray(x) for x in want_qkv), causal=True)
+    np.testing.assert_allclose(torch.cat(out).numpy(), np.asarray(want), rtol=5e-4, atol=5e-4)
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("d", [64, 128, *HEAD_DIMS])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16], ids=str)
 def test_rounded_p_tolerance_passes_rounding_and_rejects_fault(dtype, d, causal):
     """|o - o_plain| <= rtol|o_plain| + u (P|V|)/l + atol holds for a kernel

@@ -57,6 +57,47 @@ def test_plain_backward_matches_flash_diff_bwd(causal, n, nk):
         np.testing.assert_allclose(g.numpy(), np.asarray(w), **TOL, err_msg=name)
 
 
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("d", [8, 16, 20, 80, 96, 256])
+def test_plain_backward_matches_flash_diff_bwd_at_any_head_dim(d, causal):
+    """As above at the head dims the kernels run on wider instances: the
+    reference's tests and dry run (8, 16), a bf16 row that is not a
+    multiple of 16 bytes (20), Phi-2's, Phi-3-mini's and Gemma 2's (80, 96,
+    256); seq 128, 96 keys, within TOL."""
+    h, n, nk, block = 2, 128, 96, 32
+    q, k, v, do = _arrays((h, n, d), (h, nk, d), (h, nk, d), (h, n, d), seed=d)
+    scale = d ** -0.5
+    o, lse = jf._flash_call(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), causal, scale,
+                            block, block, True)
+    want = jf._flash_diff_bwd(causal, scale, block, block, True,
+                              (jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), o, lse[..., 0]),
+                              jnp.asarray(do))
+    res = (torch.from_numpy(np.array(x)) for x in (q, k, v, o, lse, do))
+    got = tf.flash_backward_reference(*res, causal, scale, block)
+    for g, w, name in zip(got, want, ("dq", "dk", "dv")):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), **TOL, err_msg=name)
+
+
+@pytest.mark.parametrize("d", [257, 384])
+def test_the_backward_kernel_refuses_head_dims_past_256(d):
+    """Past 256 the wrapper raises, naming the limit, on any device."""
+    qt = torch.zeros(1, 64, d, dtype=torch.bfloat16)
+    lse = torch.zeros(1, 64, 1)
+    before = tf.flash_backward_cuda.launches
+    with pytest.raises(ValueError, match=f"head dim {d} outside 1..256"):
+        tf.flash_backward_cuda(qt, qt, qt, qt, lse, qt, True, 0.1)
+    assert tf.flash_backward_cuda.launches == before
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+@pytest.mark.parametrize("d", [1, 8, 20, 80, 256])
+def test_the_backward_kernel_refuses_cpu_tensors_at_every_head_dim(d, dtype):
+    qt = torch.zeros(2, 64, d, dtype=dtype)
+    lse = torch.zeros(2, 64, 1)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        tf.flash_backward_cuda(qt, qt, qt, qt, lse, qt, False, 0.1)
+
+
 def _loss_grads_jax(q, k, v, causal, **kw):
     def loss(q, k, v):
         out = jf.flash_attention(q, k, v, causal=causal, **kw)
@@ -199,7 +240,7 @@ def _rounded_backward(res, causal, scale):
 
 
 @pytest.mark.parametrize("causal", [False, True])
-@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("d", [64, 128, 8, 16, 20, 80, 96, 256])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16], ids=str)
 def test_rounding_tolerance_passes_rounding_and_rejects_faults(dtype, d, causal):
     """flash.BWD_TOL with u times the rounding terms holds for a body that
@@ -236,15 +277,28 @@ def test_rounding_terms_are_abs_products():
 # ------------------------------------------------- K3's tile walk, replayed
 
 CSRC_BWD = Path(tf.__file__).resolve().parent / "csrc" / "flash_bwd.cu"
+CSRC_FWD = CSRC_BWD.with_name("flash_fwd.cu")
 
 
-def _k3_tiles():
-    """(resident rows a block owns, rows of a streamed tile) as the
-    tensor-core body declares them."""
+def _instances(src, struct):
+    """{head dim of the instance: its tile constants} from the
+    ``template <> struct <struct><DP> { static constexpr int a = .., b = ..; };``
+    lines of a source."""
+    out = {}
+    for m in re.finditer(r"template <> struct " + struct + r"<(\d+)> \{ static constexpr int "
+                         r"([^;]+); \};", src):
+        out[int(m[1])] = {k.strip(): int(v) for k, v in (kv.split("=") for kv in m[2].split(","))}
+    return out
+
+
+def _k3_tiles(d):
+    """(resident rows a block owns, rows of a streamed tile, the instance's
+    head dim) of the tensor-core body's instance that runs head dim ``d``,
+    as the source declares them."""
     src = CSRC_BWD.read_text()
-    res = int(re.search(r"constexpr int kResRows = (\d+);", src)[1])
+    dp = tf.kernel_head_dim(d)
     stream = int(re.search(r"constexpr int kStreamRows = (\d+);", src)[1])
-    return res, stream
+    return _instances(src, "BwdTiles")[dp]["kResRows"], stream, dp
 
 
 def _pad_rows(x, rows):
@@ -262,8 +316,10 @@ def _replay_k3(res, causal, scale, drop_diagonal=False):
     one at the diagonal would."""
     q, k, v, o, lse, do = res
     dt = q.dtype
-    R, S = _k3_tiles()
     h, n, d = q.shape
+    R, S, dp = _k3_tiles(d)
+    # the tensor maps zero-fill the columns past d up to the instance's
+    q, k, v, o, do = (torch.nn.functional.pad(x, (0, dp - d)) for x in (q, k, v, o, do))
     nk = k.shape[1]
     log2e = 1.4426950408889634
     pn, pk = -(-n // R) * R, -(-nk // R) * R
@@ -278,7 +334,7 @@ def _replay_k3(res, causal, scale, drop_diagonal=False):
     def rnd(x):
         return x.to(dt).float()
 
-    dk, dv = torch.zeros(h, pk, d), torch.zeros(h, pk, d)
+    dk, dv = torch.zeros(h, pk, dp), torch.zeros(h, pk, dp)
     n_qt = -(-n // S)
     for k0 in range(0, nk, R):  # b
         kb, vb = kf[:, k0:k0 + R], vf[:, k0:k0 + R]
@@ -293,7 +349,7 @@ def _replay_k3(res, causal, scale, drop_diagonal=False):
             dst = pt * (vb @ ds_.transpose(1, 2) - delta[:, None, rows])
             dv[:, k0:k0 + R] += rnd(pt) @ ds_
             dk[:, k0:k0 + R] += rnd(dst) @ qs
-    dq = torch.zeros(h, pn, d)
+    dq = torch.zeros(h, pn, dp)
     for q0 in range(0, n, R):  # c
         qb, dob = qf[:, q0:q0 + R], dof[:, q0:q0 + R]
         qpos = torch.arange(q0, q0 + R)[:, None]
@@ -312,7 +368,8 @@ def _replay_k3(res, causal, scale, drop_diagonal=False):
             ds = p * (dob @ vf[:, cols].transpose(1, 2)
                       - delta[:, q0:q0 + R, None])
             dq[:, q0:q0 + R] += rnd(ds) @ kf[:, cols]
-    return ((dq[:, :n] * scale).to(dt), (dk[:, :nk] * scale).to(dt), dv[:, :nk].to(dt))
+    return ((dq[:, :n, :d] * scale).to(dt), (dk[:, :nk, :d] * scale).to(dt),
+            dv[:, :nk, :d].to(dt))
 
 
 def _replay_case(dtype, d, n, nk, causal):
@@ -328,7 +385,7 @@ def _replay_case(dtype, d, n, nk, causal):
 
 @pytest.mark.parametrize("n,nk", [(100, 100), (192, 64), (64, 192), (256, 512), (101, 203)])
 @pytest.mark.parametrize("causal", [False, True])
-@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("d", [64, 128, 24, 80, 256])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16], ids=str)
 def test_k3_tile_walk_replay_within_tolerance(dtype, d, causal, n, nk):
     """K3's blocks, tiles, causal bounds and padded lse, replayed on the
@@ -342,7 +399,7 @@ def test_k3_tile_walk_replay_within_tolerance(dtype, d, causal, n, nk):
 
 
 @pytest.mark.parametrize("n,nk", [(256, 256), (192, 64), (101, 203)])
-@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("d", [64, 128, 256])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16], ids=str)
 def test_k3_tile_walk_replay_without_diagonal_fails(dtype, d, n, nk):
     """The same replay, one tile off at the causal diagonal in both
@@ -353,5 +410,18 @@ def test_k3_tile_walk_replay_without_diagonal_fails(dtype, d, n, nk):
 
 
 def test_k3_scratch_padding_matches_the_kernel():
-    """The wrapper pads K3's lse / delta scratch to the kernel's block."""
-    assert tf.BWD_PAD_ROWS == _k3_tiles()[0]
+    """The wrapper pads K3's lse / delta scratch as the kernel does, to a
+    multiple of the rows a block owns at every instance."""
+    src = CSRC_BWD.read_text()
+    assert tf.BWD_PAD_ROWS == int(re.search(r"constexpr int kPadRows = (\d+);", src)[1])
+    assert all(tf.BWD_PAD_ROWS % t["kResRows"] == 0
+               for t in _instances(src, "BwdTiles").values())
+
+
+def test_the_kernels_instances_are_the_wrappers():
+    """Both sources compile the head dims flash.HEAD_DIM_INSTANCES names,
+    and a head dim runs on the smallest instance that holds it."""
+    for path, struct in ((CSRC_FWD, "FwdTiles"), (CSRC_BWD, "BwdTiles")):
+        assert tuple(sorted(_instances(path.read_text(), struct))) == tf.HEAD_DIM_INSTANCES
+    assert [tf.kernel_head_dim(d) for d in (1, 64, 65, 128, 129, 256)] == [64, 64, 128, 128, 256,
+                                                                           256]

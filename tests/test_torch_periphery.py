@@ -424,16 +424,24 @@ def test_stop_refuses_a_cuda_trace_that_lacks_a_kernel(tmp_path, monkeypatch, lo
         trace["traceEvents"] = [e for e in trace["traceEvents"]
                                 if not (e["cat"] == "kernel" and e["args"]["correlation"] == 2)]
     assert device_profile.lost_launches(trace) == (int(lose), 3)
+    # in launch order: correlation 1 at 110, 3 at 120, 2 at 160
+    assert device_profile.launch_pairs(trace) == [(110.0, 98.0), (120.0, 180.0),
+                                                  (160.0, None if lose else 140.0)]
     made = []
     monkeypatch.setattr(torch.profiler, "profile",
                         lambda **kw: made.append(_ExportOnly(trace, **kw)) or made[-1])
     monkeypatch.setattr(device_profile, "resolve_device", lambda device: torch.device("cuda", 0))
-    settled = []
+    settled, slept = [], []
     monkeypatch.setattr(device_profile, "_settle", settled.append)
+    monkeypatch.setattr(device_profile.time, "sleep", slept.append)
     assert device_profile.start(str(tmp_path))["status"] == "OK"
     assert torch.profiler.ProfilerActivity.CUDA in made[0].kwargs["activities"]
     assert settled == [torch.device("cuda", 0)]  # kernels before the capture window opens
+    assert slept == [device_profile.EDGE_S]  # and none of the caller's at its edge
+    synced = []
+    monkeypatch.setattr(torch.cuda, "synchronize", synced.append)
     rep = device_profile.stop()
+    assert synced == [torch.device("cuda", 0)] and slept == [device_profile.EDGE_S] * 2
     assert not device_profile.active()
     assert rep["files"] == [device_profile.TRACE_FILE] and rep["logdir"] == str(tmp_path)
     if lose:

@@ -26,6 +26,8 @@ import asyncio
 import builtins
 import gc
 import os
+import threading
+import time
 import weakref
 
 import numpy as np
@@ -353,3 +355,46 @@ async def test_an_evicted_tensor_is_freed(tmp_path):
             directory = worker.data.spill_directory
             assert os.path.isdir(directory)
     assert not os.path.exists(directory)
+
+
+def test_the_sampler_keeps_no_frame_between_samples():
+    """The shared profiler's sampling thread lets go of the frames it
+    sampled once the tick is done.  It held the last tick's
+    ``sys._current_frames()`` until its next sample, which an idle worker
+    never asks for, and a sampled frame keeps its locals alive after its
+    function returns: a task's result (the tensor of
+    ``test_an_evicted_tensor_is_freed``) outlived its eviction whenever a
+    sample caught the executor thread holding it."""
+    from distributed_tpu_torch.diagnostics.profile import Profiler
+
+    class Block:
+        pass
+
+    held, release, sampling = threading.Event(), threading.Event(), [True]
+    block = Block()
+    ref = weakref.ref(block)
+
+    def task(x):
+        held.set()
+        release.wait(10)
+
+    thread = threading.Thread(target=task, args=(block,))
+    del block
+    thread.start()
+    held.wait(10)
+    prof = Profiler(interval=0.001, cycle=1000, idents=lambda: [thread.ident],
+                    active=lambda: sampling[0])
+    prof.start()
+    try:
+        deadline = time.monotonic() + 10
+        while prof.current["count"] == 0 and time.monotonic() < deadline:
+            time.sleep(0.001)
+        assert prof.current["count"] > 0
+        sampling[0] = False  # idle: the sampler takes no more samples
+        time.sleep(0.05)     # ticks without a sample
+        release.set()
+        thread.join(10)
+        assert ref() is None
+    finally:
+        release.set()
+        prof.stop()
