@@ -88,11 +88,12 @@ and prints no result):
    replayed against the python criterion), an AMM round (K8: 16,384
    replicated keys on 512 workers, up to 64 rounds, the same drops as the
    plain version on the CPU, the reference's invariants on replay) and a
-   rebalance plan (K9, torch ops: 262,144 keys on 512 workers, the
-   invariants, the same moves and memory as the CPU run, beside the time
-   of the scheduler's host plan on the same keys); each with its time,
+   rebalance plan (K9, ``csrc/rebalance.cu``, one launch a plan: 262,144
+   keys on 512 workers, the invariants, the same moves and memory as the
+   CPU run and as the plain version on the card, beside the time of the
+   scheduler's host plan on the same keys); each with its time,
    the plain version's time on the card, its bound and its launches (K7
-   and K8 also ``chain_ms``, the dependent adds their contract orders,
+   to K9 also ``chain_ms``, the dependent adds their contract orders,
    and their split by phase from the kernel's own timeline), and no path
    may count a failure.  Its inputs and replays come from
    ``tests/test_torch_periodic_cases.py``;
@@ -255,7 +256,11 @@ and prints no result):
    the workers' spill metrics; (c) BASELINE config 3, ``bench.py``'s ``_run_steal`` (320
    ``slowinc`` of 0.02 s pinned to one of 64 one-thread workers), stealing
    on (K6 and K7 from inside the scheduler, the tasks on more than one
-   worker) and off, both walls beside the ideal; (d) two ``Nanny``s on a
+   worker) and off, both walls beside the ideal, then, on the cluster
+   with stealing on, ``Client.rebalance()`` of 4,096 single-replica keys
+   of uneven sizes held by 16 of the 64 workers (K9 launched once from
+   inside the scheduler, its moves those of the CPU plan on the same
+   batch, every value unchanged, the imbalance not grown); (d) two ``Nanny``s on a
    tcp scheduler, each spawning a worker process that computes CUDA blocks
    (back through the ``"torch"`` family), the children importing no JAX
    package and no JAX, one worker SIGKILLed, restarted by its nanny and its
@@ -491,7 +496,8 @@ def flash_ptxas(log):
 # the periodic kernels whose registers and spills phase 1 reports:
 # source -> kernel; K7 is instantiated per level of XLA's windows, K8 per
 # width of its holder lists
-PERIODIC_KERNELS = {"steal.cu": "steal_kernel", "amm_drop.cu": "amm_drop_kernel"}
+PERIODIC_KERNELS = {"steal.cu": "steal_kernel", "amm_drop.cu": "amm_drop_kernel",
+                    "rebalance.cu": "rebalance_kernel"}
 
 
 def periodic_ptxas(log):
@@ -1763,13 +1769,81 @@ def _drop_bound_ms(R, W, K, drops_cpu):
     return _bound(nbytes, ops)
 
 
-def _rebalance_bound_ms(N, W, rounds):
-    """Owners, sizes and flags read once, memory in and out, the moves
-    (key and recipient a slot a round) written once; the size sort, then
-    per round a pass over the keys and two sorts of the workers."""
+def _rebalance_bound_ms(N, W, rounds, ran):
+    """The least work of the function: owners, sizes and flags read once,
+    memory in and out, the moves (key and recipient a slot a round)
+    written once; the size sort once, then two sorts of the workers in
+    each of the ``ran`` rounds this run's data needs (the rounds after the
+    first that moves nothing move nothing, whatever they compute)."""
     nbytes = 9 * N + 8 * W + 8 * rounds * W
-    ops = N * math.ceil(math.log2(N)) + rounds * (N + 2 * W * math.ceil(math.log2(W)))
+    ops = N * math.ceil(math.log2(N)) + ran * 2 * W * math.ceil(math.log2(W))
     return _bound(nbytes, ops)
+
+
+def _rebalance_chain_ms(ran, sm_mhz):
+    """The floor the contract puts under K9's rounds, whatever its design:
+    a round's memories are the last round's less a size plus a size, two
+    dependent f32 adds in each of the ``ran`` rounds, at FADD_CYCLES an add
+    and the SM clock."""
+    return ran * 2 * FADD_CYCLES / (sm_mhz * 1e3)
+
+
+@contextlib.contextmanager
+def rebalance_spy(scheduler=None):
+    """Record what a rebalance plan runs, without changing it: the batch
+    and the moves of ``plan_rebalance`` as ``RebalancePath`` calls it, the
+    arguments, moves and wall of ``scheduler._rebalance_plan_device`` (an
+    attribute of the instance while inside), and the host clock at each
+    seam (``t``: plan_device in, plan_rebalance in, rounds in, rounds out
+    with the card synchronised, plan_device out).  Yields a dict of lists."""
+    from distributed_tpu_torch.ops import rebalance
+    from distributed_tpu_torch.scheduler import rebalance as path_mod
+
+    seen = {"batches": [], "moves": [], "plans": [], "t": []}
+    plan0, rounds0 = path_mod.plan_rebalance, rebalance.rebalance_rounds
+
+    def plan(batch, *args, **kwargs):
+        seen["t"].append(("plan", time.perf_counter()))
+        out = plan0(batch, *args, **kwargs)
+        seen["batches"].append(batch)
+        seen["moves"].append(out)
+        return out
+
+    def rounds(*args, **kwargs):
+        seen["t"].append(("rounds", time.perf_counter()))
+        out = rounds0(*args, **kwargs)
+        if out[0].is_cuda:
+            torch.cuda.synchronize(out[0].device)
+        seen["t"].append(("rounds_end", time.perf_counter()))
+        return out
+
+    path_mod.plan_rebalance, rebalance.rebalance_rounds = plan, rounds
+    if scheduler is not None:
+        def plan_device(wss, cand, owner, mem=None):
+            t0 = time.perf_counter()
+            out = type(scheduler)._rebalance_plan_device(scheduler, wss, cand, owner, mem)
+            seen["plans"].append(dict(wss=wss, cand=cand, moves=out,
+                                      ms=(time.perf_counter() - t0) * 1e3))
+            return out
+
+        scheduler._rebalance_plan_device = plan_device
+    try:
+        yield seen
+    finally:
+        path_mod.plan_rebalance, rebalance.rebalance_rounds = plan0, rounds0
+        if scheduler is not None:
+            del scheduler._rebalance_plan_device
+
+
+def plan_split_ms(seen, t0, t1):
+    """The pieces of one timed ``plan_device`` call from ``rebalance_spy``'s
+    clocks: ``pack`` (the batch built from the keys), ``upload`` (the
+    padded inputs to the card), ``rounds`` (the rounds, synchronised),
+    ``moves_back`` (the moves read back and mapped to the keys)."""
+    t = dict(seen["t"][-3:])
+    return dict(pack=(t["plan"] - t0) * 1e3, upload=(t["rounds"] - t["plan"]) * 1e3,
+                rounds=(t["rounds_end"] - t["rounds"]) * 1e3,
+                moves_back=(t1 - t["rounds_end"]) * 1e3)
 
 
 def steal_case(pc, name):
@@ -1907,7 +1981,7 @@ def phase_periodic(ptxas=None):
     TorchMirror.launches = 0
     stealing.steal_rounds_cuda.launches = 0
     amm.drop_rounds_cuda.launches = 0
-    rebalance.rebalance_rounds.launches = 0
+    rebalance.rebalance_rounds_cuda.launches = 0
     state = pc.StandInState()
     mirror = state.mirror = TorchMirror(state)
     views, seen, thieves, mirror_log = 0, {}, {}, []
@@ -1946,7 +2020,7 @@ def phase_periodic(ptxas=None):
     torch.cuda.synchronize()
     launches = {"mirror_view": TorchMirror.launches, "steal": stealing.steal_rounds_cuda.launches,
                 "amm_drop": amm.drop_rounds_cuda.launches,
-                "rebalance": rebalance.rebalance_rounds.launches}
+                "rebalance": rebalance.rebalance_rounds_cuda.launches}
     print(f"[{card}] periodic main path: launches {launches}; paths "
           f"{ {p: q.counters() for p, q in (('stealing', steal_path), ('amm', amm_path), ('rebalance', reb_path))} }")
     check(launches == {"mirror_view": views, "steal": len(STEAL_FLEETS), "amm_drop": 1, "rebalance": 1},
@@ -2060,7 +2134,9 @@ def phase_periodic(ptxas=None):
         chain_ms=chain_ms, case=f"{AMM_KEYS}x{AMM_WORKERS}", rounds=K, drops=n_drops,
         card_plain_agreement=agree, phases=split, ptxas=ptxas.get("amm_drop.cu"))
 
-    # K9: invariants, the CPU run's moves and memory, time beside the host plan
+    # K9: the moves against the CPU run; the kernel against the plain version
+    # on the CPU and on the card, bit for bit; its time beside theirs and the
+    # host plan's
     got_moves = [(ts.row, s.idx, r.idx) for ts, s, r in moves]
     before, after = pc.check_rebalance(reb_batch, got_moves)
     want_moves = rebalance.plan_rebalance(reb_batch, device="cpu")
@@ -2068,19 +2144,42 @@ def phase_periodic(ptxas=None):
           f"rebalance: {len(got_moves)} moves on the card differ from the CPU run's {len(want_moves)}")
     N = REBALANCE_KEYS
     R = rebalance.round_count(reb_batch)
-    *_, mem_cpu = rebalance.rebalance_rounds(*rebalance.padded_inputs(reb_batch, "cpu"), R)
+    cpu_out = rebalance.rebalance_rounds_reference(*rebalance.padded_inputs(reb_batch, "cpu"), R)
     card_args = rebalance.padded_inputs(reb_batch, dev)
-    *_, mem_card = rebalance.rebalance_rounds(*card_args, R)
-    err = float((mem_card.cpu() - mem_cpu).abs().max())
-    check(err == 0.0, f"rebalance: the card's projected memory differs from the CPU run by {err}")
-    ms = cuda_ms(lambda: rebalance.rebalance_rounds(*card_args, R), warmup=1)
-    bound_ms, bound_by = _rebalance_bound_ms(len(card_args[0]), REBALANCE_WORKERS, R)
-    # the whole plan as the scheduler calls it (pack, rounds, moves back), and
-    # the host plan its gate takes below 512 candidates, on the same keys
-    t0 = time.perf_counter()
-    reb_path.plan_device(reb_fv.live_list, reb_keys, reb_batch.owner.tolist(),
-                         reb_fv.nbytes[reb_fv.slots].astype(np.float32, copy=True))
-    plan_wall_ms = (time.perf_counter() - t0) * 1e3
+    k9 = rebalance.rebalance_rounds_cuda(*card_args, R)
+    again = rebalance.rebalance_rounds_cuda(*card_args, R)
+    plain = rebalance.rebalance_rounds_reference(*card_args, R)
+    for name, g, a, w, q in zip(("mk", "md", "mem"), k9, again, cpu_out, plain):
+        check(torch.equal(g.cpu(), w), f"rebalance: K9's {name} differs from the CPU run")
+        check(torch.equal(a, g), f"rebalance: two calls of K9 give two {name}")
+        check(torch.equal(q, g), f"rebalance: K9's {name} differs from the plain version on the card")
+    err = float((k9[2].cpu() - cpu_out[2]).abs().max())
+    ran = min(R, int((cpu_out[0] >= 0).any(dim=1).sum()) + 1)  # and the round that found nothing
+    ms = cuda_ms(lambda: rebalance.rebalance_rounds_cuda(*card_args, R), reps=5)
+    plain_ms = cuda_ms(lambda: rebalance.rebalance_rounds_reference(*card_args, R), warmup=1)
+    bound_ms, bound_by = _rebalance_bound_ms(len(card_args[0]), REBALANCE_WORKERS, R, ran)
+    chain_ms = _rebalance_chain_ms(ran, sm_mhz)
+    # the whole plan as the scheduler calls it, median of 3 calls; then 3
+    # more under rebalance_spy (which waits for the card after the rounds)
+    # for its split into pack, upload, rounds and moves back; and the host
+    # plan the gate takes below 512 candidates, on the same keys
+    def plan_once():
+        return reb_path.plan_device(reb_fv.live_list, reb_keys, reb_batch.owner.tolist(),
+                                    reb_fv.nbytes[reb_fv.slots].astype(np.float32, copy=True))
+
+    walls, splits = [], []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        plan_once()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    for _ in range(3):
+        with rebalance_spy() as seen:
+            t0 = time.perf_counter()
+            plan_once()
+            t1 = time.perf_counter()
+        splits.append(plan_split_ms(seen, t0, t1))
+    plan_wall_ms = statistics.median(walls)
+    plan_split = {k: statistics.median(sp[k] for sp in splits) for k in splits[0]}
     wss, _ = pc.rebalance_fleet(reb_batch)
     t0 = time.perf_counter()
     py_moves = pc.rebalance_plan_python(wss, None)
@@ -2090,19 +2189,24 @@ def phase_periodic(ptxas=None):
         proj[snd.idx] -= ts.nbytes
         proj[rcp.idx] += ts.nbytes
     py_after = float(proj.max() - proj.min())
-    print(f"[{card}] rebalance {N} keys x {REBALANCE_WORKERS} workers, {R} rounds: {len(got_moves)} moves, "
-          f"invariants hold, imbalance {before:.6g} -> {after:.6g}; moves and memory == CPU run; "
-          f"torch ops ms {ms:.4f} bound_ms {bound_ms:.7f} ({bound_by}) launches 1 a plan; "
-          f"plan wall ms {plan_wall_ms:.1f}; host python plan ms {python_plan_ms:.1f} "
-          f"({len(py_moves)} moves, imbalance -> {py_after:.6g})")
-    # the route is torch ops, the plain version itself: no other plain time
+    print(f"[{card}] rebalance {N} keys x {REBALANCE_WORKERS} workers, {R} rounds ({ran} ran): "
+          f"{len(got_moves)} moves, invariants hold, imbalance {before:.6g} -> {after:.6g}; moves and "
+          f"memory == CPU run and == the plain version on the card, repeat identical; K9 kernel_ms "
+          f"{ms:.4f} plain_ms {plain_ms:.4f} bound_ms {bound_ms:.7f} ({bound_by}) chain_ms "
+          f"{chain_ms:.5f} launches 1 a plan; plan wall ms {plan_wall_ms:.2f} (median of 3; split "
+          "under the spy, median of 3: "
+          + " ".join(f"{k} {v:.2f}" for k, v in plan_split.items())
+          + f"); host python plan ms {python_plan_ms:.1f} ({len(py_moves)} moves, imbalance -> "
+          f"{py_after:.6g})")
     entries["rebalance"] = dict(
-        name="rebalance", route="torch", source="distributed_tpu_torch/ops/rebalance.py",
+        name="rebalance", route="cuda", source="distributed_tpu_torch/ops/csrc/rebalance.cu",
         replaces="distributed_tpu/ops/rebalance.py:43", launches=launches["rebalance"],
-        max_abs_err=err, ms=ms, plain_ms=None, bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
-        case=f"{N}x{REBALANCE_WORKERS}", rounds=R, moves=len(got_moves),
-        imbalance_before=before, imbalance_after=after, plan_wall_ms=plan_wall_ms,
-        python_plan_ms=python_plan_ms, python_moves=len(py_moves), python_imbalance_after=py_after)
+        max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+        library_ms=None, chain_ms=chain_ms, case=f"{N}x{REBALANCE_WORKERS}", rounds=R,
+        rounds_ran=ran, moves=len(got_moves), imbalance_before=before, imbalance_after=after,
+        plan_wall_ms=plan_wall_ms, plan_split_ms=plan_split, python_plan_ms=python_plan_ms,
+        python_moves=len(py_moves), python_imbalance_after=py_after,
+        ptxas=ptxas.get("rebalance.cu"))
 
     # K6 timed: a view after TIMED_DIRTY dirty rows, against a full upload
     ws37 = rng(80).choice(list(state.workers.values()), TIMED_DIRTY, replace=False)
@@ -4637,8 +4741,10 @@ SPILL_LIMIT = 100_000_000
 # the RSS thresholds off: a process that holds a CUDA context has a large RSS
 # before it holds any data, and in-process workers all read that one RSS
 RSS_OFF = {"worker.memory.spill": False, "worker.memory.pause": False}
-# 15c: BASELINE config 3 (bench.py's _run_steal)
+# 15c: BASELINE config 3 (bench.py's _run_steal); then Client.rebalance() of
+# REB_KEYS single-replica keys (rebalance_block) held by REB_HOLDERS of its workers
 STEAL_TASKS, STEAL_WORKERS, STEAL_DELAY = 320, 64, 0.02
+REB_KEYS, REB_HOLDERS = 4096, 16
 # 15d: two nannies of two threads, blocks of seeded small integers
 NANNY_BLOCKS, NANNY_N = 8, 1024
 # 15e: the client's extras on 2 inproc workers of 2 threads
@@ -4660,6 +4766,8 @@ def _paths(s, phase="15") -> dict:
     for i, policy in enumerate(getattr(amm, "policies", ())):
         path = getattr(policy, "_device_path", None)
         out[f"amm{i}"] = path.counters() if path is not None else None
+    reb = getattr(s, "rebalance_path", None)
+    out["rebalance"] = reb.counters() if reb is not None else None
     for name, c in out.items():
         check(c is None or c["failures"] == 0, f"{phase}: the {name} device path failed: {c}")
     return out
@@ -4797,7 +4905,8 @@ async def _spill(device):
 
 async def _steal(device, steal):
     """15c: config 3's 320 slowinc tasks pinned to one of 64 one-thread
-    workers (``allow_other_workers``), with work stealing on or off."""
+    workers (``allow_other_workers``), with work stealing on or off; with
+    stealing on, then :func:`_rebalance` on the same cluster."""
     from distributed_tpu_torch import config, graphs
     from distributed_tpu_torch.client.client import Client
     from distributed_tpu_torch.deploy.local import LocalCluster
@@ -4814,8 +4923,78 @@ async def _steal(device, steal):
                 res = await c.gather(futs)
                 wall = time.perf_counter() - t0
                 ran_on = {w for ws in (await c.who_has(futs)).values() for w in ws}
-                return dict(results=res, wall_s=wall, ran_on=len(ran_on),
-                            paths=_paths(cl.scheduler))
+                out = dict(results=res, wall_s=wall, ran_on=len(ran_on),
+                           paths=_paths(cl.scheduler))
+                if steal:
+                    del futs
+                    out["rebalance"] = await _rebalance(c, cl)
+                return out
+
+
+def rebalance_block(i):
+    """15c's rebalance key ``i``: seeded bytes, 512 + 4i + i^2 // 2048 of
+    them, so no two keys have one size."""
+    return np.random.default_rng(i).integers(0, 256, 512 + 4 * i + i * i // 2048, dtype=np.uint8)
+
+
+async def _settled(test, what, timeout=60.0):
+    t0 = time.perf_counter()
+    while not test():
+        check(time.perf_counter() - t0 < timeout, f"15c: {what} within {timeout} s")
+        await asyncio.sleep(0.01)
+
+
+async def _rebalance(c, cl):
+    """15c's rebalance: REB_KEYS keys of uneven sizes on the first
+    REB_HOLDERS workers, then ``Client.rebalance()``; the plan the
+    scheduler runs is recorded (``rebalance_spy``) and held to the CPU
+    plan on the same batch, the moves enacted, every value gathered
+    before and after equal, the imbalance of managed memory not grown."""
+    from distributed_tpu_torch.ops import rebalance
+
+    s = cl.scheduler
+    workers = list(s.state.workers.values())
+    # the slowinc results released: the rebalance sees only its own keys
+    await _settled(lambda: all(not ws.has_what for ws in workers), "slowinc's results released")
+    holders = [w.address for w in cl.workers[:REB_HOLDERS]]
+    futs = [None] * REB_KEYS
+    for h, addr in enumerate(holders):
+        ids = range(h, REB_KEYS, REB_HOLDERS)
+        for i, f in zip(ids, c.map(rebalance_block, ids, workers=[addr])):
+            futs[i] = f
+    before = await c.gather(futs)
+    digest = _result_digest([torch.from_numpy(v) for v in before])
+    mem0 = [ws.nbytes for ws in workers]
+    path0 = s.rebalance_path.counters() if s.rebalance_path is not None else None
+    with rebalance_spy(s) as seen:
+        t0 = time.perf_counter()
+        res = await c.rebalance()
+        wall = time.perf_counter() - t0
+    check(len(seen["plans"]) == 1 and len(seen["batches"]) == 1,
+          f"15c: {len(seen['plans'])} device plans, {len(seen['batches'])} batches for one rebalance")
+    plan = seen["plans"][0]
+    batch = seen["batches"][0]
+    cpu = rebalance.plan_rebalance(batch, device="cpu")
+    check(seen["moves"][0] == cpu, f"15c: the scheduler's {len(seen['moves'][0])} moves != the CPU "
+          f"plan's {len(cpu)} on the same batch")
+    wss, cand = plan["wss"], plan["cand"]
+    check([(ts.key, a.address, b.address) for ts, a, b in plan["moves"]]
+          == [(cand[k].key, wss[a].address, wss[b].address) for k, a, b in cpu],
+          "15c: the plan's moves are not the CPU plan's keys and workers")
+    check(len(cpu) > 0 and res == {"status": "OK", "moves": len(cpu)},
+          f"15c: rebalance returned {res}, the CPU plan has {len(cpu)} moves")
+    await _settled(lambda: all(ts.who_has == {b} for ts, _, b in plan["moves"]),
+                   "every moved key held by its recipient alone")
+    after = await c.gather(futs)
+    check(len(after) == len(before) and all(np.array_equal(x, y) for x, y in zip(after, before)),
+          "15c: a value changed in the rebalance")
+    mem1 = [ws.nbytes for ws in workers]
+    imb0, imb1 = max(mem0) - min(mem0), max(mem1) - min(mem1)
+    check(imb1 <= imb0, f"15c: the rebalance grew the imbalance {imb0} -> {imb1}")
+    return dict(moves=len(cpu), cand=len(cand), wall_s=wall, plan_ms=plan["ms"], digest=digest,
+                imbalance_before=imb0, imbalance_after=imb1, path_before=path0,
+                path=s.rebalance_path.counters(), device=str(s.rebalance_path.device),
+                nbytes=int(sum(mem0)))
 
 
 def child_modules():
@@ -5024,11 +5203,12 @@ def phase_deploy(twin, dev=None):
 def _deploy_card(card, dev):
     """Phase 15's card runs; returns the launches, the numbers and each
     part's results for :func:`_deploy_compare`."""
-    from distributed_tpu_torch.ops import amm, leveled, partition, stealing
+    from distributed_tpu_torch.ops import amm, leveled, partition, rebalance, stealing
     from distributed_tpu_torch.scheduler.mirror import TorchMirror
 
     counters = {"place_wave": leveled.place_waves_cuda, "partition": partition.partition_cuda,
-                "steal": stealing.steal_rounds_cuda, "amm_drop": amm.drop_rounds_cuda}
+                "steal": stealing.steal_rounds_cuda, "amm_drop": amm.drop_rounds_cuda,
+                "rebalance": rebalance.rebalance_rounds_cuda}
 
     def zero():
         for fn in counters.values():
@@ -5103,6 +5283,19 @@ def _deploy_card(card, dev):
           f"{c_on['ran_on']} workers, launches {c_on['launches']}, paths {c_on['paths']}; stealing "
           f"off wall s {c_off['wall_s']:.3f} on {c_off['ran_on']} workers, launches "
           f"{c_off['launches']}; ideal {ideal:.3f} s")
+    reb = c_on["rebalance"]
+    check(reb["path_before"] is None and reb["path"] == {"launches": 1, "failures": 0,
+                                                         "cycles_device": 1, "cycles_host": 0},
+          f"15c: the rebalance path's counters {reb['path_before']} -> {reb['path']}")
+    check(reb["device"].startswith("cuda") and c_on["launches"]["rebalance"] == 1,
+          f"15c: K9 launched {c_on['launches']['rebalance']} times on {reb['device']}, not once")
+    print(f"[{card}] 15c rebalance: {REB_KEYS} keys ({reb['nbytes']} B, {reb['cand']} candidates) on "
+          f"{REB_HOLDERS} of the {STEAL_WORKERS} workers: Client.rebalance() wall s "
+          f"{reb['wall_s']:.3f}, the plan ms {reb['plan_ms']:.2f} "
+          f"({100 * reb['plan_ms'] / 1e3 / reb['wall_s']:.1f} %) on {reb['device']}, K9 launches 1, "
+          f"path {reb['path']}; {reb['moves']} moves == the CPU plan on the same batch, enacted; "
+          f"values == before ({reb['digest']}); imbalance {reb['imbalance_before']} -> "
+          f"{reb['imbalance_after']} B")
 
     d = part(_nannies(dev))
     fam = d["torch_family"]
@@ -5139,6 +5332,9 @@ def _deploy_card(card, dev):
         steal_on_wall_s=c_on["wall_s"], steal_off_wall_s=c_off["wall_s"], steal_ideal_s=ideal,
         steal_on_workers=c_on["ran_on"], steal_off_workers=c_off["ran_on"],
         steal_on_launches=c_on["launches"], steal_paths=c_on["paths"],
+        rebalance_wall_s=reb["wall_s"], rebalance_plan_ms=reb["plan_ms"],
+        rebalance_moves=reb["moves"], rebalance_imbalance=[reb["imbalance_before"],
+                                                           reb["imbalance_after"]],
         nanny_spawn_s=d["spawn_s"], nanny_restart_s=d["restart_s"],
         nanny_recompute_s=d["recompute_s"], nanny_child_rss=d["child_rss"],
         nanny_torch_family=fam,
@@ -5155,6 +5351,12 @@ def _deploy_compare(card, card_parts, cpu) -> dict:
           f"15a/b: the card's sums {a['result']} / {b['result']} != the CPU run's")
     check(cpu["c_on"]["results"] == c_on["results"] and cpu["c_off"]["results"] == c_off["results"],
           "15c: the card's results differ from the CPU run's")
+    reb, reb_cpu = c_on["rebalance"], cpu["c_on"]["rebalance"]
+    check(reb_cpu["device"] == "cpu" and reb_cpu["path"]["launches"] == 1,
+          f"15c: the CPU run's rebalance path {reb_cpu['path']} on {reb_cpu['device']}")
+    check((reb_cpu["moves"], reb_cpu["digest"]) == (reb["moves"], reb["digest"]),
+          f"15c: the card's rebalance ({reb['moves']} moves, values {reb['digest']}) != the CPU "
+          f"run's ({reb_cpu['moves']}, {reb_cpu['digest']})")
     check(cpu["d"]["digest"] == d["digest"],
           f"15d: the card's results {d['digest']} != the CPU run's {cpu['d']['digest']}")
     for k in ("actor", "worker_client", "executor"):
@@ -5162,13 +5364,14 @@ def _deploy_compare(card, card_parts, cpu) -> dict:
     print(f"[{card}] 15a-e results == the CPU run bit for bit (CPU walls: 15a s "
           f"{cpu['a']['wall_s']:.3f}, 15c on/off s {cpu['c_on']['wall_s']:.3f} / "
           f"{cpu['c_off']['wall_s']:.3f} on {cpu['c_on']['ran_on']} / {cpu['c_off']['ran_on']} "
-          f"workers; 15d spawn s {[round(x, 3) for x in cpu['d']['spawn_s']]}, restart s "
+          f"workers, its rebalance {reb_cpu['moves']} moves in s {reb_cpu['wall_s']:.3f}; 15d spawn s {[round(x, 3) for x in cpu['d']['spawn_s']]}, restart s "
           f"{cpu['d']['restart_s']:.3f}; 15b CPU spill {cpu['b']['spill_MBps']:.1f} / unspill "
           f"{cpu['b']['unspill_MBps']:.1f} MB/s; in a child process started before phase 14)")
     return dict(config1_cpu_wall_s=cpu["a"]["wall_s"], spill_cpu_MBps=cpu["b"]["spill_MBps"],
                 unspill_cpu_MBps=cpu["b"]["unspill_MBps"],
                 steal_cpu_on_wall_s=cpu["c_on"]["wall_s"],
-                steal_cpu_off_wall_s=cpu["c_off"]["wall_s"], nanny_cpu_spawn_s=cpu["d"]["spawn_s"],
+                steal_cpu_off_wall_s=cpu["c_off"]["wall_s"], rebalance_cpu_wall_s=reb_cpu["wall_s"],
+                nanny_cpu_spawn_s=cpu["d"]["spawn_s"],
                 nanny_cpu_restart_s=cpu["d"]["restart_s"])
 
 
@@ -5505,6 +5708,8 @@ def phase_shuffle(dev=None):
 CLI_WORKERS, CLI_THREADS = 4, 2
 # a batch past the placement's min-batch (512, config.py): it plans in the scheduler
 CLI_DAG = 2_048
+# the longest 17a waits for the scheduler's in-flight plan to land, s
+CLI_PLAN_WAIT_S = 30
 CLI_DAG_MOD = 1_000_003
 # K2 in a worker process: seq, heads, head dim (bf16, causal), phase 2's headline
 CLI_FLASH = (8192, 16, 128)
@@ -5537,6 +5742,7 @@ def cli_launches(zero=False, dtpu_scheduler=None):
                 partition=partition.partition_cuda.launches,
                 state_device=str(dtpu_scheduler.state.device),
                 placement=_placement_stats(p) if p is not None else None,
+                inflight=0 if p is None else p.plans_inflight,
                 gates=None if p is None else dict(min_workers=p.min_workers,
                                                   min_transfer_ratio=p.min_transfer_ratio))
 
@@ -5550,8 +5756,8 @@ def cli_dag_task(i, *deps):
     return (i + sum(deps)) % CLI_DAG_MOD
 
 
-def cli_dag(TaskSpec, TaskRef, Graph):
-    """``graphs.random_dag(CLI_DAG)`` as tasks ``dag-i`` of
+def cli_dag(TaskSpec, TaskRef, Graph, prefix="dag"):
+    """``graphs.random_dag(CLI_DAG)`` as tasks ``{prefix}-i`` of
     :func:`cli_dag_task`, and its results computed on the host."""
     from distributed_tpu_torch import graphs
 
@@ -5562,9 +5768,10 @@ def cli_dag(TaskSpec, TaskRef, Graph):
     g = Graph()
     want = []
     for i in range(CLI_DAG):
-        g.tasks[f"dag-{i}"] = TaskSpec(cli_dag_task, (i, *[TaskRef(f"dag-{j}") for j in deps[i]]))
+        g.tasks[f"{prefix}-{i}"] = TaskSpec(
+            cli_dag_task, (i, *[TaskRef(f"{prefix}-{j}") for j in deps[i]]))
         want.append(cli_dag_task(i, *[want[j] for j in deps[i]]))
-    return g, [f"dag-{i}" for i in range(CLI_DAG)], want
+    return g, [f"{prefix}-{i}" for i in range(CLI_DAG)], want
 
 
 def cli_flash_task(seq, heads, dim, seed, device="cuda"):
@@ -5655,6 +5862,25 @@ async def _cli_cluster(cs, dev):
             out["config1_s"] = time.perf_counter() - t1
             out["config1_tasks"] = len(g.tasks)
             del futs
+            async def landed():
+                # an async plan lands on the scheduler's loop after its
+                # planner thread ends, maybe after the tasks
+                deadline = time.perf_counter() + CLI_PLAN_WAIT_S
+                while True:
+                    dl = await c.run_on_scheduler(cs.cli_launches)
+                    if not dl["inflight"] or time.perf_counter() > deadline:
+                        return dl
+                    await asyncio.sleep(0.1)
+
+            # the scheduler process's first plan pays its one-time costs (the
+            # card's context on the planner thread, the kernels' library) and
+            # can land after most of its tasks ran: a warm-up DAG of its own
+            # keys first
+            g, keys, _ = cs.cli_dag(TaskSpec, TaskRef, Graph, prefix="warm")
+            futs = c.compute_graph(g, keys)
+            await c.gather([futs[k] for k in keys])
+            del futs
+            out["warm_plan"] = (await landed())["placement"]
             # a batch past min-batch: the placement plans it in the scheduler's process
             g, keys, want = cs.cli_dag(TaskSpec, TaskRef, Graph)
             await c.run_on_scheduler(cs.cli_launches, True)
@@ -5662,7 +5888,7 @@ async def _cli_cluster(cs, dev):
             futs = c.compute_graph(g, keys)
             got = await c.gather([futs[k] for k in keys])
             out["dag_s"] = time.perf_counter() - t1
-            out["dag_launches"] = await c.run_on_scheduler(cs.cli_launches)
+            out["dag_launches"] = await landed()
             out["dag_equal"] = got == want
             del futs, got
             # K2 in a worker process
@@ -5758,8 +5984,10 @@ def phase_cli(tcp_fetch_ms=None, dev=None):
     check(dl["state_device"].startswith(backend), f"17a: the scheduler's state on {dl['state_device']}")
     check(dl["gates"] == {"min_workers": 0, "min_transfer_ratio": 0.0},
           f"17a: the placement did not read {CLI_SCHEDULER_ENV}: its gates {dl['gates']}")
-    check(dl["placement"] is not None and dl["placement"]["enabled"] and dl["placement"]["plans"] >= 1,
-          f"17a: the placement planned nothing: {dl['placement']}")
+    check(dl["placement"] is not None and dl["placement"]["enabled"]
+          and dl["placement"]["plans"] - a["warm_plan"]["plans"] >= 1,
+          f"17a: the placement planned nothing for the DAG: {dl['placement']}, after the "
+          f"warm-up DAG {a['warm_plan']}")
     k14 = dl["place_wave"] + dl["partition"]
     check(k14 >= 1 or dev is not None, f"17a: K1 and K4 launched {k14} times in the scheduler")
     f = a["flash"]
@@ -5779,7 +6007,7 @@ def phase_cli(tcp_fetch_ms=None, dev=None):
           f"workers up s {a['up_s']:.3f}, closed s {a['close_s']:.3f}): config 1 "
           f"({a['config1_tasks']} tasks, blocks on the card in the workers) sum {a['config1']:.0f} "
           f"in s {a['config1_s']:.3f}; random_dag({CLI_DAG}) == the host's in s {a['dag_s']:.3f}, "
-          f"plan {dl['placement']}, gates {dl['gates']} from the scheduler's environment "
+          f"after a warm-up one (plan {a['warm_plan']}), plan {dl['placement']}, gates {dl['gates']} from the scheduler's environment "
           f"{CLI_SCHEDULER_ENV}, K1 place_wave {dl['place_wave']} + K4 partition "
           f"{dl['partition']} launches in the scheduler's process; flash_attention in worker "
           f"process {f['pid']} at {CLI_FLASH} bf16 causal: K2 launches {f['launches']}, max abs "
@@ -5810,7 +6038,8 @@ def phase_cli(tcp_fetch_ms=None, dev=None):
                 "flash_fwd": f["launches"]}
     numbers = dict(start_s=a["start_s"], up_s=a["up_s"], close_s=a["close_s"],
                    config1_s=a["config1_s"], config1_sum=a["config1"], dag_s=a["dag_s"],
-                   dag_plan=dl["placement"], flash=f, flash_task_s=a["flash_s"],
+                   dag_plan=dl["placement"], warm_plan=a["warm_plan"], flash=f,
+                   flash_task_s=a["flash_s"],
                    http=h, ws_fetch_median_ms=ws_ms, ws_fetches=len(c["seconds"]),
                    ws_s=ws_s, tcp_fetch_median_ms=tcp_fetch_ms, launches=launches)
     numbers["phase_s"] = time.perf_counter() - t_phase

@@ -101,6 +101,13 @@ SIGNATURES = {
         _i, _i, _i, _i,                 # R W K blocks
         _vp,                            # stream
     ),
+    "dtpu_rebalance": (
+        _vp, _vp, _vp,                  # list nbytes off (owner_lists)
+        _vp, _vp, _vp,                  # hi lo mem (in/out)
+        _vp, _vp, _vp,                  # mk md work (WORK_BYTES a worker)
+        _i, _i,                         # W K
+        _vp,                            # stream
+    ),
     "dtpu_shuffle_bucket": (
         _vp, _vp, _vp, _vp, _vp,        # key, value, valid, send_k, send_v pointer tables
         _vp, _vp,                       # sent [S, n_dev] hist (scratch [S, tiles, n_dev])

@@ -1,5 +1,4 @@
-"""Batched rebalance move selection, PyTorch port (torch ops on the
-device, no hand kernel).
+"""Batched rebalance move selection, PyTorch + CUDA port.
 
 The counterpart of ``distributed_tpu/ops/rebalance.py``.  Keys are sorted
 by size once; K Jacobi rounds then pair every over-mean sender (fullest
@@ -7,18 +6,29 @@ first, each with its largest remaining key) with an under-mean recipient
 (emptiest first), inside the 1.05x band, and apply the moves to the
 projected memories.
 
-Why torch ops and not a kernel: within a round the senders and the
-recipients are entries of two permutations of the workers, so every
-worker gains or loses at most one key a round.  The per-worker sums then
-add one value to 0, exact in any order, and the sorts are stable, so the
-rounds give the same moves on the card as on the CPU with no atomics to
-order.
+The rounds have two implementations with one contract, the reference's
+jitted ``_rebalance_rounds`` (``rebalance.py:43-105``) as XLA computes it
+on the CPU:
 
-:func:`rebalance_rounds` is the reference's ``_rebalance_rounds``
-(``rebalance.py:43-105``) expression for expression: stable argsorts,
-``segment_min`` as ``scatter_reduce(amin)`` with the sentinel N for a
-worker without a candidate key, and ``mean`` taken once from the input,
-as XLA computes ``mem.sum() / W`` on the CPU (:func:`mean_of`).
+- :func:`rebalance_rounds_reference`, the rounds in torch ops, expression
+  for expression: stable argsorts, ``segment_min`` as
+  ``scatter_reduce(amin)`` with the sentinel N for a worker without a
+  candidate key, and ``mean`` taken once from the input, as XLA computes
+  ``mem.sum() / W`` on the CPU (:func:`mean_of`);
+- :func:`rebalance_rounds_cuda`, the hand-written kernel
+  ``csrc/rebalance.cu`` (K9): all rounds in one launch of one block.  The
+  wrapper takes the band (``mean * 1.05``, ``mean * 0.95``) as the plain
+  version does and buckets the eligible keys by owner in the size order
+  (:func:`owner_lists`), in torch ops, so a sender's largest remaining key
+  is the head of its list and a round reads no key but the ones it moves;
+  the kernel runs the rounds, ranks each round's candidates by counting,
+  and stops after a round that moves nothing.  Each worker gains or
+  loses at most one key a round, so every memory update adds one value,
+  exact in any order, and the kernel gives the plain version's moves and
+  memories on the CPU bit for bit.
+
+:func:`rebalance_rounds` picks by the device of the tensors: the plain
+version for CPU tensors, the kernel otherwise (which raises off CUDA).
 """
 
 from __future__ import annotations
@@ -29,6 +39,7 @@ import numpy as np
 import torch
 
 from distributed_tpu_torch._device import resolve_device
+from distributed_tpu_torch.ops import _build
 from distributed_tpu_torch.ops.leveled import _bucket
 from distributed_tpu_torch.ops.partition import xla_sum
 
@@ -50,10 +61,10 @@ def mean_of(mem: np.ndarray) -> np.float32:
     return np.float32(xla_sum(mem) * (np.float32(1.0) / np.float32(len(mem))))
 
 
-def rebalance_rounds(owner, nbytes, eligible, mem, mean, rounds: int):
-    """The ``rounds`` Jacobi rounds on the tensors' device.  Returns
-    ``(mk i32[rounds, W], md i32[rounds, W], mem f32[W])``: per round and
-    pairing slot the key moved and its recipient, or -1."""
+def rebalance_rounds_reference(owner, nbytes, eligible, mem, mean, rounds: int):
+    """The ``rounds`` Jacobi rounds in torch ops: the plain version of K9.
+    Returns ``(mk i32[rounds, W], md i32[rounds, W], mem f32[W])``: per
+    round and pairing slot the key moved and its recipient, or -1."""
     N, W = owner.shape[0], mem.shape[0]
     dev = mem.device
     f32 = dict(dtype=torch.float32, device=dev)
@@ -70,8 +81,6 @@ def rebalance_rounds(owner, nbytes, eligible, mem, mean, rounds: int):
     eligible = torch.cat([eligible, eligible.new_zeros(1)])
     mk = torch.full((rounds, W), -1, dtype=torch.int32, device=dev)
     md = torch.full((rounds, W), -1, dtype=torch.int32, device=dev)
-    if dev.type == "cuda":
-        rebalance_rounds.launches += 1
     for k in range(rounds):
         sender_mask = mem > hi
         recip_mask = mem < lo
@@ -101,7 +110,71 @@ def rebalance_rounds(owner, nbytes, eligible, mem, mean, rounds: int):
     return mk, md, mem
 
 
-rebalance_rounds.launches = 0  # calls on a CUDA device in this process: the route's launch count
+WORK_BYTES = 36  # csrc/rebalance.cu's kWorkBytes: the rounds' arrays, bytes a worker
+
+
+def owner_lists(owner, nbytes, eligible, W: int):
+    """K9's per-worker lists: the eligible keys bucketed by owner, stably in
+    the size order ``argsort(-nbytes, stable=True)``, in torch ops on the
+    tensors' device.  Returns ``(list i32[N], off i32[W + 1])``: worker
+    w's keys, largest first, are ``list[off[w]:off[w + 1]]``; the keys past
+    ``off[W]`` are the ineligible ones."""
+    order = torch.argsort(-nbytes, stable=True)
+    ow = torch.where(eligible[order], owner[order].to(torch.int32), W)
+    ow, perm = torch.sort(ow, stable=True)
+    off = torch.searchsorted(ow, torch.arange(W + 1, dtype=torch.int32, device=ow.device),
+                             out_int32=True)
+    return order[perm].to(torch.int32), off
+
+
+def rebalance_rounds_cuda(owner, nbytes, eligible, mem, mean, rounds: int):
+    """The rounds through the hand-written kernel ``csrc/rebalance.cu``, one
+    launch of one block a plan, on the lists of :func:`owner_lists`.  Same
+    arguments and results as :func:`rebalance_rounds_reference`;
+    ``rebalance_rounds_cuda.launches`` counts the launches (none without
+    rounds).  ``mean`` must not be negative (a projected memory is a sum
+    of sizes): below 0 the band's ends cross and a worker could send and
+    receive in one round, which the kernel does not take."""
+    dev = mem.device
+    if dev.type != "cuda":
+        raise RuntimeError(f"rebalance_rounds_cuda needs CUDA tensors, got {dev}")
+    N, W = owner.shape[0], mem.shape[0]
+    for name, t, dtype, n in (("owner", owner, torch.int32, N), ("nbytes", nbytes, torch.float32, N),
+                              ("eligible", eligible, torch.bool, N), ("mem", mem, torch.float32, W)):
+        if t.dtype != dtype or t.shape != (n,) or t.device != dev:
+            raise ValueError(f"rebalance_rounds_cuda: {name} must be {dtype}[{n}] on {dev}")
+    if mean < 0:  # a host number, as the plain version takes it
+        raise ValueError(f"rebalance_rounds_cuda: the mean {mean} is negative")
+    mk = torch.empty((max(rounds, 0), W), dtype=torch.int32, device=dev)
+    md = torch.empty_like(mk)
+    mem_out = mem.contiguous().clone()
+    if rounds <= 0 or W == 0:
+        return mk, md, mem_out
+    lib = _build.load()
+    with torch.cuda.device(dev):
+        # the band as the plain version takes it; the lists
+        mean_t = torch.tensor(mean, dtype=torch.float32, device=dev)
+        hi, lo = mean_t * 1.05, mean_t * 0.95
+        nbytes = nbytes.contiguous()
+        lst, off = owner_lists(owner, nbytes, eligible, W)
+        work = torch.empty(WORK_BYTES * W, dtype=torch.uint8, device=dev)
+        P = _build.ptr
+        _build.check(_build.launch(dev, lib.dtpu_rebalance,
+            P(lst), P(nbytes), P(off), P(hi), P(lo), P(mem_out), P(mk), P(md), P(work),
+            W, int(rounds),
+        ), "dtpu_rebalance")
+        rebalance_rounds_cuda.launches += 1
+    return mk, md, mem_out
+
+
+rebalance_rounds_cuda.launches = 0  # kernel launches in this process
+
+
+def rebalance_rounds(owner, nbytes, eligible, mem, mean, rounds: int):
+    """The rounds on the tensors' device: the plain version for CPU
+    tensors, K9 otherwise (which raises off CUDA)."""
+    fn = rebalance_rounds_reference if mem.device.type == "cpu" else rebalance_rounds_cuda
+    return fn(owner, nbytes, eligible, mem, mean, rounds)
 
 
 def round_count(batch: RebalanceBatch, rounds: int | None = None) -> int:

@@ -755,6 +755,7 @@ class ConnectionPool:
         self.available: dict[str, set[Comm]] = {}
         self.occupied: dict[str, set[Comm]] = {}
         self.semaphore = asyncio.Semaphore(limit)
+        self._n_connecting = 0  # callers waiting for a slot
         self._created: weakref.WeakSet = weakref.WeakSet()
         self.status = Status.init
 
@@ -783,7 +784,11 @@ class ConnectionPool:
             return comm
         if self.semaphore.locked():
             self.collect()
-        await self.semaphore.acquire()
+        self._n_connecting += 1
+        try:
+            await self.semaphore.acquire()
+        finally:
+            self._n_connecting -= 1
         try:
             comm = await connect(address, timeout=self.timeout,
                                  deserialize=self.deserialize, **self.connection_args)
@@ -802,6 +807,11 @@ class ConnectionPool:
             self.semaphore.release()
         else:
             self.available.setdefault(address, set()).add(comm)
+            # a caller waits for a slot while every slot is taken: without
+            # this, comms handed back idle would hold the slots forever
+            # (dask's ConnectionPool.reuse does the same)
+            if self.semaphore.locked() and self._n_connecting > 0:
+                self.collect()
 
     def collect(self) -> None:
         """Drop idle comms to free slots."""

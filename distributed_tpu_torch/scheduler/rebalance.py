@@ -1,4 +1,5 @@
-"""The scheduler's rebalance move selection on the card (K9, torch ops).
+"""The scheduler's rebalance move selection on the card (K9,
+``ops/csrc/rebalance.cu``, one launch a plan).
 
 The port's own copy of the reference's ``Scheduler._rebalance_plan_device``
 (``distributed_tpu/scheduler/server.py:2005-2033``), set by

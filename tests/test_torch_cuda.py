@@ -28,6 +28,7 @@ from distributed_tpu_torch.ops import (
     ici,
     leveled,
     partition,
+    rebalance,
     ring_attention,
     sharded,
     stealing,
@@ -891,6 +892,84 @@ def test_drop_kernel_keeps_rows_without_an_eligible_holder(cuda):
     batch = amm.DropBatch(holders, excluded, np.full(4, 10.0, np.float32),
                           np.full(4, 2, np.int32), np.arange(6, dtype=np.float32))
     assert amm.plan_drops(batch) == amm.plan_drops(batch, device="cpu") == [(1, 3)]
+
+
+K9_SHAPES = [(64, 2), (300, 2), (2000, 16), (30_000, 512), (262_144, 512), (20_000, 1000),
+             (50_000, 4096)]
+
+
+def _k9_both(batch, rounds, cuda):
+    """K9 twice on the card, the plain version on the card and on the CPU,
+    on ``plan_rebalance``'s padded inputs."""
+    R = rebalance.round_count(batch, rounds)
+    want = rebalance.rebalance_rounds_reference(*rebalance.padded_inputs(batch, "cpu"), R)
+    args = rebalance.padded_inputs(batch, cuda)
+    before = rebalance.rebalance_rounds_cuda.launches
+    got = rebalance.rebalance_rounds_cuda(*args, R)
+    again = rebalance.rebalance_rounds_cuda(*args, R)
+    torch.cuda.synchronize()
+    assert rebalance.rebalance_rounds_cuda.launches == before + 2
+    plain = rebalance.rebalance_rounds_reference(*args, R)
+    return got, again, plain, want
+
+
+@pytest.mark.parametrize("rounds", [None, 32, 512])
+@pytest.mark.parametrize("N,W", K9_SHAPES)
+def test_rebalance_kernel_matches_plain(cuda, N, W, rounds):
+    """K9's moves, recipients and memories == the plain version on the CPU
+    and on the card bit for bit, twice, one launch a call, from 2 to 4,096
+    workers and 64 to 262,144 keys."""
+    batch = cases.rebalance_skewed(np.random.default_rng(N + W), N, W)
+    got, again, plain, want = _k9_both(batch, rounds, cuda)
+    for g, a, p, w in zip(got, again, plain, want):
+        assert torch.equal(g.cpu(), w) and torch.equal(a, g) and torch.equal(p, g)
+    assert (got[0] >= 0).any()
+
+
+@pytest.mark.parametrize("W", [6453, 6456, 6457, 8192])
+def test_rebalance_kernel_at_and_past_the_shared_memory_limit(cuda, W):
+    """The same results where the rounds' arrays (36 B a worker) fill a
+    block's shared memory (227 KB on an H100, beside the kernel's own
+    few bytes: to 6,456 workers) and where they no longer fit and live in
+    global scratch (from 6,457 workers; 295 KB at 8,192)."""
+    batch = cases.rebalance_skewed(np.random.default_rng(W), 50_000, W, ties=True)
+    got, again, plain, want = _k9_both(batch, None, cuda)
+    for g, a, p, w in zip(got, again, plain, want):
+        assert torch.equal(g.cpu(), w) and torch.equal(a, g) and torch.equal(p, g)
+    assert (got[0] >= 0).any()
+
+
+@pytest.mark.parametrize("N,W", [(4096, 64), (64, 2)])
+def test_rebalance_kernel_on_a_balanced_fleet(cuda, N, W):
+    """Nothing moves: every row -1, the memories as the plain version's."""
+    got, again, plain, want = _k9_both(cases.rebalance_balanced(N, W), 512, cuda)
+    assert not (got[0] >= 0).any() and not (got[1] >= 0).any()
+    for g, a, p, w in zip(got, again, plain, want):
+        assert torch.equal(g.cpu(), w) and torch.equal(a, g) and torch.equal(p, g)
+
+
+def test_plan_rebalance_on_the_card(cuda):
+    """plan_rebalance on the card (K9, one launch) == on the CPU, and the
+    scheduler's RebalancePath plans through it."""
+    from distributed_tpu_torch.scheduler.rebalance import RebalancePath
+
+    batch = cases.rebalance_case(np.random.default_rng(63), 20_000, 64)
+    before = rebalance.rebalance_rounds_cuda.launches
+    assert rebalance.plan_rebalance(batch) == rebalance.plan_rebalance(batch, device="cpu") != []
+    wss, keys = cases.rebalance_fleet(batch)
+    path = RebalancePath()
+    moves = path.plan_device(wss, keys, batch.owner.tolist(), batch.mem.copy())
+    assert [(ts.key, s.idx, r.idx) for ts, s, r in moves] == \
+        rebalance.plan_rebalance(batch, device="cpu")
+    assert rebalance.rebalance_rounds_cuda.launches == before + 2
+    assert path.counters()["launches"] == 1 and path.failures == 0
+
+
+def test_rebalance_kernel_refuses_a_negative_mean(cuda):
+    args = list(rebalance.padded_inputs(cases.rebalance_case(np.random.default_rng(1), 300, 8), cuda))
+    args[4] = np.float32(-1.0)
+    with pytest.raises(ValueError, match="negative"):
+        rebalance.rebalance_rounds_cuda(*args, 8)
 
 
 def test_mirror_device_view_row_uploads(cuda):

@@ -119,6 +119,34 @@ def rebalance_case(rng, n_keys: int, n_workers: int) -> RebalanceBatch:
                           mem.astype(np.float32))
 
 
+def rebalance_skewed(rng, n_keys: int, n_workers: int, ties: bool = False) -> RebalanceBatch:
+    """Like :func:`rebalance_case` at any width from 2 workers (at least one
+    hoarder), with a tenth of the keys not eligible (their bytes still
+    count in the memory); ``ties``: sizes rounded to 100 kB, so many keys
+    share one."""
+    W = n_workers
+    hoarders = rng.permutation(W)[: max(W // 4, 1)]
+    nbytes = rng.lognormal(13.0, 1.5, n_keys)
+    if ties:
+        nbytes = np.maximum(np.round(nbytes, -5), 1e5)
+    nbytes = nbytes.astype(np.float32)
+    to_hoarder = rng.random(n_keys) < 0.5
+    owner = np.where(to_hoarder, rng.choice(hoarders, n_keys), rng.integers(0, W, n_keys))
+    mem = np.zeros(W, np.float64)
+    np.add.at(mem, owner, nbytes)
+    return RebalanceBatch(owner.astype(np.int32), nbytes, rng.random(n_keys) >= 0.1,
+                          mem.astype(np.float32))
+
+
+def rebalance_balanced(n_keys: int, n_workers: int) -> RebalanceBatch:
+    """Keys of one size spread evenly: every worker at the mean, nothing moves."""
+    owner = (np.arange(n_keys) % n_workers).astype(np.int32)
+    nbytes = np.full(n_keys, 1e5, np.float32)
+    mem = np.zeros(n_workers, np.float32)
+    np.add.at(mem, owner, nbytes)
+    return RebalanceBatch(owner, nbytes, np.ones(n_keys, bool), mem)
+
+
 class StandInWorker:
     """The fields of a scheduler ``WorkerState`` that the fleet mirror
     reads."""
