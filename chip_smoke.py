@@ -11,7 +11,7 @@ and prints no result):
 
 0. environment: torch/CUDA versions, the card, its power limit, nvcc,
    whether triton and psutil import;
-1. build: the eight hand-written kernel sources from
+1. build: the ten hand-written kernel sources from
    ``distributed_tpu_torch/ops/csrc`` (nvcc, one process a source), the
    host pack ``distributed_tpu_torch/native/graphpack.cpp`` and the native
    transition engine ``native/engine.cpp`` (g++), at once, and the build's
@@ -21,7 +21,8 @@ and prints no result):
    failing if they spill or if ptxas serialised their wgmma (warning
    C7512), and those of every
    instantiation of K7 and K8 (into the ``steal`` and ``amm_drop``
-   entries) and of K12 (``shuffle_bucket``), failing if one spills;
+   entries), of K9, K6/K11 (``fleet_scatter_kernel``) and of K12
+   (``shuffle_bucket``), failing if one spills;
 2. flash attention forward (kernel K2) at seq 8192, 16 heads, head dim
    128 in bf16, causal and not (the tensor-core body), plus f32 at seq
    1024 / head dim 64 (the CUDA-core body), against the plain version on
@@ -79,10 +80,12 @@ and prints no result):
 6. the scheduler's periodic device paths at full width, through the
    port's path objects on stand-in workers and keys (the card's machine
    has no ``msgpack``/``cloudpickle`` for a live scheduler): the fleet
-   mirror's device view (K6) on 512 workers, then grown to 1,000 workers
+   mirror's device view (K6, ``csrc/fleet_scatter.cu``, one launch a view
+   with dirty rows) on 512 workers, then grown to 1,000 workers
    (capacity 1,024), with 0, 1, 37 and all rows dirtied between views
    (the view equals the host rows; one full upload at first use and at
-   growth, otherwise exactly the dirty rows), a balance cycle on each
+   growth, otherwise exactly the dirty rows; each launch equal to the
+   plain version on the card bit for bit), a balance cycle on each
    fleet (K7: 8,192 tasks on 32 victims, 8 rounds, fed by the view, equal
    to the plain version on the CPU bit for bit, repeatable, the steals
    replayed against the python criterion), an AMM round (K8: 16,384
@@ -95,7 +98,15 @@ and prints no result):
    the plain version's time on the card, its bound and its launches (K7
    to K9 also ``chain_ms``, the dependent adds their contract orders,
    and their split by phase from the kernel's own timeline), and no path
-   may count a failure.  Its inputs and replays come from
+   may count a failure; then K6 and K11 against their plain version on the
+   card at 0, 1, 37 and every slot of capacities 512 and 1,024 dirty, in
+   place and copy-on-write at dw 1 and 2, bit for bit, and a record with
+   one dirty row dropped rejected; and K6's 37-row view timed whole with
+   its writes through the kernel and through the plain version in turns,
+   its host time by step (marks, refresh, and the wrappers' checks,
+   layout, ring, pack, launch), the kernel alone and the plain version in
+   turns on the jobs the view builds, the full upload, the empty launch
+   and the bound.  Its inputs and replays come from
    ``tests/test_torch_periodic_cases.py``;
 7. the sharded placement engine (kernel K10, ``csrc/place_shard.cu``)
    with every shard on the one card (``LocalShards``, so K10's run mode:
@@ -111,10 +122,13 @@ and prints no result):
    equal the run mode's), the run mode's device idle share, the plain
    body's time on the card, the bound, per-shard upload bytes and the
    walls beside ``place_graph_leveled``'s; then the mirror's workers-axis
-   view (K11) on 512 workers and on 1,000 in a capacity of 1,024 at dw =
-   1 and 2 (rows equal the host's, a fresh cycle uploads nothing, the
-   engine fed by it places as fed by the host arrays, a 37-row view
-   timed), ``ProcessGroupShards`` on NCCL with a world of one (equal to
+   view (K11, the same kernel, one launch a device a view) on 512 workers
+   and on 1,000 in a capacity of 1,024 at dw = 1 and 2 (rows equal the
+   host's, a fresh cycle uploads nothing, the engine fed by it places as
+   fed by the host arrays, 37 dirty rows then one launch equal to the
+   plain version on the card with the view handed out before unchanged,
+   a 37-row view timed by part as phase 6 times K6's, beside the full
+   pack), ``ProcessGroupShards`` on NCCL with a world of one (equal to
    ``LocalShards`` 1x1, in step mode), and ``TorchPlacement`` with an
    explicit 4x2 layout of virtual shards on the 1M uniform batch (hints
    equal a direct ``place_graph_streamed(mesh=...)``, 8 engine shard rows,
@@ -317,9 +331,9 @@ and prints no result):
 Each phase's wall is printed as it ends, and all of them again in one JSON
 line.  The last three lines are the card's ``nvidia-smi`` name and power limit,
 one JSON object listing the kernels (``flash_fwd``, ``flash_bwd``,
-``place_wave``, ``partition``, ``steal``, ``amm_drop``, ``place_shard``,
-``shuffle_bucket``, and the torch routes ``mirror_view``, with the
-sharded view's numbers, ``rebalance``, ``ring_attention``, ``ulysses``,
+``place_wave``, ``partition``, ``steal``, ``amm_drop``, ``mirror_view``
+(K6), ``rebalance``, ``place_shard``, ``mirror_shard_view`` (K11),
+``shuffle_bucket``, and the torch routes ``ring_attention``, ``ulysses``,
 ``ring_attention_bwd``, ``ulysses_bwd``, ``decide_workers``,
 ``wavefront`` and ``sharded_decide_workers``) with their launches, errors
 and times (phase 12's launches added, and kept apart as
@@ -497,7 +511,7 @@ def flash_ptxas(log):
 # source -> kernel; K7 is instantiated per level of XLA's windows, K8 per
 # width of its holder lists
 PERIODIC_KERNELS = {"steal.cu": "steal_kernel", "amm_drop.cu": "amm_drop_kernel",
-                    "rebalance.cu": "rebalance_kernel"}
+                    "rebalance.cu": "rebalance_kernel", "fleet_scatter.cu": "fleet_scatter_kernel"}
 
 
 def periodic_ptxas(log):
@@ -1925,6 +1939,318 @@ def _phase_line(split, phases):
     return " ".join(f"{p} {split[p]['total_ms']:.4f} ({split[p]['median_ms']:.4f})" for p in phases)
 
 
+# ------------------------------------------- K6 and K11: the mirror's views
+
+FLEET_REPS = 25        # CUDA-event and host-clock repetitions of a view (medians)
+PCIE_BYTES_S = 64e9    # PCIe 5.0 x16, one direction (NVIDIA H100 SXM: 128 GB/s both ways)
+# (capacity, dirty rows, workers-axis blocks, copy-on-write) the kernel is
+# held at against its plain version: K6 on phase 6's 512 workers and at
+# growth to a capacity of 1,024, at 0, 1 and every slot dirty; K11 at dw 1
+# and 2
+FLEET_CASES = (
+    (512, 37, 1, False), (1024, 37, 1, False), (1024, 0, 1, False), (1024, 1, 1, False),
+    (1024, 1024, 1, False), (1024, 37, 1, True), (1024, 37, 2, True), (1024, 0, 2, True),
+    (1024, 1, 2, True), (1024, 1024, 2, True),
+)
+
+
+@contextlib.contextmanager
+def fleet_checked(log):
+    """Each view's row writes on the main path held against the plain
+    version on the card: twins of its jobs (each destination as it was, the
+    same source blocks) go through ``scatter_rows_reference`` after the
+    path's own launch on the originals; ``log`` gets (wrapper, jobs, rows,
+    equal) a call.  The twins launch no kernel."""
+    from distributed_tpu_torch.ops import fleet
+
+    real = {"scatter_rows": fleet.scatter_rows, "scatter_blocks": fleet.scatter_blocks}
+
+    def wrap(name):
+        def checked(jobs, ring=None):
+            twins = [fleet.Job(j.dst.clone(), j.src, j.rows, j.values) for j in jobs]
+            real[name](jobs, ring)
+            fleet.scatter_rows_reference(twins)
+            log.append((name, len(jobs), len(jobs[0].rows) if jobs else 0,
+                        all(torch.equal(j.dst, t.dst) for j, t in zip(jobs, twins))))
+        return checked
+
+    for name in real:
+        setattr(fleet, name, wrap(name))
+    try:
+        yield log
+    finally:
+        for name, fn in real.items():
+            setattr(fleet, name, fn)
+
+
+def _fleet_jobs(fleet, dev, rng, cap, n_dirty, dw, cow):
+    """One job a (block, field dtype) of a mirror of ``cap`` slots in
+    ``dw`` blocks, ``n_dirty`` random slots dirty with new values; in place
+    (K6) or over a copy of a source block (K11)."""
+    rows_all = np.sort(rng.permutation(cap)[:n_dirty]).astype(np.int32)
+    per = cap // dw
+    jobs = []
+    for j in range(dw):
+        rows = rows_all[(rows_all >= j * per) & (rows_all < (j + 1) * per)] - j * per
+        if not len(rows):
+            continue
+        for np_t in (np.int32, np.float32, np.bool_, np.int8):
+            old = torch.from_numpy(rng.integers(0, 100, per).astype(np_t)).to(dev)
+            vals = rng.integers(100, 200, len(rows)).astype(np_t)
+            jobs.append(fleet.Job(torch.empty_like(old) if cow else old, old if cow else None,
+                                  rows, vals))
+    return jobs
+
+
+def _fleet_twins(fleet, jobs):
+    return [fleet.Job(j.dst.clone(), j.src, j.rows, j.values) for j in jobs]
+
+
+def fleet_kernel_checks(card, dev):
+    """K6 and K11 against their plain version on the card at FLEET_CASES,
+    bit for bit, the source blocks unwritten; then a planted fault, a
+    record with one dirty row left out, which the check must reject."""
+    from distributed_tpu_torch.ops import fleet
+
+    rng = np.random.default_rng(26)
+    n_cases = 0
+    for cap, n_dirty, dw, cow in FLEET_CASES:
+        jobs = _fleet_jobs(fleet, dev, rng, cap, n_dirty, dw, cow)
+        twins = _fleet_twins(fleet, jobs)
+        sources = [j.src.clone() for j in jobs if j.src is not None]
+        (fleet.scatter_blocks_cuda if cow else fleet.scatter_rows_cuda)(jobs, fleet.RecordRing(dev))
+        fleet.scatter_rows_reference(twins)
+        label = f"{'K11' if cow else 'K6'} cap {cap} dirty {n_dirty} dw {dw}"
+        check(all(torch.equal(j.dst, t.dst) for j, t in zip(jobs, twins)),
+              f"{label}: the kernel differs from the plain version")
+        check(all(torch.equal(j.src, s) for j, s in zip([j for j in jobs if j.src is not None], sources)),
+              f"{label}: a source block changed")
+        n_cases += 1
+    jobs = _fleet_jobs(fleet, dev, rng, 1024, 37, 1, False)
+    twins = _fleet_twins(fleet, jobs)
+    job = jobs[0]
+    jobs[0] = fleet.Job(job.dst, None, job.rows[1:], job.values[1:])
+    fleet.scatter_rows_cuda(jobs, fleet.RecordRing(dev))
+    fleet.scatter_rows_reference(twins)
+    check(not all(torch.equal(j.dst, t.dst) for j, t in zip(jobs, twins)),
+          "fleet: a record with a dirty row dropped passed the check")
+    print(f"[{card}] fleet kernel: {n_cases} cases == the plain version on the card bit for bit "
+          f"(K6 and K11); a dropped row rejected")
+    return n_cases
+
+
+def _medians(parts):
+    return {k: statistics.median(v) for k, v in parts.items()}
+
+
+def _fleet_bound_ms(jobs):
+    """The least the view's writes could take: the rows (once a rows array
+    that jobs share) and the values once over PCIe, and each value written
+    (a K11 job reads and writes its whole block instead) once in device
+    memory; the larger, and the bytes that cross PCIe."""
+    rows = {id(j.rows): j.rows.nbytes for j in jobs}
+    host = sum(rows.values()) + sum(j.values.nbytes for j in jobs)
+    device = sum(j.values.nbytes if j.src is None else 2 * j.dst.numel() * j.dst.element_size()
+                 for j in jobs)
+    return max(host / PCIE_BYTES_S, device / PEAK_BYTES_S) * 1e3, "bytes", host
+
+
+def _empty_launch_ms(dev):
+    """One launch of the fleet kernel with no job, through the wrappers'
+    own path (``_build.launch``): the floor of a view on the card."""
+    from distributed_tpu_torch.ops import _build
+
+    lib = _build.load()
+    return cuda_ms(lambda: _build.check(_build.launch(dev, lib.dtpu_fleet_scatter, None, 0),
+                                        "dtpu_fleet_scatter"), reps=FLEET_REPS)
+
+
+@contextlib.contextmanager
+def _fleet_swapped(fleet, name, fn):
+    real = getattr(fleet, name)
+    setattr(fleet, name, fn)
+    try:
+        yield real
+    finally:
+        setattr(fleet, name, real)
+
+
+def _view_jobs(fleet, name, view):
+    """The jobs one call of ``view`` hands to ``fleet.<name>`` (the
+    mirror's own, rows arrays shared as it shares them)."""
+    seen = []
+
+    def spy(jobs, ring=None):
+        seen.extend(jobs)
+        return real(jobs, ring)
+
+    with _fleet_swapped(fleet, name, spy) as real:
+        view()
+    return seen
+
+
+def _view_turns(fleet, name, view):
+    """The whole view (marks, refresh, jobs, writes), CUDA events, with its
+    writes through the kernel and through the plain version
+    (``scatter_rows_reference`` in place of ``fleet.<name>``), in turns:
+    kernel, plain, plain, kernel."""
+    out = {"kernel": [], "plain": []}
+    for who in ("kernel", "plain", "plain", "kernel"):
+        if who == "kernel":
+            out[who].append(cuda_ms(view, reps=FLEET_REPS))
+            continue
+        with _fleet_swapped(fleet, name, lambda jobs, ring=None: fleet.scatter_rows_reference(jobs)):
+            out[who].append(cuda_ms(view, reps=FLEET_REPS))
+    torch.cuda.synchronize()
+    return out["kernel"], out["plain"]
+
+
+#: the wrappers' steps of a view (owner, attribute), each timed on the host
+#: clock inside a loop of views: a step timed alone, warm in the caches,
+#: costs less
+FLEET_STEPS = (("fleet", "check_jobs"), ("fleet", "layout"), ("ring", "acquire"),
+               ("fleet", "pack_records"), ("build", "launch"), ("ring", "release"))
+
+
+def _view_steps(mirror, marks, view):
+    """A view's host time by step, median µs of FLEET_REPS views in a row,
+    each after the marks of the same workers: the marks, ``refresh``, the
+    whole view and, within it, the wrappers' FLEET_STEPS (the rest of the
+    view is the mirror's own: the dirty set, the numpy gathers and the
+    jobs); and the staging waits of those views."""
+    from distributed_tpu_torch.ops import _build, fleet
+
+    owners = {"fleet": fleet, "ring": fleet.RecordRing, "build": _build}
+    acc = {label: [] for label in ("marks", "refresh", "view", "all", *(n for _, n in FLEET_STEPS))}
+
+    def timed(label, fn):
+        def step(*args, **kwargs):
+            t0 = time.perf_counter()
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                acc[label].append((time.perf_counter() - t0) * 1e6)
+        return step
+
+    saved = [(owners[o], name, getattr(owners[o], name)) for o, name in FLEET_STEPS]
+    waits = mirror.staging_waits
+    try:
+        for owner, name, fn in saved:
+            setattr(owner, name, timed(name, fn))
+        for _ in range(FLEET_REPS):
+            t0 = time.perf_counter()
+            marks()
+            t1 = time.perf_counter()
+            mirror.refresh()
+            t2 = time.perf_counter()
+            view()
+            t3 = time.perf_counter()
+            for label, a, b in (("marks", t0, t1), ("refresh", t1, t2), ("view", t2, t3), ("all", t0, t3)):
+                acc[label].append((b - a) * 1e6)
+        torch.cuda.synchronize()
+    finally:
+        for owner, name, fn in saved:
+            setattr(owner, name, fn)
+    return _medians(acc), mirror.staging_waits - waits
+
+
+def _kernel_turns(fleet, kernel, jobs, dev):
+    """The kernel and the plain version on the view's own jobs (each call
+    writes the same bytes again), in turns: kernel, plain, plain, kernel."""
+    ring = fleet.RecordRing(dev)
+    out = {"kernel": [], "plain": []}
+    for who in ("kernel", "plain", "plain", "kernel"):
+        out[who].append(cuda_ms((lambda: kernel(jobs, ring)) if who == "kernel"
+                                else (lambda: fleet.scatter_rows_reference(jobs)), reps=FLEET_REPS))
+    return out["kernel"], out["plain"]
+
+
+def _fleet_split(card, label, fleet, name, kernel, mirror, view, marks, full, dev):
+    """A view at TIMED_DIRTY dirty rows timed by part in one call: the view
+    through the kernel against the view through the plain version, the
+    host steps, the kernel and the plain version alone on the jobs the view
+    builds, ``full`` (the full upload or pack), the bound and the empty
+    launch."""
+
+    def whole():
+        marks()
+        return view()
+
+    jobs = _view_jobs(fleet, name, whole)
+    view_ms, plain_view_ms = _view_turns(fleet, name, whole)
+    steps, waits = _view_steps(mirror, marks, view)
+    kernel_ms, plain_ms = _kernel_turns(fleet, kernel, jobs, dev)
+    full_ms = cuda_ms(full, reps=FLEET_REPS)
+    empty_ms = _empty_launch_ms(dev)
+    bound_ms, bound_by, pcie = _fleet_bound_ms(jobs)
+    records = fleet.layout(jobs)[2]
+    print(f"[{card}] {label}, {TIMED_DIRTY} dirty rows of {len(mirror.state.workers)} workers (capacity "
+          f"{mirror.cap}), {len(jobs)} jobs; events ms, the view through kernel / plain / plain / kernel: "
+          f"{view_ms[0]:.4f} / {plain_view_ms[0]:.4f} / {plain_view_ms[1]:.4f} / {view_ms[1]:.4f}; host "
+          f"steps, median us of {FLEET_REPS} views: {steps}; staging waits {waits} of {FLEET_REPS} views; the "
+          f"kernel alone {kernel_ms}, plain {plain_ms}; full {full_ms:.4f}, empty launch {empty_ms:.4f}, "
+          f"bound {bound_ms:.7f} ({bound_by}, {pcie} B over PCIe; {records} B of records)")
+    return dict(view_ms=view_ms, plain_view_ms=plain_view_ms, kernel_ms=kernel_ms, plain_turns_ms=plain_ms,
+                full_ms=full_ms, empty_launch_ms=empty_ms, bound_ms=bound_ms, bound_by=bound_by,
+                pcie_bytes=pcie, record_bytes=records, jobs=len(jobs), steps_us=steps,
+                staging_waits=waits, views_timed=FLEET_REPS)
+
+
+def k6_view_split(card, mirror, dev, rng):
+    """K6 at TIMED_DIRTY dirty rows of the mirror's fleet, timed by part
+    (``_fleet_split``, the full upload as ``full_ms``); every field left
+    equal to the host's."""
+    from distributed_tpu_torch.ops import fleet
+    from distributed_tpu_torch.scheduler.mirror import DEVICE_FIELDS
+
+    ws = rng.choice(list(mirror.state.workers.values()), TIMED_DIRTY, replace=False)
+    mirror.device_view()
+
+    def marks():
+        for w in ws:
+            mirror.mark(w)
+
+    out = _fleet_split(card, "K6 view", fleet, "scatter_rows", fleet.scatter_rows_cuda, mirror,
+                       mirror.device_view, marks,
+                       lambda: [torch.from_numpy(getattr(mirror, f)).to(dev) for f in DEVICE_FIELDS], dev)
+    check(all(torch.equal(t.cpu(), torch.from_numpy(getattr(mirror, f))) for f, t in mirror._dev.items()),
+          "K6: a field on the card differs from the host's after the timed views")
+    return out
+
+
+def k11_view_split(card, mirror, mesh, dev, rng):
+    """K11 at TIMED_DIRTY dirty rows over ``mesh``'s workers axis, timed by
+    part (``_fleet_split``, the full pack as ``full_ms``); every block left
+    equal to the host's."""
+    from distributed_tpu_torch.ops import fleet
+    from distributed_tpu_torch.scheduler.mirror import SHARDED_FIELDS
+
+    dw = int(mesh.shape["workers"])
+    rps = mirror.cap // dw
+    ws = rng.choice(list(mirror.state.workers.values()), TIMED_DIRTY, replace=False)
+    mirror.sharded_device_view(mesh)
+
+    def marks():
+        for w in ws:
+            mirror.mark(w)
+
+    out = _fleet_split(card, f"K11 view, dw {dw}", fleet, "scatter_blocks", fleet.scatter_blocks_cuda, mirror,
+                       lambda: mirror.sharded_device_view(mesh), marks,
+                       lambda: [torch.from_numpy(getattr(mirror, f)[j * rps:(j + 1) * rps].copy()).to(dev)
+                                for f in SHARDED_FIELDS for j in range(dw)], dev)
+    check(all(torch.equal(torch.cat(mirror._sdev[f]).cpu(), torch.from_numpy(getattr(mirror, f)))
+              for f in SHARDED_FIELDS),
+          "K11: a block on the card differs from the host's after the timed views")
+    return out
+
+
+def _fleet_entry(out):
+    """The kernels line's numbers of a view's timing: the medians of the
+    kernel's and the plain version's turns."""
+    return dict(ms=statistics.median(out["kernel_ms"]), plain_ms=statistics.median(out["plain_turns_ms"]),
+                bound_ms=out["bound_ms"], bound_by=out["bound_by"])
+
+
 def phase_periodic(ptxas=None):
     """Phase 6: the scheduler's periodic device paths at full width, as the
     port's paths call them: the fleet mirror's device view (K6) feeding a
@@ -1933,7 +2259,7 @@ def phase_periodic(ptxas=None):
     rebalance plan (K9, ``RebalancePath.plan_device``), on stand-in
     workers and keys with the fields those paths read.  ``ptxas``: phase
     1's registers and spills of K7 and K8, put into their entries."""
-    from distributed_tpu_torch.ops import amm, rebalance, stealing
+    from distributed_tpu_torch.ops import amm, fleet, rebalance, stealing
     from distributed_tpu_torch.profile_periodic import kernel_timeline
     from distributed_tpu_torch.scheduler.amm import AmmPath
     from distributed_tpu_torch.scheduler.mirror import DEVICE_FIELDS, TorchMirror
@@ -1979,52 +2305,60 @@ def phase_periodic(ptxas=None):
     steal_path = StealingPath()
     amm_path, reb_path = AmmPath(), RebalancePath()
     TorchMirror.launches = 0
+    fleet.scatter_rows_cuda.launches = 0
     stealing.steal_rounds_cuda.launches = 0
     amm.drop_rounds_cuda.launches = 0
     rebalance.rebalance_rounds_cuda.launches = 0
     state = pc.StandInState()
     mirror = state.mirror = TorchMirror(state)
-    views, seen, thieves, mirror_log = 0, {}, {}, []
-    for name, W in STEAL_FLEETS:
-        batch = steal_cases[name][0]
-        cap0 = mirror.cap
-        ws_list = _stand_in_workers(state, W)
-        before = mirror.stats()
-        _set_fleet(state, ws_list, batch)
-        view = mirror.device_view()
-        views += 1
-        after = mirror.stats()
-        what = "first use" if not before["full_uploads"] else "growth"
-        check(what != "growth" or mirror.cap != cap0, f"mirror {name}: no growth past {cap0}")
-        mirror_log.append((name, what, after["full_uploads"] - before["full_uploads"],
-                           after["rows_uploaded"] - before["rows_uploaded"], _view_equals_host(mirror, view)))
-        seen[name] = tuple(getattr(mirror, f).copy() for f in ("occupancy", "nthreads", "idle", "running"))
-        fleet = batch._replace(occ=view["occupancy"], nthreads=view["nthreads"],
-                               idle=view["idle"], running=view["running"])
-        thieves[name] = steal_path.plan(fleet, mirror.upload_event)
-        for n in DIRTY_ROWS:
-            pick = ws_list if n == "all" else rng(70 + len(mirror_log)).choice(ws_list, n, replace=False)
-            for ws in pick:
-                state.update(ws, np.random.default_rng(ws.idx))
+    views, seen, thieves, mirror_log, fleet_log = 0, {}, {}, [], []
+    with fleet_checked(fleet_log):
+        for name, W in STEAL_FLEETS:
+            batch = steal_cases[name][0]
+            cap0 = mirror.cap
+            ws_list = _stand_in_workers(state, W)
             before = mirror.stats()
-            view = mirror.device_view()
-            views += n != 0
+            _set_fleet(state, ws_list, batch)
+            view = mirror.device_view()  # a full upload: no launch of K6
             after = mirror.stats()
-            mirror_log.append((name, f"dirty {n}", after["full_uploads"] - before["full_uploads"],
-                               after["rows_uploaded"] - before["rows_uploaded"],
-                               _view_equals_host(mirror, view)))
+            what = "first use" if not before["full_uploads"] else "growth"
+            check(what != "growth" or mirror.cap != cap0, f"mirror {name}: no growth past {cap0}")
+            mirror_log.append((name, what, after["full_uploads"] - before["full_uploads"],
+                               after["rows_uploaded"] - before["rows_uploaded"], _view_equals_host(mirror, view)))
+            seen[name] = tuple(getattr(mirror, f).copy() for f in ("occupancy", "nthreads", "idle", "running"))
+            fleet_batch = batch._replace(occ=view["occupancy"], nthreads=view["nthreads"],
+                                         idle=view["idle"], running=view["running"])
+            thieves[name] = steal_path.plan(fleet_batch, mirror.upload_event)
+            for n in DIRTY_ROWS:
+                pick = ws_list if n == "all" else rng(70 + len(mirror_log)).choice(ws_list, n, replace=False)
+                for ws in pick:
+                    state.update(ws, np.random.default_rng(ws.idx))
+                before = mirror.stats()
+                view = mirror.device_view()
+                views += n != 0
+                after = mirror.stats()
+                mirror_log.append((name, f"dirty {n}", after["full_uploads"] - before["full_uploads"],
+                                   after["rows_uploaded"] - before["rows_uploaded"],
+                                   _view_equals_host(mirror, view)))
+    main_path_waits = mirror.staging_waits
     suggestions = list(amm_path.run_device(_Policy(amm_state), replicas))
     reb_fv = reb_state.mirror.fleet_view()
     moves = reb_path.plan_device(reb_fv.live_list, reb_keys, reb_batch.owner.tolist(),
                                  reb_fv.nbytes[reb_fv.slots].astype(np.float32, copy=True))
     torch.cuda.synchronize()
-    launches = {"mirror_view": TorchMirror.launches, "steal": stealing.steal_rounds_cuda.launches,
+    launches = {"mirror_view": fleet.scatter_rows_cuda.launches, "steal": stealing.steal_rounds_cuda.launches,
                 "amm_drop": amm.drop_rounds_cuda.launches,
                 "rebalance": rebalance.rebalance_rounds_cuda.launches}
-    print(f"[{card}] periodic main path: launches {launches}; paths "
+    print(f"[{card}] periodic main path: launches {launches}; views that wrote to the card "
+          f"{TorchMirror.launches} (full uploads included); paths "
           f"{ {p: q.counters() for p, q in (('stealing', steal_path), ('amm', amm_path), ('rebalance', reb_path))} }")
     check(launches == {"mirror_view": views, "steal": len(STEAL_FLEETS), "amm_drop": 1, "rebalance": 1},
-          f"periodic launches {launches}: one a view that uploads, a cycle and a plan expected")
+          f"periodic launches {launches}: one a view with dirty rows, a cycle and a plan expected")
+    # K6 on the main path: each view's launch against the plain version on the card
+    check(len(fleet_log) == views and all(e[0] == "scatter_rows" and e[3] for e in fleet_log),
+          f"K6 on the main path: {fleet_log} against {views} views with dirty rows")
+    print(f"[{card}] K6 on the main path: {len(fleet_log)} views (rows {[e[2] for e in fleet_log]}), "
+          f"one launch each, == the plain version on the card bit for bit")
     for label, p in (("stealing", steal_path), ("amm", amm_path), ("rebalance", reb_path)):
         check(p.failures == 0, f"{label} path failures {p.failures}: {p.errors}")
 
@@ -2208,25 +2542,17 @@ def phase_periodic(ptxas=None):
         python_moves=len(py_moves), python_imbalance_after=py_after,
         ptxas=ptxas.get("rebalance.cu"))
 
-    # K6 timed: a view after TIMED_DIRTY dirty rows, against a full upload
-    ws37 = rng(80).choice(list(state.workers.values()), TIMED_DIRTY, replace=False)
-
-    def dirty_view():
-        for ws in ws37:
-            mirror.mark(ws)
-        return mirror.device_view()
-
-    ms = cuda_ms(dirty_view)
-    plain_ms = cuda_ms(lambda: [torch.from_numpy(getattr(mirror, f)).to(dev) for f in DEVICE_FIELDS])
-    bound_ms, bound_by = _bound(TIMED_DIRTY * (10 + 8), 0)
-    print(f"[{card}] mirror view, {TIMED_DIRTY} dirty rows of {len(state.workers)} workers "
-          f"(capacity {mirror.cap}): ms {ms:.4f} full upload ms {plain_ms:.4f} bound_ms {bound_ms:.7f} "
-          f"({bound_by}); views that uploaded on the main path {launches['mirror_view']}")
+    # K6: the kernel against its plain version on the card; the view timed
+    # by part beside the plain version, the full upload and the floor
+    n_cases = fleet_kernel_checks(card, dev)
+    k6 = k6_view_split(card, mirror, dev, rng(80))
     entries["mirror_view"] = dict(
-        name="mirror_view", route="torch", source="distributed_tpu_torch/scheduler/mirror.py",
+        name="mirror_view", route="cuda", source="distributed_tpu_torch/ops/csrc/fleet_scatter.cu",
         replaces="distributed_tpu/scheduler/mirror.py:356", launches=launches["mirror_view"],
-        max_abs_err=0.0, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
-        library_ms=None, case=f"{TIMED_DIRTY} dirty rows, capacity {mirror.cap}")
+        max_abs_err=0.0, **_fleet_entry(k6), library_ms=None,
+        case=f"{TIMED_DIRTY} dirty rows, capacity {mirror.cap}", cases_checked=n_cases,
+        staging_waits_main_path=main_path_waits, **{k: v for k, v in k6.items() if k not in (
+            "bound_ms", "bound_by")})
     return [entries[k] for k in ("steal", "amm_drop", "mirror_view", "rebalance")]
 
 
@@ -2304,6 +2630,7 @@ def phase_sharded(oneshot, ptxas=None):
     import torch.distributed as dist
 
     from distributed_tpu_torch import graphs
+    from distributed_tpu_torch.ops import fleet as fleet_ops
     from distributed_tpu_torch.ops import leveled, partition, sharded
     from distributed_tpu_torch.profile_sharded import idle_share, k10_launches
     from distributed_tpu_torch.scheduler import plan
@@ -2429,55 +2756,66 @@ def phase_sharded(oneshot, ptxas=None):
                 wall_ms=walls[layout, name], single_wall_ms=single_wall, cpu_s=cpu_s)
         torch.cuda.empty_cache()
 
-    # K11: the mirror's workers-axis view on the card feeding the engine
+    # K11: the mirror's workers-axis view on the card feeding the engine, and
+    # dirty rows after it (one launch a view); every count zeroed just before
+    # and read just after
     TorchMirror.launches = 0
+    fleet_ops.scatter_blocks_cuda.launches = 0
     state = pc.StandInState()
     mirror = state.mirror = TorchMirror(state)
-    mirror_cases = {}
-    for fname, W in STEAL_FLEETS:
-        ws_list = _stand_in_workers(state, W)
-        rng = np.random.default_rng(W)
-        for ws in ws_list[::5]:
-            ws.occupancy = float(rng.uniform(0, 4))
-            mirror.mark(ws)
-        fv = mirror.fleet_view()
-        host = (fv.nthreads.copy(), fv.occupancy.copy(), fv.running.copy())
-        for layout in MIRROR_LAYOUTS:
-            mesh = _shard_mesh(partition, layout, dev)
-            before = mirror.sharded_stats()
-            view = mirror.sharded_device_view(mesh)
-            first = mirror.sharded_stats()
-            same_rows = all(np.array_equal(torch.cat(view[f]).cpu().numpy(), getattr(mirror, f))
-                            for f in SHARDED_FIELDS)
-            check(same_rows, f"K11 {fname} {layout}: view rows differ from the host's")
-            fresh = mirror.sharded_device_view(mesh)
-            after = mirror.sharded_stats()
-            check(after["rows_uploaded"] == first["rows_uploaded"]
-                  and after["full_packs"] == first["full_packs"],
-                  f"K11 {fname} {layout}: a fresh cycle uploaded {after} after {first}")
-            got = sharded.place_graph_leveled_sharded(mesh, packed, *host, fleet_dev=fresh)
-            ref = sharded.place_graph_leveled_sharded(mesh, packed, *host)
-            check(_same(got, ref), f"K11 {fname} {layout}: fleet_dev placement differs from host-fed")
-            print(f"[{card}] mirror sharded view {fname} (capacity {mirror.cap}) {layout}: "
-                  f"rows == host, full packs {first['full_packs']} (before {before['full_packs']}), "
-                  f"fresh cycle rows uploaded {[a - b for a, b in zip(after['rows_uploaded'], first['rows_uploaded'])]}, "
-                  f"fleet_dev placement == host-fed")
-            mirror_cases[f"{fname}_{layout}"] = dict(capacity=mirror.cap, n_shards=after["n_shards"],
-                                                     full_packs=after["full_packs"],
-                                                     rows_uploaded=after["rows_uploaded"])
+    mirror_cases, fleet_log, k11_views = {}, [], 0
+    with fleet_checked(fleet_log):
+        for fname, W in STEAL_FLEETS:
+            ws_list = _stand_in_workers(state, W)
+            rng = np.random.default_rng(W)
+            for ws in ws_list[::5]:
+                ws.occupancy = float(rng.uniform(0, 4))
+                mirror.mark(ws)
+            for layout in MIRROR_LAYOUTS:
+                fv = mirror.fleet_view()
+                host = (fv.nthreads.copy(), fv.occupancy.copy(), fv.running.copy())
+                mesh = _shard_mesh(partition, layout, dev)
+                before = mirror.sharded_stats()
+                view = mirror.sharded_device_view(mesh)
+                first = mirror.sharded_stats()
+                same_rows = all(np.array_equal(torch.cat(view[f]).cpu().numpy(), getattr(mirror, f))
+                                for f in SHARDED_FIELDS)
+                check(same_rows, f"K11 {fname} {layout}: view rows differ from the host's")
+                fresh = mirror.sharded_device_view(mesh)
+                after = mirror.sharded_stats()
+                check(after["rows_uploaded"] == first["rows_uploaded"]
+                      and after["full_packs"] == first["full_packs"],
+                      f"K11 {fname} {layout}: a fresh cycle uploaded {after} after {first}")
+                got = sharded.place_graph_leveled_sharded(mesh, packed, *host, fleet_dev=fresh)
+                ref = sharded.place_graph_leveled_sharded(mesh, packed, *host)
+                check(_same(got, ref), f"K11 {fname} {layout}: fleet_dev placement differs from host-fed")
+                # TIMED_DIRTY dirty rows: one launch of K11; the view handed out before is unchanged
+                held = {f: torch.cat(fresh[f]).clone() for f in SHARDED_FIELDS}
+                for ws in rng.choice(ws_list, TIMED_DIRTY, replace=False):
+                    ws.occupancy = float(rng.uniform(0, 4))
+                    mirror.mark(ws)
+                dirty = mirror.sharded_device_view(mesh)
+                k11_views += 1
+                check(all(np.array_equal(torch.cat(dirty[f]).cpu().numpy(), getattr(mirror, f))
+                          for f in SHARDED_FIELDS), f"K11 {fname} {layout}: dirty rows differ from the host's")
+                check(all(torch.equal(torch.cat(fresh[f]), held[f]) for f in SHARDED_FIELDS),
+                      f"K11 {fname} {layout}: a view handed out changed")
+                print(f"[{card}] mirror sharded view {fname} (capacity {mirror.cap}) {layout}: "
+                      f"rows == host, full packs {first['full_packs']} (before {before['full_packs']}), "
+                      f"fresh cycle rows uploaded {[a - b for a, b in zip(after['rows_uploaded'], first['rows_uploaded'])]}, "
+                      f"fleet_dev placement == host-fed; {TIMED_DIRTY} dirty rows: one K11 launch, rows == "
+                      f"host, the view handed out unchanged")
+                mirror_cases[f"{fname}_{layout}"] = dict(capacity=mirror.cap, n_shards=after["n_shards"],
+                                                         full_packs=after["full_packs"],
+                                                         rows_uploaded=mirror.sharded_stats()["rows_uploaded"])
+    k11_launches = fleet_ops.scatter_blocks_cuda.launches
+    check(k11_launches == k11_views == len(fleet_log)
+          and all(e[0] == "scatter_blocks" and e[3] for e in fleet_log),
+          f"K11 on the main path: {k11_launches} launches, {k11_views} dirty views, {fleet_log}")
+    print(f"[{card}] K11 on the main path: {k11_launches} launches, one a dirty view, == the plain "
+          f"version on the card bit for bit; views that wrote to the card {TorchMirror.launches}")
     mesh2 = _shard_mesh(partition, "4x2", dev)
-    ws37 = np.random.default_rng(81).choice(list(state.workers.values()), TIMED_DIRTY, replace=False)
-
-    def dirty_view():
-        for ws in ws37:
-            mirror.mark(ws)
-        return mirror.sharded_device_view(mesh2)
-
-    view_ms = cuda_ms(dirty_view)
-    full_ms = cuda_ms(lambda: [torch.from_numpy(getattr(mirror, f)[j * mirror.cap // 2:(j + 1) * mirror.cap // 2]
-                                                .copy()).to(dev) for f in SHARDED_FIELDS for j in range(2)])
-    print(f"[{card}] mirror sharded view, {TIMED_DIRTY} dirty rows, dw 2, capacity {mirror.cap}: "
-          f"ms {view_ms:.4f} full pack ms {full_ms:.4f}; views that uploaded {TorchMirror.launches}")
+    k11 = k11_view_split(card, mirror, mesh2, dev, np.random.default_rng(81))
 
     # ProcessGroupShards on NCCL, a world of one, against LocalShards 1x1
     import socket
@@ -2552,9 +2890,11 @@ def phase_sharded(oneshot, ptxas=None):
         "ptxas": ptxas or {},
         "phase_s": phase_s,
     }
-    mirror_entry = dict(sharded_view_ms=view_ms, sharded_full_pack_ms=full_ms,
-                        sharded_case=f"{TIMED_DIRTY} dirty rows, dw 2, capacity {mirror.cap}",
-                        sharded_views=mirror_cases, sharded_launches=TorchMirror.launches)
+    mirror_entry = dict(
+        name="mirror_shard_view", route="cuda", source="distributed_tpu_torch/ops/csrc/fleet_scatter.cu",
+        replaces="distributed_tpu/scheduler/mirror.py:428", launches=k11_launches, max_abs_err=0.0,
+        **_fleet_entry(k11), library_ms=None, case=f"{TIMED_DIRTY} dirty rows, dw 2, capacity {mirror.cap}",
+        sharded_views=mirror_cases, **{k: v for k, v in k11.items() if k not in ("bound_ms", "bound_by")})
     return entry, mirror_entry
 
 
@@ -4085,6 +4425,7 @@ def _control_plane_card(card, dev, twins):
     from distributed_tpu_torch import graphs
     from distributed_tpu_torch.graph.spec import TaskSpec
     from distributed_tpu_torch.ops import amm, leveled, partition, stealing
+    from distributed_tpu_torch.ops import fleet as fleet_ops
     from distributed_tpu_torch.scheduler.mirror import TorchMirror
 
     counters = {"place_wave": leveled.place_waves_cuda, "partition": partition.partition_cuda,
@@ -4093,11 +4434,11 @@ def _control_plane_card(card, dev, twins):
     def zero():
         for fn in counters.values():
             fn.launches = 0
-        TorchMirror.launches = 0
+        fleet_ops.scatter_rows_cuda.launches = 0
 
     def read():
         out = {name: fn.launches for name, fn in counters.items()}
-        out["mirror_view"] = TorchMirror.launches
+        out["mirror_view"] = fleet_ops.scatter_rows_cuda.launches
         return out
 
     # 12a: the north-star path through update_graph_core
@@ -4415,6 +4756,7 @@ def phase_recovery(twin, dev=None):
     Returns each kernel's launches on the phase's main path and its
     numbers."""
     from distributed_tpu_torch.ops import amm, stealing
+    from distributed_tpu_torch.ops import fleet as fleet_ops
     from distributed_tpu_torch.scheduler.mirror import TorchMirror
 
     card = smi_line()
@@ -4424,11 +4766,14 @@ def phase_recovery(twin, dev=None):
 
     def read():
         out = {name: fn.launches for name, fn in counters.items()}
-        out["mirror_view"] = TorchMirror.launches
+        out["mirror_view"] = fleet_ops.scatter_rows_cuda.launches
+        # views that wrote to the card: a full upload or a launch of K6
+        out["mirror_views_written"] = TorchMirror.launches
         return out
 
     for fn in counters.values():
         fn.launches = 0
+    fleet_ops.scatter_rows_cuda.launches = 0
     TorchMirror.launches = 0
     out = recovery_run(dev, native=True, read_launches=read)
     launches = read()
@@ -4445,7 +4790,7 @@ def phase_recovery(twin, dev=None):
           f"{b['mirror_bytes']} B), {b['memory_end']} B at the run's end")
     mirror = b["mirror"]
     after = {k: out["launches_end"][k] - b["launches"][k] for k in b["launches"]}
-    check(mirror.full_uploads >= 1 and after["mirror_view"] >= 1 and after["steal"] >= 1
+    check(mirror.full_uploads >= 1 and after["mirror_views_written"] >= 1 and after["steal"] >= 1
           and after["amm_drop"] >= 1,
           f"13a: after the bounce {after} launches, the new mirror's full uploads {mirror.full_uploads}")
     same, cp = out["same"], out["cp"]
@@ -4638,7 +4983,7 @@ def phase_servers(dev=None):
 def _servers_card(card, dev, twin):
     """Phase 14's card runs, each held to the CPU twin's results."""
     from distributed_tpu_torch.ops import amm, leveled, partition, stealing
-    from distributed_tpu_torch.scheduler.mirror import TorchMirror
+    from distributed_tpu_torch.ops import fleet as fleet_ops
 
     counters = {"place_wave": leveled.place_waves_cuda, "partition": partition.partition_cuda,
                 "steal": stealing.steal_rounds_cuda, "amm_drop": amm.drop_rounds_cuda}
@@ -4646,11 +4991,11 @@ def _servers_card(card, dev, twin):
     def zero():
         for fn in counters.values():
             fn.launches = 0
-        TorchMirror.launches = 0
+        fleet_ops.scatter_rows_cuda.launches = 0
 
     def read():
         out = {name: fn.launches for name, fn in counters.items()}
-        out["mirror_view"] = TorchMirror.launches
+        out["mirror_view"] = fleet_ops.scatter_rows_cuda.launches
         return out
 
     def probe(s, workers):
@@ -5204,7 +5549,7 @@ def _deploy_card(card, dev):
     """Phase 15's card runs; returns the launches, the numbers and each
     part's results for :func:`_deploy_compare`."""
     from distributed_tpu_torch.ops import amm, leveled, partition, rebalance, stealing
-    from distributed_tpu_torch.scheduler.mirror import TorchMirror
+    from distributed_tpu_torch.ops import fleet as fleet_ops
 
     counters = {"place_wave": leveled.place_waves_cuda, "partition": partition.partition_cuda,
                 "steal": stealing.steal_rounds_cuda, "amm_drop": amm.drop_rounds_cuda,
@@ -5213,11 +5558,11 @@ def _deploy_card(card, dev):
     def zero():
         for fn in counters.values():
             fn.launches = 0
-        TorchMirror.launches = 0
+        fleet_ops.scatter_rows_cuda.launches = 0
 
     def read():
         out = {name: fn.launches for name, fn in counters.items()}
-        out["mirror_view"] = TorchMirror.launches
+        out["mirror_view"] = fleet_ops.scatter_rows_cuda.launches
         return out
 
     def part(coro):
@@ -5585,7 +5930,7 @@ async def _coordination(device):
 def phase_shuffle(dev=None):
     """Phase 16, the port's shuffle and coordination extensions on the card."""
     from distributed_tpu_torch.ops import amm, ici, leveled, partition, stealing
-    from distributed_tpu_torch.scheduler.mirror import TorchMirror
+    from distributed_tpu_torch.ops import fleet as fleet_ops
 
     card = smi_line()
     t_phase = time.perf_counter()
@@ -5596,11 +5941,11 @@ def phase_shuffle(dev=None):
     def zero():
         for fn in counters.values():
             fn.launches = 0
-        TorchMirror.launches = 0
+        fleet_ops.scatter_rows_cuda.launches = 0
 
     def read():
         out = {name: fn.launches for name, fn in counters.items()}
-        out["mirror_view"] = TorchMirror.launches
+        out["mirror_view"] = fleet_ops.scatter_rows_cuda.launches
         return out
 
     def run(coro):
@@ -6139,11 +6484,8 @@ def main() -> int:
     hints_1m = phase("4", phase_streamed, wave_entry, oneshot)
     partition_entry = phase("5", phase_partition, wave_entry, hints_1m)
     periodic_entries = phase("6", phase_periodic, periodic_ptxas_info)
-    shard_entry, mirror_sharded = phase("7", phase_sharded, oneshot,
-                                        periodic_ptxas_info.get("place_shard.cu"))
-    for e in periodic_entries:
-        if e["name"] == "mirror_view":
-            e.update(mirror_sharded)
+    shard_entry, mirror_shard_entry = phase("7", phase_sharded, oneshot,
+                                            periodic_ptxas_info.get("place_shard.cu"))
     shuffle_entry = phase("8", phase_data_plane, periodic_ptxas_info.get("shuffle_bucket.cu"))
     long_context = phase("8 long context", phase_long_context)
     training, k2_training, k3_training = phase("9", phase_long_context_training)
@@ -6213,7 +6555,7 @@ def main() -> int:
     print(json.dumps({"lint": lint}))
     print(json.dumps({"phase_s": walls}))
     kernels = [flash_entry, bwd_entry, wave_entry, partition_entry, *periodic_entries, shard_entry,
-               shuffle_entry, *long_context, *training, *round1]
+               mirror_shard_entry, shuffle_entry, *long_context, *training, *round1]
     print(f"total_s {time.perf_counter() - t0:.1f}")
     print(smi_line())
     print(json.dumps({"kernels": kernels}))

@@ -108,6 +108,7 @@ SIGNATURES = {
         _i, _i,                         # W K
         _vp,                            # stream
     ),
+    "dtpu_fleet_scatter": (_vp, _i, _vp),  # records (pinned host memory) jobs stream
     "dtpu_shuffle_bucket": (
         _vp, _vp, _vp, _vp, _vp,        # key, value, valid, send_k, send_v pointer tables
         _vp, _vp,                       # sent [S, n_dev] hist (scratch [S, tiles, n_dev])

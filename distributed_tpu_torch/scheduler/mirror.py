@@ -14,13 +14,15 @@ from the scheduler's state instead of rebuilt every cycle.
   mirror against the from-scratch pack (:func:`oracle_fleet`).
 - **Device view** (:meth:`device_view`).  Capacity-sized tensors on the
   card: one full upload at first use of a field or after growth, then
-  only the dirty rows, staged in pinned memory and scattered with
-  ``index_copy_``; a fresh cycle uploads nothing.  The reference keeps
+  only the dirty rows, every field's in one launch of K6
+  (``ops/fleet.py``, ``csrc/fleet_scatter.cu``) from a ring of pinned
+  record buffers; a fresh cycle uploads nothing.  The reference keeps
   immutable jax arrays (``.at[rows].set``); these tensors are written in
   place, so the view's readers get them in stream order: the upload runs
   on the calling thread's current stream and records :attr:`upload_event`,
   which a reader on another thread or stream waits on before it launches.
-  The pinned staging buffer is reused only after its last copy completed.
+  The host waits for the card only when the ring comes round to a buffer
+  whose launch has not run (:attr:`staging_waits`).
 
 :meth:`TorchMirror.adopt` swaps it in for the reference's mirror on a
 live ``SchedulerState`` (``state.mirror``), keeping every slot.  The
@@ -33,11 +35,12 @@ reference.
   each block on the device of its shard.  A full pack at first use, on
   growth or on a mesh that is not equal to the last one; otherwise only
   the dirty rows, grouped by owning block.  Unlike :meth:`device_view`,
-  a block is never written in place: a dirty block is copied on the
-  device and the copy is written and kept (the reference replaces its
-  arrays the same way), so a view handed to a plan on another thread
-  never changes under it.  The per-shard counters count the exact
-  payload, as ``bytes_uploaded`` does.
+  a block is never written in place: each dirty block gets a new tensor
+  that K11 (the same kernel, one launch a device a view) fills with the
+  old block and the dirty rows (the reference replaces its arrays the
+  same way), so a view handed to a plan on another thread never changes
+  under it.  The per-shard counters count the exact payload, as
+  ``bytes_uploaded`` does.
 """
 
 from __future__ import annotations
@@ -49,6 +52,7 @@ import numpy as np
 import torch
 
 from distributed_tpu_torch._device import resolve_device
+from distributed_tpu_torch.ops import fleet
 
 #: worker status strings -> stable i8 codes (mirror rows are numeric)
 STATUS_CODES: dict[str, int] = {
@@ -157,8 +161,8 @@ class TorchMirror:
         # device cache: field name -> capacity-sized tensor on self.device
         self._dev: dict[str, torch.Tensor] = {}
         self._dev_cap = -1
-        self._staging: dict[str, torch.Tensor] = {}
-        self._staged: torch.cuda.Event | None = None  # the last staged copies
+        # the kernel's pinned record buffers, one ring a CUDA device
+        self._rings: dict[torch.device, fleet.RecordRing] = {}
         #: recorded on the uploading stream after every device_view that
         #: wrote to the card; None before the first
         self.upload_event: torch.cuda.Event | None = None
@@ -354,14 +358,13 @@ class TorchMirror:
         self.refresh()
         if self._dev_cap != self.cap:
             self._dev.clear()
-            self._staging.clear()
             self._dev_cap = self.cap
         wrote = False
         # only ever-requested fields live on the card: the rest would ship
         # rows nothing reads
         if self._device_dirty and self._dev:
             n = len(self._device_dirty)
-            rows = np.fromiter(sorted(self._device_dirty), np.int64, n)
+            rows = np.fromiter(sorted(self._device_dirty), np.int32, n)
             self._scatter(rows)
             self.rows_uploaded += n
             self.state.trace.emit("kernel", "mirror-upload", "", n=n, dest="scatter")
@@ -382,34 +385,28 @@ class TorchMirror:
             TorchMirror.launches += 1
         return {f: self._dev[f] for f in fields}
 
+    def _ring(self, jobs: list) -> fleet.RecordRing | None:
+        """The record ring of the jobs' CUDA device (None on the CPU)."""
+        device = jobs[0].dst.device
+        if device.type != "cuda":
+            return None
+        ring = self._rings.get(device)
+        if ring is None:
+            ring = self._rings[device] = fleet.RecordRing(device)
+        return ring
+
+    @property
+    def staging_waits(self) -> int:
+        """Views that waited for the card to free a record buffer."""
+        return sum(r.waits for r in self._rings.values())
+
     def _scatter(self, rows: np.ndarray) -> None:
-        """Write the host rows ``rows`` (ascending slots) into the cached
-        tensors: ``index_copy_`` from pinned staging, copied without
-        blocking on the CUDA device."""
-        n = len(rows)
-        pinned = self.device.type == "cuda"
-        if pinned and self._staged is not None:
-            # the staging buffer still feeds the last copies until they ran
-            self._staged.synchronize()
-        need = max(n, 1)
-        names = ["rows", *self._dev]
-        if any(self._staging.get(k) is None or len(self._staging[k]) < need for k in names):
-            cap = max(need, 2 * len(self._staging.get("rows", ())))
-            self._staging = {"rows": torch.empty(cap, dtype=torch.int64, pin_memory=pinned)}
-            for name, t in self._dev.items():
-                self._staging[name] = torch.empty(cap, dtype=t.dtype, pin_memory=pinned)
-        stage_rows = self._staging["rows"][:n]
-        stage_rows.numpy()[:] = rows
-        idx = stage_rows.to(self.device, non_blocking=True)
-        for name, dev_t in self._dev.items():
-            vals = getattr(self, name)[rows]
-            stage = self._staging[name][:n]
-            stage.numpy()[:] = vals
-            dev_t.index_copy_(0, idx, stage.to(self.device, non_blocking=True))
-            self.bytes_uploaded += int(vals.nbytes)
-        if pinned:
-            self._staged = torch.cuda.Event()
-            self._staged.record(torch.cuda.current_stream(self.device))
+        """Write the host rows ``rows`` (ascending slots, int32) into the
+        cached tensors in place: one job a field, one launch (K6) on a
+        CUDA device, the plain version on the CPU."""
+        jobs = [fleet.Job(t, None, rows, getattr(self, name)[rows]) for name, t in self._dev.items()]
+        fleet.scatter_rows(jobs, self._ring(jobs))
+        self.bytes_uploaded += sum(int(j.values.nbytes) for j in jobs)
 
     def sharded_device_view(
         self, mesh, fields: tuple[str, ...] = SHARDED_FIELDS,
@@ -453,17 +450,21 @@ class TorchMirror:
             by_shard: dict[int, list[int]] = {}
             for slot in sorted(self._sdev_dirty):
                 by_shard.setdefault(slot // rows_per_shard, []).append(slot)
+            # a new block a dirty (shard, field), filled by one launch a device
+            jobs: dict[torch.device, list[fleet.Job]] = {}
             for j, slots in sorted(by_shard.items()):
                 rows = np.asarray(slots, np.int64)
-                idx = torch.from_numpy(rows - j * rows_per_shard).to(devices[j])
+                local = (rows - j * rows_per_shard).astype(np.int32)
                 for name, blocks in self._sdev.items():
                     vals = getattr(self, name)[rows]
-                    block = blocks[j].clone()
-                    block.index_copy_(0, idx, torch.from_numpy(vals).to(devices[j]))
+                    block = torch.empty_like(blocks[j])
+                    jobs.setdefault(devices[j], []).append(fleet.Job(block, blocks[j], local, vals))
                     blocks[j] = block
                     self.shard_bytes_uploaded[j] += int(vals.nbytes)
                 self.shard_rows_uploaded[j] += len(slots)
                 wrote.add(devices[j])
+            for dev_jobs in jobs.values():
+                fleet.scatter_blocks(dev_jobs, self._ring(dev_jobs))
             self.rows_uploaded += len(self._sdev_dirty)
             self.state.trace.emit("kernel", "mirror-upload", "", n=len(self._sdev_dirty),
                                   dest="shard-scatter")

@@ -50,6 +50,7 @@ from distributed_tpu_torch.rpc.core import PeriodicCallback
 from distributed_tpu_torch.scheduler.mirror import TorchMirror
 from distributed_tpu_torch.scheduler.state import SchedulerState
 from distributed_tpu_torch.scheduler.torch_placement import TorchPlacement
+from torch_ref_native import ref_native_lib  # noqa: F401 (autouse: the reference's native library)
 from distributed_tpu_torch.tracing import SECONDS_BUCKETS, Histogram
 from distributed_tpu_torch.utils import HeapSet, OrderedSet, key_split
 from distributed_tpu_torch.utils.counter import Digest

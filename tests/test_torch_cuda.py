@@ -25,6 +25,7 @@ from distributed_tpu_torch import graphs
 from distributed_tpu_torch.ops import (
     amm,
     flash,
+    fleet,
     ici,
     leveled,
     partition,
@@ -1428,3 +1429,101 @@ def test_a_spilled_cuda_tensor_comes_back_on_its_device_and_frees_its_memory(cud
         assert back.device == cuda and back.dtype == want[k].dtype
         assert torch.equal(back.cpu(), want[k])
     buf.close()
+
+
+# ---------------------------------------------- K6 and K11, the mirror's views
+
+FLEET_DTYPES = (torch.int32, torch.float32, torch.bool, torch.int8)
+
+
+def _fleet_jobs(cuda, rng, cap, n_dirty, dw, copy_on_write):
+    """One job a (block, dtype): ``dw`` blocks of ``cap // dw`` slots, the
+    first ``n_dirty`` slots of a random order dirty, each with a new value;
+    in place (K6) or over a copy of a source block (K11)."""
+    rows_all = np.sort(rng.permutation(cap)[:n_dirty]).astype(np.int32)
+    per = cap // dw
+    jobs = []
+    for j in range(dw):
+        rows = rows_all[(rows_all >= j * per) & (rows_all < (j + 1) * per)] - j * per
+        if not len(rows):
+            continue
+        for dtype in FLEET_DTYPES:
+            np_t = torch.empty(0, dtype=dtype).numpy().dtype
+            old = torch.from_numpy(rng.integers(0, 100, per).astype(np_t)).to(cuda)
+            vals = rng.integers(100, 200, len(rows)).astype(np_t)
+            dst = torch.empty_like(old) if copy_on_write else old
+            jobs.append(fleet.Job(dst, old if copy_on_write else None, rows, vals))
+    return jobs
+
+
+@pytest.mark.parametrize("cap,n_dirty,dw,cow", [
+    (512, 37, 1, False), (1024, 37, 1, False), (1024, 0, 1, False), (1024, 1, 1, False),
+    (1024, 1024, 1, False), (8, 8, 1, False), (1024, 37, 1, True), (1024, 37, 2, True),
+    (1024, 1024, 2, True), (1024, 1, 8, True), (65536, 4096, 4, True),
+], ids=lambda v: str(v))
+def test_fleet_scatter_kernel_equals_plain(cuda, cap, n_dirty, dw, cow):
+    """K6 (in place) and K11 (copy-on-write blocks) against the plain version
+    on the card, bit for bit, every dtype of the mirror's fields; one launch
+    a call, none without a job; the source blocks never written."""
+    rng = np.random.default_rng(cap + n_dirty + dw)
+    jobs = _fleet_jobs(cuda, rng, cap, n_dirty, dw, cow)
+    twins = [fleet.Job(j.dst.clone(), None if j.src is None else j.src.clone(), j.rows, j.values)
+             for j in jobs]
+    sources = [None if j.src is None else j.src.clone() for j in jobs]
+    kernel = fleet.scatter_blocks_cuda if cow else fleet.scatter_rows_cuda
+    before = kernel.launches
+    kernel(jobs, fleet.RecordRing(cuda))
+    fleet.scatter_rows_reference(twins)
+    torch.cuda.synchronize()
+    assert kernel.launches == before + (1 if jobs else 0)
+    for j, t, src in zip(jobs, twins, sources):
+        assert torch.equal(j.dst, t.dst)
+        if src is not None:
+            assert torch.equal(j.src, src)
+
+
+def test_fleet_scatter_kernel_rejects_a_dropped_row(cuda):
+    """The check that holds the kernel to the plain version catches a
+    record with one dirty row left out."""
+    rng = np.random.default_rng(3)
+    jobs = _fleet_jobs(cuda, rng, 1024, 37, 1, False)
+    twins = [fleet.Job(j.dst.clone(), None, j.rows, j.values) for j in jobs]
+    job = jobs[0]
+    jobs[0] = fleet.Job(job.dst, None, job.rows[1:], job.values[1:])
+    fleet.scatter_rows_cuda(jobs, fleet.RecordRing(cuda))
+    fleet.scatter_rows_reference(twins)
+    torch.cuda.synchronize()
+    assert not torch.equal(jobs[0].dst, twins[0].dst)
+    assert all(torch.equal(j.dst, t.dst) for j, t in zip(jobs[1:], twins[1:]))
+
+
+@pytest.mark.parametrize("sharded", [False, True], ids=["k6", "k11"])
+def test_back_to_back_views_through_the_ring_leave_every_field_right(cuda, sharded):
+    """1,000 views, each after new values in 37 random workers of 1,000
+    (capacity 1,024), with no host synchronisation between them: the ring's
+    buffers are reused only after their launch ran, so the card's fields
+    equal the host rows at the end; each view is one launch."""
+    from distributed_tpu_torch.ops.partition import make_engine_mesh
+    from distributed_tpu_torch.scheduler.mirror import FIELDS, TorchMirror
+
+    names = tuple(n for n, _ in FIELDS)
+    state = cases.StandInState()
+    mirror = state.mirror = TorchMirror(state, device=cuda)
+    ws_list = [state.add_worker(f"tcp://ring:{i}", 2) for i in range(1000)]
+    mesh = make_engine_mesh(layout="1x2", devices=[str(cuda)] * 2)
+    view = (lambda: mirror.sharded_device_view(mesh, names)) if sharded else (
+        lambda: mirror.device_view(names))
+    view()
+    rng = np.random.default_rng(11)
+    kernel = fleet.scatter_blocks_cuda if sharded else fleet.scatter_rows_cuda
+    before = kernel.launches
+    for _ in range(1000):
+        for w in rng.choice(len(ws_list), 37, replace=False):
+            state.update(ws_list[w], rng)
+        got = view()
+    torch.cuda.synchronize()
+    assert kernel.launches == before + 1000
+    assert mirror.cap == 1024 and mirror.staging_waits <= 1000
+    for name in names:
+        card = torch.cat(got[name]) if sharded else got[name]
+        assert np.array_equal(card.cpu().numpy(), getattr(mirror, name)), name

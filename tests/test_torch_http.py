@@ -31,17 +31,20 @@ import numpy as np
 import pytest
 import torch
 
+from distributed_tpu import config as ref_config
 from distributed_tpu.client.client import Client as RefClient
 from distributed_tpu.deploy.local import LocalCluster as RefLocalCluster
 from distributed_tpu.http import server as ref_http
 from distributed_tpu.http import dashboard as ref_dashboard
 from distributed_tpu.protocol import buffers as ref_buffers
+from distributed_tpu_torch import config
 from distributed_tpu_torch.client.client import Client
 from distributed_tpu_torch.deploy.local import LocalCluster
 from distributed_tpu_torch.http import dashboard
 from distributed_tpu_torch.http import server as http
 from distributed_tpu_torch.protocol import buffers
 from distributed_tpu_torch.tracing import Histogram, from_jsonl
+from torch_ref_native import ref_native_lib  # noqa: F401 (autouse: the reference's native library)
 
 from conftest import gen_test
 
@@ -332,10 +335,19 @@ def _shape(obj):
     return type(obj).__name__
 
 
+#: no periodic sample of the system monitors while a live cluster is read
+MONITOR_BY_HAND = {"admin.system-monitor.interval": "1h"}
+
+
 async def _live(port: bool) -> dict:
     """A two-worker cluster of one package maps 20 tasks; then every route
     of both roles is read.  (Not ``validate=True``: a validating scheduler
     attaches no native engine.)"""
+    with (config if port else ref_config).set(MONITOR_BY_HAND):
+        return await _live_routes(port)
+
+
+async def _live_routes(port: bool) -> dict:
     if port:
         cluster, client_cls = LocalCluster(n_workers=2, device="cpu"), Client
     else:
@@ -349,6 +361,13 @@ async def _live(port: bool) -> dict:
             # the native engine attaches when its build lands; wait for it in
             # both packages so both expositions carry its families
             assert await _until(lambda: s.state.native is not None)
+            # every monitor's first sample, and no other: /api/v1/memory holds
+            # the scheduler's series, one entry a sample, and a cluster that
+            # lived past the 500 ms interval in one package only had one
+            # sample more there
+            for monitor in (s.monitor, *(w.monitor for w in cluster.workers)):
+                assert monitor.count == 0
+                monitor.update()
             for w in cluster.workers:
                 await w.heartbeat()
             sport = s.http_server.port

@@ -40,6 +40,7 @@ from distributed_tpu_torch.scheduler.native_engine import NativeEngine
 from distributed_tpu_torch.scheduler.state import SchedulerState
 from distributed_tpu_torch.scheduler.torch_placement import TorchPlacement
 from distributed_tpu_torch.sim import ClusterSim, SyntheticDag
+from torch_ref_native import ref_native_lib  # noqa: F401 (autouse: the reference's native library)
 
 # the suite runs as 6 pytest-xdist workers on 8 cores: torch on 2 threads a worker
 # keeps the JAX package's timing tests on time (one whole-suite run: without the cap

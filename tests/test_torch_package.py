@@ -399,8 +399,8 @@ def test_library_path_keys_on_sources():
     assert path.parent == _build.BUILD_DIR
     assert path.name.startswith("libdtpu_kernels-") and path.suffix == ".so"
     assert {p.name for p in _build.CSRC.glob("*.cu")} == {
-        "amm_drop.cu", "flash_bwd.cu", "flash_fwd.cu", "partition.cu", "place_shard.cu",
-        "place_wave.cu", "rebalance.cu", "shuffle_bucket.cu", "steal.cu"}
+        "amm_drop.cu", "flash_bwd.cu", "flash_fwd.cu", "fleet_scatter.cu", "partition.cu",
+        "place_shard.cu", "place_wave.cu", "rebalance.cu", "shuffle_bucket.cu", "steal.cu"}
     assert {p.name for p in _build.CSRC.glob("*.cuh")} == {"hopper.cuh"}
 
 

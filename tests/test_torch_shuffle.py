@@ -379,7 +379,12 @@ async def test_restricted_unpack_tasks_are_never_stolen():
 
         Run.get_output_partition = held
         try:
-            async with cluster_and_client(pkg, 3) as (cluster, c):
+            # two unpacks a worker, each held in its slot until all six
+            # entered: two threads a worker.  With one, the second waited
+            # for the execute pipeline, which takes it only while the
+            # "shuffle" prefix's measured mean (its transfers and barrier)
+            # is under 5 ms, so under load the test hung to its timeout
+            async with cluster_and_client(pkg, 3, threads_per_worker=2) as (cluster, c):
                 inputs = [c.submit(make_partition, i, key=f"pin-{i}") for i in range(3)]
                 await c.gather(inputs)
                 outs = await pkg.shuffle.p2p_shuffle(c, inputs, npartitions_out=6)

@@ -57,16 +57,17 @@ PORT = Package("port", LocalCluster, Client, TaskSpec, port_config, port_shuffle
 PACKAGES = (REF, PORT)
 
 
-async def new_cluster(pkg: Package, n_workers: int):
-    cluster = pkg.LocalCluster(n_workers=n_workers, scheduler_kwargs={"validate": True},
+async def new_cluster(pkg: Package, n_workers: int, threads_per_worker: int = 1):
+    cluster = pkg.LocalCluster(n_workers=n_workers, threads_per_worker=threads_per_worker,
+                               scheduler_kwargs={"validate": True},
                                worker_kwargs={"validate": True}, **pkg.cluster_kw)
     await cluster._start()
     return cluster
 
 
 @contextlib.asynccontextmanager
-async def cluster_and_client(pkg: Package, n_workers: int):
-    async with await new_cluster(pkg, n_workers) as cluster:
+async def cluster_and_client(pkg: Package, n_workers: int, threads_per_worker: int = 1):
+    async with await new_cluster(pkg, n_workers, threads_per_worker) as cluster:
         async with pkg.Client(cluster.scheduler_address) as c:
             yield cluster, c
 
