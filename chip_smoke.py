@@ -101,12 +101,15 @@ and prints no result):
    may count a failure; then K6 and K11 against their plain version on the
    card at 0, 1, 37 and every slot of capacities 512 and 1,024 dirty, in
    place and copy-on-write at dw 1 and 2, bit for bit, and a record with
-   one dirty row dropped rejected; and K6's 37-row view timed whole with
-   its writes through the kernel and through the plain version in turns,
-   its host time by step (marks, refresh, and the wrappers' checks,
-   layout, ring, pack, launch), the kernel alone and the plain version in
-   turns on the jobs the view builds, the full upload, the empty launch
-   and the bound.  Its inputs and replays come from
+   one dirty row dropped rejected; the view's scatter plan rebuilt only
+   with a full upload, and the ring's waits; and K6's 37-row view timed
+   whole with its writes through the kernel, through the plain version and
+   through a full upload of the same fields (after the same marks and
+   refresh) in turns, its host time by step (marks, refresh, and within
+   the view the kernel's call, the ring's ``acquire``, the launch with its
+   device guard and stream lookup), the kernel alone and the plain version
+   in turns on the view's own call, the empty launch and the bound.  Its
+   inputs and replays come from
    ``tests/test_torch_periodic_cases.py``;
 7. the sharded placement engine (kernel K10, ``csrc/place_shard.cu``)
    with every shard on the one card (``LocalShards``, so K10's run mode:
@@ -127,8 +130,9 @@ and prints no result):
    host's, a fresh cycle uploads nothing, the engine fed by it places as
    fed by the host arrays, 37 dirty rows then one launch equal to the
    plain version on the card with the view handed out before unchanged,
-   a 37-row view timed by part as phase 6 times K6's, beside the full
-   pack), ``ProcessGroupShards`` on NCCL with a world of one (equal to
+   the plans rebuilt only with a full pack, a 37-row view timed by part
+   as phase 6 times K6's, beside the same view through the full pack),
+   ``ProcessGroupShards`` on NCCL with a world of one (equal to
    ``LocalShards`` 1x1, in step mode), and ``TorchPlacement`` with an
    explicit 4x2 layout of virtual shards on the 1M uniform batch (hints
    equal a direct ``place_graph_streamed(mesh=...)``, 8 engine shard rows,
@@ -1957,21 +1961,30 @@ FLEET_CASES = (
 @contextlib.contextmanager
 def fleet_checked(log):
     """Each view's row writes on the main path held against the plain
-    version on the card: twins of its jobs (each destination as it was, the
-    same source blocks) go through ``scatter_rows_reference`` after the
-    path's own launch on the originals; ``log`` gets (wrapper, jobs, rows,
-    equal) a call.  The twins launch no kernel."""
+    version on the card: the same view (``fleet.row_jobs`` /
+    ``fleet.part_jobs`` of the kernel's call) goes through
+    ``scatter_rows_reference`` on twins of the tensors it writes (each as
+    it was, the same source blocks) after the path's own launch; ``log``
+    gets (wrapper, jobs, rows, equal) a call that launched.  The twins
+    launch no kernel."""
     from distributed_tpu_torch.ops import fleet
 
-    real = {"scatter_rows": fleet.scatter_rows, "scatter_blocks": fleet.scatter_blocks}
+    real = {"scatter_rows_cuda": fleet.scatter_rows_cuda, "scatter_blocks_cuda": fleet.scatter_blocks_cuda}
 
     def wrap(name):
-        def checked(jobs, ring=None):
-            twins = [fleet.Job(j.dst.clone(), j.src, j.rows, j.values) for j in jobs]
-            real[name](jobs, ring)
-            fleet.scatter_rows_reference(twins)
-            log.append((name, len(jobs), len(jobs[0].rows) if jobs else 0,
-                        all(torch.equal(j.dst, t.dst) for j, t in zip(jobs, twins))))
+        def checked(plan, arg):
+            if name == "scatter_rows_cuda":
+                written = plan.groups[0]
+                twins = fleet.row_jobs([t.clone() for t in written], plan.hosts, arg)
+            else:
+                written = [d for p in arg for d in p.dst]
+                twins = fleet.part_jobs([p._replace(dst=[torch.empty_like(d) for d in p.dst]) for p in arg],
+                                        plan.hosts)
+            real[name](plan, arg)
+            if len(arg):
+                fleet.scatter_rows_reference(twins)
+                log.append((name, len(twins), len(twins[0].rows),
+                            all(torch.equal(a, t.dst) for a, t in zip(written, twins))))
         return checked
 
     for name in real:
@@ -1983,56 +1996,56 @@ def fleet_checked(log):
             setattr(fleet, name, fn)
 
 
-def _fleet_jobs(fleet, dev, rng, cap, n_dirty, dw, cow):
-    """One job a (block, field dtype) of a mirror of ``cap`` slots in
-    ``dw`` blocks, ``n_dirty`` random slots dirty with new values; in place
-    (K6) or over a copy of a source block (K11)."""
-    rows_all = np.sort(rng.permutation(cap)[:n_dirty]).astype(np.int32)
+def _fleet_case(fleet, dev, rng, cap, n_dirty, dw, cow):
+    """A scatter plan over ``dw`` blocks of ``cap // dw`` slots, one a
+    dtype of the mirror's fields, on the card, and one view of it: the
+    first ``n_dirty`` slots of a random order dirty with new host values,
+    in place (K6) or into new blocks over the old (K11).  Returns the
+    plan, the kernel's argument (the rows, or the parts), the tensors it
+    writes and the same view on twins for the plain version."""
+    rows = np.sort(rng.permutation(cap)[:n_dirty]).astype(np.int32)
     per = cap // dw
-    jobs = []
+    hosts = [rng.integers(0, 100, cap).astype(t) for t in (np.int32, np.float32, np.bool_, np.int8)]
+    blocks = [[torch.from_numpy(h[j * per:(j + 1) * per].copy()).to(dev) for h in hosts] for j in range(dw)]
+    for h in hosts:
+        h[rows] = rng.integers(100, 200, n_dirty).astype(h.dtype)
+    plan = fleet.ScatterPlan(blocks, hosts, cow)
+    if not cow:
+        return plan, rows, plan.groups[0], fleet.row_jobs([t.clone() for t in blocks[0]], hosts, rows)
+    parts, twins = [], []
     for j in range(dw):
-        rows = rows_all[(rows_all >= j * per) & (rows_all < (j + 1) * per)] - j * per
-        if not len(rows):
-            continue
-        for np_t in (np.int32, np.float32, np.bool_, np.int8):
-            old = torch.from_numpy(rng.integers(0, 100, per).astype(np_t)).to(dev)
-            vals = rng.integers(100, 200, len(rows)).astype(np_t)
-            jobs.append(fleet.Job(torch.empty_like(old) if cow else old, old if cow else None,
-                                  rows, vals))
-    return jobs
-
-
-def _fleet_twins(fleet, jobs):
-    return [fleet.Job(j.dst.clone(), j.src, j.rows, j.values) for j in jobs]
+        mine = rows[(rows >= j * per) & (rows < (j + 1) * per)]
+        if len(mine):
+            for out in (parts, twins):
+                out.append(fleet.Part(j, j * per, mine, [torch.empty_like(b) for b in blocks[j]],
+                                      blocks[j]))
+    return plan, parts, [d for p in parts for d in p.dst], fleet.part_jobs(twins, hosts)
 
 
 def fleet_kernel_checks(card, dev):
-    """K6 and K11 against their plain version on the card at FLEET_CASES,
-    bit for bit, the source blocks unwritten; then a planted fault, a
-    record with one dirty row left out, which the check must reject."""
+    """K6 and K11 through a scatter plan against their plain version on
+    the card at FLEET_CASES, bit for bit, the source blocks unwritten;
+    then a planted fault, a view with one dirty row left out, which the
+    check must reject."""
     from distributed_tpu_torch.ops import fleet
 
     rng = np.random.default_rng(26)
     n_cases = 0
     for cap, n_dirty, dw, cow in FLEET_CASES:
-        jobs = _fleet_jobs(fleet, dev, rng, cap, n_dirty, dw, cow)
-        twins = _fleet_twins(fleet, jobs)
-        sources = [j.src.clone() for j in jobs if j.src is not None]
-        (fleet.scatter_blocks_cuda if cow else fleet.scatter_rows_cuda)(jobs, fleet.RecordRing(dev))
+        plan, arg, written, twins = _fleet_case(fleet, dev, rng, cap, n_dirty, dw, cow)
+        sources = [b.clone() for g in plan.groups for b in g]
+        (fleet.scatter_blocks_cuda if cow else fleet.scatter_rows_cuda)(plan, arg)
         fleet.scatter_rows_reference(twins)
         label = f"{'K11' if cow else 'K6'} cap {cap} dirty {n_dirty} dw {dw}"
-        check(all(torch.equal(j.dst, t.dst) for j, t in zip(jobs, twins)),
+        check(all(torch.equal(a, t.dst) for a, t in zip(written, twins)),
               f"{label}: the kernel differs from the plain version")
-        check(all(torch.equal(j.src, s) for j, s in zip([j for j in jobs if j.src is not None], sources)),
+        check(not cow or all(torch.equal(b, s) for b, s in zip([b for g in plan.groups for b in g], sources)),
               f"{label}: a source block changed")
         n_cases += 1
-    jobs = _fleet_jobs(fleet, dev, rng, 1024, 37, 1, False)
-    twins = _fleet_twins(fleet, jobs)
-    job = jobs[0]
-    jobs[0] = fleet.Job(job.dst, None, job.rows[1:], job.values[1:])
-    fleet.scatter_rows_cuda(jobs, fleet.RecordRing(dev))
+    plan, rows, written, twins = _fleet_case(fleet, dev, rng, 1024, 37, 1, False)
+    fleet.scatter_rows_cuda(plan, rows[1:])
     fleet.scatter_rows_reference(twins)
-    check(not all(torch.equal(j.dst, t.dst) for j, t in zip(jobs, twins)),
+    check(not all(torch.equal(a, t.dst) for a, t in zip(written, twins)),
           "fleet: a record with a dirty row dropped passed the check")
     print(f"[{card}] fleet kernel: {n_cases} cases == the plain version on the card bit for bit "
           f"(K6 and K11); a dropped row rejected")
@@ -2040,7 +2053,8 @@ def fleet_kernel_checks(card, dev):
 
 
 def _medians(parts):
-    return {k: statistics.median(v) for k, v in parts.items()}
+    """The median of each part that ran."""
+    return {k: statistics.median(v) for k, v in parts.items() if v}
 
 
 def _fleet_bound_ms(jobs):
@@ -2048,7 +2062,7 @@ def _fleet_bound_ms(jobs):
     that jobs share) and the values once over PCIe, and each value written
     (a K11 job reads and writes its whole block instead) once in device
     memory; the larger, and the bytes that cross PCIe."""
-    rows = {id(j.rows): j.rows.nbytes for j in jobs}
+    rows = {id(j.rows): 4 * len(j.rows) for j in jobs}  # int32 in the records
     host = sum(rows.values()) + sum(j.values.nbytes for j in jobs)
     device = sum(j.values.nbytes if j.src is None else 2 * j.dst.numel() * j.dst.element_size()
                  for j in jobs)
@@ -2056,13 +2070,20 @@ def _fleet_bound_ms(jobs):
 
 
 def _empty_launch_ms(dev):
-    """One launch of the fleet kernel with no job, through the wrappers'
-    own path (``_build.launch``): the floor of a view on the card."""
-    from distributed_tpu_torch.ops import _build
+    """One launch of the fleet kernel with no job, through a view's own
+    launch path (``fleet.launch_empty``), the floor of a view on the card:
+    its ms by CUDA events around it, and the host µs of the call alone
+    (median of FLEET_REPS in a row, no synchronize between them)."""
+    from distributed_tpu_torch.ops import fleet
 
-    lib = _build.load()
-    return cuda_ms(lambda: _build.check(_build.launch(dev, lib.dtpu_fleet_scatter, None, 0),
-                                        "dtpu_fleet_scatter"), reps=FLEET_REPS)
+    ms = cuda_ms(lambda: fleet.launch_empty(dev), reps=FLEET_REPS)
+    host = []
+    for _ in range(FLEET_REPS):
+        t0 = time.perf_counter()
+        fleet.launch_empty(dev)
+        host.append((time.perf_counter() - t0) * 1e6)
+    torch.cuda.synchronize()
+    return ms, statistics.median(host)
 
 
 @contextlib.contextmanager
@@ -2075,53 +2096,70 @@ def _fleet_swapped(fleet, name, fn):
         setattr(fleet, name, real)
 
 
-def _view_jobs(fleet, name, view):
-    """The jobs one call of ``view`` hands to ``fleet.<name>`` (the
-    mirror's own, rows arrays shared as it shares them)."""
+def _plain_call(fleet, name):
+    """The plain version of a planned call of ``fleet.<name>``."""
+    if name == "scatter_rows_cuda":
+        return lambda plan, rows: fleet.scatter_rows_reference(fleet.row_jobs(plan.groups[0], plan.hosts, rows))
+    return lambda plan, parts: fleet.scatter_rows_reference(fleet.part_jobs(parts, plan.hosts))
+
+
+def _call_jobs(fleet, name, plan, arg):
+    return (fleet.row_jobs(plan.groups[0], plan.hosts, arg) if name == "scatter_rows_cuda"
+            else fleet.part_jobs(arg, plan.hosts))
+
+
+def _view_call(fleet, name, view):
+    """The plan and argument one call of ``view`` hands to ``fleet.<name>``
+    (the mirror's own)."""
     seen = []
 
-    def spy(jobs, ring=None):
-        seen.extend(jobs)
-        return real(jobs, ring)
+    def spy(plan, arg):
+        seen.append((plan, arg))
+        return real(plan, arg)
 
     with _fleet_swapped(fleet, name, spy) as real:
         view()
-    return seen
+    check(len(seen) == 1, f"{name}: {len(seen)} calls in one view")
+    return seen[0]
 
 
-def _view_turns(fleet, name, view):
-    """The whole view (marks, refresh, jobs, writes), CUDA events, with its
-    writes through the kernel and through the plain version
-    (``scatter_rows_reference`` in place of ``fleet.<name>``), in turns:
-    kernel, plain, plain, kernel."""
-    out = {"kernel": [], "plain": []}
-    for who in ("kernel", "plain", "plain", "kernel"):
-        if who == "kernel":
-            out[who].append(cuda_ms(view, reps=FLEET_REPS))
+def _view_turns(fleet, name, view, full_view):
+    """The whole view (marks, refresh, rows, writes), CUDA events, with its
+    writes through the kernel and through the plain version (in place of
+    ``fleet.<name>``), and the same view made through a full upload or
+    pack instead (``full_view``), in turns: kernel, plain, full, full,
+    plain, kernel."""
+    out = {"kernel": [], "plain": [], "full": []}
+    for who in ("kernel", "plain", "full", "full", "plain", "kernel"):
+        if who == "plain":
+            with _fleet_swapped(fleet, name, _plain_call(fleet, name)):
+                out[who].append(cuda_ms(view, reps=FLEET_REPS))
             continue
-        with _fleet_swapped(fleet, name, lambda jobs, ring=None: fleet.scatter_rows_reference(jobs)):
-            out[who].append(cuda_ms(view, reps=FLEET_REPS))
+        out[who].append(cuda_ms(view if who == "kernel" else full_view, reps=FLEET_REPS))
     torch.cuda.synchronize()
-    return out["kernel"], out["plain"]
+    return out
 
 
-#: the wrappers' steps of a view (owner, attribute), each timed on the host
-#: clock inside a loop of views: a step timed alone, warm in the caches,
-#: costs less
-FLEET_STEPS = (("fleet", "check_jobs"), ("fleet", "layout"), ("ring", "acquire"),
-               ("fleet", "pack_records"), ("build", "launch"), ("ring", "release"))
+#: a view's host steps (label, owner, attribute), each timed on the host
+#: clock inside a loop of views (a step timed alone, warm in the caches,
+#: costs less): the kernel's call (range check, ring, table, gathers,
+#: launch), within it the ring's acquire and the plan's launch, within
+#: that the kernels' one launch path (the device guard, the stream lookup
+#: and the ctypes call)
+FLEET_STEPS = (("call", "fleet", None), ("acquire", "plan", "acquire"), ("launch", "plan", "launch"),
+               ("build_launch", "build", "launch"))
 
 
-def _view_steps(mirror, marks, view):
+def _view_steps(mirror, marks, view, name):
     """A view's host time by step, median µs of FLEET_REPS views in a row,
     each after the marks of the same workers: the marks, ``refresh``, the
-    whole view and, within it, the wrappers' FLEET_STEPS (the rest of the
-    view is the mirror's own: the dirty set, the numpy gathers and the
-    jobs); and the staging waits of those views."""
+    whole view and, within it, FLEET_STEPS (the rest of the view is the
+    mirror's own: the wall phase, the dirty set sorted, the parts and the
+    trace); and the staging waits of those views."""
     from distributed_tpu_torch.ops import _build, fleet
 
-    owners = {"fleet": fleet, "ring": fleet.RecordRing, "build": _build}
-    acc = {label: [] for label in ("marks", "refresh", "view", "all", *(n for _, n in FLEET_STEPS))}
+    owners = {"fleet": fleet, "plan": fleet.ScatterPlan, "build": _build}
+    acc = {label: [] for label in ("marks", "refresh", "view", "all", *(s[0] for s in FLEET_STEPS))}
 
     def timed(label, fn):
         def step(*args, **kwargs):
@@ -2132,11 +2170,11 @@ def _view_steps(mirror, marks, view):
                 acc[label].append((time.perf_counter() - t0) * 1e6)
         return step
 
-    saved = [(owners[o], name, getattr(owners[o], name)) for o, name in FLEET_STEPS]
+    saved = [(owners[o], attr or name, getattr(owners[o], attr or name), label) for label, o, attr in FLEET_STEPS]
     waits = mirror.staging_waits
     try:
-        for owner, name, fn in saved:
-            setattr(owner, name, timed(name, fn))
+        for owner, attr, fn, label in saved:
+            setattr(owner, attr, timed(label, fn))
         for _ in range(FLEET_REPS):
             t0 = time.perf_counter()
             marks()
@@ -2149,57 +2187,73 @@ def _view_steps(mirror, marks, view):
                 acc[label].append((b - a) * 1e6)
         torch.cuda.synchronize()
     finally:
-        for owner, name, fn in saved:
-            setattr(owner, name, fn)
+        for owner, attr, fn, _ in saved:
+            setattr(owner, attr, fn)
     return _medians(acc), mirror.staging_waits - waits
 
 
-def _kernel_turns(fleet, kernel, jobs, dev):
-    """The kernel and the plain version on the view's own jobs (each call
-    writes the same bytes again), in turns: kernel, plain, plain, kernel."""
-    ring = fleet.RecordRing(dev)
-    out = {"kernel": [], "plain": []}
-    for who in ("kernel", "plain", "plain", "kernel"):
-        out[who].append(cuda_ms((lambda: kernel(jobs, ring)) if who == "kernel"
-                                else (lambda: fleet.scatter_rows_reference(jobs)), reps=FLEET_REPS))
-    return out["kernel"], out["plain"]
+def _kernel_turns(fleet, name, plan, arg, full):
+    """The kernel and the plain version on the view's own call (each call
+    writes the same bytes again), and the full upload or pack of the same
+    fields alone (``full``, the library's copies), in turns: kernel,
+    plain, library, library, plain, kernel."""
+    kernel, plain = getattr(fleet, name), _plain_call(fleet, name)
+    calls = {"kernel": lambda: kernel(plan, arg), "plain": lambda: plain(plan, arg), "library": full}
+    out = {who: [] for who in calls}
+    for who in ("kernel", "plain", "library", "library", "plain", "kernel"):
+        out[who].append(cuda_ms(calls[who], reps=FLEET_REPS))
+    return out
 
 
-def _fleet_split(card, label, fleet, name, kernel, mirror, view, marks, full, dev):
+def _fleet_split(card, label, fleet, name, mirror, view, marks, full):
     """A view at TIMED_DIRTY dirty rows timed by part in one call: the view
-    through the kernel against the view through the plain version, the
-    host steps, the kernel and the plain version alone on the jobs the view
-    builds, ``full`` (the full upload or pack), the bound and the empty
-    launch."""
+    through the kernel (``fleet.<name>``), through the plain version and
+    through ``full`` (the full upload or pack of the same fields after the
+    same marks and refresh, then an event recorded, as a view that writes
+    records one), in turns; the host steps, the kernel and the plain
+    version alone on the view's own call, the bound and the empty launch."""
+    done = torch.cuda.Event()
 
     def whole():
         marks()
         return view()
 
-    jobs = _view_jobs(fleet, name, whole)
-    view_ms, plain_view_ms = _view_turns(fleet, name, whole)
-    steps, waits = _view_steps(mirror, marks, view)
-    kernel_ms, plain_ms = _kernel_turns(fleet, kernel, jobs, dev)
-    full_ms = cuda_ms(full, reps=FLEET_REPS)
-    empty_ms = _empty_launch_ms(dev)
+    def full_view():
+        marks()
+        mirror.refresh()
+        out = full()
+        done.record()
+        return out
+
+    plan, arg = _view_call(fleet, name, whole)
+    jobs = _call_jobs(fleet, name, plan, arg)
+    turns = _view_turns(fleet, name, whole, full_view)
+    steps, waits = _view_steps(mirror, marks, view, name)
+    alone = _kernel_turns(fleet, name, plan, arg, full)
+    empty_ms, empty_host_us = _empty_launch_ms(plan.device)
     bound_ms, bound_by, pcie = _fleet_bound_ms(jobs)
-    records = fleet.layout(jobs)[2]
+    view_ms, plain_view_ms, full_ms = turns["kernel"], turns["plain"], turns["full"]
     print(f"[{card}] {label}, {TIMED_DIRTY} dirty rows of {len(mirror.state.workers)} workers (capacity "
-          f"{mirror.cap}), {len(jobs)} jobs; events ms, the view through kernel / plain / plain / kernel: "
-          f"{view_ms[0]:.4f} / {plain_view_ms[0]:.4f} / {plain_view_ms[1]:.4f} / {view_ms[1]:.4f}; host "
-          f"steps, median us of {FLEET_REPS} views: {steps}; staging waits {waits} of {FLEET_REPS} views; the "
-          f"kernel alone {kernel_ms}, plain {plain_ms}; full {full_ms:.4f}, empty launch {empty_ms:.4f}, "
-          f"bound {bound_ms:.7f} ({bound_by}, {pcie} B over PCIe; {records} B of records)")
-    return dict(view_ms=view_ms, plain_view_ms=plain_view_ms, kernel_ms=kernel_ms, plain_turns_ms=plain_ms,
-                full_ms=full_ms, empty_launch_ms=empty_ms, bound_ms=bound_ms, bound_by=bound_by,
-                pcie_bytes=pcie, record_bytes=records, jobs=len(jobs), steps_us=steps,
-                staging_waits=waits, views_timed=FLEET_REPS)
+          f"{mirror.cap}), {len(jobs)} jobs; events ms, the whole view through kernel / plain / full / full / "
+          f"plain / kernel: {view_ms[0]:.4f} / {plain_view_ms[0]:.4f} / {full_ms[0]:.4f} / {full_ms[1]:.4f} / "
+          f"{plain_view_ms[1]:.4f} / {view_ms[1]:.4f}; host steps, median us of {FLEET_REPS} views: {steps}; "
+          f"staging waits {waits} of {FLEET_REPS} views; alone, the kernel {alone['kernel']}, plain "
+          f"{alone['plain']}, full upload or pack {alone['library']}; "
+          f"empty launch {empty_ms:.4f} ({empty_host_us:.1f} us of host time), bound {bound_ms:.7f} ({bound_by}, {pcie} B over PCIe; "
+          f"{plan.nbytes} B of records laid out); plan builds {mirror.plan_builds}, full uploads and packs "
+          f"{mirror.full_uploads}")
+    return dict(view_ms=view_ms, plain_view_ms=plain_view_ms, full_view_ms=full_ms,
+                kernel_turns_ms=alone["kernel"], plain_turns_ms=alone["plain"],
+                library_turns_ms=alone["library"], empty_launch_ms=empty_ms, empty_launch_host_us=empty_host_us,
+                bound_ms=bound_ms, bound_by=bound_by, pcie_bytes=pcie, record_bytes=plan.nbytes, jobs=len(jobs), steps_us=steps, staging_waits=waits,
+                views_timed=FLEET_REPS, plan_builds=mirror.plan_builds, full_uploads=mirror.full_uploads)
 
 
 def k6_view_split(card, mirror, dev, rng):
     """K6 at TIMED_DIRTY dirty rows of the mirror's fleet, timed by part
-    (``_fleet_split``, the full upload as ``full_ms``); every field left
-    equal to the host's."""
+    (``_fleet_split``, the view through the full upload as ``full``);
+    every field left equal to the host's, and the plan rebuilt only with a
+    full upload."""
     from distributed_tpu_torch.ops import fleet
     from distributed_tpu_torch.scheduler.mirror import DEVICE_FIELDS
 
@@ -2210,18 +2264,20 @@ def k6_view_split(card, mirror, dev, rng):
         for w in ws:
             mirror.mark(w)
 
-    out = _fleet_split(card, "K6 view", fleet, "scatter_rows", fleet.scatter_rows_cuda, mirror,
-                       mirror.device_view, marks,
-                       lambda: [torch.from_numpy(getattr(mirror, f)).to(dev) for f in DEVICE_FIELDS], dev)
+    out = _fleet_split(card, "K6 view", fleet, "scatter_rows_cuda", mirror, mirror.device_view, marks,
+                       lambda: [torch.from_numpy(getattr(mirror, f)).to(dev) for f in DEVICE_FIELDS])
     check(all(torch.equal(t.cpu(), torch.from_numpy(getattr(mirror, f))) for f, t in mirror._dev.items()),
           "K6: a field on the card differs from the host's after the timed views")
+    check(mirror.plan_builds == mirror.full_uploads, f"K6: {mirror.plan_builds} plan builds for "
+          f"{mirror.full_uploads} full uploads")
     return out
 
 
 def k11_view_split(card, mirror, mesh, dev, rng):
     """K11 at TIMED_DIRTY dirty rows over ``mesh``'s workers axis, timed by
-    part (``_fleet_split``, the full pack as ``full_ms``); every block left
-    equal to the host's."""
+    part (``_fleet_split``, the view through the full pack as ``full``);
+    every block left equal to the host's, and the plans rebuilt only with
+    a full pack."""
     from distributed_tpu_torch.ops import fleet
     from distributed_tpu_torch.scheduler.mirror import SHARDED_FIELDS
 
@@ -2234,21 +2290,27 @@ def k11_view_split(card, mirror, mesh, dev, rng):
         for w in ws:
             mirror.mark(w)
 
-    out = _fleet_split(card, f"K11 view, dw {dw}", fleet, "scatter_blocks", fleet.scatter_blocks_cuda, mirror,
+    out = _fleet_split(card, f"K11 view, dw {dw}", fleet, "scatter_blocks_cuda", mirror,
                        lambda: mirror.sharded_device_view(mesh), marks,
                        lambda: [torch.from_numpy(getattr(mirror, f)[j * rps:(j + 1) * rps].copy()).to(dev)
-                                for f in SHARDED_FIELDS for j in range(dw)], dev)
+                                for f in SHARDED_FIELDS for j in range(dw)])
     check(all(torch.equal(torch.cat(mirror._sdev[f]).cpu(), torch.from_numpy(getattr(mirror, f)))
               for f in SHARDED_FIELDS),
           "K11: a block on the card differs from the host's after the timed views")
+    check(mirror.plan_builds == mirror.full_uploads, f"K11: {mirror.plan_builds} plan builds for "
+          f"{mirror.full_uploads} full packs")
     return out
 
 
 def _fleet_entry(out):
     """The kernels line's numbers of a view's timing: the medians of the
-    kernel's and the plain version's turns."""
-    return dict(ms=statistics.median(out["kernel_ms"]), plain_ms=statistics.median(out["plain_turns_ms"]),
-                bound_ms=out["bound_ms"], bound_by=out["bound_by"])
+    kernel's call, the plain version's and the full upload or pack of the
+    same fields (the library call: torch's copies) alone, each on the
+    view's own rows and fields.  The whole views through each stay under
+    their own keys (``view_ms``, ``plain_view_ms``, ``full_view_ms``)."""
+    return dict(ms=statistics.median(out["kernel_turns_ms"]), plain_ms=statistics.median(out["plain_turns_ms"]),
+                library_ms=statistics.median(out["library_turns_ms"]), bound_ms=out["bound_ms"],
+                bound_by=out["bound_by"])
 
 
 def phase_periodic(ptxas=None):
@@ -2340,7 +2402,7 @@ def phase_periodic(ptxas=None):
                 mirror_log.append((name, f"dirty {n}", after["full_uploads"] - before["full_uploads"],
                                    after["rows_uploaded"] - before["rows_uploaded"],
                                    _view_equals_host(mirror, view)))
-    main_path_waits = mirror.staging_waits
+    main_path_waits, main_path_builds = mirror.staging_waits, mirror.plan_builds
     suggestions = list(amm_path.run_device(_Policy(amm_state), replicas))
     reb_fv = reb_state.mirror.fleet_view()
     moves = reb_path.plan_device(reb_fv.live_list, reb_keys, reb_batch.owner.tolist(),
@@ -2355,10 +2417,14 @@ def phase_periodic(ptxas=None):
     check(launches == {"mirror_view": views, "steal": len(STEAL_FLEETS), "amm_drop": 1, "rebalance": 1},
           f"periodic launches {launches}: one a view with dirty rows, a cycle and a plan expected")
     # K6 on the main path: each view's launch against the plain version on the card
-    check(len(fleet_log) == views and all(e[0] == "scatter_rows" and e[3] for e in fleet_log),
+    check(len(fleet_log) == views and all(e[0] == "scatter_rows_cuda" and e[3] for e in fleet_log),
           f"K6 on the main path: {fleet_log} against {views} views with dirty rows")
+    check(mirror.plan_builds == mirror.full_uploads == 2,
+          f"K6's plan built {mirror.plan_builds} times for {mirror.full_uploads} full uploads")
     print(f"[{card}] K6 on the main path: {len(fleet_log)} views (rows {[e[2] for e in fleet_log]}), "
-          f"one launch each, == the plain version on the card bit for bit")
+          f"one launch each, == the plain version on the card bit for bit; the plan built "
+          f"{mirror.plan_builds} times, as often as the full uploads (first use, growth); "
+          f"staging waits {main_path_waits}")
     for label, p in (("stealing", steal_path), ("amm", amm_path), ("rebalance", reb_path)):
         check(p.failures == 0, f"{label} path failures {p.failures}: {p.errors}")
 
@@ -2549,10 +2615,10 @@ def phase_periodic(ptxas=None):
     entries["mirror_view"] = dict(
         name="mirror_view", route="cuda", source="distributed_tpu_torch/ops/csrc/fleet_scatter.cu",
         replaces="distributed_tpu/scheduler/mirror.py:356", launches=launches["mirror_view"],
-        max_abs_err=0.0, **_fleet_entry(k6), library_ms=None,
+        max_abs_err=0.0, **_fleet_entry(k6),
         case=f"{TIMED_DIRTY} dirty rows, capacity {mirror.cap}", cases_checked=n_cases,
-        staging_waits_main_path=main_path_waits, **{k: v for k, v in k6.items() if k not in (
-            "bound_ms", "bound_by")})
+        staging_waits_main_path=main_path_waits, plan_builds_main_path=main_path_builds,
+        **{k: v for k, v in k6.items() if k not in ("bound_ms", "bound_by")})
     return [entries[k] for k in ("steal", "amm_drop", "mirror_view", "rebalance")]
 
 
@@ -2810,10 +2876,14 @@ def phase_sharded(oneshot, ptxas=None):
                                                          rows_uploaded=mirror.sharded_stats()["rows_uploaded"])
     k11_launches = fleet_ops.scatter_blocks_cuda.launches
     check(k11_launches == k11_views == len(fleet_log)
-          and all(e[0] == "scatter_blocks" and e[3] for e in fleet_log),
+          and all(e[0] == "scatter_blocks_cuda" and e[3] for e in fleet_log),
           f"K11 on the main path: {k11_launches} launches, {k11_views} dirty views, {fleet_log}")
+    check(mirror.plan_builds == mirror.full_uploads,
+          f"K11's plans built {mirror.plan_builds} times for {mirror.full_uploads} full packs")
+    k11_builds, k11_waits = mirror.plan_builds, mirror.staging_waits
     print(f"[{card}] K11 on the main path: {k11_launches} launches, one a dirty view, == the plain "
-          f"version on the card bit for bit; views that wrote to the card {TorchMirror.launches}")
+          f"version on the card bit for bit; views that wrote to the card {TorchMirror.launches}; plans "
+          f"built {k11_builds} times, as often as the full packs; staging waits {k11_waits}")
     mesh2 = _shard_mesh(partition, "4x2", dev)
     k11 = k11_view_split(card, mirror, mesh2, dev, np.random.default_rng(81))
 
@@ -2893,8 +2963,9 @@ def phase_sharded(oneshot, ptxas=None):
     mirror_entry = dict(
         name="mirror_shard_view", route="cuda", source="distributed_tpu_torch/ops/csrc/fleet_scatter.cu",
         replaces="distributed_tpu/scheduler/mirror.py:428", launches=k11_launches, max_abs_err=0.0,
-        **_fleet_entry(k11), library_ms=None, case=f"{TIMED_DIRTY} dirty rows, dw 2, capacity {mirror.cap}",
-        sharded_views=mirror_cases, **{k: v for k, v in k11.items() if k not in ("bound_ms", "bound_by")})
+        **_fleet_entry(k11), case=f"{TIMED_DIRTY} dirty rows, dw 2, capacity {mirror.cap}",
+        sharded_views=mirror_cases, plan_builds_main_path=k11_builds, staging_waits_main_path=k11_waits,
+        **{k: v for k, v in k11.items() if k not in ("bound_ms", "bound_by")})
     return entry, mirror_entry
 
 
@@ -5201,6 +5272,9 @@ async def _spill(device):
             for w in cl.workers:
                 _watch_evictions(w.data, evicted)
             async with Client(cl.scheduler_address) as c:
+                # garbage of earlier phases (a mirror's device tensors in a
+                # reference cycle) is freed before the baseline, not inside it
+                gc.collect()
                 mem0 = _memory_allocated(blocks)
                 futs = [c.submit(graphs.ones_block, (DEP_BLOCK, DEP_BLOCK), blocks,
                                  key=f"ones-{i}-{j}")

@@ -108,7 +108,13 @@ SIGNATURES = {
         _i, _i,                         # W K
         _vp,                            # stream
     ),
-    "dtpu_fleet_scatter": (_vp, _i, _vp),  # records (pinned host memory) jobs stream
+    "dtpu_fleet_scatter": (
+        _vp, _i, _i,                    # records (device address of pinned host memory) jobs rows
+        _vp, ctypes.c_ulonglong,        # done (mapped host word, or null) seq
+        _vp, ctypes.c_ulonglong,        # count (device word) target
+        _vp,                            # stream
+    ),
+    "dtpu_fleet_device_address": (_vp, ctypes.POINTER(_vp)),  # pinned host -> its device address
     "dtpu_shuffle_bucket": (
         _vp, _vp, _vp, _vp, _vp,        # key, value, valid, send_k, send_v pointer tables
         _vp, _vp,                       # sent [S, n_dev] hist (scratch [S, tiles, n_dev])
@@ -229,6 +235,9 @@ def check(rc: int, name: str) -> None:
         raise RuntimeError(f"{name}: CUDA error {rc}")
 
 
+_thread = threading.local()
+
+
 def launch(device: torch.device, entry, *args) -> int:
     """Call the C entry point ``entry(*args, stream)`` on ``device``'s
     current stream, with ``device`` the calling thread's current device
@@ -236,15 +245,24 @@ def launch(device: torch.device, entry, *args) -> int:
     links its own CUDA runtime, which launches in the thread's current
     context: on a thread where torch never set a device (a worker's task
     thread) there is none, and a launch fails with cudaErrorInvalidValue,
-    so ``set_device`` makes the device's context current.  Putting the
-    thread's device back keeps a launch from moving its caller's default
-    card (a mesh over several cards launches on each in turn)."""
+    so ``set_device`` makes the device's context current the first time
+    this thread launches on it (torch reads card 0 as current on such a
+    thread) and whenever the thread's current card differs; otherwise the
+    context is already current and nothing is set.  Putting the thread's
+    device back keeps a launch from moving its caller's default card (a
+    mesh over several cards launches on each in turn)."""
+    index = device.index
+    seen = getattr(_thread, "cards", None)
+    if seen is None:
+        seen = _thread.cards = set()
     prev = torch.cuda.current_device()
-    torch.cuda.set_device(device)
+    if prev != index or index not in seen:
+        torch.cuda.set_device(index)
+        seen.add(index)
     try:
-        return entry(*args, ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream))
+        return entry(*args, torch._C._cuda_getCurrentRawStream(index))
     finally:
-        if torch.cuda.current_device() != prev:
+        if prev != index:
             torch.cuda.set_device(prev)
 
 

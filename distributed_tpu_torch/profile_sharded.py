@@ -21,8 +21,9 @@ and layout it reports
   ``psum``, launch B, the wave-load ``psum``, the two gathers and the
   replica updates (load, span, the two slice copies); each part's total
   over the waves and its median a wave (median of ``--reps`` passes), the
-  waves' total by events, and :func:`idle_share`'s reading (the loop's
-  host wall, the device time of one traced pass, the idle share);
+  waves' total by events, and :func:`idle_share`'s reading (the median
+  host wall of untraced passes, the median device time of traced passes
+  taken in turns with them, the idle share);
 - ``default``: the loop ``ShardedRun.run_waves`` takes by its own rule
   (``body=None``), timed whole the same way (events, wall, idle share);
   ``mode`` says which loop that was
@@ -114,16 +115,13 @@ def _split_once(torch, run, plan):
     return out
 
 
-def _wall_ms(torch, fn, reps):
+def _wall_ms(torch, fn):
+    """The host wall of one untraced call of ``fn``, ms: from before it to
+    the synchronize after it."""
+    t0 = time.perf_counter()
     fn()
     torch.cuda.synchronize()
-    times = []
-    for _ in range(reps):
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        times.append((time.perf_counter() - t0) * 1e3)
-    return statistics.median(times)
+    return (time.perf_counter() - t0) * 1e3
 
 
 def k10_launches(sharded, fn) -> int:
@@ -136,42 +134,48 @@ def k10_launches(sharded, fn) -> int:
 
 
 def idle_share(torch, fn, launches, kernel="place_shard", reps=5, tries=5):
-    """The card's idle share of ``fn``: 1 - the device time of every
-    kernel and copy ``torch.profiler`` saw in one traced call / the host
-    wall of the call as it runs untraced (before it to the synchronize
-    after it, median of ``reps``).  ``traced_idle_share`` divides by the
-    traced call's own wall instead, which holds the tracer's host cost.
-    A trace counts only if it caught all ``launches`` launches the caller
-    counted of the kernels whose names hold ``kernel``; after ``tries``
-    traces that did not, it raises.  Neither share is clamped: a negative
-    one, device time past its window, raises.  ``chip_smoke.py`` phase 7
-    reads the run mode's share here."""
-    from distributed_tpu_torch.profile_waves import kernel_times
+    """The card's idle share of ``fn``: 1 - the median device time of
+    ``reps`` traced calls (every kernel and copy ``torch.profiler`` saw in
+    each) / the median host wall of ``reps`` untraced calls (before each to
+    the synchronize after it), the two kinds of call taken in turns after
+    one warm-up, so both medians come from the same stretch of the run.
+    ``traced_idle_share`` divides the same median device time by the
+    median wall of the traced calls themselves, which holds the tracer's
+    host cost.  A trace counts only if it caught all ``launches`` launches
+    the caller counted of the kernels whose names hold ``kernel``; a turn
+    whose ``tries`` traces all missed some raises.  Neither share is
+    clamped: a negative one, median device time past its median window,
+    raises.  ``chip_smoke.py`` phase 7 reads the run mode's share here."""
+    from distributed_tpu_torch import profile_waves
 
-    wall = _wall_ms(torch, fn, reps)
-    caught = []
-    for _ in range(tries):
-        window = []
-
-        def timed():
-            t0 = time.perf_counter()
-            fn()
-            torch.cuda.synchronize()
-            window.append((time.perf_counter() - t0) * 1e3)
-
-        times = kernel_times(torch, timed, tries=1)
-        ours = [(ms, n) for name, (ms, n) in times.items() if kernel in name]
-        caught.append(sum(n for _, n in ours))
-        if caught[-1] == launches:
-            device_ms = sum(ms for ms, _ in times.values())
-            out = dict(idle_share=1.0 - device_ms / wall, loop_wall_ms=wall,
-                       traced_idle_share=1.0 - device_ms / window[0], window_ms=window[0],
-                       device_ms=device_ms, device_ops=sum(n for _, n in times.values()),
-                       kernel_ms=sum(ms for ms, _ in ours), kernel_launches=caught[-1])
-            if min(out["idle_share"], out["traced_idle_share"]) < 0:
-                raise RuntimeError(f"a negative idle share: {out}")
-            return out
-    raise RuntimeError(f"no trace caught the {launches} {kernel} launches of a call: {caught}")
+    fn()
+    torch.cuda.synchronize()
+    walls, windows, device, ops, ours = [], [], [], [], []
+    for _ in range(reps):
+        walls.append(_wall_ms(torch, fn))
+        caught = []
+        for _ in range(tries):
+            window = []
+            times = profile_waves.kernel_times(torch, lambda: window.append(_wall_ms(torch, fn)), tries=1)
+            mine = [(ms, n) for name, (ms, n) in times.items() if kernel in name]
+            caught.append(sum(n for _, n in mine))
+            if caught[-1] == launches:
+                break
+        else:
+            raise RuntimeError(f"no trace caught the {launches} {kernel} launches of a call: {caught}")
+        windows.append(window[0])
+        device.append(sum(ms for ms, _ in times.values()))
+        ops.append(sum(n for _, n in times.values()))
+        ours.append(sum(ms for ms, _ in mine))
+    med = statistics.median
+    device_ms, wall, window_ms = med(device), med(walls), med(windows)
+    out = dict(idle_share=1.0 - device_ms / wall, loop_wall_ms=wall,
+               traced_idle_share=1.0 - device_ms / window_ms, window_ms=window_ms,
+               device_ms=device_ms, device_ops=int(med(ops)), kernel_ms=med(ours),
+               kernel_launches=launches, traced_calls=reps)
+    if min(out["idle_share"], out["traced_idle_share"]) < 0:
+        raise RuntimeError(f"a negative idle share: {out}")
+    return out
 
 
 def main(argv=None) -> int:

@@ -15,14 +15,17 @@ from the scheduler's state instead of rebuilt every cycle.
 - **Device view** (:meth:`device_view`).  Capacity-sized tensors on the
   card: one full upload at first use of a field or after growth, then
   only the dirty rows, every field's in one launch of K6
-  (``ops/fleet.py``, ``csrc/fleet_scatter.cu``) from a ring of pinned
-  record buffers; a fresh cycle uploads nothing.  The reference keeps
-  immutable jax arrays (``.at[rows].set``); these tensors are written in
-  place, so the view's readers get them in stream order: the upload runs
-  on the calling thread's current stream and records :attr:`upload_event`,
-  which a reader on another thread or stream waits on before it launches.
-  The host waits for the card only when the ring comes round to a buffer
-  whose launch has not run (:attr:`staging_waits`).
+  (``ops/fleet.py``, ``csrc/fleet_scatter.cu``) through a scatter plan
+  (``fleet.ScatterPlan``: the tensors, their host rows and a ring of
+  pinned record buffers, checked and laid out once) that the mirror
+  rebuilds exactly when it uploads in full; a fresh cycle uploads
+  nothing.  The reference keeps immutable jax arrays (``.at[rows].set``);
+  these tensors are written in place, so the view's readers get them in
+  stream order: the upload runs on the calling thread's current stream
+  and records :attr:`upload_event`, which a reader on another thread or
+  stream waits on before it launches.  The host waits for the card only
+  when the ring comes round to a buffer whose launch has not run
+  (:attr:`staging_waits`).
 
 :meth:`TorchMirror.adopt` swaps it in for the reference's mirror on a
 live ``SchedulerState`` (``state.mirror``), keeping every slot.  The
@@ -36,15 +39,18 @@ reference.
   growth or on a mesh that is not equal to the last one; otherwise only
   the dirty rows, grouped by owning block.  Unlike :meth:`device_view`,
   a block is never written in place: each dirty block gets a new tensor
-  that K11 (the same kernel, one launch a device a view) fills with the
-  old block and the dirty rows (the reference replaces its arrays the
-  same way), so a view handed to a plan on another thread never changes
-  under it.  The per-shard counters count the exact payload, as
-  ``bytes_uploaded`` does.
+  that K11 (the same kernel, one launch a device a view, through a plan a
+  device rebuilt at every full pack) fills with the old block and the
+  dirty rows (the reference replaces its arrays the same way), so a view
+  handed to a plan on another thread never changes under it.  The
+  per-shard counters count the exact payload, as ``bytes_uploaded``
+  does.  ``plan_builds`` counts the rebuilds of either view's plans: one
+  a full upload or pack that lands on the card.
 """
 
 from __future__ import annotations
 
+import bisect
 import os
 from typing import Any, NamedTuple
 
@@ -132,6 +138,10 @@ class TorchMirror:
     that wrote to a CUDA device (a row scatter, a full upload or both)."""
 
     launches = 0
+    #: device types whose views write through the plain version (torch
+    #: ops); a view on any other device writes through its scatter plan
+    #: to the kernel, which raises off CUDA
+    PLAIN_DEVICE_TYPES = ("cpu",)
 
     def __init__(self, state, *, capacity_doubling: bool = True,
                  check: bool | None = None, device=None):
@@ -161,16 +171,24 @@ class TorchMirror:
         # device cache: field name -> capacity-sized tensor on self.device
         self._dev: dict[str, torch.Tensor] = {}
         self._dev_cap = -1
-        # the kernel's pinned record buffers, one ring a CUDA device
-        self._rings: dict[torch.device, fleet.RecordRing] = {}
-        #: recorded on the uploading stream after every device_view that
-        #: wrote to the card; None before the first
+        # K6's scatter plan (None on the CPU, whose views take the plain
+        # version, and before the first full upload)
+        self._plan: fleet.ScatterPlan | None = None
+        self._row_bytes = 0            # a row of every cached field
+        #: one event a mirror, recorded again on the uploading stream after
+        #: every device_view that wrote to the card; None before the first
         self.upload_event: torch.cuda.Event | None = None
         # the sharded view: field -> [dw] blocks, and the mesh and capacity
         # they were packed for
         self._sdev: dict[str, list[torch.Tensor]] = {}
         self._sdev_mesh = None
         self._sdev_cap = -1
+        # K11's scatter plans, one a device of the mesh, and each shard's
+        # device and group in its device's plan
+        self._splans: dict[torch.device, fleet.ScatterPlan] = {}
+        self._sgroup: list[tuple[torch.device, int]] = []
+        self._retired_waits = 0        # staging waits of plans since rebuilt
+        self.plan_builds = 0
         # counters (diagnostics, metrics and tests)
         self.generation = 0
         self.deltas_applied = 0
@@ -361,52 +379,71 @@ class TorchMirror:
             self._dev_cap = self.cap
         wrote = False
         # only ever-requested fields live on the card: the rest would ship
-        # rows nothing reads
+        # rows nothing reads.  Off the CPU, ``_dev`` holds tensors only
+        # together with the plan built for them
         if self._device_dirty and self._dev:
             n = len(self._device_dirty)
-            rows = np.fromiter(sorted(self._device_dirty), np.int32, n)
+            rows = np.fromiter(self._device_dirty, np.intp, n)
+            rows.sort()
             self._scatter(rows)
             self.rows_uploaded += n
+            self.bytes_uploaded += n * self._row_bytes
             self.state.trace.emit("kernel", "mirror-upload", "", n=n, dest="scatter")
             wrote = True
         missing = [f for f in fields if f not in self._dev]
         if missing:
             # first use of a field, or growth: a full upload, which carries
-            # every past change of that field
+            # every past change of that field, and a plan for the new tensors
             for name in missing:
                 self._dev[name] = torch.from_numpy(getattr(self, name).copy()).to(self.device)
             self.full_uploads += 1
+            self._row_bytes = sum(t.element_size() for t in self._dev.values())
+            if self.device.type not in self.PLAIN_DEVICE_TYPES:
+                self._retire([self._plan])
+                self._plan = None
+                names = list(self._dev)
+                try:
+                    self._plan = fleet.ScatterPlan([[self._dev[f] for f in names]],
+                                                   [getattr(self, f) for f in names], copy_on_write=False)
+                except BaseException:
+                    self._dev.clear()  # the next view uploads in full and builds again
+                    raise
+                self.plan_builds += 1
             self.state.trace.emit("kernel", "mirror-upload", "", n=self.cap, dest="full")
             wrote = True
         self._device_dirty.clear()
         if wrote and self.device.type == "cuda":
-            self.upload_event = torch.cuda.Event()
+            # one event, recorded again after every view that writes: a
+            # reader that waits on it after a later view waits for that
+            # view's upload too, which was enqueued after the one it asked
+            # for on the same stream, so it waits at least as long as it must
+            if self.upload_event is None:
+                self.upload_event = torch.cuda.Event()
             self.upload_event.record(torch.cuda.current_stream(self.device))
             TorchMirror.launches += 1
         return {f: self._dev[f] for f in fields}
 
-    def _ring(self, jobs: list) -> fleet.RecordRing | None:
-        """The record ring of the jobs' CUDA device (None on the CPU)."""
-        device = jobs[0].dst.device
-        if device.type != "cuda":
-            return None
-        ring = self._rings.get(device)
-        if ring is None:
-            ring = self._rings[device] = fleet.RecordRing(device)
-        return ring
+    def _retire(self, plans) -> None:
+        """Keep the staging waits of ``plans`` (None where there was none)
+        as they are dropped (their buffers stay until their launches have
+        run: ``fleet.ScatterPlan``)."""
+        self._retired_waits += sum(p.waits for p in plans if p is not None)
 
     @property
     def staging_waits(self) -> int:
         """Views that waited for the card to free a record buffer."""
-        return sum(r.waits for r in self._rings.values())
+        plans = [self._plan, *self._splans.values()]
+        return self._retired_waits + sum(p.waits for p in plans if p is not None)
 
     def _scatter(self, rows: np.ndarray) -> None:
-        """Write the host rows ``rows`` (ascending slots, int32) into the
-        cached tensors in place: one job a field, one launch (K6) on a
-        CUDA device, the plain version on the CPU."""
-        jobs = [fleet.Job(t, None, rows, getattr(self, name)[rows]) for name, t in self._dev.items()]
-        fleet.scatter_rows(jobs, self._ring(jobs))
-        self.bytes_uploaded += sum(int(j.values.nbytes) for j in jobs)
+        """Write the host rows ``rows`` (ascending slots, intp) into the
+        cached tensors in place: the plain version on the CPU, one launch
+        of K6 through the plan on any other device."""
+        if self.device.type in self.PLAIN_DEVICE_TYPES:
+            fleet.scatter_rows_reference(fleet.row_jobs(
+                list(self._dev.values()), [getattr(self, name) for name in self._dev], rows))
+        else:
+            fleet.scatter_rows_cuda(self._plan, rows)
 
     def sharded_device_view(
         self, mesh, fields: tuple[str, ...] = SHARDED_FIELDS,
@@ -447,24 +484,37 @@ class TorchMirror:
         devices = [mesh.devices[j] for j in range(n_shards)]
         wrote = set()
         if self._sdev_dirty and self._sdev:
-            by_shard: dict[int, list[int]] = {}
-            for slot in sorted(self._sdev_dirty):
-                by_shard.setdefault(slot // rows_per_shard, []).append(slot)
+            dirty = sorted(self._sdev_dirty)
+            cuts = [bisect.bisect_left(dirty, j * rows_per_shard) for j in range(n_shards + 1)]
+            names = list(self._sdev)
+            hosts = [getattr(self, name) for name in names]
+            row_bytes = sum(h.itemsize for h in hosts)
             # a new block a dirty (shard, field), filled by one launch a device
-            jobs: dict[torch.device, list[fleet.Job]] = {}
-            for j, slots in sorted(by_shard.items()):
-                rows = np.asarray(slots, np.int64)
-                local = (rows - j * rows_per_shard).astype(np.int32)
-                for name, blocks in self._sdev.items():
-                    vals = getattr(self, name)[rows]
-                    block = torch.empty_like(blocks[j])
-                    jobs.setdefault(devices[j], []).append(fleet.Job(block, blocks[j], local, vals))
-                    blocks[j] = block
-                    self.shard_bytes_uploaded[j] += int(vals.nbytes)
-                self.shard_rows_uploaded[j] += len(slots)
+            parts: dict[torch.device, list[fleet.Part]] = {}
+            for j in range(n_shards):
+                if cuts[j] == cuts[j + 1]:
+                    continue
+                rows = np.array(dirty[cuts[j]:cuts[j + 1]], np.intp)
+                src = [self._sdev[name][j] for name in names]
+                dst = [torch.empty_like(b) for b in src]
+                for name, block in zip(names, dst):
+                    self._sdev[name][j] = block
+                dev, g = self._sgroup[j]
+                parts.setdefault(dev, []).append(fleet.Part(g, j * rows_per_shard, rows, dst, src))
+                self.shard_bytes_uploaded[j] += len(rows) * row_bytes
+                self.shard_rows_uploaded[j] += len(rows)
                 wrote.add(devices[j])
-            for dev_jobs in jobs.values():
-                fleet.scatter_blocks(dev_jobs, self._ring(dev_jobs))
+            try:
+                for dev, dev_parts in parts.items():
+                    if dev.type in self.PLAIN_DEVICE_TYPES:
+                        fleet.scatter_rows_reference(fleet.part_jobs(dev_parts, hosts))
+                    else:
+                        fleet.scatter_blocks_cuda(self._splans[dev], dev_parts)
+            except BaseException:
+                # the new blocks are in place but not all filled: the next
+                # view packs in full
+                self._sdev.clear()
+                raise
             self.rows_uploaded += len(self._sdev_dirty)
             self.state.trace.emit("kernel", "mirror-upload", "", n=len(self._sdev_dirty),
                                   dest="shard-scatter")
@@ -479,12 +529,36 @@ class TorchMirror:
             for j in range(n_shards):
                 self.shard_full_packs[j] += 1
             self.full_uploads += 1
+            self._shard_plans(devices)
             self.state.trace.emit("kernel", "mirror-upload", "", n=self.cap, dest="shard-full")
             wrote.update(devices)
         self._sdev_dirty.clear()
         if any(d.type == "cuda" for d in wrote):
             TorchMirror.launches += 1
         return {f: list(self._sdev[f]) for f in fields}
+
+    def _shard_plans(self, devices: list[torch.device]) -> None:
+        """K11's plans after a full pack: one a device off the CPU, its
+        groups that device's shards in order."""
+        self._retire(self._splans.values())
+        self._splans = {}
+        self._sgroup = []
+        names = list(self._sdev)
+        on: dict[torch.device, list[int]] = {}
+        for j, dev in enumerate(devices):
+            self._sgroup.append((dev, len(on.setdefault(dev, []))))
+            on[dev].append(j)
+        hosts = [getattr(self, name) for name in names]
+        try:
+            for dev, shards in on.items():
+                if dev.type not in self.PLAIN_DEVICE_TYPES:
+                    self._splans[dev] = fleet.ScatterPlan(
+                        [[self._sdev[name][j] for name in names] for j in shards], hosts, copy_on_write=True)
+        except BaseException:
+            self._sdev.clear()  # the next view packs in full and builds again
+            raise
+        if self._splans:
+            self.plan_builds += 1
 
     def sharded_stats(self) -> dict[str, Any]:
         """Per-shard upload counters of :meth:`sharded_device_view` (empty

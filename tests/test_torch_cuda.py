@@ -1436,24 +1436,34 @@ def test_a_spilled_cuda_tensor_comes_back_on_its_device_and_frees_its_memory(cud
 FLEET_DTYPES = (torch.int32, torch.float32, torch.bool, torch.int8)
 
 
-def _fleet_jobs(cuda, rng, cap, n_dirty, dw, copy_on_write):
-    """One job a (block, dtype): ``dw`` blocks of ``cap // dw`` slots, the
-    first ``n_dirty`` slots of a random order dirty, each with a new value;
-    in place (K6) or over a copy of a source block (K11)."""
-    rows_all = np.sort(rng.permutation(cap)[:n_dirty]).astype(np.int32)
+def _fleet_case(cuda, rng, cap, n_dirty, dw, copy_on_write):
+    """A scatter plan over ``dw`` blocks of ``cap // dw`` slots, one a
+    dtype of the mirror's fields, on the card, and one view of it: the
+    first ``n_dirty`` slots of a random order dirty with new host values,
+    in place (K6) or into new blocks over the old (K11).  Returns the
+    plan, the kernel's argument (the rows, or the parts) and the same
+    view for the plain version (twins of the tensors it writes)."""
+    rows = np.sort(rng.permutation(cap)[:n_dirty]).astype(np.int32)
     per = cap // dw
-    jobs = []
+    hosts = [rng.integers(0, 100, cap).astype(torch.empty(0, dtype=d).numpy().dtype) for d in FLEET_DTYPES]
+    blocks = [[torch.from_numpy(h[j * per:(j + 1) * per].copy()).to(cuda) for h in hosts] for j in range(dw)]
+    for h in hosts:
+        h[rows] = rng.integers(100, 200, n_dirty).astype(h.dtype)
+    plan = fleet.ScatterPlan(blocks, hosts, copy_on_write)
+    if not copy_on_write:
+        return plan, rows, fleet.row_jobs([t.clone() for t in blocks[0]], hosts, rows)
+    parts, twins = [], []
     for j in range(dw):
-        rows = rows_all[(rows_all >= j * per) & (rows_all < (j + 1) * per)] - j * per
-        if not len(rows):
-            continue
-        for dtype in FLEET_DTYPES:
-            np_t = torch.empty(0, dtype=dtype).numpy().dtype
-            old = torch.from_numpy(rng.integers(0, 100, per).astype(np_t)).to(cuda)
-            vals = rng.integers(100, 200, len(rows)).astype(np_t)
-            dst = torch.empty_like(old) if copy_on_write else old
-            jobs.append(fleet.Job(dst, old if copy_on_write else None, rows, vals))
-    return jobs
+        mine = rows[(rows >= j * per) & (rows < (j + 1) * per)]
+        if len(mine):
+            for out in (parts, twins):
+                out.append(fleet.Part(j, j * per, mine, [torch.empty_like(b) for b in blocks[j]],
+                                      blocks[j]))
+    return plan, parts, fleet.part_jobs(twins, hosts)
+
+
+def _written(plan, arg):
+    return plan.groups[0] if not plan.copy_on_write else [d for p in arg for d in p.dst]
 
 
 @pytest.mark.parametrize("cap,n_dirty,dw,cow", [
@@ -1462,39 +1472,33 @@ def _fleet_jobs(cuda, rng, cap, n_dirty, dw, copy_on_write):
     (1024, 1024, 2, True), (1024, 1, 8, True), (65536, 4096, 4, True),
 ], ids=lambda v: str(v))
 def test_fleet_scatter_kernel_equals_plain(cuda, cap, n_dirty, dw, cow):
-    """K6 (in place) and K11 (copy-on-write blocks) against the plain version
-    on the card, bit for bit, every dtype of the mirror's fields; one launch
-    a call, none without a job; the source blocks never written."""
+    """K6 (in place) and K11 (copy-on-write blocks) through a scatter plan
+    against the plain version on the card, bit for bit, every dtype of the
+    mirror's fields; one launch a call, none without a row; the source
+    blocks never written."""
     rng = np.random.default_rng(cap + n_dirty + dw)
-    jobs = _fleet_jobs(cuda, rng, cap, n_dirty, dw, cow)
-    twins = [fleet.Job(j.dst.clone(), None if j.src is None else j.src.clone(), j.rows, j.values)
-             for j in jobs]
-    sources = [None if j.src is None else j.src.clone() for j in jobs]
+    plan, arg, twins = _fleet_case(cuda, rng, cap, n_dirty, dw, cow)
+    sources = [[b.clone() for b in g] for g in plan.groups]
     kernel = fleet.scatter_blocks_cuda if cow else fleet.scatter_rows_cuda
     before = kernel.launches
-    kernel(jobs, fleet.RecordRing(cuda))
+    kernel(plan, arg)
     fleet.scatter_rows_reference(twins)
     torch.cuda.synchronize()
-    assert kernel.launches == before + (1 if jobs else 0)
-    for j, t, src in zip(jobs, twins, sources):
-        assert torch.equal(j.dst, t.dst)
-        if src is not None:
-            assert torch.equal(j.src, src)
+    assert kernel.launches == before + (1 if n_dirty else 0)
+    assert all(torch.equal(a, t.dst) for a, t in zip(_written(plan, arg), twins))
+    if cow:
+        assert all(torch.equal(b, s) for g, sg in zip(plan.groups, sources) for b, s in zip(g, sg))
 
 
 def test_fleet_scatter_kernel_rejects_a_dropped_row(cuda):
     """The check that holds the kernel to the plain version catches a
     record with one dirty row left out."""
     rng = np.random.default_rng(3)
-    jobs = _fleet_jobs(cuda, rng, 1024, 37, 1, False)
-    twins = [fleet.Job(j.dst.clone(), None, j.rows, j.values) for j in jobs]
-    job = jobs[0]
-    jobs[0] = fleet.Job(job.dst, None, job.rows[1:], job.values[1:])
-    fleet.scatter_rows_cuda(jobs, fleet.RecordRing(cuda))
+    plan, rows, twins = _fleet_case(cuda, rng, 1024, 37, 1, False)
+    fleet.scatter_rows_cuda(plan, rows[1:])
     fleet.scatter_rows_reference(twins)
     torch.cuda.synchronize()
-    assert not torch.equal(jobs[0].dst, twins[0].dst)
-    assert all(torch.equal(j.dst, t.dst) for j, t in zip(jobs[1:], twins[1:]))
+    assert not all(torch.equal(a, t.dst) for a, t in zip(plan.groups[0], twins))
 
 
 @pytest.mark.parametrize("sharded", [False, True], ids=["k6", "k11"])
@@ -1523,7 +1527,78 @@ def test_back_to_back_views_through_the_ring_leave_every_field_right(cuda, shard
         got = view()
     torch.cuda.synchronize()
     assert kernel.launches == before + 1000
-    assert mirror.cap == 1024 and mirror.staging_waits <= 1000
+    assert mirror.cap == 1024 and mirror.staging_waits <= 1000 and mirror.plan_builds == 1
     for name in names:
         card = torch.cat(got[name]) if sharded else got[name]
         assert np.array_equal(card.cpu().numpy(), getattr(mirror, name)), name
+
+
+def _k6_mirror(cuda, n, name="k6"):
+    from distributed_tpu_torch.scheduler.mirror import TorchMirror
+
+    state = cases.StandInState()
+    mirror = state.mirror = TorchMirror(state, device=cuda)
+    return state, mirror, [state.add_worker(f"tcp://{name}:{i}", 2) for i in range(n)]
+
+
+def _k6_equal(mirror, view):
+    return all(np.array_equal(t.cpu().numpy(), getattr(mirror, f)) for f, t in view.items())
+
+
+def test_a_k6_view_from_a_thread_with_no_device_set(cuda):
+    """A K6 view launched from a new thread, on which torch has set no
+    device (as on a worker's task thread), runs and writes the host rows;
+    the thread's launch path makes the card current itself."""
+    state, mirror, ws_list = _k6_mirror(cuda, 64, "thread")
+    mirror.device_view()
+    rng = np.random.default_rng(21)
+    before = fleet.scatter_rows_cuda.launches
+
+    def view():
+        for ws in ws_list[::3]:
+            state.update(ws, rng)
+        got = mirror.device_view()
+        torch.cuda.synchronize()
+        return got
+
+    got = _on_a_fresh_thread(view)
+    assert fleet.scatter_rows_cuda.launches == before + 1 and _k6_equal(mirror, got)
+
+
+def test_the_ring_waits_for_a_launch_that_has_not_run_and_counts_it(cuda):
+    """With the stream held busy, the ring comes round to its first buffer
+    before that buffer's launch ran: that view waits, once, and counts the
+    wait; every field is right after it."""
+    state, mirror, ws_list = _k6_mirror(cuda, 64, "wrap")
+    mirror.device_view()
+    rng = np.random.default_rng(22)
+    torch.cuda.synchronize()
+    torch.cuda._sleep(200_000_000)  # ~0.1 s of the card's clock before the views' launches
+    for _ in range(fleet.RING_DEPTH + 1):
+        for ws in rng.choice(ws_list, 5, replace=False):
+            state.update(ws, rng)
+        got = mirror.device_view()
+    assert mirror.staging_waits == 1
+    torch.cuda.synchronize()
+    assert _k6_equal(mirror, got)
+
+
+def test_a_view_after_growth_is_bit_for_bit(cuda):
+    """Growth past the capacity uploads in full and rebuilds the plan; the
+    dirty views after it, through the new plan, equal the host rows bit for
+    bit."""
+    state, mirror, ws_list = _k6_mirror(cuda, 60, "grow")
+    rng = np.random.default_rng(23)
+    mirror.device_view()
+    for ws in ws_list[::4]:
+        state.update(ws, rng)
+    mirror.device_view()
+    ws_list += [state.add_worker(f"tcp://grow:{i}", 2) for i in range(60, 80)]
+    assert mirror.cap == 128
+    assert _k6_equal(mirror, mirror.device_view()) and mirror.plan_builds == mirror.full_uploads == 2
+    for _ in range(3):
+        for ws in rng.choice(ws_list, 9, replace=False):
+            state.update(ws, rng)
+        got = mirror.device_view()
+    torch.cuda.synchronize()
+    assert _k6_equal(mirror, got) and mirror.plan_builds == 2

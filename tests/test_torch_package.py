@@ -375,12 +375,11 @@ def test_launch_puts_the_threads_device_back(monkeypatch, fails):
     monkeypatch.setattr(torch.cuda, "current_device", lambda: current["index"])
     monkeypatch.setattr(torch.cuda, "set_device",
                         lambda d: current.update(index=torch.device(d).index if not isinstance(d, int) else d))
-    monkeypatch.setattr(torch.cuda, "current_stream",
-                        lambda d: types.SimpleNamespace(cuda_stream=1000 + torch.device(d).index))
+    monkeypatch.setattr(torch._C, "_cuda_getCurrentRawStream", lambda index: 1000 + index, raising=False)
     seen = []
 
     def entry(a, b, stream):
-        seen.append((a, b, current["index"], stream.value))
+        seen.append((a, b, current["index"], stream))
         if fails:
             raise RuntimeError("refused")
         return 0
@@ -392,6 +391,40 @@ def test_launch_puts_the_threads_device_back(monkeypatch, fails):
         assert _build.launch(torch.device("cuda", 0), entry, 7, 8) == 0
     assert seen == [(7, 8, 0, 1000)]
     assert current["index"] == 1
+
+
+def test_launch_sets_the_device_once_a_thread(monkeypatch):
+    """A thread's first launch on a card sets it current even when torch
+    already reads it as current (on a new thread torch reads card 0, and
+    the library's runtime has no context there); later launches on it set
+    nothing; a launch on another card sets that one and puts the thread's
+    back (stand-ins for torch's device calls: this box has no card)."""
+    import threading
+
+    current = {"index": 0}
+    calls = []
+
+    def set_device(d):
+        calls.append(d)
+        current["index"] = d
+
+    monkeypatch.setattr(_build, "_thread", threading.local())
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: current["index"])
+    monkeypatch.setattr(torch.cuda, "set_device", set_device)
+    monkeypatch.setattr(torch._C, "_cuda_getCurrentRawStream", lambda index: 1000 + index, raising=False)
+    streams = []
+    for index in (0, 0, 0, 1, 0):
+        assert _build.launch(torch.device("cuda", index), lambda stream: streams.append(stream) or 0) == 0
+    assert calls == [0, 1, 0] and current["index"] == 0
+    assert streams == [1000, 1000, 1000, 1001, 1000]
+
+    def other_thread():
+        _build.launch(torch.device("cuda", 0), lambda stream: 0)
+
+    t = threading.Thread(target=other_thread)
+    t.start()
+    t.join()
+    assert calls == [0, 1, 0, 0]
 
 
 def test_library_path_keys_on_sources():

@@ -14,6 +14,8 @@ the card (``tests/test_torch_cuda.py``).
 
 from __future__ import annotations
 
+import types
+
 import numpy as np
 import pytest
 import torch
@@ -179,3 +181,59 @@ def test_run_launch_refuses_cpu_tensors():
     g.shape_for(512)
     with pytest.raises(RuntimeError, match="needs CUDA tensors"):
         sharded.place_shard_run_cuda(g, run.replicas[g.device])
+
+
+class _IdleStubs:
+    """Stand-ins for the card in ``profile_sharded.idle_share``: each
+    untraced call's wall is ``wall`` ms, each traced call's window
+    ``window`` ms, and the traces report ``device`` ms in turn, one a
+    trace, with ``caught`` K10 launches in each (all 6 unless given)."""
+
+    def __init__(self, monkeypatch, device, wall=1.609, window=3.545, caught=None):
+        from distributed_tpu_torch import profile_waves
+
+        self.device, self.caught = list(device), list(caught or [6] * len(device))
+        self.tracing = False
+        self.traces = 0
+        self.torch = types.SimpleNamespace(cuda=types.SimpleNamespace(synchronize=lambda: None))
+        monkeypatch.setattr(profile_sharded, "_wall_ms",
+                            lambda torch, fn: window if self.tracing else wall)
+        monkeypatch.setattr(profile_waves, "kernel_times", self.kernel_times)
+
+    def kernel_times(self, torch, fn, tries=3):
+        self.tracing = True
+        try:
+            fn()
+        finally:
+            self.tracing = False
+        ms, n = self.device[self.traces], self.caught[self.traces]
+        self.traces += 1
+        return {"place_shard_run_kernel": (ms - 0.007, n), "Memcpy HtoD": (0.007, 4)}
+
+
+def test_idle_share_takes_medians_of_one_population(monkeypatch):
+    """One traced call slower than the untraced median (as in a run on an
+    H100: device 1.779 ms against a wall of 1.609 ms) no longer gives
+    a negative share: the share is the median device time of the traced
+    calls over the median wall of the untraced ones, taken in turns.  A
+    trace that missed a launch is taken again and not counted."""
+    stubs = _IdleStubs(monkeypatch, device=[1.779, 1.0, 1.2, 1.1, 1.2, 1.3],
+                       caught=[6, 5, 6, 6, 6, 6])
+    out = profile_sharded.idle_share(stubs.torch, lambda: None, launches=6)
+    assert 1.0 - 1.779 / 1.609 < 0  # what one traced call against the median read
+    assert stubs.traces == 6 and out["traced_calls"] == 5
+    assert out["device_ms"] == pytest.approx(1.2) and out["loop_wall_ms"] == 1.609
+    assert out["idle_share"] == pytest.approx(1.0 - 1.2 / 1.609)
+    assert out["traced_idle_share"] == pytest.approx(1.0 - 1.2 / 3.545)
+    assert out["kernel_launches"] == 6 and out["kernel_ms"] == pytest.approx(1.193)
+
+
+def test_idle_share_still_raises_past_the_wall(monkeypatch):
+    """A median device time past the median wall still raises, and so do
+    traces that never catch every launch of a call."""
+    stubs = _IdleStubs(monkeypatch, device=[1.7, 1.8, 1.65, 1.5, 1.7])
+    with pytest.raises(RuntimeError, match="negative idle share"):
+        profile_sharded.idle_share(stubs.torch, lambda: None, launches=6)
+    stubs = _IdleStubs(monkeypatch, device=[1.0] * 5, caught=[5] * 5)
+    with pytest.raises(RuntimeError, match="no trace caught the 6"):
+        profile_sharded.idle_share(stubs.torch, lambda: None, launches=6)
