@@ -92,9 +92,11 @@ and prints no result):
    replicated keys on 512 workers, up to 64 rounds, the same drops as the
    plain version on the CPU, the reference's invariants on replay) and a
    rebalance plan (K9, ``csrc/rebalance.cu``, one launch a plan: 262,144
-   keys on 512 workers, the invariants, the same moves and memory as the
-   CPU run and as the plain version on the card, beside the time of the
-   scheduler's host plan on the same keys); each with its time,
+   keys on 512 workers, the invariants, the same moves, counts and memory
+   as the CPU run and as the plain version on the card, beside the time
+   of the scheduler's host plan on the same keys, and the call's device
+   time; then the same keys on 4,096 workers against the plain version on
+   the card); each with its time,
    the plain version's time on the card, its bound and its launches (K7
    to K9 also ``chain_ms``, the dependent adds their contract orders,
    and their split by phase from the kernel's own timeline), and no path
@@ -1694,6 +1696,7 @@ DIRTY_ROWS = (0, 1, 37, "all")   # rows dirtied between two device views
 TIMED_DIRTY = 37
 AMM_KEYS, AMM_WORKERS = 16_384, 512
 REBALANCE_KEYS, REBALANCE_WORKERS = 262_144, 512
+REBALANCE_WIDE = 4_096             # phase 6's second rebalance: the same keys, more workers
 
 
 class _Replica:
@@ -1787,13 +1790,14 @@ def _drop_bound_ms(R, W, K, drops_cpu):
     return _bound(nbytes, ops)
 
 
-def _rebalance_bound_ms(N, W, rounds, ran):
+def _rebalance_bound_ms(N, W, rounds, ran, moves):
     """The least work of the function: owners, sizes and flags read once,
-    memory in and out, the moves (key and recipient a slot a round)
-    written once; the size sort once, then two sorts of the workers in
-    each of the ``ran`` rounds this run's data needs (the rounds after the
-    first that moves nothing move nothing, whatever they compute)."""
-    nbytes = 9 * N + 8 * W + 8 * rounds * W
+    memory in and out, and written once the ``moves`` this run made (a key
+    and a recipient each), a count a round and the total; the size sort
+    once, then two sorts of the workers in each of the ``ran`` rounds this
+    run's data needs (the rounds after the first that moves nothing move
+    nothing, whatever they compute)."""
+    nbytes = 9 * N + 8 * W + 8 * moves + 4 * rounds + 4
     ops = N * math.ceil(math.log2(N)) + ran * 2 * W * math.ceil(math.log2(W))
     return _bound(nbytes, ops)
 
@@ -1809,20 +1813,22 @@ def _rebalance_chain_ms(ran, sm_mhz):
 @contextlib.contextmanager
 def rebalance_spy(scheduler=None):
     """Record what a rebalance plan runs, without changing it: the batch
-    and the moves of ``plan_rebalance`` as ``RebalancePath`` calls it, the
+    and the moves (``(keys, senders, recipients)`` arrays) of
+    ``plan_moves`` as ``RebalancePath`` calls it, the
     arguments, moves and wall of ``scheduler._rebalance_plan_device`` (an
     attribute of the instance while inside), and the host clock at each
-    seam (``t``: plan_device in, plan_rebalance in, rounds in, rounds out
-    with the card synchronised, plan_device out).  Yields a dict of lists."""
+    seam (``t``: plan_moves in, rounds in, rounds out with the card
+    synchronised, plan_moves out).  Yields a dict of lists."""
     from distributed_tpu_torch.ops import rebalance
     from distributed_tpu_torch.scheduler import rebalance as path_mod
 
     seen = {"batches": [], "moves": [], "plans": [], "t": []}
-    plan0, rounds0 = path_mod.plan_rebalance, rebalance.rebalance_rounds
+    plan0, rounds0 = path_mod.plan_moves, rebalance.rebalance_rounds
 
     def plan(batch, *args, **kwargs):
         seen["t"].append(("plan", time.perf_counter()))
         out = plan0(batch, *args, **kwargs)
+        seen["t"].append(("plan_end", time.perf_counter()))
         seen["batches"].append(batch)
         seen["moves"].append(out)
         return out
@@ -1835,7 +1841,7 @@ def rebalance_spy(scheduler=None):
         seen["t"].append(("rounds_end", time.perf_counter()))
         return out
 
-    path_mod.plan_rebalance, rebalance.rebalance_rounds = plan, rounds
+    path_mod.plan_moves, rebalance.rebalance_rounds = plan, rounds
     if scheduler is not None:
         def plan_device(wss, cand, owner, mem=None):
             t0 = time.perf_counter()
@@ -1848,7 +1854,7 @@ def rebalance_spy(scheduler=None):
     try:
         yield seen
     finally:
-        path_mod.plan_rebalance, rebalance.rebalance_rounds = plan0, rounds0
+        path_mod.plan_moves, rebalance.rebalance_rounds = plan0, rounds0
         if scheduler is not None:
             del scheduler._rebalance_plan_device
 
@@ -1857,11 +1863,109 @@ def plan_split_ms(seen, t0, t1):
     """The pieces of one timed ``plan_device`` call from ``rebalance_spy``'s
     clocks: ``pack`` (the batch built from the keys), ``upload`` (the
     padded inputs to the card), ``rounds`` (the rounds, synchronised),
-    ``moves_back`` (the moves read back and mapped to the keys)."""
-    t = dict(seen["t"][-3:])
-    return dict(pack=(t["plan"] - t0) * 1e3, upload=(t["rounds"] - t["plan"]) * 1e3,
-                rounds=(t["rounds_end"] - t["rounds"]) * 1e3,
-                moves_back=(t1 - t["rounds_end"]) * 1e3)
+    ``moves_back`` (the moves read back and mapped to the keys); and
+    ``moves_back`` in two: ``read`` (``plan_moves`` after the rounds: the
+    moves copied back and cut) and ``objects`` (``plan_device`` after
+    ``plan_moves``: its list of key, sender and recipient objects)."""
+    t = dict(seen["t"][-4:])
+    split = dict(pack=(t["plan"] - t0) * 1e3, upload=(t["rounds"] - t["plan"]) * 1e3,
+                 rounds=(t["rounds_end"] - t["rounds"]) * 1e3,
+                 moves_back=(t1 - t["rounds_end"]) * 1e3)
+    return split, dict(read=(t["plan_end"] - t["rounds_end"]) * 1e3,
+                       objects=(t1 - t["plan_end"]) * 1e3)
+
+
+def spied_plan_split(plan_once, reps=3):
+    """``plan_split_ms`` of ``reps`` calls of ``plan_once`` under
+    ``rebalance_spy``, each piece's median; and in ``moves_back``'s second
+    dict, beside ``read`` and ``objects``, what Python's cyclic collector
+    did inside ``objects`` (``objects_gc_ms``, its time; ``objects_gc_runs``
+    and ``objects_gc_full``, its runs and those of the oldest generation,
+    from ``gc.callbacks``) and ``objects_gc_off``, the same step in
+    ``reps`` more calls with the collector disabled."""
+    runs = []
+
+    def watch(phase, info):
+        now = time.perf_counter()
+        if phase == "start":
+            runs.append([info["generation"], now, now])
+        elif runs:
+            runs[-1][2] = now
+
+    def spied():
+        with rebalance_spy() as seen:
+            t0 = time.perf_counter()
+            plan_once()
+            t1 = time.perf_counter()
+        piece, back = plan_split_ms(seen, t0, t1)
+        t_end = dict(seen["t"][-4:])["plan_end"]
+        inside = [(g, b - a) for g, a, b in runs if t_end <= a <= t1]
+        back.update(objects_gc_ms=sum(d for _, d in inside) * 1e3, objects_gc_runs=len(inside),
+                    objects_gc_full=sum(g == 2 for g, _ in inside))
+        return piece, back
+
+    gc.callbacks.append(watch)
+    try:
+        done = [spied() for _ in range(reps)]
+    finally:
+        gc.callbacks.remove(watch)
+    was = gc.isenabled()
+    gc.disable()
+    try:
+        off = [spied()[1]["objects"] for _ in range(reps)]
+    finally:
+        if was:
+            gc.enable()
+    split = {k: statistics.median(p[k] for p, _ in done) for k in done[0][0]}
+    back = {k: statistics.median(b[k] for _, b in done) for k in done[0][1]}
+    back["objects_gc_off"] = statistics.median(off)
+    return split, back
+
+
+def k9_entry(rebalance, batch, dev, sm_mhz, cpu=False):
+    """K9 on one rebalance case, as phase 6 checks and times it: the
+    kernel against the plain version on the card and against itself, bit
+    for bit (``cpu``: also against the plain version's CPU run, and the
+    plain version timed on the card); its events ms, the call's device
+    time and kernels (profiler), the bound and chain, and its timeline
+    split by phase.  ``profile_periodic.py`` times K9 through this too."""
+    from distributed_tpu_torch.profile_periodic import kernel_timeline
+    from distributed_tpu_torch.profile_waves import kernel_times
+
+    W = len(batch.mem)
+    label = f"rebalance {len(batch.nbytes)}x{W}"
+    R = rebalance.round_count(batch)
+    args = rebalance.padded_inputs(batch, dev)
+    got = rebalance.rebalance_rounds_cuda(*args, R).trimmed()
+    again = rebalance.rebalance_rounds_cuda(*args, R).trimmed()
+    plain = rebalance.compact_rounds(*rebalance.rebalance_rounds_reference(*args, R))
+    want = rebalance.compact_rounds(*rebalance.rebalance_rounds_reference(
+        *rebalance.padded_inputs(batch, "cpu"), R)) if cpu else None
+    for i, name in enumerate(rebalance.Rounds._fields):
+        check(torch.equal(again[i], got[i]), f"{label}: two calls of K9 give two {name}")
+        check(torch.equal(plain[i], got[i]), f"{label}: K9's {name} differs from the plain version on the card")
+        if cpu:
+            check(torch.equal(got[i].cpu(), want[i]), f"{label}: K9's {name} differs from the CPU run")
+    moves = int(got.total[0])
+    check(moves > 0, f"{label}: nothing moved")
+    ran = min(R, int((got.counts > 0).sum()) + 1)  # and the round that found nothing
+    ref_mem = want.mem if cpu else plain.mem.cpu()
+    ms = cuda_ms(lambda: rebalance.rebalance_rounds_cuda(*args, R), reps=5)
+    device = kernel_times(torch, lambda: rebalance.rebalance_rounds_cuda(*args, R))
+    split = kernel_timeline(
+        torch, lambda st: rebalance.rebalance_rounds_cuda(*args, R, stamps=st),
+        1 + R * len(rebalance.REBALANCE_PHASES), rebalance.REBALANCE_PHASES)
+    check(split["rounds"] == ran, f"{label}: the timeline has {split['rounds']} rounds, {ran} ran")
+    bound_ms, bound_by = _rebalance_bound_ms(len(args[0]), W, R, ran, moves)
+    out = dict(case=f"{len(batch.nbytes)}x{W}", rounds=R, rounds_ran=ran, moves=moves,
+               max_abs_err=float((got.mem.cpu() - ref_mem).abs().max()), ms=ms,
+               device_ms=sum(t for t, _ in device.values()),
+               device_kernels=sum(n for _, n in device.values()), bound_ms=bound_ms,
+               bound_by=bound_by, chain_ms=_rebalance_chain_ms(ran, sm_mhz), phases=split,
+               digest=hashlib.blake2b(got.moves.cpu().numpy().tobytes(), digest_size=8).hexdigest())
+    if cpu:
+        out["plain_ms"] = cuda_ms(lambda: rebalance.rebalance_rounds_reference(*args, R), warmup=1)
+    return out
 
 
 def steal_case(pc, name):
@@ -2543,22 +2647,12 @@ def phase_periodic(ptxas=None):
     check(got_moves == want_moves,
           f"rebalance: {len(got_moves)} moves on the card differ from the CPU run's {len(want_moves)}")
     N = REBALANCE_KEYS
-    R = rebalance.round_count(reb_batch)
-    cpu_out = rebalance.rebalance_rounds_reference(*rebalance.padded_inputs(reb_batch, "cpu"), R)
-    card_args = rebalance.padded_inputs(reb_batch, dev)
-    k9 = rebalance.rebalance_rounds_cuda(*card_args, R)
-    again = rebalance.rebalance_rounds_cuda(*card_args, R)
-    plain = rebalance.rebalance_rounds_reference(*card_args, R)
-    for name, g, a, w, q in zip(("mk", "md", "mem"), k9, again, cpu_out, plain):
-        check(torch.equal(g.cpu(), w), f"rebalance: K9's {name} differs from the CPU run")
-        check(torch.equal(a, g), f"rebalance: two calls of K9 give two {name}")
-        check(torch.equal(q, g), f"rebalance: K9's {name} differs from the plain version on the card")
-    err = float((k9[2].cpu() - cpu_out[2]).abs().max())
-    ran = min(R, int((cpu_out[0] >= 0).any(dim=1).sum()) + 1)  # and the round that found nothing
-    ms = cuda_ms(lambda: rebalance.rebalance_rounds_cuda(*card_args, R), reps=5)
-    plain_ms = cuda_ms(lambda: rebalance.rebalance_rounds_reference(*card_args, R), warmup=1)
-    bound_ms, bound_by = _rebalance_bound_ms(len(card_args[0]), REBALANCE_WORKERS, R, ran)
-    chain_ms = _rebalance_chain_ms(ran, sm_mhz)
+    k9 = k9_entry(rebalance, reb_batch, dev, sm_mhz, cpu=True)
+    R, ran, split = k9["rounds"], k9["rounds_ran"], k9["phases"]
+    check(k9["moves"] == len(got_moves), f"rebalance: K9 made {k9['moves']} moves, the plan {len(got_moves)}")
+    # the same keys on REBALANCE_WIDE workers, where a round ranks the most
+    # candidates: no CPU run, to keep the phase short
+    wide = k9_entry(rebalance, pc.rebalance_case(rng(63), REBALANCE_KEYS, REBALANCE_WIDE), dev, sm_mhz)
     # the whole plan as the scheduler calls it, median of 3 calls; then 3
     # more under rebalance_spy (which waits for the card after the rounds)
     # for its split into pack, upload, rounds and moves back; and the host
@@ -2567,19 +2661,13 @@ def phase_periodic(ptxas=None):
         return reb_path.plan_device(reb_fv.live_list, reb_keys, reb_batch.owner.tolist(),
                                     reb_fv.nbytes[reb_fv.slots].astype(np.float32, copy=True))
 
-    walls, splits = [], []
+    walls = []
     for _ in range(3):
         t0 = time.perf_counter()
         plan_once()
         walls.append((time.perf_counter() - t0) * 1e3)
-    for _ in range(3):
-        with rebalance_spy() as seen:
-            t0 = time.perf_counter()
-            plan_once()
-            t1 = time.perf_counter()
-        splits.append(plan_split_ms(seen, t0, t1))
     plan_wall_ms = statistics.median(walls)
-    plan_split = {k: statistics.median(sp[k] for sp in splits) for k in splits[0]}
+    plan_split, moves_back_split = spied_plan_split(plan_once)
     wss, _ = pc.rebalance_fleet(reb_batch)
     t0 = time.perf_counter()
     py_moves = pc.rebalance_plan_python(wss, None)
@@ -2592,19 +2680,33 @@ def phase_periodic(ptxas=None):
     print(f"[{card}] rebalance {N} keys x {REBALANCE_WORKERS} workers, {R} rounds ({ran} ran): "
           f"{len(got_moves)} moves, invariants hold, imbalance {before:.6g} -> {after:.6g}; moves and "
           f"memory == CPU run and == the plain version on the card, repeat identical; K9 kernel_ms "
-          f"{ms:.4f} plain_ms {plain_ms:.4f} bound_ms {bound_ms:.7f} ({bound_by}) chain_ms "
-          f"{chain_ms:.5f} launches 1 a plan; plan wall ms {plan_wall_ms:.2f} (median of 3; split "
+          f"{k9['ms']:.4f} plain_ms {k9['plain_ms']:.4f} bound_ms {k9['bound_ms']:.7f} "
+          f"({k9['bound_by']}) chain_ms {k9['chain_ms']:.5f} launches 1 a plan; the call's device ms "
+          f"{k9['device_ms']:.4f} ({k9['device_kernels']} kernels); plan wall ms {plan_wall_ms:.2f} (median of 3; split "
           "under the spy, median of 3: "
           + " ".join(f"{k} {v:.2f}" for k, v in plan_split.items())
-          + f"); host python plan ms {python_plan_ms:.1f} ({len(py_moves)} moves, imbalance -> "
+          + f", moves_back read {moves_back_split['read']:.2f} objects "
+          f"{moves_back_split['objects']:.2f}, of it in the collector "
+          f"{moves_back_split['objects_gc_ms']:.2f} ({moves_back_split['objects_gc_runs']} runs, the "
+          f"oldest generation {moves_back_split['objects_gc_full']}), objects with the collector off "
+          f"{moves_back_split['objects_gc_off']:.2f}); host python plan ms {python_plan_ms:.1f} "
+          f"({len(py_moves)} moves, imbalance -> "
           f"{py_after:.6g})")
+    print(f"[{card}] rebalance phases, ms over {split['rounds']} rounds (median a round): "
+          + _phase_line(split, rebalance.REBALANCE_PHASES))
+    print(f"[{card}] rebalance {N} keys x {REBALANCE_WIDE} workers, {wide['rounds']} rounds "
+          f"({wide['rounds_ran']} ran): {wide['moves']} moves == the plain version on the card, repeat "
+          f"identical; K9 kernel_ms {wide['ms']:.4f} device ms {wide['device_ms']:.4f} bound_ms "
+          f"{wide['bound_ms']:.7f} ({wide['bound_by']}) chain_ms {wide['chain_ms']:.5f}; phases, ms over "
+          f"{wide['phases']['rounds']} rounds (median a round): "
+          + _phase_line(wide["phases"], rebalance.REBALANCE_PHASES))
     entries["rebalance"] = dict(
         name="rebalance", route="cuda", source="distributed_tpu_torch/ops/csrc/rebalance.cu",
         replaces="distributed_tpu/ops/rebalance.py:43", launches=launches["rebalance"],
-        max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
-        library_ms=None, chain_ms=chain_ms, case=f"{N}x{REBALANCE_WORKERS}", rounds=R,
-        rounds_ran=ran, moves=len(got_moves), imbalance_before=before, imbalance_after=after,
-        plan_wall_ms=plan_wall_ms, plan_split_ms=plan_split, python_plan_ms=python_plan_ms,
+        library_ms=None, **{k: v for k, v in k9.items() if k != "moves"}, moves=len(got_moves),
+        imbalance_before=before, imbalance_after=after, wide=wide,
+        plan_wall_ms=plan_wall_ms, plan_split_ms=plan_split, moves_back_split_ms=moves_back_split,
+        python_plan_ms=python_plan_ms,
         python_moves=len(py_moves), python_imbalance_after=py_after,
         ptxas=ptxas.get("rebalance.cu"))
 
@@ -5394,8 +5496,9 @@ async def _rebalance(c, cl):
     plan = seen["plans"][0]
     batch = seen["batches"][0]
     cpu = rebalance.plan_rebalance(batch, device="cpu")
-    check(seen["moves"][0] == cpu, f"15c: the scheduler's {len(seen['moves'][0])} moves != the CPU "
-          f"plan's {len(cpu)} on the same batch")
+    got = list(zip(*(a.tolist() for a in seen["moves"][0])))
+    check(got == cpu, f"15c: the scheduler's {len(got)} moves != the CPU plan's {len(cpu)} on the "
+          "same batch")
     wss, cand = plan["wss"], plan["cand"]
     check([(ts.key, a.address, b.address) for ts, a, b in plan["moves"]]
           == [(cand[k].key, wss[a].address, wss[b].address) for k, a, b in cpu],

@@ -101,11 +101,14 @@ SIGNATURES = {
         _i, _i, _i, _i,                 # R W K blocks
         _vp,                            # stream
     ),
+    "dtpu_rebalance_layout": (_i, ctypes.POINTER(ctypes.c_longlong), ctypes.POINTER(_i)),
     "dtpu_rebalance": (
-        _vp, _vp, _vp,                  # list nbytes off (owner_lists)
-        _vp, _vp, _vp,                  # hi lo mem (in/out)
-        _vp, _vp, _vp,                  # mk md work (WORK_BYTES a worker)
-        _i, _i,                         # W K
+        _vp, _vp, _vp,                  # list size off (owner_lists)
+        _f, _f, _vp,                    # hi lo mem (in/out)
+        _vp, _vp, _vp,                  # moves counts total (out)
+        _vp,                            # work: null = shared memory
+        _vp,                            # stamps (optional timeline, or null)
+        _i, _i, _i,                     # W K cap
         _vp,                            # stream
     ),
     "dtpu_fleet_scatter": (

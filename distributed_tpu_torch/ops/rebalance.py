@@ -18,21 +18,28 @@ on the CPU:
 - :func:`rebalance_rounds_cuda`, the hand-written kernel
   ``csrc/rebalance.cu`` (K9): all rounds in one launch of one block.  The
   wrapper takes the band (``mean * 1.05``, ``mean * 0.95``) as the plain
-  version does and buckets the eligible keys by owner in the size order
-  (:func:`owner_lists`), in torch ops, so a sender's largest remaining key
-  is the head of its list and a round reads no key but the ones it moves;
-  the kernel runs the rounds, ranks each round's candidates by counting,
-  and stops after a round that moves nothing.  Each worker gains or
-  loses at most one key a round, so every memory update adds one value,
-  exact in any order, and the kernel gives the plain version's moves and
-  memories on the CPU bit for bit.
+  version does (:func:`band`) and buckets the eligible keys by owner in
+  the size order, with their sizes (:func:`owner_lists`), in torch ops, so
+  a sender's largest remaining key is the head of its list and a round
+  reads no key but the ones it moves; the kernel runs the rounds, ranks
+  each round's candidates by a sort (a warp's bitonic run, merges down to
+  eight runs, then one step that sums a binary search in each other run),
+  writes only the moves, and stops after a round that moves nothing.
+  Each worker gains or loses at most one key a round, so every memory
+  update adds one value, exact in any order, and the kernel gives the
+  plain version's moves and memories on the CPU bit for bit.
 
+The plain version returns dense rows, a key and a recipient a round and
+slot; the kernel returns the moves alone (:class:`Rounds`), and
+:func:`compact_rounds` turns the rows into that form.
 :func:`rebalance_rounds` picks by the device of the tensors: the plain
-version for CPU tensors, the kernel otherwise (which raises off CUDA).
+version for CPU tensors, the kernel otherwise (which raises off CUDA), in
+the compact form; :func:`plan_moves` reads back only the moves.
 """
 
 from __future__ import annotations
 
+import ctypes
 from typing import NamedTuple
 
 import numpy as np
@@ -110,31 +117,86 @@ def rebalance_rounds_reference(owner, nbytes, eligible, mem, mean, rounds: int):
     return mk, md, mem
 
 
-WORK_BYTES = 36  # csrc/rebalance.cu's kWorkBytes: the rounds' arrays, bytes a worker
+class Rounds(NamedTuple):
+    """The rounds' moves, compact: ``moves`` i32[cap, 2], the ``(key,
+    recipient)`` of each move in application order (round, then slot),
+    its first ``total`` rows written; ``counts`` i32[rounds], the moves of
+    each round (0 after the first that moves nothing); ``total`` i32[1];
+    ``mem`` f32[W], the memories after the rounds."""
+
+    moves: torch.Tensor
+    counts: torch.Tensor
+    total: torch.Tensor
+    mem: torch.Tensor
+
+    def trimmed(self) -> Rounds:
+        """The same with ``moves`` cut to its ``total`` rows (reads
+        ``total`` back from the card)."""
+        return self._replace(moves=self.moves[:int(self.total[0])])
+
+
+def compact_rounds(mk, md, mem) -> Rounds:
+    """The plain version's dense rows (``-1`` for a slot that moved
+    nothing) in the kernel's compact form, ``moves`` exactly ``total``
+    rows."""
+    live = mk >= 0
+    counts = live.sum(1, dtype=torch.int32)
+    return Rounds(torch.stack([mk[live], md[live]], 1), counts,
+                  counts.sum(dtype=torch.int32).reshape(1), mem)
+
+
+def band(mean) -> tuple[float, float]:
+    """``(mean * 1.05, mean * 0.95)`` in f32 as the plain version takes
+    them, on the host."""
+    m = torch.tensor(mean, dtype=torch.float32)
+    return float(m * 1.05), float(m * 0.95)
 
 
 def owner_lists(owner, nbytes, eligible, W: int):
     """K9's per-worker lists: the eligible keys bucketed by owner, stably in
     the size order ``argsort(-nbytes, stable=True)``, in torch ops on the
-    tensors' device.  Returns ``(list i32[N], off i32[W + 1])``: worker
-    w's keys, largest first, are ``list[off[w]:off[w + 1]]``; the keys past
-    ``off[W]`` are the ineligible ones."""
+    tensors' device.  Returns ``(list i32[N], size f32[N], off i32[W +
+    1])``: worker w's keys, largest first, are ``list[off[w]:off[w + 1]]``
+    and their sizes ``size[off[w]:off[w + 1]]``; the keys past ``off[W]``
+    are the ineligible ones."""
     order = torch.argsort(-nbytes, stable=True)
     ow = torch.where(eligible[order], owner[order].to(torch.int32), W)
     ow, perm = torch.sort(ow, stable=True)
     off = torch.searchsorted(ow, torch.arange(W + 1, dtype=torch.int32, device=ow.device),
                              out_int32=True)
-    return order[perm].to(torch.int32), off
+    lst = order[perm]
+    return lst.to(torch.int32), nbytes[lst], off
 
 
-def rebalance_rounds_cuda(owner, nbytes, eligible, mem, mean, rounds: int):
+def _layout(lib, W: int) -> tuple[int, bool]:
+    """(bytes, in shared memory) of K9's work space for W workers on the
+    current card, asked of the kernel once a (card, W)."""
+    key = (torch.cuda.current_device(), W)
+    if key not in _LAYOUTS:
+        nbytes, shared = ctypes.c_longlong(0), ctypes.c_int(0)
+        _build.check(lib.dtpu_rebalance_layout(W, ctypes.byref(nbytes), ctypes.byref(shared)),
+                     "dtpu_rebalance_layout")
+        _LAYOUTS[key] = int(nbytes.value), bool(shared.value)
+    return _LAYOUTS[key]
+
+
+_LAYOUTS: dict[tuple[int, int], tuple[int, bool]] = {}
+
+
+def rebalance_rounds_cuda(owner, nbytes, eligible, mem, mean, rounds: int, stamps=None) -> Rounds:
     """The rounds through the hand-written kernel ``csrc/rebalance.cu``, one
     launch of one block a plan, on the lists of :func:`owner_lists`.  Same
-    arguments and results as :func:`rebalance_rounds_reference`;
-    ``rebalance_rounds_cuda.launches`` counts the launches (none without
-    rounds).  ``mean`` must not be negative (a projected memory is a sum
-    of sizes): below 0 the band's ends cross and a worker could send and
-    receive in one round, which the kernel does not take."""
+    arguments as :func:`rebalance_rounds_reference`, its results in the
+    compact form (:class:`Rounds`, ``compact_rounds`` of the plain
+    version's); ``rebalance_rounds_cuda.launches`` counts the launches
+    (none without rounds).  ``mean`` must not be negative (a projected
+    memory is a sum of sizes): below 0 the band's ends cross and a worker
+    could send and receive in one round, which the kernel does not take.
+
+    ``stamps``, an int64 CUDA tensor of ``1 + rounds * len(REBALANCE_PHASES)``,
+    receives the device clock (ns) at the start and at the end of each
+    phase of each round that ran (``profile_periodic.phase_split`` reads
+    it); the results do not change."""
     dev = mem.device
     if dev.type != "cuda":
         raise RuntimeError(f"rebalance_rounds_cuda needs CUDA tensors, got {dev}")
@@ -143,38 +205,52 @@ def rebalance_rounds_cuda(owner, nbytes, eligible, mem, mean, rounds: int):
                               ("eligible", eligible, torch.bool, N), ("mem", mem, torch.float32, W)):
         if t.dtype != dtype or t.shape != (n,) or t.device != dev:
             raise ValueError(f"rebalance_rounds_cuda: {name} must be {dtype}[{n}] on {dev}")
+    n_stamps = 1 + max(rounds, 0) * len(REBALANCE_PHASES)
+    if stamps is not None and (stamps.dtype != torch.int64 or stamps.shape != (n_stamps,)
+                               or stamps.device != dev or not stamps.is_contiguous()):
+        raise ValueError(f"rebalance_rounds_cuda: stamps must be a contiguous int64[{n_stamps}] on {dev}")
     if mean < 0:  # a host number, as the plain version takes it
         raise ValueError(f"rebalance_rounds_cuda: the mean {mean} is negative")
-    mk = torch.empty((max(rounds, 0), W), dtype=torch.int32, device=dev)
-    md = torch.empty_like(mk)
-    mem_out = mem.contiguous().clone()
-    if rounds <= 0 or W == 0:
-        return mk, md, mem_out
+    rounds = max(rounds, 0)
+    # a key moves once, and a round pairs at most W // 2 slots
+    cap = min(N, rounds * (W // 2))
+    i32 = dict(dtype=torch.int32, device=dev)
+    # the kernel writes every count and the total
+    out = Rounds(torch.empty((cap, 2), **i32), torch.empty(rounds, **i32), torch.empty(1, **i32),
+                 mem.contiguous().clone())
+    if rounds == 0 or W == 0:
+        out.counts.zero_()
+        out.total.zero_()
+        return out
     lib = _build.load()
+    hi, lo = band(mean)
     with torch.cuda.device(dev):
-        # the band as the plain version takes it; the lists
-        mean_t = torch.tensor(mean, dtype=torch.float32, device=dev)
-        hi, lo = mean_t * 1.05, mean_t * 0.95
-        nbytes = nbytes.contiguous()
-        lst, off = owner_lists(owner, nbytes, eligible, W)
-        work = torch.empty(WORK_BYTES * W, dtype=torch.uint8, device=dev)
+        lst, size, off = owner_lists(owner, nbytes, eligible, W)
+        nb, in_smem = _layout(lib, W)
+        work = None if in_smem else torch.empty(nb, dtype=torch.uint8, device=dev)
         P = _build.ptr
         _build.check(_build.launch(dev, lib.dtpu_rebalance,
-            P(lst), P(nbytes), P(off), P(hi), P(lo), P(mem_out), P(mk), P(md), P(work),
-            W, int(rounds),
+            P(lst), P(size), P(off), hi, lo, P(out.mem), P(out.moves), P(out.counts),
+            P(out.total), None if work is None else P(work), None if stamps is None else P(stamps),
+            W, rounds, cap,
         ), "dtpu_rebalance")
         rebalance_rounds_cuda.launches += 1
-    return mk, md, mem_out
+    return out
 
 
 rebalance_rounds_cuda.launches = 0  # kernel launches in this process
 
+# the phases of a round in K9's timeline, in order
+REBALANCE_PHASES = ("compaction", "sort", "merge", "moves", "barrier")
 
-def rebalance_rounds(owner, nbytes, eligible, mem, mean, rounds: int):
-    """The rounds on the tensors' device: the plain version for CPU
-    tensors, K9 otherwise (which raises off CUDA)."""
-    fn = rebalance_rounds_reference if mem.device.type == "cpu" else rebalance_rounds_cuda
-    return fn(owner, nbytes, eligible, mem, mean, rounds)
+
+def rebalance_rounds(owner, nbytes, eligible, mem, mean, rounds: int) -> Rounds:
+    """The rounds on the tensors' device, compact: the plain version's rows
+    through :func:`compact_rounds` for CPU tensors, K9 otherwise (which
+    raises off CUDA)."""
+    if mem.device.type == "cpu":
+        return compact_rounds(*rebalance_rounds_reference(owner, nbytes, eligible, mem, mean, rounds))
+    return rebalance_rounds_cuda(owner, nbytes, eligible, mem, mean, rounds)
 
 
 def round_count(batch: RebalanceBatch, rounds: int | None = None) -> int:
@@ -208,22 +284,26 @@ def padded_inputs(batch: RebalanceBatch, device) -> tuple:
             torch.from_numpy(mem.copy()).to(device), mean_of(mem))
 
 
-def plan_rebalance(batch: RebalanceBatch, rounds: int | None = None,
-                   device=None) -> list[tuple[int, int, int]]:
-    """Select rebalance moves; returns ``[(key_idx, sender, recipient)]`` in
-    application order.  ``device=None`` means CUDA; ``rounds`` as
-    :func:`round_count` takes it."""
+def plan_moves(batch: RebalanceBatch, rounds: int | None = None,
+               device=None) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """Select rebalance moves: ``(keys, senders, recipients)``, int arrays
+    in application order.  ``device=None`` means CUDA; ``rounds`` as
+    :func:`round_count` takes it.  Only the moves come back from the card."""
     dev = resolve_device(device)
     N = len(batch.nbytes)
     if N == 0 or len(batch.mem) < 2:
-        return []
-    mk, md, _ = rebalance_rounds(*padded_inputs(batch, dev), round_count(batch, rounds))
-    mk, md = mk.cpu().numpy(), md.cpu().numpy()
-    owner = batch.owner
-    out: list[tuple[int, int, int]] = []
-    for k in range(mk.shape[0]):
-        for s in np.nonzero(mk[k] >= 0)[0]:
-            key = int(mk[k, s])
-            if key < N:
-                out.append((key, int(owner[key]), int(md[k, s])))
-    return out
+        empty = np.zeros(0, np.int32)
+        return empty, empty, empty
+    out = rebalance_rounds(*padded_inputs(batch, dev), round_count(batch, rounds))
+    moves = out.trimmed().moves.cpu().numpy()
+    moves = moves[moves[:, 0] < N]  # padding keys are never eligible
+    keys = moves[:, 0]
+    return keys, batch.owner[keys], moves[:, 1]
+
+
+def plan_rebalance(batch: RebalanceBatch, rounds: int | None = None,
+                   device=None) -> list[tuple[int, int, int]]:
+    """Select rebalance moves; returns ``[(key_idx, sender, recipient)]`` in
+    application order (:func:`plan_moves` as a list)."""
+    keys, senders, recipients = plan_moves(batch, rounds, device)
+    return list(zip(keys.tolist(), senders.tolist(), recipients.tolist()))

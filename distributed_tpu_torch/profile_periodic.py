@@ -30,16 +30,21 @@ workers, seed 63).  It reports
   (``first_ms`` is the prologue); ``k8_kernels``, from ``torch.profiler``
   over one call, the device time and count of every kernel it ran;
   ``k8_digest``, of the drops and the memory;
-- ``k9_ms``: ``rebalance_rounds`` on the card by CUDA events (median of
-  5), ``k9_device_ms`` and ``k9_kernels``, the device time and the count
-  of the kernels one call runs (profiler), ``k9_plan_ms``, the whole
-  ``plan_rebalance`` on the host clock, ``k9_digest``, of its moves;
+- ``k9`` and ``k9_wide``: K9 on phase 6's two cases (``REBALANCE_WORKERS``
+  and ``REBALANCE_WIDE`` workers), through ``chip_smoke.k9_entry`` as
+  phase 6 checks and times it (bit for bit against the plain version on
+  the card and against itself; events ms, device time, bound, timeline
+  split, digest of the moves), so the checkout under ``--root`` must
+  return K9's moves in the compact form (``rebalance.Rounds``);
+  ``k9_plan_ms``, the whole ``plan_rebalance`` on the host clock (median
+  of 3), with its moves and their digest;
 - ``python_plan_ms``: the reference scheduler's host plan (its copy,
   ``rebalance_plan_python`` in the same test module) on the same keys,
   host clock, median of 3, with its moves;
 
 with the card's ``nvidia-smi`` name and power limit, as one JSON object.
-``--skip-k9`` leaves K9 and the host plan out.
+``--skip-k9`` leaves K9 and the host plan out; ``--k9-only`` times K9
+alone.
 """
 
 from __future__ import annotations
@@ -126,7 +131,9 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--root", default=str(HERE))
     ap.add_argument("--out", default=None, help="also write the JSON here")
-    ap.add_argument("--skip-k9", action="store_true", help="time K7 and K8 only")
+    group = ap.add_mutually_exclusive_group()
+    group.add_argument("--skip-k9", action="store_true", help="time K7 and K8 only")
+    group.add_argument("--k9-only", action="store_true", help="time K9 only, without the host plan")
     args = ap.parse_args(argv)
     sys.path[0] = str(Path(args.root).resolve())
     sys.path.insert(1, str(HERE / "tests"))
@@ -146,59 +153,57 @@ def main(argv=None) -> int:
     dev = torch.device("cuda", 0)
     report = {"root": args.root, "card": smoke.smi_line()}
 
-    # K7, on both of phase 6's fleets
-    steal_rounds = inspect.signature(stealing.plan_steals).parameters["rounds"].default
-    report["k7"] = {}
-    for name, _ in smoke.STEAL_FLEETS:
-        batch, fleet = smoke.steal_case(cases, name)
-        k7_args = smoke._padded_steal(stealing, batch, fleet, dev)
-        thief_of, occ = stealing.steal_rounds_cuda(*k7_args, steal_rounds)
-        entry = {"T": len(k7_args[0]), "W": len(k7_args[4]),
-                 "ms": smoke.cuda_ms(lambda: stealing.steal_rounds_cuda(*k7_args, steal_rounds)),
-                 "digest": _digest(thief_of.cpu().numpy(), occ.cpu().numpy())}
-        if _has_stamps(stealing.steal_rounds_cuda):
-            entry["phases"] = kernel_timeline(
-                torch, lambda st: stealing.steal_rounds_cuda(*k7_args, steal_rounds, stamps=st),
-                1 + steal_rounds * len(stealing.STEAL_PHASES), stealing.STEAL_PHASES)
-        report["k7"][name] = entry
+    if not args.k9_only:
+        # K7, on both of phase 6's fleets
+        steal_rounds = inspect.signature(stealing.plan_steals).parameters["rounds"].default
+        report["k7"] = {}
+        for name, _ in smoke.STEAL_FLEETS:
+            batch, fleet = smoke.steal_case(cases, name)
+            k7_args = smoke._padded_steal(stealing, batch, fleet, dev)
+            thief_of, occ = stealing.steal_rounds_cuda(*k7_args, steal_rounds)
+            entry = {"T": len(k7_args[0]), "W": len(k7_args[4]),
+                     "ms": smoke.cuda_ms(lambda: stealing.steal_rounds_cuda(*k7_args, steal_rounds)),
+                     "digest": _digest(thief_of.cpu().numpy(), occ.cpu().numpy())}
+            if _has_stamps(stealing.steal_rounds_cuda):
+                entry["phases"] = kernel_timeline(
+                    torch, lambda st: stealing.steal_rounds_cuda(*k7_args, steal_rounds, stamps=st),
+                    1 + steal_rounds * len(stealing.STEAL_PHASES), stealing.STEAL_PHASES)
+            report["k7"][name] = entry
 
-    # K8
-    batch = cases.drop_round(np.random.default_rng(62), smoke.AMM_KEYS, smoke.AMM_WORKERS)
-    k8_args = [torch.from_numpy(np.asarray(a)).to(dev) for a in batch]
-    drops, mem = amm.drop_rounds_cuda(*k8_args, K8_ROUNDS)
-    drops, mem = drops.cpu().numpy(), mem.cpu().numpy()
-    ms = {k: smoke.cuda_ms(lambda k=k: amm.drop_rounds_cuda(*k8_args, k)) for k in (1, 8, K8_ROUNDS)}
-    kernels = kernel_times(torch, lambda: amm.drop_rounds_cuda(*k8_args, K8_ROUNDS))
-    report.update(
-        k8_case=f"{smoke.AMM_KEYS}x{smoke.AMM_WORKERS}", k8_ms=ms[K8_ROUNDS], k8_ms_rounds=ms,
-        k8_rounds_with_drops=int((drops >= 0).any(axis=0).sum()),
-        k8_kernels={name: {"ms": t, "count": n} for name, (t, n) in kernels.items()},
-        k8_digest=_digest(drops, mem),
-    )
-    if _has_stamps(amm.drop_rounds_cuda):
-        report["k8_phases"] = kernel_timeline(
-            torch, lambda st: amm.drop_rounds_cuda(*k8_args, K8_ROUNDS, stamps=st),
-            2 + K8_ROUNDS * len(amm.DROP_PHASES), amm.DROP_PHASES, first=2)
+        # K8
+        batch = cases.drop_round(np.random.default_rng(62), smoke.AMM_KEYS, smoke.AMM_WORKERS)
+        k8_args = [torch.from_numpy(np.asarray(a)).to(dev) for a in batch]
+        drops, mem = amm.drop_rounds_cuda(*k8_args, K8_ROUNDS)
+        drops, mem = drops.cpu().numpy(), mem.cpu().numpy()
+        ms = {k: smoke.cuda_ms(lambda k=k: amm.drop_rounds_cuda(*k8_args, k)) for k in (1, 8, K8_ROUNDS)}
+        kernels = kernel_times(torch, lambda: amm.drop_rounds_cuda(*k8_args, K8_ROUNDS))
+        report.update(
+            k8_case=f"{smoke.AMM_KEYS}x{smoke.AMM_WORKERS}", k8_ms=ms[K8_ROUNDS], k8_ms_rounds=ms,
+            k8_rounds_with_drops=int((drops >= 0).any(axis=0).sum()),
+            k8_kernels={name: {"ms": t, "count": n} for name, (t, n) in kernels.items()},
+            k8_digest=_digest(drops, mem),
+        )
+        if _has_stamps(amm.drop_rounds_cuda):
+            report["k8_phases"] = kernel_timeline(
+                torch, lambda st: amm.drop_rounds_cuda(*k8_args, K8_ROUNDS, stamps=st),
+                2 + K8_ROUNDS * len(amm.DROP_PHASES), amm.DROP_PHASES, first=2)
     if args.skip_k9:
         return _emit(report, args.out)
 
-    # K9, and the host plan the scheduler's gate takes below 512 candidates
-    N, W = smoke.REBALANCE_KEYS, smoke.REBALANCE_WORKERS
-    reb = cases.rebalance_case(np.random.default_rng(63), N, W)
-    rounds = rebalance.round_count(reb)
-    k9_args = rebalance.padded_inputs(reb, dev)
-    k9_ms = smoke.cuda_ms(lambda: rebalance.rebalance_rounds(*k9_args, rounds), reps=5, warmup=1)
-    kernels = kernel_times(torch, lambda: rebalance.rebalance_rounds(*k9_args, rounds))
+    # K9 on phase 6's two cases, and the host plan the scheduler's gate
+    # takes below 512 candidates
+    N, sm_mhz = smoke.REBALANCE_KEYS, smoke.sm_clock_mhz()
+    reb = cases.rebalance_case(np.random.default_rng(63), N, smoke.REBALANCE_WORKERS)
+    report["k9"] = smoke.k9_entry(rebalance, reb, dev, sm_mhz)
+    wide = cases.rebalance_case(np.random.default_rng(63), N, smoke.REBALANCE_WIDE)
+    report["k9_wide"] = smoke.k9_entry(rebalance, wide, dev, sm_mhz)
     plan_ms, moves = _host_ms(lambda: rebalance.plan_rebalance(reb, device=dev), 3)
-    wss, _ = cases.rebalance_fleet(reb)
-    py_ms, py_moves = _host_ms(lambda: cases.rebalance_plan_python(wss, None), 3)
-    report.update(
-        k9_case=f"{N}x{W}", k9_rounds=rounds, k9_ms=k9_ms,
-        k9_device_ms=sum(t for t, _ in kernels.values()),
-        k9_kernels=sum(n for _, n in kernels.values()), k9_plan_ms=plan_ms, k9_moves=len(moves),
-        k9_digest=_digest(np.asarray(moves, np.int64)),
-        python_plan_ms=py_ms, python_moves=len(py_moves),
-    )
+    report.update(k9_plan_ms=plan_ms, k9_plan_moves=len(moves),
+                  k9_plan_digest=_digest(np.asarray(moves, np.int64)))
+    if not args.k9_only:
+        wss, _ = cases.rebalance_fleet(reb)
+        py_ms, py_moves = _host_ms(lambda: cases.rebalance_plan_python(wss, None), 3)
+        report.update(python_plan_ms=py_ms, python_moves=len(py_moves))
     return _emit(report, args.out)
 
 

@@ -18,7 +18,7 @@ from __future__ import annotations
 import numpy as np
 
 from distributed_tpu_torch._device import resolve_device
-from distributed_tpu_torch.ops.rebalance import RebalanceBatch, plan_rebalance
+from distributed_tpu_torch.ops.rebalance import RebalanceBatch, plan_moves
 from distributed_tpu_torch.scheduler.gate import DevicePath
 
 
@@ -45,12 +45,13 @@ class RebalancePath(DevicePath):
             mem=mem,
         )
         try:
-            moves = plan_rebalance(batch, device=self.device)
+            keys, senders, recipients = plan_moves(batch, device=self.device)
         except Exception as exc:
             self.fail(exc)
             raise
         self.launches += 1
-        return [(cand[key_idx], wss[src], wss[dst]) for key_idx, src, dst in moves]
+        return [(cand[k], wss[s], wss[r])
+                for k, s, r in zip(keys.tolist(), senders.tolist(), recipients.tolist())]
 
 
 def install_rebalance(scheduler, device=None) -> RebalancePath:

@@ -900,53 +900,104 @@ K9_SHAPES = [(64, 2), (300, 2), (2000, 16), (30_000, 512), (262_144, 512), (20_0
 
 
 def _k9_both(batch, rounds, cuda):
-    """K9 twice on the card, the plain version on the card and on the CPU,
-    on ``plan_rebalance``'s padded inputs."""
+    """K9 twice on the card, the plain version on the card and on the CPU
+    (through ``compact_rounds``), on ``plan_rebalance``'s padded inputs;
+    K9's moves cut to its total."""
     R = rebalance.round_count(batch, rounds)
-    want = rebalance.rebalance_rounds_reference(*rebalance.padded_inputs(batch, "cpu"), R)
+    want = rebalance.compact_rounds(
+        *rebalance.rebalance_rounds_reference(*rebalance.padded_inputs(batch, "cpu"), R))
     args = rebalance.padded_inputs(batch, cuda)
     before = rebalance.rebalance_rounds_cuda.launches
-    got = rebalance.rebalance_rounds_cuda(*args, R)
-    again = rebalance.rebalance_rounds_cuda(*args, R)
+    got = rebalance.rebalance_rounds_cuda(*args, R).trimmed()
+    again = rebalance.rebalance_rounds_cuda(*args, R).trimmed()
     torch.cuda.synchronize()
     assert rebalance.rebalance_rounds_cuda.launches == before + 2
-    plain = rebalance.rebalance_rounds_reference(*args, R)
+    plain = rebalance.compact_rounds(*rebalance.rebalance_rounds_reference(*args, R))
     return got, again, plain, want
 
 
 @pytest.mark.parametrize("rounds", [None, 32, 512])
 @pytest.mark.parametrize("N,W", K9_SHAPES)
 def test_rebalance_kernel_matches_plain(cuda, N, W, rounds):
-    """K9's moves, recipients and memories == the plain version on the CPU
-    and on the card bit for bit, twice, one launch a call, from 2 to 4,096
-    workers and 64 to 262,144 keys."""
+    """K9's moves, per-round counts, total and memories == the plain
+    version on the CPU and on the card bit for bit (its dense rows in the
+    compact form), twice, one launch a call, from 2 to 4,096 workers and
+    64 to 262,144 keys."""
     batch = cases.rebalance_skewed(np.random.default_rng(N + W), N, W)
     got, again, plain, want = _k9_both(batch, rounds, cuda)
     for g, a, p, w in zip(got, again, plain, want):
         assert torch.equal(g.cpu(), w) and torch.equal(a, g) and torch.equal(p, g)
-    assert (got[0] >= 0).any()
+    assert int(got.total[0]) > 0
 
 
-@pytest.mark.parametrize("W", [6453, 6456, 6457, 8192])
-def test_rebalance_kernel_at_and_past_the_shared_memory_limit(cuda, W):
-    """The same results where the rounds' arrays (36 B a worker) fill a
-    block's shared memory (227 KB on an H100, beside the kernel's own
-    few bytes: to 6,456 workers) and where they no longer fit and live in
-    global scratch (from 6,457 workers; 295 KB at 8,192)."""
+def _k9_shared_limit():
+    """The largest W whose work space K9 puts in the block's shared memory
+    (``rebalance._layout``, asked of the kernel), by bisection."""
+    lib = rebalance._build.load()
+    lo, hi = 2, 1 << 15
+    assert rebalance._layout(lib, lo)[1] and not rebalance._layout(lib, hi)[1]
+    while hi - lo > 1:
+        mid = (lo + hi) // 2
+        lo, hi = (mid, hi) if rebalance._layout(lib, mid)[1] else (lo, mid)
+    return lo
+
+
+@pytest.mark.parametrize("past", [-3, 0, 1, 53, 56, 57, 1792])
+def test_rebalance_kernel_at_and_past_the_shared_memory_limit(cuda, past):
+    """The same results where the rounds' arrays fill a block's shared
+    memory (at and just below the limit the kernel reports: about 6,400
+    workers on an H100's 227 KB) and where they no longer fit and live in
+    global scratch (past it), where the staged copies are plain loads and
+    stores."""
+    W = _k9_shared_limit() + past
+    assert rebalance._layout(rebalance._build.load(), W)[1] == (past <= 0)
     batch = cases.rebalance_skewed(np.random.default_rng(W), 50_000, W, ties=True)
     got, again, plain, want = _k9_both(batch, None, cuda)
     for g, a, p, w in zip(got, again, plain, want):
         assert torch.equal(g.cpu(), w) and torch.equal(a, g) and torch.equal(p, g)
-    assert (got[0] >= 0).any()
+    assert int(got.total[0]) > 0
 
 
 @pytest.mark.parametrize("N,W", [(4096, 64), (64, 2)])
 def test_rebalance_kernel_on_a_balanced_fleet(cuda, N, W):
-    """Nothing moves: every row -1, the memories as the plain version's."""
+    """Nothing moves: no move, every count 0, the memories as the plain
+    version's."""
     got, again, plain, want = _k9_both(cases.rebalance_balanced(N, W), 512, cuda)
-    assert not (got[0] >= 0).any() and not (got[1] >= 0).any()
+    assert int(got.total[0]) == 0 and not got.counts.any() and got.moves.shape == (0, 2)
     for g, a, p, w in zip(got, again, plain, want):
         assert torch.equal(g.cpu(), w) and torch.equal(a, g) and torch.equal(p, g)
+
+
+def test_rebalance_kernel_timeline(cuda):
+    """K9's ``stamps``: the start, then five marks a round that ran,
+    monotone; zeros for the rounds after the stop; the results the same
+    with and without it."""
+    batch = cases.rebalance_case(np.random.default_rng(63), 262_144, 512)
+    R = rebalance.round_count(batch)
+    args = rebalance.padded_inputs(batch, cuda)
+    n = len(rebalance.REBALANCE_PHASES)
+    stamps = torch.zeros(1 + R * n, dtype=torch.int64, device=cuda)
+    with_stamps = rebalance.rebalance_rounds_cuda(*args, R, stamps=stamps).trimmed()
+    without = rebalance.rebalance_rounds_cuda(*args, R).trimmed()
+    assert all(torch.equal(a, b) for a, b in zip(with_stamps, without))
+    ran = int((without.counts > 0).sum()) + 1
+    t = stamps.cpu().numpy()
+    assert (t[:1 + ran * n] > 0).all() and not t[1 + ran * n:].any()
+    assert (np.diff(t[:1 + ran * n]) >= 0).all()
+    with pytest.raises(ValueError, match="stamps"):
+        rebalance.rebalance_rounds_cuda(*args, R, stamps=stamps[:-1])
+
+
+def test_rebalance_kernel_on_4096_workers(cuda):
+    """Phase 6's second case: 262,144 keys on 4,096 workers (a round ranks
+    some thousands of candidates), == the plain version on the CPU and on
+    the card bit for bit, twice; the plan on the card == on the CPU."""
+    batch = cases.rebalance_case(np.random.default_rng(63), 262_144, 4096)
+    got, again, plain, want = _k9_both(batch, None, cuda)
+    for g, a, p, w in zip(got, again, plain, want):
+        assert torch.equal(g.cpu(), w) and torch.equal(a, g) and torch.equal(p, g)
+    assert int(got.total[0]) > 0
+    assert rebalance.plan_rebalance(batch) == rebalance.plan_rebalance(batch, device="cpu")
 
 
 def test_plan_rebalance_on_the_card(cuda):

@@ -153,7 +153,7 @@ def test_planted_failure_is_counted_and_raised(monkeypatch):
     def fail(*args, **kwargs):
         raise boom
 
-    monkeypatch.setattr("distributed_tpu_torch.scheduler.rebalance.plan_rebalance", fail)
+    monkeypatch.setattr("distributed_tpu_torch.scheduler.rebalance.plan_moves", fail)
     with pytest.raises(RuntimeError, match="planted"):
         path.plan_device([_Worker(0, 1.0), _Worker(1, 9.0)], [_Key(0, 1.0)], [1])
     assert path.failures == 1 and path.errors == [boom] and path.launches == 0
@@ -176,10 +176,12 @@ def test_python_plan_copy_equals_the_reference(N, W):
 
 def _more_cases():
     """(name, batch, rounds): two workers, 1,000 workers (not a power of
-    two), sizes with many ties, and a plan whose rounds end early (512
-    rounds on a fleet that settles in far fewer)."""
+    two), 4,096 workers (a round ranks some thousands of candidates: 4
+    merge levels before the last step), sizes with many ties, and a plan whose rounds end early
+    (512 rounds on a fleet that settles in far fewer)."""
     return [("two_workers", pc.rebalance_skewed(np.random.default_rng(2), 300, 2), None),
             ("w1000", pc.rebalance_skewed(np.random.default_rng(1000), 20_000, 1000), None),
+            ("w4096", pc.rebalance_skewed(np.random.default_rng(4096), 50_000, 4096), None),
             ("ties", pc.rebalance_skewed(np.random.default_rng(7), 5000, 64, ties=True), None),
             ("early_end", pc.rebalance_case(np.random.default_rng(16), 2000, 16), 512)]
 
@@ -196,74 +198,192 @@ def _plain(batch, rounds):
     return (mk.numpy(), md.numpy(), mem.numpy()), args
 
 
-def _hi_lo(mean):
-    m = torch.tensor(mean, dtype=torch.float32)
-    return np.float32((m * 1.05).item()), np.float32((m * 0.95).item())
+def _compact(mk, md, mem):
+    """:func:`port.compact_rounds` of dense numpy rows, as numpy."""
+    out = port.compact_rounds(torch.from_numpy(mk), torch.from_numpy(md), torch.from_numpy(mem))
+    return tuple(t.numpy() for t in out)
 
 
 def k9_lists(owner, nbytes, eligible, W, index_order=False):
     """K9's lists as its wrapper builds them (:func:`port.owner_lists` on
-    CPU tensors), as numpy: ``(list, off)``, worker w's keys
-    ``list[off[w]:off[w + 1]]``.  ``index_order`` plants a fault: each list
-    in key order instead of largest first."""
-    lst, off = port.owner_lists(torch.from_numpy(owner), torch.from_numpy(nbytes),
-                                torch.from_numpy(eligible), W)
+    CPU tensors), as numpy: ``(list, size, off)``, worker w's keys
+    ``list[off[w]:off[w + 1]]`` and their sizes.  ``index_order`` plants a
+    fault: each list in key order instead of largest first."""
+    lst, size, off = port.owner_lists(torch.from_numpy(owner), torch.from_numpy(nbytes),
+                                      torch.from_numpy(eligible), W)
     lst, off = lst.numpy().astype(np.int64), off.numpy().astype(np.int64)
     if index_order:
         for w in range(W):
             lst[off[w]:off[w + 1]].sort()
-    return lst, off
+        return lst, nbytes[lst], off
+    return lst, size.numpy(), off
+
+
+PAD = np.uint64(0xFFFFFFFF00000000)  # the kernel's kPad
+
+
+def k9_codes(key, idx, ties_by_last=False):
+    """The kernel's u64 codes: ``key``'s order bits (-0 as +0) above the
+    worker's index.  ``ties_by_last`` plants a fault: the index's bits
+    reversed, so equal keys rank the higher worker first."""
+    u = (key.astype(np.float32) + np.float32(0)).view(np.uint32).astype(np.uint64)
+    u = np.where(u & np.uint64(0x80000000), ~u & np.uint64(0xFFFFFFFF), u | np.uint64(0x80000000))
+    i = idx.astype(np.uint64)
+    if ties_by_last:
+        i = np.uint64(0xFFFFFFFF) - i
+    return (u << np.uint64(32)) | i
+
+
+def k9_worker(codes, ties_by_last=False):
+    """The workers of :func:`k9_codes`' codes."""
+    i = codes & np.uint64(0xFFFFFFFF)
+    return (np.uint64(0xFFFFFFFF) - i if ties_by_last else i).astype(np.int64)
+
+
+def warp_sort(v):
+    """The kernel's ``warp_sort``: 32 codes through the bitonic network,
+    lane l exchanging with lane l ^ j at each stage."""
+    lane = np.arange(32)
+    for k in (2, 4, 8, 16, 32):
+        j = k // 2
+        while j:
+            o = v[lane ^ j]
+            keep_min = ((lane & j) == 0) == ((lane & k) == 0)
+            v = np.where(keep_min, np.minimum(v, o), np.maximum(v, o))
+            j //= 2
+    return v
+
+
+FINAL_RUNS = 8  # the kernel's kFinalRuns
+
+
+def k9_levels(wide):
+    """The merge levels a round runs when the wider kind's padded region
+    holds ``wide`` codes: until it has at most ``FINAL_RUNS`` runs."""
+    levels = 0
+    while -(-wide // (32 << levels)) > FINAL_RUNS:
+        levels += 1
+    return levels
+
+
+def _below(src, start, n, L, c):
+    """The kernel's ``below`` for every code at once: how many of the
+    sorted ``src[start:start + n]`` lie below ``c``, by binary lifting
+    (steps L, L/2, ..., 1, a step taken while the code at it is below);
+    ``n <= 0``: none."""
+    cnt = np.zeros(len(c), np.int64)
+    step = L
+    while step:
+        m = cnt + step
+        at = np.clip(start + m - 1, 0, len(src) - 1)
+        cnt = np.where((m <= n) & (src[at] < c), m, cnt)
+        step //= 2
+    return cnt
+
+
+def k9_sort(region, levels):
+    """A kind's padded region sorted as the kernel sorts it: each run of 32
+    by :func:`warp_sort`; then ``levels`` merges, run length L = 32, 64,
+    ..., each code's place in the merged pair its place in its run plus
+    the count of the other run's codes below it; then the last step at
+    L = 32 << levels, each code's place its place in its run plus the
+    counts below it in every other run.  Every count by the kernel's
+    binary lifting (:func:`_below`)."""
+    src = region.copy()
+    P = len(src)
+    for r in range(0, P, 32):
+        src[r:r + 32] = warp_sort(src[r:r + 32])
+    q = np.arange(P)
+    for level in range(levels):
+        L = 32 << level
+        run = q // L
+        other = (run ^ 1) * L
+        cnt = _below(src, other, np.clip(P - other, 0, L), L, src)
+        p = np.where(other < P, (run & ~1) * L + (q - run * L) + cnt, q)
+        dst = np.empty_like(src)
+        dst[p] = src
+        src = dst
+    L = 32 << levels
+    run = q // L
+    p = q - run * L
+    for j in range(-(-P // L)):
+        n = np.where(run == j, 0, min(L, P - j * L))
+        p = p + _below(src, j * L, n, L, src)
+    dst = np.empty_like(src)
+    dst[p] = src
+    return dst
 
 
 def replay_k9(owner, nbytes, eligible, mem, mean, rounds, **faults):
-    """K9's rule in numpy: the lists of :func:`k9_lists`, one head pointer
-    a worker; each round the candidates ranked by counting those of their
-    kind before them by (key, worker), senders by -mem and recipients by
-    mem (the kernel compares u64 codes of the two); slot i pairs the i-th of each; the guard and the two updates in
-    f32, as the kernel's __fadd_rn / __fsub_rn; the run stops after a
-    round that moves nothing.  ``faults``: ``index_order`` (see
-    :func:`k9_lists`), ``ties_by_last`` (equal keys ranked by the higher
-    worker), ``no_early_stop_fill`` (rows after the stop left as the
-    round before wrote them)."""
+    """K9's rule in numpy, in its compact form ``(moves, counts, total,
+    mem)``: the lists of :func:`k9_lists`, a head pointer and a head size a
+    worker; each round the candidates compacted in an order of their own
+    (a seeded shuffle: the kernel's atomics take warps in any order),
+    senders at the front of the buffer and recipients at its back, each
+    kind padded to 32 with distinct pad codes and sorted by :func:`k9_sort`
+    (the same number of merge levels for both kinds, as the kernel runs
+    them); slot i pairs the i-th of each; the guard and the two updates in
+    f32, as the kernel's __fadd_rn / __fsub_rn; the round's live slots
+    written out in slot order after the moves before them; the run stops
+    after a round that moves nothing, the later rounds counted 0.
+    ``faults``: ``index_order`` (see :func:`k9_lists`), ``ties_by_last``
+    (see :func:`k9_codes`), ``no_early_stop_fill`` (the counts after the
+    stop left as the round before the stop counted), ``pads_below_candidates``
+    (the runs padded with code 0, below every candidate),
+    ``moves_out_of_slot_order`` (a round's moves written last slot first)."""
     W = len(mem)
     f32 = np.float32
-    hi, lo = _hi_lo(mean)
-    lst, off = k9_lists(owner, nbytes, eligible, W, index_order=faults.get("index_order", False))
+    hi, lo = (f32(x) for x in port.band(mean))
+    lst, size, off = k9_lists(owner, nbytes, eligible, W, index_order=faults.get("index_order", False))
     head, end = off[:W].copy(), off[1:]
+    hsz = np.where(head < end, size[np.minimum(head, len(size) - 1)], f32(0)).astype(f32)
     mem = (mem.astype(f32) - f32(0)) + f32(0)
-    mk = np.full((rounds, W), -1, np.int32)
-    md = np.full((rounds, W), -1, np.int32)
-    tie = (lambda a, b: a > b) if faults.get("ties_by_last") else (lambda a, b: a < b)
+    moves, counts = [], np.zeros(rounds, np.int32)
+    shuffle = np.random.default_rng(W)
+    low_pads = faults.get("pads_below_candidates", False)
 
-    def ranks(idx, key):
-        before = (key[None, :] < key[:, None]) | ((key[None, :] == key[:, None])
-                                                  & tie(idx[None, :], idx[:, None]))
-        return before.sum(1)
+    def region(codes, P, at_back):
+        out = np.zeros(P, np.uint64) if low_pads else PAD | np.arange(P, dtype=np.uint64)
+        if at_back:
+            out[P - len(codes):] = codes
+        else:
+            out[:len(codes)] = codes
+        return out
 
     for k in range(rounds):
         S = np.flatnonzero((mem > hi) & (head < end))
         R = np.flatnonzero(mem < lo)
-        n = min(len(S), len(R))
-        sslot, rslot = np.empty(len(S), np.int64), np.empty(len(R), np.int64)
-        sslot[ranks(S, -mem[S])] = S
-        rslot[ranks(R, mem[R])] = R
-        moved = False
+        S, R = shuffle.permutation(S), shuffle.permutation(R)
+        ns, nr = len(S), len(R)
+        n = min(ns, nr)
+        ps, pr = -(-ns // 32) * 32, -(-nr // 32) * 32
+        levels = k9_levels(max(ps, pr))
+        ties = faults.get("ties_by_last", False)
+        sorted_s = k9_sort(region(k9_codes(-mem[S], S, ties), ps, False), levels)
+        sorted_r = k9_sort(region(k9_codes(mem[R], R, ties), pr, True), levels)
+        sslot, rslot = (k9_worker(c[:n], ties) for c in (sorted_s, sorted_r))
+        live = []
         for i in range(n):
             s, r = sslot[i], rslot[i]
-            key = lst[head[s]]
-            size = f32(nbytes[key])
-            if f32(mem[r] + size) <= hi:
-                d = f32(f32(0) + size)
+            if f32(mem[r] + hsz[s]) <= hi:
+                d = f32(f32(0) + hsz[s])
                 mem[s] = f32(f32(mem[s] - d) + f32(0))
                 mem[r] = f32(f32(mem[r] - f32(0)) + d)
-                head[s] += 1
-                mk[k, i], md[k, i] = key, r
-                moved = True
-        if not moved:
+                h = head[s]
+                head[s] = h + 1
+                if h + 1 < end[s]:
+                    hsz[s] = size[h + 1]
+                live.append((lst[h], r))
+        if faults.get("moves_out_of_slot_order"):
+            live.reverse()
+        moves += live
+        counts[k] = len(live)
+        if not live:
             if faults.get("no_early_stop_fill") and k + 1 < rounds:
-                mk[k + 1:] = mk[k - 1] if k else -1
+                counts[k + 1:] = counts[k - 1] if k else 0
             break
-    return mk, md, mem
+    moves = np.asarray(moves, np.int32).reshape(-1, 2)
+    return moves, counts, np.asarray([len(moves)], np.int32), mem
 
 
 @pytest.mark.parametrize("name,batch,rounds", _premise_cases(),
@@ -273,11 +393,13 @@ def test_lists_give_the_plain_versions_key_for_every_live_slot(name, batch, roun
     head of its list, and moving it is the only thing that changes the
     list, so one pointer a worker, advanced on each move, reads the plain
     version's ``key_of[sender]`` for every live slot of every round; each
-    list holds its worker's eligible keys in the stable size order."""
+    list holds its worker's eligible keys in the stable size order, with
+    their sizes."""
     (mk, md, _), (owner, nbytes, eligible, *_) = _plain(batch, rounds)
     owner, nbytes, eligible = owner.numpy(), nbytes.numpy(), eligible.numpy()
     W = len(batch.mem)
-    lst, off = k9_lists(owner, nbytes, eligible, W)
+    lst, size, off = k9_lists(owner, nbytes, eligible, W)
+    np.testing.assert_array_equal(size, nbytes[lst])
     order = np.argsort(-nbytes, kind="stable")
     for w in range(W):
         assert np.array_equal(lst[off[w]:off[w + 1]], order[eligible[order] & (owner[order] == w)])
@@ -301,36 +423,114 @@ def test_lists_give_the_plain_versions_key_for_every_live_slot(name, batch, roun
                          ids=[n for n, *_ in _premise_cases()])
 def test_k9_replay_equals_the_plain_version(name, batch, rounds):
     """The kernel's whole rule, replayed in numpy, gives the plain
-    version's moves, recipients and memories bit for bit."""
+    version's moves (through :func:`port.compact_rounds`), per-round
+    counts, total and memories bit for bit."""
     want, args = _plain(batch, rounds)
     owner, nbytes, eligible, mem, mean = args
     got = replay_k9(owner.numpy(), nbytes.numpy(), eligible.numpy(), mem.numpy(), mean,
                     want[0].shape[0])
-    for g, w in zip(got, want):
+    for g, w in zip(got, _compact(*want)):
         np.testing.assert_array_equal(g, w)
+    assert got[2][0] > 0
 
 
-@pytest.mark.parametrize("fault", ["index_order", "ties_by_last", "no_early_stop_fill"])
+def test_k9_sort_is_the_stable_order_at_every_width():
+    """:func:`k9_sort` of a region with ``n`` candidates' codes (many keys
+    equal) and its pads puts the candidates first in the stable order of
+    (key, worker), from 1 candidate to past 2,048 (4 merge levels before
+    the last step), the candidates at the front or at the back of the
+    region, at the levels its own width takes and at the one or two more
+    that a wider other kind takes."""
+    rng = np.random.default_rng(11)
+    for n in (1, 2, 31, 32, 33, 64, 100, 383, 1000, 2049, 4090):
+        idx = rng.permutation(8192)[:n]
+        key = rng.integers(0, 20, n).astype(np.float32) * np.float32(1e5)
+        P = -(-n // 32) * 32
+        for at_back, extra in ((False, 0), (True, 0), (False, 1), (True, 2)):
+            reg = PAD | np.arange(P, dtype=np.uint64)
+            codes = k9_codes(key, idx)
+            if at_back:
+                reg[P - n:] = codes
+            else:
+                reg[:n] = codes
+            got = k9_worker(k9_sort(reg, k9_levels(P) + extra)[:n])
+            np.testing.assert_array_equal(got, idx[np.lexsort((idx, key))], err_msg=f"n={n}")
+
+
+FAULTS = ["index_order", "ties_by_last", "no_early_stop_fill", "pads_below_candidates",
+          "moves_out_of_slot_order"]
+
+
+@pytest.mark.parametrize("fault", FAULTS)
 def test_k9_replay_rejects_planted_faults(fault):
     """Each planted fault changes the replay's result on the case it
     concerns: the lists in key order (no longer largest first), ties
-    ranked the other way (equal memories), and the rows after
-    an early stop not filled."""
+    ranked the other way (equal memories), the counts after an early stop
+    not cleared, the runs padded below the candidates (the sort's pads),
+    and a round's moves written out of slot order."""
     if fault == "ties_by_last":
         batch, rounds = pc.rebalance_balanced(640, 16), 8
         batch = batch._replace(mem=np.where(np.arange(16) < 4, batch.mem * 2, batch.mem
                                             * np.float32(0.5)).astype(np.float32))
-    elif fault == "index_order":
+    elif fault in ("index_order", "pads_below_candidates", "moves_out_of_slot_order"):
         batch, rounds = pc.rebalance_case(np.random.default_rng(5), 4000, 16), None
     else:
         batch, rounds = pc.rebalance_case(np.random.default_rng(16), 2000, 16), 512
     want, args = _plain(batch, rounds)
+    want = _compact(*want)
     owner, nbytes, eligible, mem, mean = args
-    a = (owner.numpy(), nbytes.numpy(), eligible.numpy(), mem.numpy(), mean, want[0].shape[0])
+    a = (owner.numpy(), nbytes.numpy(), eligible.numpy(), mem.numpy(), mean, len(want[1]))
     clean = replay_k9(*a)
     assert all(np.array_equal(g, w) for g, w in zip(clean, want))
     planted = replay_k9(*a, **{fault: True})
-    assert not all(np.array_equal(g, w) for g, w in zip(planted, want))
+    assert not all(g.shape == w.shape and np.array_equal(g, w) for g, w in zip(planted, want))
+
+
+def _dense_rows_list(batch, rounds):
+    """The move list as ``plan_rebalance`` built it from the plain
+    version's dense rows before the compact form: a Python loop over each
+    round's live slots."""
+    (mk, md, _), _ = _plain(batch, rounds)
+    out = []
+    for k in range(mk.shape[0]):
+        for s in np.nonzero(mk[k] >= 0)[0]:
+            key = int(mk[k, s])
+            if key < len(batch.nbytes):
+                out.append((key, int(batch.owner[key]), int(md[k, s])))
+    return out
+
+
+@pytest.mark.parametrize("name,batch,rounds", _premise_cases(),
+                         ids=[n for n, *_ in _premise_cases()])
+def test_plan_lists_are_the_dense_rows_lists(name, batch, rounds):
+    """``plan_rebalance(device="cpu")`` and ``RebalancePath.plan_device``,
+    now built from the compact moves with numpy, return the lists the
+    loop over the dense rows returned (the path's on the batch it packs);
+    ``rebalance_rounds`` on CPU tensors is the plain version through
+    ``compact_rounds``."""
+    want = _dense_rows_list(batch, rounds)
+    assert want and port.plan_rebalance(batch, rounds=rounds, device="cpu") == want
+    args = port.padded_inputs(batch, "cpu")
+    R = port.round_count(batch, rounds)
+    got = port.rebalance_rounds(*args, R)
+    dense = port.rebalance_rounds_reference(*args, R)
+    for g, w in zip(got, port.compact_rounds(*dense)):
+        assert torch.equal(g, w)
+    assert got.moves.shape == (int(got.total[0]), 2) and int(got.counts.sum()) == int(got.total[0])
+    # the scheduler's path packs every candidate as eligible, at its rounds
+    wss, keys = pc.rebalance_fleet(batch)
+    moves = RebalancePath(device="cpu").plan_device(wss, keys, batch.owner.tolist(),
+                                                    batch.mem.copy())
+    packed = batch._replace(eligible=np.ones(len(keys), bool))
+    assert [(ts.key, s.idx, r.idx) for ts, s, r in moves] == _dense_rows_list(packed, None)
+
+
+@pytest.mark.parametrize("name,batch,rounds", _more_cases(), ids=[n for n, *_ in _more_cases()])
+def test_plan_rebalance_equals_reference_on_more_cases(name, batch, rounds):
+    """The port's plan against the reference's on two workers, 1,000 and
+    4,096 workers, many ties and an early end: the moves exactly equal."""
+    got = port.plan_rebalance(batch, rounds=rounds, device="cpu")
+    assert got == ref.plan_rebalance(ref.RebalanceBatch(*batch), rounds=rounds) != []
 
 
 def test_rebalance_rounds_on_cpu_tensors_is_the_plain_version(monkeypatch):
@@ -346,7 +546,7 @@ def test_rebalance_rounds_on_cpu_tensors_is_the_plain_version(monkeypatch):
     R = port.round_count(batch)
     before = port.rebalance_rounds_cuda.launches
     got = port.rebalance_rounds(*args, R)
-    want = port.rebalance_rounds_reference(*args, R)
+    want = port.compact_rounds(*port.rebalance_rounds_reference(*args, R))
     assert all(torch.equal(g, w) for g, w in zip(got, want))
     assert port.rebalance_rounds_cuda.launches == before
     assert port.plan_rebalance(batch, device="cpu")
@@ -398,7 +598,7 @@ async def test_client_rebalance_plans_on_the_device_path_and_enacts_it():
     from distributed_tpu_torch.scheduler import rebalance as path_mod
 
     batches = []
-    plan0 = path_mod.plan_rebalance
+    plan0 = path_mod.plan_moves
 
     def spy(batch, *args, **kwargs):
         batches.append(batch)
@@ -414,11 +614,11 @@ async def test_client_rebalance_plans_on_the_device_path_and_enacts_it():
                 before = await c.gather(futs)
                 mem0 = [ws.nbytes for ws in s.state.workers.values()]
                 s.rpc.limit, s.rpc.semaphore = 4, asyncio.Semaphore(4)
-                path_mod.plan_rebalance = spy
+                path_mod.plan_moves = spy
                 try:
                     res = await asyncio.wait_for(c.rebalance(), 30)
                 finally:
-                    path_mod.plan_rebalance = plan0
+                    path_mod.plan_moves = plan0
                 moves = port.plan_rebalance(batches[0], device="cpu")
                 assert len(batches) == 1 and res == {"status": "OK", "moves": len(moves)}
                 assert len({(int(batches[0].owner[k]), d) for k, _, d in moves}) > 4
